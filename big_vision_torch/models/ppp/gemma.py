@@ -1,0 +1,349 @@
+"""Gemma language model: port of big_vision_tpu/models/ppp/gemma.py.
+
+Same variants, RoPE (halves, not interleaved), RMSNorm with gain 1+scale,
+MHA/MQA/GQA, logit softcaps, gated tanh-GELU MLP, and the [B, K, S, H] KV
+cache. The activations are `embed_dtype` (f32) whatever the weights' dtype:
+JAX promotes an f32 x bf16 product to f32, so every product here casts its
+operands to the promoted type first.
+
+The KV cache is a `KVCache` object that the caller passes in and gets back,
+in place of Flax's mutable "cache" collection. Its storage is updated in
+place (one slot per step), which saves a copy of the whole cache per token.
+`decode_impl="flash"` sends every one-token step to the fused decode kernel
+K6 (ops/decode_attention.py), which reads the cache in its storage dtype.
+
+Left for later: int8 weights (`quant=True`), the int8 KV cache, the fused
+flash path for training (`attn_impl="flash"`), dropout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from big_vision_torch.models import common
+from big_vision_torch.ops import decode_attention as da
+
+
+def get_config(variant) -> dict:
+  """Hyperparameter table for the released Gemma variants."""
+  base = dict(variant=variant, norm_eps=1e-6, vocab_size=256_000)
+  v2 = dict(final_logits_softcap=30.0, attn_logits_softcap=50.0,
+            post_norms=True)
+  table = {
+      "gemma_2b": dict(width=2048, depth=18, mlp_dim=16_384, num_heads=8,
+                       num_kv_heads=1, head_dim=256),
+      "gemma_7b": dict(width=3072, depth=28, mlp_dim=24_576, num_heads=16,
+                       num_kv_heads=16, head_dim=256),
+      "gemma2_2b": dict(width=2304, depth=26, mlp_dim=9_216, num_heads=8,
+                        num_kv_heads=4, head_dim=256, **v2),
+      "gemma2_9b": dict(width=3584, depth=42, mlp_dim=14_336, num_heads=16,
+                        num_kv_heads=8, head_dim=256, **v2),
+      "gemma2_27b": dict(width=4608, depth=46, mlp_dim=36_864, num_heads=32,
+                         num_kv_heads=16, head_dim=128,
+                         query_pre_attn_norm="rsqrt_emb_per_head", **v2),
+      "gemma_test": dict(width=32, depth=2, mlp_dim=64, num_heads=2,
+                         num_kv_heads=1, head_dim=16, vocab_size=256),
+  }
+  if variant not in table:
+    raise ValueError(f"Unknown gemma variant {variant!r}")
+  return {**base, **table[variant]}
+
+
+def apply_rope(x, *, positions, max_wavelength=10_000):
+  """Rotary embedding; x [B, L, H, D], positions [B, L]."""
+  d = x.shape[-1]
+  freq = torch.arange(d // 2, device=x.device, dtype=torch.float32)
+  inv_freq = max_wavelength ** (-2.0 * freq / d)
+  angle = positions.float()[:, :, None, None] * inv_freq
+  cos, sin = torch.cos(angle), torch.sin(angle)
+  lo, hi = x.chunk(2, dim=-1)
+  return torch.cat([lo * cos - hi * sin, hi * cos + lo * sin], dim=-1)
+
+
+@dataclasses.dataclass
+class KVCache:
+  """Per-layer key/value storage [B, K, S, H] plus the shared write slot.
+
+  Empty until a prefill fills it; every later step writes one slot. The
+  write index is shared across the batch (prompts are right-aligned by the
+  caller), as in the JAX model.
+  """
+  k: list = dataclasses.field(default_factory=list)
+  v: list = dataclasses.field(default_factory=list)
+  idx: int = 0
+
+  def update(self, layer, k, v, cache_size, store_dtype):
+    """Writes k, v [B, T, K, H]; returns the layer's storage tensors."""
+    k, v = k.transpose(1, 2), v.transpose(1, 2)  # -> [B, K, T, H]
+    t = k.shape[2]
+    if layer == len(self.k):  # prefill: allocate and fill slots [0, t)
+      b, kh, _, h = k.shape
+      shape = (b, kh, cache_size, h)
+      self.k.append(torch.zeros(shape, dtype=store_dtype, device=k.device))
+      self.v.append(torch.zeros(shape, dtype=store_dtype, device=k.device))
+      self.k[layer][:, :, :t] = k
+      self.v[layer][:, :, :t] = v
+    else:
+      if t != 1:
+        raise ValueError(f"a filled cache extends one token at a time: {t}")
+      self.k[layer][:, :, self.idx] = k[:, :, 0]
+      self.v[layer][:, :, self.idx] = v[:, :, 0]
+    return self.k[layer], self.v[layer]
+
+
+class RMSNorm(nn.Module):
+  """x * rsqrt(mean(x^2) + 1e-6) * (1 + scale)."""
+
+  def __init__(self, width, *, device="cuda", param_dtype=torch.float32):
+    super().__init__()
+    self.scale = nn.Parameter(torch.empty(width, device=device,
+                                          dtype=param_dtype))
+
+  def forward(self, x):
+    gain = 1 + self.scale  # in the parameter dtype, as in JAX
+    mean_sq = (x * x).mean(-1, keepdim=True)
+    return x * torch.rsqrt(mean_sq + 1e-6) * gain
+
+
+class Embedder(nn.Module):
+  """Tied input/output embedding [vocab, width]."""
+
+  def __init__(self, vocab_size, embed_dim, *, device="cuda",
+               param_dtype=torch.float32):
+    super().__init__()
+    self.embed_dim = embed_dim
+    self.input_embedding = nn.Parameter(torch.empty(
+        vocab_size, embed_dim, device=device, dtype=param_dtype))
+
+  def encode(self, tokens):
+    x = self.input_embedding[tokens]
+    return x * torch.tensor(math.sqrt(self.embed_dim)).to(x.dtype)
+
+  def decode(self, x):
+    return common.linear(x, self.input_embedding)
+
+
+class Attention(nn.Module):
+  """MHA / MQA / GQA with RoPE, optional softcap and a KV cache.
+
+  Projections are stored [out, in]: `qkv` [3*H*hd, D] (MHA) or `q`
+  [H*hd, D] and `kv` [2*K*hd, D]; `o` [D, H*hd].
+  """
+
+  def __init__(self, num_heads, num_kv_heads, features, head_dim,
+               query_pre_attn_norm="rsqrt_head_dim", attn_logits_softcap=None,
+               cache_dtype=None, decode_impl="xla", *, device="cuda",
+               param_dtype=torch.float32):
+    super().__init__()
+    if decode_impl not in ("xla", "flash"):
+      raise ValueError(f"Unknown decode_impl {decode_impl!r}")
+    self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
+    self.head_dim = head_dim
+    self.attn_logits_softcap = attn_logits_softcap
+    self.decode_impl = decode_impl
+    if cache_dtype == "int8":
+      raise NotImplementedError("the int8 KV cache is not ported yet")
+    self.cache_dtype = common.resolve_dtype(cache_dtype)
+    q_scales = {"rsqrt_head_dim": head_dim,
+                "rsqrt_emb_per_head": features // num_heads}
+    if query_pre_attn_norm not in q_scales:
+      raise ValueError(query_pre_attn_norm)
+    self.q_scale = q_scales[query_pre_attn_norm] ** -0.5
+    w = lambda *s: nn.Parameter(torch.empty(*s, device=device,
+                                            dtype=param_dtype))
+    if num_heads == num_kv_heads:
+      self.qkv = w(3 * num_heads * head_dim, features)
+    else:
+      self.q = w(num_heads * head_dim, features)
+      self.kv = w(2 * num_kv_heads * head_dim, features)
+    self.o = w(features, num_heads * head_dim)
+
+  def forward(self, x, positions, attn_mask, cache=None, layer=0):
+    b, t, _ = x.shape
+    n, kh, h = self.num_heads, self.num_kv_heads, self.head_dim
+    if n != kh:
+      q = common.linear(x, self.q).reshape(b, t, n, h)
+      k, v = common.linear(x, self.kv).reshape(b, t, 2, kh, h).unbind(2)
+    else:
+      q, k, v = common.linear(x, self.qkv).reshape(b, t, 3, n, h).unbind(2)
+
+    q = apply_rope(q, positions=positions) * self.q_scale
+    k = apply_rope(k, positions=positions)
+    decode = cache is not None
+    if decode:
+      store = self.cache_dtype or k.dtype
+      k_store, v_store = cache.update(layer, k, v, attn_mask.shape[-1],
+                                      store)
+      if self.decode_impl == "flash" and t == 1:
+        # One-token step: kernel K6 reads the cache in its storage dtype.
+        grouped = q[:, 0].reshape(b, kh, n // kh, h).contiguous()
+        mixed = da.decode_attention(
+            grouped, k_store, v_store, attn_mask[:, 0, 0, :].contiguous(),
+            logits_softcap=self.attn_logits_softcap or 0.0)
+        return common.linear(mixed.reshape(b, 1, n * h), self.o)
+      # The einsum path computes on the cache cast to the compute dtype.
+      k, v = k_store.to(k.dtype), v_store.to(v.dtype)
+
+    kv = "bksh" if decode else "bskh"
+    grouped = q.reshape(b, t, kh, n // kh, h)
+    logits = torch.einsum(f"btkgh,{kv}->bkgts", grouped,
+                          k.to(grouped.dtype)).float()
+    if cap := self.attn_logits_softcap:
+      logits = cap * torch.tanh(logits / cap)
+    s = k.shape[kv.index("s")]
+    if tuple(attn_mask.shape) != (b, 1, t, s):
+      raise ValueError(f"Bad mask shape {tuple(attn_mask.shape)} for "
+                       f"q={tuple(q.shape)} k={tuple(k.shape)}")
+    big_neg = -2.3819763e38  # matches the released gemma code
+    masked = torch.where(attn_mask[:, :, None], logits,
+                         torch.full_like(logits, big_neg))
+    probs = torch.softmax(masked, dim=-1).to(k.dtype)
+    mixed = torch.einsum(f"bkgts,{kv}->btkgh", probs, v)
+    return common.linear(mixed.reshape(b, t, n * h), self.o)
+
+
+class FeedForward(nn.Module):
+  """Gated tanh-GELU MLP; `gating` [2*F, D] stacks the gate and the up
+  projection, `linear` is [D, F]."""
+
+  def __init__(self, features, hidden_dim, *, device="cuda",
+               param_dtype=torch.float32):
+    super().__init__()
+    kw = dict(device=device, dtype=param_dtype)
+    self.gating = nn.Parameter(torch.empty(2 * hidden_dim, features, **kw))
+    self.linear = nn.Parameter(torch.empty(features, hidden_dim, **kw))
+
+  def forward(self, x):
+    gate, up = common.linear(x, self.gating).chunk(2, dim=-1)
+    return common.linear(common.gelu(gate) * up, self.linear)
+
+
+class Block(nn.Module):
+  """Pre-norm attention + MLP, optional post-norms (Gemma-2)."""
+
+  def __init__(self, num_heads, num_kv_heads, embed_dim, head_dim,
+               hidden_dim, query_pre_attn_norm, attn_logits_softcap,
+               post_norms, cache_dtype=None, decode_impl="xla", *,
+               device="cuda", param_dtype=torch.float32):
+    super().__init__()
+    kw = dict(device=device, param_dtype=param_dtype)
+    self.pre_attention_norm = RMSNorm(embed_dim, **kw)
+    self.pre_ffw_norm = RMSNorm(embed_dim, **kw)
+    self.post_norms = post_norms
+    if post_norms:
+      self.post_attention_norm = RMSNorm(embed_dim, **kw)
+      self.post_ffw_norm = RMSNorm(embed_dim, **kw)
+    self.attn = Attention(num_heads, num_kv_heads, embed_dim, head_dim,
+                          query_pre_attn_norm, attn_logits_softcap,
+                          cache_dtype, decode_impl, **kw)
+    self.mlp = FeedForward(embed_dim, hidden_dim, **kw)
+
+  def forward(self, x, positions, attn_mask, cache=None, layer=0):
+    y = self.attn(self.pre_attention_norm(x), positions, attn_mask, cache,
+                  layer)
+    if self.post_norms:
+      y = self.post_attention_norm(y)
+    x = x + y
+    y = self.mlp(self.pre_ffw_norm(x))
+    if self.post_norms:
+      y = self.post_ffw_norm(y)
+    return x + y
+
+
+def prep_positions_mask(x, positions, mask, decode):
+  """Default positions/mask and normalize mask to [B, 1, T, cache]."""
+  b, t, _ = x.shape
+  if decode and (positions is None or mask is None):
+    raise ValueError("decoding requires explicit positions and mask")
+  if positions is None:
+    positions = torch.arange(t, device=x.device)[None, :]
+  if mask is None:
+    mask = torch.tril(torch.ones((b, 1, t, t), dtype=torch.bool,
+                                 device=x.device))
+  elif mask.dim() == 3:
+    mask = mask[:, None]
+  cache_size = max(t, mask.shape[-1])
+  if positions.shape[1] != t or tuple(mask.shape) != (b, 1, t, cache_size):
+    raise ValueError(f"positions {tuple(positions.shape)} / mask "
+                     f"{tuple(mask.shape)} do not fit x {tuple(x.shape)}")
+  return positions, mask
+
+
+class Model(nn.Module):
+  """Gemma decoder-only LM.
+
+  `forward(tokens, ...)` returns (logits, out) like the JAX model; passing
+  a `KVCache` as `cache` runs in decode mode and updates it in place.
+  """
+
+  def __init__(self, variant, width, depth, mlp_dim, num_heads,
+               num_kv_heads, head_dim, norm_eps, vocab_size,
+               query_pre_attn_norm="rsqrt_head_dim",
+               final_logits_softcap=0.0, attn_logits_softcap=0.0,
+               post_norms=False, cache_dtype=None, embed_dtype="float32",
+               attn_impl="xla", decode_impl="xla", *, device="cuda",
+               param_dtype=torch.float32):
+    super().__init__()
+    if attn_impl != "xla":
+      raise NotImplementedError("the LLM's fused training attention "
+                                "(attn_impl='flash') is not ported yet")
+    del variant, norm_eps  # norm eps is fixed at 1e-6, as in JAX
+    kw = dict(device=device, param_dtype=param_dtype)
+    self.embed_dtype = common.resolve_dtype(embed_dtype)
+    self.final_logits_softcap = final_logits_softcap
+    self.embedder = Embedder(vocab_size, width, **kw)
+    self.layers = nn.ModuleList([
+        Block(num_heads, num_kv_heads, width, head_dim, mlp_dim,
+              query_pre_attn_norm, attn_logits_softcap, post_norms,
+              cache_dtype, decode_impl, **kw) for _ in range(depth)])
+    self.final_norm = RMSNorm(width, **kw)
+
+  def embed(self, tokens=None, embedded_prefix=None):
+    """Concatenates prefix embeddings and token embeddings, as embed_dtype."""
+    parts = []
+    if embedded_prefix is not None:
+      parts.append(embedded_prefix)
+    if tokens is not None:
+      parts.append(self.embedder.encode(tokens))
+    return torch.cat([p.to(self.embed_dtype) for p in parts], dim=-2)
+
+  def trunk(self, tokens=None, *, embedded_prefix=None, positions=None,
+            mask=None, cache=None):
+    """Runs the blocks and the final norm; returns the `out` dict with
+    "encoded" and "pre_logits" (no vocab projection)."""
+    x = self.embed(tokens, embedded_prefix)
+    positions, mask = prep_positions_mask(x, positions, mask,
+                                          cache is not None)
+    for i, block in enumerate(self.layers):
+      x = block(x, positions, mask, cache, i)
+    if cache is not None:
+      cache.idx += x.shape[1]
+    out = {"encoded": x}
+    out["pre_logits"] = self.final_norm(x)
+    return out
+
+  def logits(self, pre_logits):
+    x = self.embedder.decode(pre_logits)
+    if cap := self.final_logits_softcap:
+      x = cap * torch.tanh(x / cap)
+    return x
+
+  def forward(self, tokens=None, *, embedded_prefix=None, embed_only=False,
+              pre_logits=None, positions=None, mask=None, cache=None):
+    """Embed-only, logits-from-pre-logits, or the full forward.
+
+    As in JAX, logits from `pre_logits` skip the final softcap.
+    """
+    if pre_logits is not None:
+      logits = self.embedder.decode(pre_logits)
+      return logits, {"pre_logits": pre_logits, "logits": logits}
+    if embed_only:
+      return self.embed(tokens, embedded_prefix)
+    out = self.trunk(tokens, embedded_prefix=embedded_prefix,
+                     positions=positions, mask=mask, cache=cache)
+    out["logits"] = self.logits(out["pre_logits"])
+    return out["logits"], out

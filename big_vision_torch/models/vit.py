@@ -1,0 +1,303 @@
+"""Vision Transformer: port of big_vision_tpu/models/vit.py (inference).
+
+Same variant table, posembs, readouts and dtype rules as the JAX model:
+`dtype_mm` sets the matmul dtype and the block LayerNorm output dtype (the
+residual stream stays in it; LayerNorm statistics are f32), while
+`encoder_norm`, `pre_logits` and `head` compute in the promoted type of
+their input and parameters, as flax does with `dtype=None`. Attention goes
+through `ops.attention`, so "auto" runs the fused kernel K1 on the GPU.
+
+Scan-over-layers is a JAX compile-time device, not a model: the port has a
+plain list of blocks, and `utils/convert.py` reads both param layouts. The
+learned posemb needs its length when the module is built, so the port takes
+`image_size`. Dropout and training wait for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from big_vision_torch.models import common
+from big_vision_torch.ops import attention as attn_ops
+
+
+def posemb_sincos_2d(h, w, width, temperature=10_000., dtype=torch.float32,
+                     device=None):
+  """2D sin-cos position embedding [1, h*w, width]: [sin x, cos x, sin y,
+  cos y], each a width/4-band geometric sweep from 1 to 1/temperature."""
+  if width % 4:
+    raise ValueError("Width must be a multiple of 4 for sincos posemb")
+  bands = width // 4
+  freqs = temperature ** (-torch.arange(bands, device=device,
+                                        dtype=torch.float32) / (bands - 1))
+  grid_y, grid_x = torch.meshgrid(
+      torch.arange(h, device=device), torch.arange(w, device=device),
+      indexing="ij")
+  phase = [grid_x.reshape(-1, 1) * freqs, grid_y.reshape(-1, 1) * freqs]
+  pe = torch.cat([trig(p) for p in phase for trig in (torch.sin, torch.cos)],
+                 dim=-1)
+  return pe[None].to(dtype)
+
+
+class PatchEmbed(nn.Module):
+  """Non-overlapping patchify as a reshape + matmul (VALID: remainder rows
+  and columns are cropped). The weight is the JAX kernel [p, p, c, width]
+  flattened in (ph, pw, c) order and stored [width, p*p*c]."""
+
+  def __init__(self, width, patch_size, channels=3, *, dtype_mm="float32",
+               device="cuda", param_dtype=torch.float32):
+    super().__init__()
+    self.patch_size = tuple(patch_size)
+    ph, pw = self.patch_size
+    kw = dict(device=device, dtype=param_dtype)
+    self.weight = nn.Parameter(torch.empty(width, ph * pw * channels, **kw))
+    self.bias = nn.Parameter(torch.empty(width, **kw))
+    self.dtype_mm = common.resolve_dtype(dtype_mm)
+
+  def forward(self, image):
+    ph, pw = self.patch_size
+    n, h, w, c = image.shape
+    image = image[:, :h - h % ph, :w - w % pw]
+    gh, gw = h // ph, w // pw
+    x = image.reshape(n, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(n, gh * gw, ph * pw * c)
+    y = common.linear(x, self.weight, None, self.dtype_mm)
+    y = y + self.bias.to(y.dtype)
+    return y.reshape(n, gh, gw, -1)
+
+
+class MultiHeadAttention(nn.Module):
+  """query/key/value/out projections (flax DenseGeneral layouts, stored as
+  [out, in] matrices) around `ops.attention.dot_product_attention`."""
+
+  def __init__(self, width, num_heads, *, dtype_mm="float32",
+               attn_impl="auto", device="cuda", param_dtype=torch.float32):
+    super().__init__()
+    if width % num_heads:
+      raise ValueError((width, num_heads))
+    self.num_heads = num_heads
+    self.attn_impl = attn_impl
+    kw = dict(dtype=dtype_mm, device=device, param_dtype=param_dtype)
+    self.query = common.Dense(width, width, **kw)
+    self.key = common.Dense(width, width, **kw)
+    self.value = common.Dense(width, width, **kw)
+    self.out = common.Dense(width, width, **kw)
+
+  def forward(self, xq, xkv, mask=None, seg=None):
+    heads = lambda y: y.reshape(*y.shape[:2], self.num_heads, -1)
+    q, k, v = heads(self.query(xq)), heads(self.key(xkv)), heads(
+        self.value(xkv))
+    out = attn_ops.dot_product_attention(q, k, v, mask=mask,
+                                         impl=self.attn_impl, seg=seg)
+    return self.out(out.reshape(*out.shape[:2], -1))
+
+
+class MlpBlock(nn.Module):
+  """Dense -> tanh GELU -> Dense."""
+
+  def __init__(self, width, mlp_dim=None, *, dtype_mm="float32",
+               device="cuda", param_dtype=torch.float32):
+    super().__init__()
+    kw = dict(dtype=dtype_mm, device=device, param_dtype=param_dtype)
+    self.fc1 = common.Dense(width, mlp_dim or 4 * width, **kw)
+    self.fc2 = common.Dense(mlp_dim or 4 * width, width, **kw)
+
+  def forward(self, x):
+    return self.fc2(common.gelu(self.fc1(x)))
+
+
+class Encoder1DBlock(nn.Module):
+  """Pre-norm block; the LayerNorms emit `dtype_mm`."""
+
+  def __init__(self, width, num_heads, mlp_dim=None, *, dtype_mm="float32",
+               attn_impl="auto", device="cuda", param_dtype=torch.float32):
+    super().__init__()
+    kw = dict(device=device, param_dtype=param_dtype)
+    self.ln1 = common.LayerNorm(width, dtype=dtype_mm, **kw)
+    self.attn = MultiHeadAttention(width, num_heads, dtype_mm=dtype_mm,
+                                   attn_impl=attn_impl, **kw)
+    self.ln2 = common.LayerNorm(width, dtype=dtype_mm, **kw)
+    self.mlp = MlpBlock(width, mlp_dim, dtype_mm=dtype_mm, **kw)
+
+  def forward(self, x, mask=None, seg=None):
+    if mask is not None and mask.dim() == 3:
+      mask = mask[:, None]  # the (broadcast) head axis
+    y = self.ln1(x)
+    x = x + self.attn(y, y, mask=mask, seg=seg)
+    return x + self.mlp(self.ln2(x))
+
+
+class Encoder(nn.Module):
+  """Blocks then `encoder_norm` (flax default dtype: promoted)."""
+
+  def __init__(self, width, depth, num_heads, mlp_dim=None, *,
+               dtype_mm="float32", attn_impl="auto", device="cuda",
+               param_dtype=torch.float32):
+    super().__init__()
+    kw = dict(device=device, param_dtype=param_dtype)
+    self.blocks = nn.ModuleList([
+        Encoder1DBlock(width, num_heads, mlp_dim, dtype_mm=dtype_mm,
+                       attn_impl=attn_impl, **kw) for _ in range(depth)])
+    self.encoder_norm = common.LayerNorm(width, **kw)
+
+  def forward(self, x, mask=None, seg=None):
+    for block in self.blocks:
+      x = block(x, mask=mask, seg=seg)
+    return self.encoder_norm(x)
+
+
+class MAPHead(nn.Module):
+  """Multihead attention pooling with a learned probe (math attention)."""
+
+  def __init__(self, width, num_heads, mlp_dim=None, *, dtype_mm="float32",
+               device="cuda", param_dtype=torch.float32):
+    super().__init__()
+    kw = dict(device=device, param_dtype=param_dtype)
+    self.probe = nn.Parameter(torch.empty(1, 1, width, device=device,
+                                          dtype=param_dtype))
+    self.attn = MultiHeadAttention(width, num_heads, dtype_mm=dtype_mm,
+                                   attn_impl="xla", **kw)
+    self.ln = common.LayerNorm(width, **kw)
+    self.mlp = MlpBlock(width, mlp_dim, dtype_mm=dtype_mm, **kw)
+
+  def forward(self, x, mask=None):
+    q = self.probe.to(x.dtype).expand(x.shape[0], -1, -1)
+    if mask is not None:  # [B, T] validity -> [B, 1(head), 1(q), T]
+      mask = mask[:, None, None, :]
+    pooled = self.attn(q, x, mask=mask)
+    pooled = pooled + self.mlp(self.ln(pooled))
+    return pooled[:, 0]
+
+
+def readout(x, pool_type, map_head=None):
+  """Pools encoded tokens -> (pooled, spatial_tokens)."""
+  if pool_type == "map":
+    return map_head(x), x
+  if pool_type == "gap":
+    return x.mean(dim=1), x
+  if pool_type == "0":
+    return x[:, 0], x
+  if pool_type == "tok":
+    return x[:, 0], x[:, 1:]
+  if pool_type == "none":
+    return x, x
+  raise ValueError(f"Unknown pool type: {pool_type!r}")
+
+
+class _Model(nn.Module):
+  """ViT; `forward(image [N, H, W, C])` -> (reps, out) as the JAX model."""
+
+  def __init__(self, num_classes=None, *, width=768, depth=12, mlp_dim=None,
+               num_heads=12, patch_size: Sequence[int] = (16, 16),
+               posemb="learn", pool_type="gap",
+               rep_size: Union[int, bool] = False, dtype_mm="float32",
+               attn_impl="auto", image_size: int = 224, channels: int = 3,
+               device="cuda", param_dtype=torch.float32,
+               head_zeroinit: Optional[bool] = None):
+    super().__init__()
+    del head_zeroinit  # an init choice of the JAX model; weights are loaded
+    kw = dict(device=device, param_dtype=param_dtype)
+    self.pool_type = pool_type
+    self.posemb = posemb
+    self.dtype_mm = common.resolve_dtype(dtype_mm)
+    self.embedding = PatchEmbed(width, patch_size, channels,
+                                dtype_mm=dtype_mm, **kw)
+    if posemb == "learn":
+      tokens = (image_size // patch_size[0]) * (image_size // patch_size[1])
+      self.pos_embedding = nn.Parameter(torch.empty(
+          1, tokens, width, device=device, dtype=param_dtype))
+    elif posemb != "sincos2d":
+      raise ValueError(f"Unknown posemb type: {posemb}")
+    if pool_type == "tok":
+      self.cls = nn.Parameter(torch.empty(1, 1, width, device=device,
+                                          dtype=param_dtype))
+    self.encoder = Encoder(width, depth, num_heads, mlp_dim,
+                           dtype_mm=dtype_mm, attn_impl=attn_impl, **kw)
+    self.map_head = (MAPHead(width, num_heads, mlp_dim, dtype_mm=dtype_mm,
+                             **kw) if pool_type == "map" else None)
+    self.rep_size = rep_size
+    if rep_size:
+      hid = width if rep_size is True else rep_size
+      self.pre_logits = common.Dense(width, hid, **kw)
+    self.head = (common.Dense(hid if rep_size else width, num_classes, **kw)
+                 if num_classes else None)
+
+  def forward(self, image):
+    out = {}
+    x = out["stem"] = self.embedding(image.to(self.dtype_mm))
+    n, h, w, c = x.shape
+    if self.posemb == "learn":
+      pos = self.pos_embedding.to(x.dtype)
+    else:
+      pos = posemb_sincos_2d(h, w, c, dtype=x.dtype, device=x.device)
+    x = out["with_posemb"] = x.reshape(n, h * w, c) + pos
+    if self.pool_type == "tok":
+      x = torch.cat([self.cls.to(x.dtype).expand(n, -1, -1), x], dim=1)
+
+    x = out["encoded"] = self.encoder(x)
+
+    x, encoded = readout(x, self.pool_type, self.map_head)
+    if self.pool_type != "none":
+      out["head_input"] = x
+    grid = (n, h, w, -1)
+
+    def each(fn, reps):
+      if self.pool_type == "none":  # both reps hold the same tokens
+        y = fn(reps[""])
+        return {"": y, "_2d": y.reshape(grid)}
+      return {k: fn(v) for k, v in reps.items()}
+
+    reps = {"": x, "_2d": encoded.reshape(grid)}
+    if self.rep_size:
+      reps = each(lambda v: torch.tanh(self.pre_logits(v)), reps)
+    out.update({f"pre_logits{k}": v for k, v in reps.items()})
+    if self.head is not None:
+      reps = each(self.head, reps)
+      out.update({f"logits{k}": v for k, v in reps.items()})
+    return reps[""], out
+
+
+def Model(num_classes=None, *, variant=None, scan=None, remat_policy=None,
+          **kw):  # pylint: disable=invalid-name
+  """Factory taking the JAX model's config keys.
+
+  `scan` and `remat_policy` only shape the JAX param layout and compile;
+  they are accepted and have no effect here.
+  """
+  del scan, remat_policy
+  cfg = decode_variant(variant)
+  cfg.update(kw)
+  return _Model(num_classes, **cfg)
+
+
+# (width, depth, mlp_dim, num_heads) per size letter, as in the JAX model.
+VARIANT_TABLE = {
+    "mu": (32, 1, 128, 2),
+    "Ti": (192, 12, 768, 3),
+    "S": (384, 12, 1536, 6),
+    "M": (512, 12, 2048, 8),
+    "B": (768, 12, 3072, 12),
+    "L": (1024, 24, 4096, 16),
+    "So400m": (1152, 27, 4304, 16),
+    "H": (1280, 32, 5120, 16),
+    "g": (1408, 40, 6144, 16),
+    "g-opt": (1536, 40, 6144, 16),
+    "G": (1664, 48, 8192, 16),
+    "G-opt": (1536, 48, 8192, 16),
+    "e": (1792, 56, 15360, 16),
+}
+
+
+def decode_variant(variant):
+  """"B/16" -> {width, depth, mlp_dim, num_heads, patch_size}."""
+  if variant is None:
+    return {}
+  size, _, patch = variant.partition("/")
+  width, depth, mlp_dim, num_heads = VARIANT_TABLE[size]
+  cfg = dict(width=width, depth=depth, mlp_dim=mlp_dim, num_heads=num_heads)
+  if patch:
+    cfg["patch_size"] = (int(patch),) * 2
+  return cfg

@@ -1,0 +1,151 @@
+"""Single-token decode attention over the stored KV cache: kernel K6.
+
+Replaces the TPU kernel `_kernel` / `decode_attention`
+(big_vision_tpu/ops/decode_attention.py). The CUDA source is
+`csrc/decode_attention.cu`; its header says how it works.
+
+Bound on the card: the bytes of the K and V cache. At gemma_2b serving
+shapes (B=8, K=1, S=352, H=256, bf16) that is 2.9 MB, about 0.9 us at
+3.35 TB/s. The kernel reads the cache in its storage dtype (int8, bf16 or
+f32) and dequantizes in registers.
+
+The JAX decode path hands the Pallas kernel f32 copies of a bf16 cache
+(`_update_kv_cache` returns the cache cast up to the compute dtype). The
+bf16 -> f32 -> bf16 round trip is exact, so the port passes the bf16
+storage itself: the same numbers, half the bytes.
+
+`decode_attention` launches the kernel for a CUDA tensor (or raises) and
+runs `decode_attention_reference` for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from big_vision_torch.ops import _build
+
+NEG_INF = -1e30
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+@functools.cache
+def _lib():
+  """The kernel's C entry point, built and typed once per process."""
+  lib = _build.load("decode_attention")
+  fn = lib.bvt_decode_attention
+  fn.restype = ctypes.c_int
+  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+      ctypes.c_float, ctypes.c_void_p]
+  return fn
+
+
+def _check_inputs(q, k, v, mask, k_scale, v_scale):
+  if q.dim() != 4:
+    raise ValueError(f"q must be [B, K, G, H], got {tuple(q.shape)}")
+  b, kh, _, h = q.shape
+  s = k.shape[2] if k.dim() == 4 else -1
+  if tuple(k.shape) != (b, kh, s, h) or k.shape != v.shape:
+    raise ValueError(f"cache must be [B, K, S, H] = ({b}, {kh}, S, {h}); "
+                     f"got {tuple(k.shape)} {tuple(v.shape)}")
+  if tuple(mask.shape) != (b, s):
+    raise ValueError(f"mask must be [B, S] = ({b}, {s}), got "
+                     f"{tuple(mask.shape)}")
+  if (k_scale is None) != (v_scale is None):
+    raise ValueError("pass both k_scale and v_scale, or neither")
+  if (k.dtype == torch.int8) != (k_scale is not None):
+    raise ValueError("an int8 cache needs scales; a float cache takes none")
+  if k_scale is not None:
+    for x in (k_scale, v_scale):
+      if tuple(x.shape) != (b, kh, s, 1):
+        raise ValueError(f"scales must be [B, K, S, 1], got {tuple(x.shape)}")
+
+
+def decode_attention_reference(q, k, v, mask, *, k_scale=None, v_scale=None,
+                               logits_softcap=0.0):
+  """Plain PyTorch version with the TPU kernel's exact semantics.
+
+  bf16 operands (int8 values are exact in bf16), f32 scores; the k-scale
+  multiplies the logits before the softcap; masked logits are -1e30 and
+  masked probabilities exactly 0; l is summed before the v-scale
+  multiplies p; p.v with p cast to bf16; o = (p.v)/l in q's dtype.
+  """
+  _check_inputs(q, k, v, mask, k_scale, v_scale)
+  cd = torch.bfloat16
+  s = torch.einsum("bkgh,bksh->bkgs", q.to(cd).float(), k.to(cd).float())
+  if k_scale is not None:
+    s = s * k_scale[:, :, None, :, 0]
+  if logits_softcap:
+    s = logits_softcap * torch.tanh(s / logits_softcap)
+  valid = mask.bool()[:, None, None, :]
+  s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+  m = s.amax(dim=-1, keepdim=True)
+  p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+  l = p.sum(dim=-1, keepdim=True)
+  l = torch.where(l == 0, torch.ones_like(l), l)
+  if v_scale is not None:
+    p = p * v_scale[:, :, None, :, 0]
+  o = torch.einsum("bkgs,bksh->bkgh", p.to(cd).float(), v.to(cd).float())
+  return (o / l).to(q.dtype)
+
+
+def decode_attention(q, k, v, mask, *, k_scale=None, v_scale=None,
+                     logits_softcap=0.0):
+  """One AR attention step over the stored cache.
+
+  Args:
+    q: [B, K, G, H] grouped single-token queries, already scaled (no
+      1/sqrt(H) here), f32 or bf16; on the card G <= 8 and H <= 256 is a
+      multiple of 8.
+    k, v: [B, K, S, H] cache in its storage dtype: int8 (pass the scales),
+      bf16 or f32.
+    mask: [B, S] bool, True on attendable slots.
+    k_scale, v_scale: [B, K, S, 1] f32 per-slot dequant scales, or None.
+    logits_softcap: cap*tanh(logits/cap) when non-zero.
+
+  Returns [B, K, G, H] in q's dtype. On a CUDA tensor this launches the K6
+  kernel and counts it in `decode_attention.launches`.
+  """
+  if q.device.type == "cpu":
+    return decode_attention_reference(q, k, v, mask, k_scale=k_scale,
+                                      v_scale=v_scale,
+                                      logits_softcap=logits_softcap)
+  if q.device.type != "cuda":
+    raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+  _check_inputs(q, k, v, mask, k_scale, v_scale)
+  b, kh, g, h = q.shape
+  s = k.shape[2]
+  if q.dtype not in _Q_DTYPES or k.dtype not in _CACHE_DTYPES:
+    raise ValueError(f"unsupported dtypes q={q.dtype} cache={k.dtype}")
+  if g > 8 or h > 256 or h % 8 or v.dtype != k.dtype:
+    raise ValueError(f"kernel takes G <= 8, H <= 256 a multiple of 8, one "
+                     f"cache dtype; got G={g} H={h} {k.dtype}/{v.dtype}")
+  if mask.dtype != torch.bool:
+    raise ValueError(f"mask must be bool, got {mask.dtype}")
+  tensors = [q, k, v, mask] + ([k_scale, v_scale] if k_scale is not None
+                               else [])
+  for x in tensors:
+    if x.device != q.device or not x.is_contiguous():
+      raise ValueError(f"inputs must be contiguous on {q.device}")
+  if any(x.data_ptr() % 16 for x in (q, k, v)):
+    raise ValueError("q, k and v must be 16-byte aligned (vector loads)")
+  if k_scale is not None and not (k_scale.dtype == v_scale.dtype
+                                  == torch.float32):
+    raise ValueError("scales must be float32")
+  out = torch.empty_like(q)
+  fn = _lib()
+  err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           None if k_scale is None else k_scale.data_ptr(),
+           None if v_scale is None else v_scale.data_ptr(),
+           mask.data_ptr(), out.data_ptr(), _Q_DTYPES[q.dtype],
+           _CACHE_DTYPES[k.dtype], b, kh, g, s, h,
+           float(logits_softcap or 0.0), _build.stream_ptr(q.device))
+  _build.check(err, "decode_attention")
+  decode_attention.launches += 1
+  return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,145 @@
+"""Times the port's CUDA kernels on the GPU across shapes.
+
+For each kernel and shape it prints the time per call measured two ways:
+  events - CUDA events around 50 calls through the Python wrapper, inputs
+           rotated through more than the 50 MB L2 (what a caller sees,
+           host launch cost included when it exceeds the kernel's);
+  graph  - the same calls captured in a CUDA graph and replayed (device
+           time only);
+beside the least time the card could take (bytes over 3.35 TB/s or bf16
+operations over 989 TFLOP/s, the H100 SXM data sheet) and the SM clock
+that nvidia-smi reads right after the timing.
+
+Usage (GPU only):  python -m big_vision_torch.tools.kernel_timing
+
+Its helpers (inputs at given shapes, the timers, the bound) are also used
+by chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import math
+import subprocess
+
+import torch
+
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
+
+
+def nvidia_smi(query="name,power.limit"):
+  """First line of `nvidia-smi --query-gpu=<query>` (the card's values)."""
+  out = subprocess.run(
+      ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+      check=True, capture_output=True, text=True, timeout=60).stdout
+  return out.strip().splitlines()[0]
+
+
+def bound(nbytes, flops):
+  """(least ms for the work, "bytes" or "operations")."""
+  t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+  return (max(t_bytes, t_ops) * 1e3,
+          "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(fn, arg_sets, iters=50):
+  """Mean ms per call between CUDA events, cycling through arg_sets."""
+  for args in arg_sets:
+    fn(*args)
+  torch.cuda.synchronize()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  for i in range(iters):
+    fn(*arg_sets[i % len(arg_sets)])
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, arg_sets, iters=50):
+  """Mean device ms per call: the calls captured in a CUDA graph."""
+  for args in arg_sets:
+    fn(*args)
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for i in range(iters):
+      fn(*arg_sets[i % len(arg_sets)])
+  graph.replay()
+  torch.cuda.synchronize()
+  return time_ms(graph.replay, [()], iters=5) / iters
+
+
+def k1_inputs(b, tq, h, d, tkv=None, seed=0, dtype=torch.bfloat16):
+  """q [b, tq, h, d] and k, v [b, tkv, h, d] in `dtype` on the GPU."""
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  mk = lambda t: torch.randn((b, t, h, d), generator=g, device="cuda").to(
+      dtype)
+  return mk(tq), mk(tkv or tq), mk(tkv or tq)
+
+
+def k1_work(b, tq, h, d, tkv=None):
+  """(bytes, flops) of one K1 call: q, k, v read and o written once."""
+  tkv = tkv or tq
+  return 2 * (2 * b * tq * h * d + 2 * b * tkv * h * d), 4 * b * h * tq * tkv * d
+
+
+def quant_kv(x):
+  """Symmetric int8 per (batch, head, slot) over head_dim, with scales."""
+  scale = x.float().abs().amax(-1, keepdim=True).clamp_min(1e-30) / 127.0
+  q = (x.float() / scale).round().clamp(-127, 127).to(torch.int8)
+  return q, scale
+
+
+def k6_inputs(b, kh, g, s, h, cache="bf16", masked_row=False, seed=0):
+  """(q f32, k, v, mask, scale kwargs); ragged live lengths per example."""
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+  q = rnd(b, kh, g, h) / math.sqrt(h)  # arrives pre-scaled
+  kf, vf = rnd(b, kh, s, h), rnd(b, kh, s, h)
+  lengths = torch.tensor([s - 5 * i for i in range(b)], device="cuda")
+  mask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+  if masked_row:
+    mask[-1] = False
+  if cache == "int8":
+    (k, ks), (v, vs) = quant_kv(kf), quant_kv(vf)
+    return q, k, v, mask, dict(k_scale=ks, v_scale=vs)
+  dtype = torch.bfloat16 if cache == "bf16" else torch.float32
+  return q, kf.to(dtype), vf.to(dtype), mask, {}
+
+
+def k6_work(b, kh, g, s, h):
+  """(bytes, flops) of one K6 call on a bf16 cache with f32 q."""
+  return b * kh * g * h * 4 * 2 + 2 * b * kh * s * h * 2 + b * s, \
+      4 * b * kh * g * s * h
+
+
+def main():
+  if not torch.cuda.is_available():
+    raise SystemExit("kernel_timing needs a CUDA device")
+  from big_vision_torch.ops import _build
+  from big_vision_torch.ops import decode_attention as da
+  from big_vision_torch.ops import flash_attention as fa
+  _build.build_all(["flash_fwd", "decode_attention"])
+  card = nvidia_smi()
+
+  def report(name, fn, sets, work):
+    ev, gr = time_ms(fn, sets), graph_ms(fn, sets)
+    bms, by = bound(*work)
+    print(f"[{card}] {name}: events {ev:.4f} ms, graph {gr:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}), SM clock {nvidia_smi('clocks.sm')}")
+
+  for b, t, h, d in [(1, 256, 16, 72), (8, 256, 16, 72), (32, 256, 16, 72),
+                     (8, 196, 12, 64), (8, 64, 16, 72)]:
+    sets = [k1_inputs(b, t, h, d, seed=i) for i in range(4)]
+    report(f"K1 flash_fwd B={b} T={t} H={h} D={d}", fa.flash_attention,
+           sets, k1_work(b, t, h, d))
+  for b, g, s, h in [(1, 8, 352, 256), (8, 8, 352, 256), (64, 8, 352, 256),
+                     (132, 8, 352, 256), (8, 8, 64, 256), (8, 8, 1024, 256),
+                     (8, 1, 352, 256), (8, 8, 352, 64)]:
+    sets = [k6_inputs(b, 1, g, s, h, seed=i)[:4] for i in range(8)]
+    report(f"K6 decode_attention B={b} K=1 G={g} S={s} H={h}",
+           da.decode_attention, sets, k6_work(b, 1, g, s, h))
+
+
+if __name__ == "__main__":
+  main()

@@ -1,0 +1,192 @@
+"""Carries JAX param trees (numpy arrays) across to the port's modules.
+
+The JAX models name their leaves as `utils/trees.py` flattens them
+("Transformer/encoderblock_0/MlpBlock_0/Dense_0/kernel"), which are also
+the names of the published `.npz` checkpoints. These functions map each
+such leaf to a state-dict entry of the port's module, reshaping flax's
+kernels ([in, out], DenseGeneral [D, H, hd] / [H, hd, D], einsum weights)
+into the port's [out, in] matrices. Both layer layouts are read: scan
+(a stacked leading depth axis under `Transformer/encoderblock` or
+`layers`) and pyloop (`encoderblock_{i}`, `layers/{i}`).
+
+Every leaf must be consumed exactly once: a leaf no rule maps raises, and
+`load` raises when the module expects an entry the tree lacks.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from big_vision_torch.utils import trees
+
+
+class _Leaves:
+  """Flat name -> array, each to be taken exactly once."""
+
+  def __init__(self, flat):
+    self._flat = dict(flat)
+
+  def names(self):
+    return sorted(self._flat)
+
+  def take(self, name):
+    if name not in self._flat:
+      raise KeyError(f"param {name!r} missing from the tree")
+    return np.asarray(self._flat.pop(name))
+
+  def done(self):
+    if self._flat:
+      raise ValueError(f"unused params: {sorted(self._flat)}")
+
+
+def _flat(params):
+  flat = params if all(isinstance(v, np.ndarray) or hasattr(v, "shape")
+                       for v in params.values()) else trees.flatten(params)
+  return {k: np.asarray(v) for k, v in flat.items()}
+
+
+def _unstack(flat, stacked, per_layer):
+  """Splits leaves under `stacked/` along axis 0 into `per_layer.format(i)/`."""
+  out = {}
+  for name, x in flat.items():
+    if name.startswith(stacked + "/"):
+      rest = name[len(stacked) + 1:]
+      for i in range(x.shape[0]):
+        out[f"{per_layer.format(i)}/{rest}"] = x[i]
+    else:
+      out[name] = x
+  return out
+
+
+def _dense(leaves, src, dst, out):
+  """flax Dense {kernel [in, ...out], bias} -> port {weight [out, in], bias}."""
+  k = leaves.take(f"{src}/kernel")
+  out[f"{dst}.weight"] = k.reshape(k.shape[0], -1).T
+  if f"{src}/bias" in leaves.names():
+    out[f"{dst}.bias"] = leaves.take(f"{src}/bias").reshape(-1)
+
+
+def _layernorm(leaves, src, dst, out):
+  out[f"{dst}.weight"] = leaves.take(f"{src}/scale")
+  out[f"{dst}.bias"] = leaves.take(f"{src}/bias")
+
+
+def _mha(leaves, src, dst, out):
+  for name in ("query", "key", "value"):  # kernel [D, H, hd]
+    _dense(leaves, f"{src}/{name}", f"{dst}.{name}", out)
+  k = leaves.take(f"{src}/out/kernel")  # [H, hd, D]
+  out[f"{dst}.out.weight"] = k.reshape(-1, k.shape[-1]).T
+  out[f"{dst}.out.bias"] = leaves.take(f"{src}/out/bias")
+
+
+def _mlp(leaves, src, dst, out):
+  _dense(leaves, f"{src}/Dense_0", f"{dst}.fc1", out)
+  _dense(leaves, f"{src}/Dense_1", f"{dst}.fc2", out)
+
+
+def vit(params) -> dict[str, np.ndarray]:
+  """ViT param tree -> the port's `models.vit` state dict (numpy)."""
+  flat = _unstack(_flat(params), "Transformer/encoderblock",
+                  "Transformer/encoderblock_{}")
+  leaves, out = _Leaves(flat), {}
+  k = leaves.take("embedding/kernel")  # [p, p, c, width]
+  out["embedding.weight"] = k.reshape(-1, k.shape[-1]).T
+  out["embedding.bias"] = leaves.take("embedding/bias")
+  for name in ("pos_embedding", "cls"):
+    if name in leaves.names():
+      out[name] = leaves.take(name)
+  blocks = sorted({int(m.group(1)) for n in leaves.names()
+                   if (m := re.match(r"Transformer/encoderblock_(\d+)/", n))})
+  for i in blocks:
+    src, dst = f"Transformer/encoderblock_{i}", f"encoder.blocks.{i}"
+    _layernorm(leaves, f"{src}/LayerNorm_0", f"{dst}.ln1", out)
+    _layernorm(leaves, f"{src}/LayerNorm_1", f"{dst}.ln2", out)
+    _mha(leaves, f"{src}/MultiHeadDotProductAttention_0", f"{dst}.attn", out)
+    _mlp(leaves, f"{src}/MlpBlock_0", f"{dst}.mlp", out)
+  _layernorm(leaves, "Transformer/encoder_norm", "encoder.encoder_norm", out)
+  if "MAPHead_0/probe" in leaves.names():
+    out["map_head.probe"] = leaves.take("MAPHead_0/probe")
+    _mha(leaves, "MAPHead_0/MultiHeadDotProductAttention_0", "map_head.attn",
+         out)
+    _layernorm(leaves, "MAPHead_0/LayerNorm_0", "map_head.ln", out)
+    _mlp(leaves, "MAPHead_0/MlpBlock_0", "map_head.mlp", out)
+  for name in ("pre_logits", "head"):
+    if f"{name}/kernel" in leaves.names():
+      _dense(leaves, name, name, out)
+  leaves.done()
+  return out
+
+
+def _heads_last(w):
+  """[..., D, hd] einsum weight -> [(..., hd), D] matrix."""
+  return np.swapaxes(w, -1, -2).reshape(-1, w.shape[-2])
+
+
+def gemma(params) -> dict[str, np.ndarray]:
+  """Gemma param tree -> the port's `models.ppp.gemma` state dict (numpy)."""
+  flat = _flat(params)
+  if not any(re.match(r"layers/\d+/", n) for n in flat):
+    flat = _unstack(flat, "layers", "layers/{}")
+  leaves, out = _Leaves(flat), {}
+  out["embedder.input_embedding"] = leaves.take("embedder/input_embedding")
+  out["final_norm.scale"] = leaves.take("final_norm/scale")
+  layers = sorted({int(m.group(1)) for n in leaves.names()
+                   if (m := re.match(r"layers/(\d+)/", n))})
+  for i in layers:
+    src, dst = f"layers/{i}", f"layers.{i}"
+    for norm in ("pre_attention_norm", "pre_ffw_norm", "post_attention_norm",
+                 "post_ffw_norm"):
+      if f"{src}/{norm}/scale" in leaves.names():
+        out[f"{dst}.{norm}.scale"] = leaves.take(f"{src}/{norm}/scale")
+    if f"{src}/attn/qkv_einsum/w" in leaves.names():  # [3, H, D, hd]
+      out[f"{dst}.attn.qkv"] = _heads_last(
+          leaves.take(f"{src}/attn/qkv_einsum/w"))
+    else:  # q [H, D, hd]; kv [2, K, D, hd]
+      out[f"{dst}.attn.q"] = _heads_last(
+          leaves.take(f"{src}/attn/q_einsum/w"))
+      out[f"{dst}.attn.kv"] = _heads_last(
+          leaves.take(f"{src}/attn/kv_einsum/w"))
+    w = leaves.take(f"{src}/attn/attn_vec_einsum/w")  # [H, hd, D]
+    out[f"{dst}.attn.o"] = w.reshape(-1, w.shape[-1]).T
+    out[f"{dst}.mlp.gating"] = _heads_last(  # [2, D, F] -> [2F, D]
+        leaves.take(f"{src}/mlp/gating_einsum"))
+    out[f"{dst}.mlp.linear"] = leaves.take(f"{src}/mlp/linear").T  # [F, D]
+  leaves.done()
+  return out
+
+
+def paligemma(params) -> dict[str, np.ndarray]:
+  """{"img": vit tree, "llm": gemma tree} -> the port's PaliGemma."""
+  out = {f"img.{k}": v for k, v in vit(params["img"]).items()}
+  out.update({f"llm.model.{k}": v for k, v in gemma(params["llm"]).items()})
+  unused = set(params) - {"img", "llm"}
+  if unused:
+    raise ValueError(f"unused params: {sorted(unused)}")
+  return out
+
+
+def load(module: torch.nn.Module, state: dict, device=None, dtype=None):
+  """Loads a converted state (numpy) into `module`, in place.
+
+  The tensors replace the module's parameters on the module's own device
+  unless `device` is given, keeping the arrays' dtype unless `dtype` is
+  given. Raises on a missing or unexpected entry.
+  """
+  if device is None:
+    device = next(module.parameters()).device
+  want = set(module.state_dict())
+  missing, unexpected = want - set(state), set(state) - want
+  if missing or unexpected:
+    raise ValueError(f"missing {sorted(missing)}; unexpected "
+                     f"{sorted(unexpected)}")
+  tensors = {}
+  for k, v in state.items():
+    v = np.ascontiguousarray(v)
+    t = (torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+         if v.dtype.name == "bfloat16" else torch.from_numpy(v))
+    tensors[k] = t.to(device=device, dtype=dtype or t.dtype)
+  module.load_state_dict(tensors, strict=True, assign=True)
+  return module
