@@ -1,0 +1,90 @@
+"""FlexiViT-B pre-training on synthetic images: the port's FlexiViT path.
+
+  python -m big_vision_torch.trainers.proj.flexi.train \
+      --config big_vision_torch/configs/proj/flexivit/i21k_sup.py --workdir wd
+  python -m big_vision_torch.trainers.proj.flexi.train --device cpu \
+      --config big_vision_torch/configs/proj/flexivit/i21k_sup.py:runlocal \
+      --workdir wd
+
+Source: big_vision_tpu/configs/proj/flexivit/i21k_sup.py ("FlexiViT-B i21k
+90ep"). Kept as there: the model (FlexiViT-B: width 768, depth 12, 12
+heads, MLP 3072; stored 32x32 patch kernel, learned 7x7 posemb, [cls]
+readout, f32 matmuls: the JAX config sets no dtype_mm), 21843 classes,
+`init_head_bias` -10, `sigmoid_xent`, scale_by_adam with a bf16 first
+moment, gradient clip 1.0, lr 1e-3, wd 1e-4, 10,000 warmup steps then
+cosine, 90 epochs, mixup p=0.2, and the token grids seqhw (5, 6, 8, 10,
+12, 15, 20, 24, 30, 40) with weights 34/43 for 15 and 1/43 for each other.
+
+Cut, for one card and no dataset:
+  * data: the port's synthetic source (16,384 raw 256x320 images, 512
+    unique, labels i % 21843) with `random_crop(240)` in place of
+    ImageNet-21k's `decode_jpeg_and_inception_crop(240)`, whose decode is
+    not ported; an epoch is the source's 16,384 examples, so 90 epochs are
+    46,080 steps;
+  * `randaug(2,10)` is left out: RandAugment is not ported;
+  * batch 32 per step, one card's share of the JAX run's 4096 over 128
+    chips: at seqhw 40 in f32 a step holds about 1.2 GB of activations
+    per image;
+  * evaluators (`predict_seqhw=...` classification and few-shot) and
+    checkpoints wait.
+
+Args (`:name=value,...`): `runlocal` (the tiny version for CPU tests:
+ViT-mu, batch 8, 3 steps), `stop` (stop after that many steps, the
+schedule unchanged), `log` (steps between metric rows), `attn` (the
+attention impl: "auto", the fused kernels, or "xla", the plain path).
+"""
+
+from big_vision_torch.configs import common
+
+
+def get_config(arg=None):
+  arg = common.parse_arg(arg, runlocal=False, stop=0, log=50, attn="auto")
+  config = {}
+  config["seed"] = 0
+  config["total_epochs"] = 90
+  config["num_classes"] = 21843
+  config["init_head_bias"] = -10.0
+  config["loss"] = "sigmoid_xent"
+  config["input"] = dict(
+      data=dict(name="synthetic", n=16384, num_classes=21843, h=256, w=320,
+                unique_images=512, encoded=False),
+      batch_size=32,
+      shuffle_buffer_size=1024,
+      prefetch=4,
+      pp=("random_crop(240)|flip_lr|value_range(-1, 1)"
+          "|onehot(21843, key='label', key_result='labels')"
+          "|keep('image', 'labels')"),
+  )
+  config["log_training_steps"] = arg.log
+
+  config["model_name"] = "proj.flexi.vit"
+  config["model"] = dict(variant="B", pool_type="tok", posemb="learn",
+                         patch_size=(32, 32), posemb_size=(7, 7), seqhw=None,
+                         attn_impl=arg.attn)
+  # The flexible parameter: the token grid (240px => patch 240 // seqhw).
+  config["flexi"] = dict(seqhw=dict(
+      v=(5, 6, 8, 10, 12, 15, 20, 24, 30, 40),
+      p=(1, 1, 1, 1, 1, 34, 1, 1, 1, 1)))
+
+  config["optax_name"] = "scale_by_adam"
+  config["optax"] = dict(mu_dtype="bfloat16")
+  config["grad_clip_norm"] = 1.0
+  config["lr"] = 0.001
+  config["wd"] = 0.0001
+  config["schedule"] = dict(warmup_steps=10_000, decay_type="cosine")
+  config["mixup"] = dict(p=0.2, fold_in=None)
+
+  if arg.runlocal:
+    config["total_epochs"] = None
+    config["total_steps"] = 3
+    config["schedule"] = dict(warmup_steps=1, decay_type="cosine")
+    config["input"]["batch_size"] = 8
+    config["input"]["data"].update(n=64, unique_images=16)
+    config["input"]["shuffle_buffer_size"] = 16
+    config["input"]["num_threads"] = 2
+    config["input"]["prefetch"] = 1
+    config["model"]["variant"] = "mu"
+    config["log_training_steps"] = 1
+  if arg.stop:
+    config["stop_after_steps"] = arg.stop
+  return config

@@ -70,15 +70,23 @@ class PatchEmbed(nn.Module):
     common.init(self.bias, "zeros", generator)
 
   def forward(self, image):
-    ph, pw = self.patch_size
-    n, h, w, c = image.shape
-    image = image[:, :h - h % ph, :w - w % pw]
-    gh, gw = h // ph, w // pw
-    x = image.reshape(n, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
-    x = x.reshape(n, gh * gw, ph * pw * c)
-    y = common.linear(x, self.weight, None, self.dtype_mm)
-    y = y + self.bias.to(y.dtype)
-    return y.reshape(n, gh, gw, -1)
+    return patchify(image, self.weight, self.bias, self.patch_size,
+                    self.dtype_mm)
+
+
+def patchify(image, weight, bias, patch_size, dtype=None):
+  """[N, H, W, C] -> [N, H // ph, W // pw, width]: the VALID stride-p conv
+  of a [p, p, c, width] kernel (stored [width, p*p*c] in (ph, pw, c) order)
+  as a reshape + matmul in `dtype` (None: the promoted type)."""
+  ph, pw = patch_size
+  n, h, w, c = image.shape
+  image = image[:, :h - h % ph, :w - w % pw]
+  gh, gw = h // ph, w // pw
+  x = image.reshape(n, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
+  x = x.reshape(n, gh * gw, ph * pw * c)
+  y = common.linear(x, weight, None, dtype)
+  y = y + bias.to(y.dtype)
+  return y.reshape(n, gh, gw, -1)
 
 
 class MultiHeadAttention(nn.Module):

@@ -1,18 +1,29 @@
-"""Fused attention: kernels K1 (forward) and K2 (backward) of the port.
+"""Fused attention: kernels K1-K4b of the port, and the dispatch between them.
 
-K1 replaces the TPU kernel `_oneshot_fwd_kernel` with `_oneshot_softmax`
-(big_vision_tpu/ops/flash_attention.py, launched by `_oneshot_fwd`); its
-CUDA source is `csrc/flash_fwd.cu`. K2 replaces `_oneshot_bwd_kernel`
-(launched by `_oneshot_bwd`); its source is `csrc/flash_bwd.cu`. Each
-source's header says how it tiles and what bounds it on the card.
+`flash_attention` computes one of two functions, as the JAX package's does
+(big_vision_tpu/ops/flash_attention.py, `flash_attention`):
 
-`flash_attention` is differentiable: an autograd Function whose forward
-launches K1 and whose backward launches K2 on CUDA tensors, and which runs
-the two plain versions (`flash_attention_reference`,
-`flash_attention_bwd_reference`) on CPU tensors. On the card K1 also emits
-each row's log-sum-exp, which K2 takes instead of recomputing the row max
-(it sums each row of exp(s - lse) again, so that p sums to 1 as the plain
-version's does); the autograd Function saves q, k, v and the LSE.
+* one-shot, where `oneshot_fits(Tq, Tkv, D)` holds and no block size was
+  passed: bf16 products with f32 sums, p rounded to v's dtype before p.v.
+  K1 (`csrc/flash_fwd.cu`) replaces `_oneshot_fwd_kernel` with
+  `_oneshot_softmax` (launched by `_oneshot_fwd`), K2 (`csrc/flash_bwd.cu`)
+  `_oneshot_bwd_kernel` (launched by `_oneshot_bwd`). On the card K1 also
+  emits each row's log-sum-exp, which K2 takes instead of recomputing the
+  row max (it sums each row of exp(s - lse) again, so that p sums to 1 as
+  the plain version's does).
+* blocked, elsewhere: q, k and v cast to f32, q scaled before q.k, every
+  product in f32, the output rounded once; the backward takes
+  delta = rowsum(do.o), computed outside the kernels. K3
+  (`csrc/flash_blocked_fwd.cu`) replaces `_fwd_kernel` (launched by
+  `_fwd`), K4a and K4b (`csrc/flash_blocked_bwd.cu`) replace
+  `_bwd_dq_kernel` and `_bwd_dkv_kernel` (launched by `_bwd`).
+
+Each path is one autograd Function whose forward and backward launch the
+kernels on CUDA tensors and run the plain versions
+(`flash_attention_reference`, `flash_attention_bwd_reference`,
+`flash_attention_blocked_reference`, `flash_attention_blocked_bwd_reference`)
+on CPU tensors. Each kernel's source says how it tiles and what bounds it
+on the card; each wrapper counts its launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -27,6 +38,30 @@ from big_vision_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
+MAX_ONESHOT = 1024
+
+
+# The one-shot/blocked boundary, copied from the JAX package (`_r`,
+# `_oneshot_bytes`, `oneshot_fits`). It is where that package switches
+# numerics, sized for a TPU core's 16 MB of VMEM, not a memory limit of
+# this card: the port follows it so that both packages compute the same
+# function at every shape. Retuning it for Hopper is later work.
+def _r(x, m):
+  return -(-x // m) * m
+
+
+def _oneshot_bytes(tq, tkv, d, bwd):
+  """VMEM bytes per problem at Mosaic's internal tile granularity."""
+  nmats = 3 if bwd else 2
+  mats = nmats * _r(tq, 8) * _r(tkv, 128) * 4
+  io = (6 if bwd else 4) * (_r(tq, 16) + _r(tkv, 16)) * _r(d, 128) * 2
+  return mats + io
+
+
+def oneshot_fits(tq, tkv, d):
+  """True where the JAX package takes the one-shot path."""
+  per = _oneshot_bytes(tq, tkv, d, bwd=True)
+  return max(tq, tkv) <= MAX_ONESHOT and per <= 12 * 1024 * 1024
 
 
 @functools.cache
@@ -45,6 +80,26 @@ def _bwd_lib():
   fn = _build.load("flash_bwd").bvt_flash_bwd
   fn.restype = ctypes.c_int
   fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+      ctypes.c_float, ctypes.c_void_p]
+  return fn
+
+
+@functools.cache
+def _blocked_fwd_lib():
+  """K3's C entry point, built and typed once per process."""
+  fn = _build.load("flash_blocked_fwd").bvt_flash_blocked_fwd
+  fn.restype = ctypes.c_int
+  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+      ctypes.c_float, ctypes.c_void_p]
+  return fn
+
+
+@functools.cache
+def _blocked_bwd_lib(which):
+  """K4a's (`which`="dq") or K4b's ("dkv") C entry point."""
+  fn = getattr(_build.load("flash_blocked_bwd"), f"bvt_flash_blocked_{which}")
+  fn.restype = ctypes.c_int
+  fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
       ctypes.c_float, ctypes.c_void_p]
   return fn
 
@@ -79,6 +134,24 @@ def _check_cuda(named, seg):
   return seg.to(torch.int32).contiguous()
 
 
+def _mask(tq, tkv, causal, seg, device):
+  """Bool [B or 1, 1, Tq, Tkv] (True = visible), or None for no mask.
+
+  causal keeps col <= row; `seg` keeps j for i iff 0 < seg[j] <= seg[i].
+  """
+  mask = None
+  if causal:
+    rows = torch.arange(tq, device=device)[:, None]
+    cols = torch.arange(tkv, device=device)[None, :]
+    mask = (cols <= rows)[None, None]
+  if seg is not None:
+    seg = seg.to(torch.int32)
+    sm = ((seg[:, None, None, :] > 0)
+          & (seg[:, None, None, :] <= seg[:, None, :, None]))
+    mask = sm if mask is None else mask & sm
+  return mask
+
+
 def _masked_probs(q, k, causal, seg):
   """[B, H, Tq, Tkv] f32 probabilities p = exp(s - m) / l and the mask.
 
@@ -86,19 +159,9 @@ def _masked_probs(q, k, causal, seg):
   for i iff 0 < seg[j] <= seg[i]; masked logits are -1e30 and masked
   probabilities exactly 0, so a fully masked row is all zeros.
   """
-  tq, tkv = q.shape[1], k.shape[1]
   s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
       1.0 / math.sqrt(q.shape[-1]))
-  mask = None
-  if causal:
-    rows = torch.arange(tq, device=q.device)[:, None]
-    cols = torch.arange(tkv, device=q.device)[None, :]
-    mask = (cols <= rows)[None, None]
-  if seg is not None:
-    seg = seg.to(torch.int32)
-    sm = ((seg[:, None, None, :] > 0)
-          & (seg[:, None, None, :] <= seg[:, None, :, None]))
-    mask = sm if mask is None else mask & sm
+  mask = _mask(q.shape[1], k.shape[1], causal, seg, q.device)
   if mask is not None:
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
   m = s.amax(dim=-1, keepdim=True)
@@ -143,10 +206,107 @@ def flash_attention_bwd_reference(q, k, v, do, *, causal=False, seg=None):
           dv.to(v.dtype))
 
 
+def _blocked_scores(q, k, causal, seg):
+  """(q * scale in f32, s = (q * scale) . k^T [B, H, Tq, Tkv] f32, mask)."""
+  qs = q.float() * (1.0 / math.sqrt(q.shape[-1]))
+  s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
+  return qs, s, _mask(q.shape[1], k.shape[1], causal, seg, q.device)
+
+
+def _lse_rows(x):
+  """[B, H, Tq, 1] -> the kernels' [B*H, Tq] layout."""
+  return x[..., 0].reshape(-1, x.shape[2])
+
+
+def flash_attention_blocked_reference(q, k, v, *, causal=False, seg=None):
+  """Plain PyTorch forward with the exact semantics of `_fwd_kernel`.
+
+  q, k and v cast to f32 and q scaled by 1/sqrt(D) before s = q.k^T; the
+  masks as `_mask`, masked logits -1e30 and masked probabilities exactly
+  0; o = (p.v) / l in f32, rounded once to q's dtype; the row log-sum-exp
+  m + log(l) ([B*H, Tq] f32; -1e30 for a row with no visible key, whose
+  o is 0). The blocked kernel's online softmax computes the same sums in
+  another order. Returns (o, lse).
+  """
+  _check_inputs(q, k, v, seg)
+  _, s, mask = _blocked_scores(q, k, causal, seg)
+  if mask is not None:
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+  m = s.amax(dim=-1, keepdim=True)
+  p = torch.exp(s - m)
+  if mask is not None:
+    p = torch.where(mask, p, torch.zeros_like(p))
+  l = p.sum(dim=-1, keepdim=True)
+  l = torch.where(l == 0, torch.ones_like(l), l)
+  o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+  o = (o / l.permute(0, 2, 1, 3)).to(q.dtype)
+  return o, _lse_rows(m + torch.log(l))
+
+
+def blocked_delta(o, do):
+  """delta = rowsum(do . o) in f32 from o in its stored dtype, as the JAX
+  `_bwd` computes it outside its kernels; [B*H, Tq]."""
+  b, tq, h, _ = o.shape
+  delta = (do.float() * o.float()).sum(-1)  # [B, Tq, H]
+  return delta.permute(0, 2, 1).reshape(b * h, tq).contiguous()
+
+
+def _blocked_probs(q, k, v, lse, delta, do, causal, seg):
+  """(q * scale, p, ds) [B, H, Tq, Tkv] f32 of the blocked backward."""
+  b, tq, h, _ = q.shape
+  qs, s, mask = _blocked_scores(q, k, causal, seg)
+  p = torch.exp(s - lse.reshape(b, h, tq, 1))
+  if mask is not None:  # a masked row's lse is -1e30: exp overflows there
+    p = torch.where(mask, p, torch.zeros_like(p))
+  dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+  return qs, p, p * (dp - delta.reshape(b, h, tq, 1))
+
+
+def flash_attention_blocked_dq_reference(q, k, v, do, lse, delta, *,
+                                         causal=False, seg=None):
+  """Plain PyTorch dq with the exact semantics of `_bwd_dq_kernel` (K4a);
+  arguments as `flash_attention_blocked_dq`. See
+  `flash_attention_blocked_bwd_reference`."""
+  _check_inputs(q, k, v, seg)
+  _, _, ds = _blocked_probs(q, k, v, lse, delta, do, causal, seg)
+  dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+  return (dq * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+
+
+def flash_attention_blocked_dkv_reference(q, k, v, do, lse, delta, *,
+                                          causal=False, seg=None):
+  """Plain PyTorch (dk, dv) with the exact semantics of `_bwd_dkv_kernel`
+  (K4b); arguments as `flash_attention_blocked_dkv`."""
+  _check_inputs(q, k, v, seg)
+  qs, p, ds = _blocked_probs(q, k, v, lse, delta, do, causal, seg)
+  dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+  dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+  return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_blocked_bwd_reference(q, k, v, o, lse, do, *,
+                                          causal=False, seg=None):
+  """Plain PyTorch backward with the exact semantics of `_bwd_dq_kernel`
+  and `_bwd_dkv_kernel`; returns (dq, dk, dv).
+
+  `o` and `lse` are the forward's. In f32: delta as `blocked_delta`;
+  p = exp(s - lse) where visible, exactly 0 where masked (a masked row's
+  lse is -1e30, so the mask must be applied, not only the exponential);
+  dp = do.v^T; ds = p (dp - delta); dq = ds.k * scale in q's dtype;
+  dk = ds^T.(q * scale) in k's dtype; dv = p^T.do in v's dtype.
+  """
+  delta = blocked_delta(o, do)
+  kw = dict(causal=causal, seg=seg)
+  dq = flash_attention_blocked_dq_reference(q, k, v, do, lse, delta, **kw)
+  return (dq, *flash_attention_blocked_dkv_reference(q, k, v, do, lse, delta,
+                                                     **kw))
+
+
 def flash_attention_forward(q, k, v, *, causal=False, seg=None):
   """K1 on CUDA tensors: (o, row log-sum-exp [B*H, Tq] f32).
 
-  Launches the kernel and counts the launch in `flash_attention.launches`.
+  Launches the kernel and counts the launch in
+  `flash_attention_forward.launches`.
   """
   if q.device.type != "cuda":
     raise ValueError(f"the K1 kernel runs on cuda, not {q.device}")
@@ -161,7 +321,7 @@ def flash_attention_forward(q, k, v, *, causal=False, seg=None):
       _DTYPES[q.dtype], b, tq, k.shape[1], h, d,
       int(bool(causal)), 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
   _build.check(err, "flash_fwd")
-  flash_attention.launches += 1
+  flash_attention_forward.launches += 1
   return out, row_lse
 
 
@@ -223,20 +383,155 @@ class _FlashAttention(torch.autograd.Function):
     return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal=False, seg=None):
+def _launch_args(q, k, v, seg, named):
+  """Checks before a blocked-kernel launch; returns (seg int32 or None,
+  the kernel's shape arguments)."""
+  if q.device.type != "cuda":
+    raise ValueError(f"the blocked kernels run on cuda, not {q.device}")
+  _check_inputs(q, k, v, seg)
+  seg = _check_cuda((("q", q), ("k", k), ("v", v), *named), seg)
+  b, tq, h, d = q.shape
+  return seg, (_DTYPES[q.dtype], b, tq, k.shape[1], h, d)
+
+
+def flash_attention_blocked_forward(q, k, v, *, causal=False, seg=None):
+  """K3 on CUDA tensors: (o, row log-sum-exp [B*H, Tq] f32) with the
+  semantics of `flash_attention_blocked_reference`.
+
+  Counts the launch in `flash_attention_blocked_forward.launches`.
+  """
+  seg, shape = _launch_args(q, k, v, seg, ())
+  b, tq, h, _ = q.shape
+  out = torch.empty_like(q)
+  lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+  err = _blocked_fwd_lib()(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      None if seg is None else seg.data_ptr(), lse.data_ptr(), *shape,
+      int(bool(causal)), 1.0 / math.sqrt(q.shape[-1]),
+      _build.stream_ptr(q.device))
+  _build.check(err, "flash_blocked_fwd")
+  flash_attention_blocked_forward.launches += 1
+  return out, lse
+
+
+def _launch_blocked_bwd(which, q, k, v, do, lse, delta, outs, causal, seg):
+  """Checks and launches K4a (`which`="dq", outs (dq,)) or K4b ("dkv",
+  outs (dk, dv))."""
+  b, tq, h, _ = q.shape
+  for name, x in (("lse", lse), ("delta", delta)):
+    if x.dtype != torch.float32 or tuple(x.shape) != (b * h, tq):
+      raise ValueError(f"{name} must be [B*H, Tq] = {(b * h, tq)} float32")
+  if do.shape != q.shape or do.dtype != q.dtype:
+    raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q")
+  seg, shape = _launch_args(q, k, v, seg, (("do", do), ("lse", lse),
+                                           ("delta", delta)))
+  ptrs = [x.data_ptr() for x in outs] + [None] * (2 - len(outs))
+  err = _blocked_bwd_lib(which)(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+      lse.data_ptr(), delta.data_ptr(),
+      None if seg is None else seg.data_ptr(), *ptrs, *shape,
+      int(bool(causal)), 1.0 / math.sqrt(q.shape[-1]),
+      _build.stream_ptr(q.device))
+  _build.check(err, f"flash_blocked_{which}")
+
+
+def flash_attention_blocked_dq(q, k, v, do, lse, delta, *, causal=False,
+                               seg=None):
+  """K4a on CUDA tensors: dq of the blocked attention in q's dtype.
+
+  `lse` is K3's row log-sum-exp, `delta` is `blocked_delta(o, do)`.
+  Counts the launch in `flash_attention_blocked_dq.launches`.
+  """
+  dq = torch.empty_like(q)
+  _launch_blocked_bwd("dq", q, k, v, do, lse, delta, (dq,), causal, seg)
+  flash_attention_blocked_dq.launches += 1
+  return dq
+
+
+def flash_attention_blocked_dkv(q, k, v, do, lse, delta, *, causal=False,
+                                seg=None):
+  """K4b on CUDA tensors: (dk, dv) of the blocked attention in k's and v's
+  dtypes. Arguments as `flash_attention_blocked_dq`.
+
+  Counts the launch in `flash_attention_blocked_dkv.launches`.
+  """
+  dk, dv = torch.empty_like(k), torch.empty_like(v)
+  _launch_blocked_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), causal, seg)
+  flash_attention_blocked_dkv.launches += 1
+  return dk, dv
+
+
+def flash_attention_blocked_bwd(q, k, v, o, lse, do, *, causal=False,
+                                seg=None):
+  """The blocked backward on CUDA tensors: delta (a plain torch op, as the
+  JAX package computes it outside Pallas), then K4a for dq and K4b for dk
+  and dv. Returns (dq, dk, dv)."""
+  if q.device.type != "cuda":
+    raise ValueError(f"the blocked kernels run on cuda, not {q.device}")
+  delta = blocked_delta(o, do)
+  dq = flash_attention_blocked_dq(q, k, v, do, lse, delta, causal=causal,
+                                  seg=seg)
+  dk, dv = flash_attention_blocked_dkv(q, k, v, do, lse, delta,
+                                       causal=causal, seg=seg)
+  return dq, dk, dv
+
+
+class _FlashAttentionBlocked(torch.autograd.Function):
+  """K3 forward; delta, K4a and K4b backward (plain versions on the CPU)."""
+
+  @staticmethod
+  def forward(ctx, q, k, v, seg, causal):
+    ctx.causal = causal
+    if q.device.type == "cpu":
+      o, lse = flash_attention_blocked_reference(q, k, v, causal=causal,
+                                                 seg=seg)
+    else:
+      o, lse = flash_attention_blocked_forward(q, k, v, causal=causal,
+                                               seg=seg)
+    ctx.save_for_backward(q, k, v, o, lse, seg)
+    return o
+
+  @staticmethod
+  def backward(ctx, do):
+    q, k, v, o, lse, seg = ctx.saved_tensors
+    fn = (flash_attention_blocked_bwd_reference if q.device.type == "cpu"
+          else flash_attention_blocked_bwd)
+    dq, dk, dv = fn(q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+                    seg=seg)
+    return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal=False, seg=None, block_q=None,
+                    block_kv=None):
   """Fused attention; q [B, Tq, H, D], k and v [B, Tkv, H, D], D <= 256.
 
   `seg`: optional [B, T] int segment ids (needs Tq == Tkv): position j is
   attendable from i iff 0 < seg[j] <= seg[i]; padding is seg=0. Scales by
-  1/sqrt(D). On a CUDA tensor the forward launches K1 (counted in
-  `flash_attention.launches`) and, when a gradient is taken, the backward
-  launches K2; on a CPU tensor both run their plain versions.
+  1/sqrt(D). A row with no visible key gives 0.
+
+  Dispatch, as in the JAX package: the one-shot semantics (K1 forward, K2
+  backward) where `oneshot_fits(Tq, Tkv, D)` and no block size was given,
+  the blocked semantics (K3 forward, K4a and K4b backward) otherwise. The
+  JAX package pads T to a multiple of its blocks (default
+  min(128, max(16, T)) rows) and masks the pad; the port's kernels mask the
+  ragged edge of their own 64-row tiles instead, so the unpadded rows are
+  the same and `block_q`/`block_kv` only choose the blocked path. On CPU
+  tensors the plain versions run instead of the kernels.
   """
   if q.device.type not in ("cpu", "cuda"):
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
   _check_inputs(q, k, v, seg)
-  return _FlashAttention.apply(q, k, v, seg, causal)
+  for name, blk in (("block_q", block_q), ("block_kv", block_kv)):
+    if blk is not None and (not isinstance(blk, int) or blk < 1):
+      raise ValueError(f"{name} must be a positive int, not {blk!r}")
+  if (block_q is None and block_kv is None
+      and oneshot_fits(q.shape[1], k.shape[1], q.shape[-1])):
+    return _FlashAttention.apply(q, k, v, seg, causal)
+  return _FlashAttentionBlocked.apply(q, k, v, seg, causal)
 
 
-flash_attention.launches = 0
+flash_attention_forward.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_blocked_forward.launches = 0
+flash_attention_blocked_dq.launches = 0
+flash_attention_blocked_dkv.launches = 0

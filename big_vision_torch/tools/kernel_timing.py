@@ -6,9 +6,9 @@ For each kernel and shape it prints the time per call measured two ways:
            host launch cost included when it exceeds the kernel's);
   graph  - the same calls captured in a CUDA graph and replayed (device
            time only);
-beside the least time the card could take (bytes over 3.35 TB/s or bf16
-operations over 989 TFLOP/s, the H100 SXM data sheet) and the SM clock
-that nvidia-smi reads right after the timing.
+beside the least time the card could take (bytes over 3.35 TB/s, or bf16
+operations over 989 TFLOP/s on the tensor cores, the H100 SXM data sheet)
+and the SM clock that nvidia-smi reads right after the timing.
 
 Usage (GPU only):  python -m big_vision_torch.tools.kernel_timing
 
@@ -24,7 +24,9 @@ import time
 
 import torch
 
-HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
+# H100 SXM data sheet: memory rate, dense bf16 tensor-core rate, and the f32
+# rate outside the tensor cores (the blocked kernels' f32 semantics).
+HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
 def nvidia_smi(query="name,power.limit"):
@@ -35,9 +37,10 @@ def nvidia_smi(query="name,power.limit"):
   return out.strip().splitlines()[0]
 
 
-def bound(nbytes, flops):
-  """(least ms for the work, "bytes" or "operations")."""
-  t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes, flops, flops_per_s=BF16_FLOPS):
+  """(least ms for the work, "bytes" or "operations"), the operations at
+  `flops_per_s` (the peak rate for the inputs' type)."""
+  t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
   return (max(t_bytes, t_ops) * 1e3,
           "bytes" if t_bytes >= t_ops else "operations")
 
@@ -120,6 +123,32 @@ def k2_work(b, tq, h, d, tkv=None):
   tkv = tkv or tq
   return 2 * (4 * b * tq * h * d + 3 * b * tkv * h * d), \
       10 * b * h * tq * tkv * d
+
+
+def k3_work(b, t, h, d, itemsize=4):
+  """(bytes, flops) of one K3 call: q, k, v read and o written once in the
+  inputs' dtype, the f32 LSE written; two products of 2*T^2*D each."""
+  return 4 * b * t * h * d * itemsize + 4 * b * h * t, 4 * b * h * t * t * d
+
+
+def k4a_work(b, t, h, d, itemsize=4):
+  """(bytes, flops) of one K4a call: q, k, v, do, LSE and delta read and dq
+  written once; three products (s, dp, ds.k)."""
+  return 5 * b * t * h * d * itemsize + 8 * b * h * t, 6 * b * h * t * t * d
+
+
+def k4b_work(b, t, h, d, itemsize=4):
+  """(bytes, flops) of one K4b call: q, k, v, do, LSE and delta read and dk,
+  dv written once; four products (s, dp, p^T.do, ds^T.q)."""
+  return 6 * b * t * h * d * itemsize + 8 * b * h * t, 8 * b * h * t * t * d
+
+
+def blocked_inputs(b, t, h, d, tkv=None, seed=0, dtype=torch.float32):
+  """(q, k, v, do): `k1_inputs` in `dtype` (default f32, the FlexiViT
+  path's) and an output gradient do shaped like q."""
+  q, k, v = k1_inputs(b, t, h, d, tkv=tkv, seed=seed, dtype=dtype)
+  g = torch.Generator(device="cuda").manual_seed(seed + 1)
+  return q, k, v, torch.randn(q.shape, generator=g, device="cuda").to(dtype)
 
 
 def quant_kv(x):

@@ -14,7 +14,9 @@ window since the last row. A non-finite loss aborts the run.
 
 Keys whose feature is not ported yet are refused, not ignored: `mixup`
 with p > 0, `evals`, checkpoints (`ckpt_*`), `resume`, `model_init`, and
-models other than "vit".
+models other than "vit". The FlexiViT trainer
+(`trainers/proj/flexi/train.py`) reuses this loop and `Trainer` through
+its hooks: `build_model`, `step_kwargs` and `update(batch, **kw)`.
 """
 
 from __future__ import annotations
@@ -38,17 +40,18 @@ _UNPORTED = ("evals", "resume", "model_init", "ckpt_steps", "ckpt_examples",
              "ckpt_epochs", "ckpt_percent")
 
 
-def check_ported(config):
-  """Raises ValueError naming the first config key that is not ported."""
+def check_ported(config, *, model_name="vit", mixup=False):
+  """Raises ValueError naming the first config key that is not ported by a
+  trainer of `model_name` (that takes `mixup` with p > 0 if `mixup`)."""
   for key in _UNPORTED:
     if config.get(key):
       raise ValueError(f"config key {key!r} is not ported yet")
-  mixup = config.get("mixup") or {}
-  if dict(mixup).get("p"):
+  if not mixup and dict(config.get("mixup") or {}).get("p"):
     raise ValueError("config key 'mixup' (p > 0) is not ported yet")
-  if config.get("model_name", "vit") != "vit":
+  if config.get("model_name", model_name) != model_name:
     raise ValueError(f"config key 'model_name'={config['model_name']!r} is "
-                     "not ported yet; only 'vit' is")
+                     f"not ported yet by this trainer; only {model_name!r} "
+                     "is")
 
 
 def _jax_name_params(model):
@@ -57,7 +60,7 @@ def _jax_name_params(model):
   return {jax: named[port] for port, jax in convert.vit_names(model).items()}
 
 
-def _l2(tensors):
+def l2(tensors):
   """Global L2 norm of f32 tensors (one multi-tensor kernel for the norms)."""
   return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
       list(tensors))))
@@ -65,10 +68,12 @@ def _l2(tensors):
 
 class Trainer:
   """The model, its params by JAX name, the optimizer and its state."""
+  MODEL_NAME = "vit"  # the config's model_name that `build_model` builds
+  MIXUP = False  # whether `update` ports the config's mixup
 
   def __init__(self, config, *, device="cuda"):
     config = dict(config)
-    check_ported(config)
+    check_ported(config, model_name=self.MODEL_NAME, mixup=self.MIXUP)
     self.device = torch.device(device)
     if self.device.type == "cuda" and not torch.cuda.is_available():
       raise RuntimeError("no CUDA device; pass --device cpu to train on the "
@@ -81,9 +86,7 @@ class Trainer:
                                        self.batch_size)
     res, _, channels = input_pipeline.element_spec(
         config["input"])["image"][0]
-    self.model = vit.Model(num_classes=config["num_classes"],
-                           image_size=res, channels=channels,
-                           device=self.device, **config.get("model", {}))
+    self.model = self.build_model(res, channels)
     gen = torch.Generator(device=self.device).manual_seed(self.seed)
     self.model.initialize(gen, head_bias=config.get("init_head_bias"))
     self.params = _jax_name_params(self.model)
@@ -93,6 +96,17 @@ class Trainer:
             data_size=ntrain))
     self.opt_state = self.tx.init(self.params)
     self.loss_fn = getattr(losses, config.get("loss", "sigmoid_xent"))
+
+  def build_model(self, res, channels):
+    """The config's model, for images of res x res x channels."""
+    return vit.Model(num_classes=self.config["num_classes"], image_size=res,
+                     channels=channels, device=self.device,
+                     **self.config.get("model", {}))
+
+  def step_kwargs(self, step):
+    """Keyword arguments of `update` at `step` (none for this trainer)."""
+    del step
+    return {}
 
   def input_iter(self):
     """The training iterator of config["input"] on this trainer's device."""
@@ -118,14 +132,15 @@ class Trainer:
     updates, self.opt_state = self.tx.apply_(self.params, grads,
                                              self.opt_state)
     with torch.no_grad():
-      return {"training_loss": loss, "l2_grads": _l2(grads.values()),
-              "l2_params": _l2(self.params.values()),
-              "l2_updates": _l2(updates.values())}
+      return {"training_loss": loss, "l2_grads": l2(grads.values()),
+              "l2_params": l2(self.params.values()),
+              "l2_updates": l2(updates.values())}
 
 
-def train(config, workdir=None, *, device="cuda"):
-  """Runs the training loop of `config`; returns the Trainer."""
-  trainer = Trainer(config, device=device)
+def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
+  """Runs the training loop of `config` with a `trainer_cls`; returns the
+  trainer."""
+  trainer = trainer_cls(config, device=device)
   mw = writers.MetricWriter(workdir)
   n_params = sum(p.numel() for p in trainer.params.values())
   writers.write_note(f"Model has {n_params:,} parameters; training for "
@@ -145,7 +160,7 @@ def train(config, workdir=None, *, device="cuda"):
       t0 = time.perf_counter()
       batch = next(it)
       stall += time.perf_counter() - t0
-      measurements = trainer.update(batch)
+      measurements = trainer.update(batch, **trainer.step_kwargs(step))
       n_window += 1
       if (log_steps and step % log_steps == 0) or step == total or (
           stop and step >= stop):
@@ -181,8 +196,9 @@ def load_config(spec):
   return module.get_config(arg or None)
 
 
-def main(argv=None):
-  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(argv=None, trainer_cls=Trainer, description=__doc__):
+  """Parses the command line and trains with `trainer_cls`."""
+  parser = argparse.ArgumentParser(description=description.splitlines()[0])
   parser.add_argument("--config", required=True,
                       help="config file, optionally with ':args'")
   parser.add_argument("--workdir", default=None,
@@ -190,7 +206,8 @@ def main(argv=None):
   parser.add_argument("--device", default="cuda",
                       help="cuda (default) or cpu")
   args = parser.parse_args(argv)
-  return train(load_config(args.config), args.workdir, device=args.device)
+  return train(load_config(args.config), args.workdir, device=args.device,
+               trainer_cls=trainer_cls)
 
 
 if __name__ == "__main__":

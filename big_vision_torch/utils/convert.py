@@ -88,7 +88,8 @@ def _mlp(leaves, src, dst, out):
 
 
 def vit(params) -> dict[str, np.ndarray]:
-  """ViT param tree -> the port's `models.vit` state dict (numpy)."""
+  """ViT or FlexiViT param tree -> the port's `models.vit` or
+  `models.proj.flexi.vit` state dict (numpy)."""
   flat = _unstack(_flat(params), "Transformer/encoderblock",
                   "Transformer/encoderblock_{}")
   leaves, out = _Leaves(flat), {}
@@ -132,7 +133,9 @@ _VIT_LAYERS = {
 
 
 def vit_names(module: torch.nn.Module) -> dict[str, str]:
-  """{port parameter name: JAX param name} for a `models.vit` module.
+  """{port parameter name: JAX param name} for a `models.vit` module, or a
+  `models.proj.flexi.vit` one (whose parameters carry the same names:
+  "embedding/kernel", "pos_embedding", "cls", "Transformer/...", "head/...").
 
   The JAX names (pyloop layout, e.g.
   "Transformer/encoderblock_0/MlpBlock_0/Dense_0/kernel") are what config

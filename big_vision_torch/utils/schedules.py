@@ -1,5 +1,6 @@
-"""Durations and learning-rate schedules: port of
-big_vision_tpu/utils/schedules.py (`steps`, `create_learning_rate_schedule`).
+"""Durations, learning-rate schedules and mixup: port of
+big_vision_tpu/utils/schedules.py (`steps`, `create_learning_rate_schedule`,
+`get_mixup`, `mixup`).
 
 Configs may express any duration as `{prefix}_{steps,examples,epochs,
 percent}`; training code only sees integer steps. A schedule maps a step
@@ -9,7 +10,10 @@ computes it in jnp float32.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 _SUFFIXES = ("steps", "examples", "epochs", "percent")
 
@@ -92,3 +96,30 @@ def create_learning_rate_schedule(total_steps, batch_size=None, data_size=None,
     return f32(lr)
 
   return sched
+
+
+def mix(a, *things, **more):
+  """Mixes each tensor x with itself rolled by one along the batch,
+  a * x + (1 - a) * roll(x, 1, axis 0), with `a` an f32 scalar as in the
+  JAX package; None entries pass through. Returns (things, more)."""
+  a = torch.tensor(a, dtype=torch.float32)
+
+  def one(x):
+    return None if x is None else a * x + (1 - a) * torch.roll(x, 1, 0)
+
+  return tuple(map(one, things)), {k: one(v) for k, v in more.items()}
+
+
+def get_mixup(generator, p):
+  """Draws a ~ Beta(p, p) from `generator` (a CPU torch.Generator), keeps
+  a = max(a, 1 - a) in f32 as the JAX `get_mixup` does, and returns `mix`
+  with that a bound."""
+  a = torch._sample_dirichlet(  # pylint: disable=protected-access
+      torch.tensor([p, p], dtype=torch.float64), generator=generator)[0]
+  a = np.float32(a.item())
+  return functools.partial(mix, max(a, np.float32(1.0) - a))
+
+
+def mixup(generator, *things, p, **more_things):
+  """`get_mixup(generator, p)(*things, **more_things)`."""
+  return get_mixup(generator, p)(*things, **more_things)

@@ -13,7 +13,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the edge cases (masks, Tq != Tkv, int8 cache, softcap, fully masked
      rows, which must give exact zeros), with the bar
      max|kernel - plain| / max|plain| <= 1e-2 (docs/flash_parity.md); for
-     K2 each of dq, dk and dv is held to it;
+     K2 each of dq, dk and dv is held to it; the blocked kernels K3, K4a
+     and K4b (o, LSE, dq, dk, dv; K4a and K4b on K3's o and LSE) at the
+     FlexiViT-B shapes (B=32, H=12, D=64, T=901 and 1601) in f32 (bar 1e-4:
+     their semantics are f32, only the order of sums differs) and bf16,
+     on the docs/flash_parity.md grid (T in {197, 577, 1056} x D in {64,
+     128} x seg, the blocked path chosen by block sizes below T=1056), and
+     at causal, Tq != Tkv, seg with an all-padding row, D=256 and D=18;
   3. serves PaliGemma-3B (So400m/14 at 224px + gemma_2b, random bf16
      weights from SEED) to a batch of 8 requests through predict_fns,
      checks that the image tower launched K1 once per layer and every AR
@@ -31,22 +37,38 @@ Phases, each of which raises (and so exits non-zero) on failure:
      trained state on a batch no update has seen: the loss and the
      encoder's output within 2e-2 in f32 and bf16; each K2 launch of the
      bf16 backward, on its own inputs, within 1.25 times the plain
-     version's distance from the f32 backward (floor 1e-2); in f32 every attention-projection gradient within 2e-2 of
-     max|plain|; in bf16 each such gradient within 1.5 times the bf16
-     plain path's distance from the f32 plain path's, floor 2e-2 (see
-     `kernel_vs_plain_training`);
-  5. times prefill, the AR step, the training step (end to end: median of
+     version's distance from the f32 backward (floor 1e-2); in f32 every
+     attention-projection gradient within 2e-2 of max|plain|; in bf16 each
+     such gradient within 1.5 times the bf16 plain path's distance from
+     the f32 plain path's, floor 2e-2 (see `kernel_vs_plain_training`);
+  5. trains FlexiViT-B (f32, batch 32, random init from the config's seed)
+     through `big_vision_torch.trainers.proj.flexi.train` and
+     configs/proj/flexivit/i21k_sup.py: FLEXI_STEPS steps of its own loop
+     and seqhw draws (15, 15, 15, 40, 30), then steps at seqhw 40, 30, 15,
+     twice, through `update(batch, seqhw=...)`, each timed with CUDA
+     events, with its peak memory, and with 12 launches of K3, K4a and K4b
+     (none of K1, K2) at seqhw 30 and 40 and 12 of K1 and K2 at 15; a
+     profile of one step at seqhw 40 (device busy time); the loss falling
+     over 10 steps on one batch at seqhw 40; and the kernel
+     path against the plain path at seqhw 40 on 8 unseen images (loss,
+     encoder output and attention-projection gradients within 2e-2; each
+     K4a and K4b launch of the backward, on its own inputs, within 1e-4 of
+     its plain version);
+  6. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
-     beside its plain version and F.scaled_dot_product_attention (forward,
-     or its autograd backward for K2), which the port never calls.
+     beside its plain version and F.scaled_dot_product_attention in bf16
+     (forward, or its autograd backward for K2, K4a and K4b), which the
+     port never calls.
 The line before the last is {"kernels": [...]}: K1 and K2 are reported at
-the training shape (B=256, T=196, H=12, D=64; launches per step), K6 at the
-serving shape (launches per request batch); max_abs_err and max_rel_err
-are at those shapes, and rel_tolerance is the bar the relative error was
-held to. The last line is {"ok": true, "device": {...}}. Without a CUDA
-device it exits non-zero and prints no result.
+the ViT training shape (B=256, T=196, H=12, D=64; launches per step), K3,
+K4a and K4b at the FlexiViT-B shape of seqhw 40 (B=32, T=1601, H=12, D=64,
+f32; launches per step), K6 at the serving shape (launches per request
+batch); max_abs_err and max_rel_err are at those shapes, and rel_tolerance
+is the bar the relative error was held to. The last line is {"ok": true,
+"device": {...}}. Without a CUDA device it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -65,10 +87,15 @@ import torch
 import torch.nn.functional as F
 
 from big_vision_torch.tools import kernel_timing
+from big_vision_torch.tools.kernel_timing import blocked_inputs
 from big_vision_torch.tools.kernel_timing import bound
+from big_vision_torch.tools.kernel_timing import F32_FLOPS
 from big_vision_torch.tools.kernel_timing import k1_inputs
 from big_vision_torch.tools.kernel_timing import k1_work
 from big_vision_torch.tools.kernel_timing import k2_work
+from big_vision_torch.tools.kernel_timing import k3_work
+from big_vision_torch.tools.kernel_timing import k4a_work
+from big_vision_torch.tools.kernel_timing import k4b_work
 from big_vision_torch.tools.kernel_timing import k6_inputs
 from big_vision_torch.tools.kernel_timing import k6_work
 from big_vision_torch.tools.kernel_timing import nvidia_smi
@@ -93,7 +120,29 @@ TRAIN_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs",
 TRAIN_STEPS, TRAIN_LOG, FIXED_STEPS = 20, 5, 10
 TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D = 256, 196, 12, 64  # B/16 at 224px
 TRAIN_DEPTH = 12
+FLEXI_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                            "flexivit", "i21k_sup.py")
+FLEXI_B, FLEXI_T = 32, (1601, 901)  # FlexiViT-B at 240px, seqhw 40 and 30
+# The trainer's own loop draws seqhw 15, 15, 15, 40, 30 at steps 1-5.
+FLEXI_STEPS, FLEXI_CYCLE, FLEXI_CHECK_B = 5, (40, 30, 15) * 2, 8
+BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 FLOPS_PER_IMG_TRAIN = 3 * 35.2e9  # bench.py:31-32: 3x the forward's FLOPs
+
+
+# Each kernel's launch counter: an attribute of its wrapper.
+COUNTERS = {"K1": "flash_attention_forward", "K2": "flash_attention_bwd",
+            "K3": "flash_attention_blocked_forward",
+            "K4a": "flash_attention_blocked_dq",
+            "K4b": "flash_attention_blocked_dkv"}
+
+
+def reset_launches(fa):
+  for wrapper in COUNTERS.values():
+    getattr(fa, wrapper).launches = 0
+
+
+def launches(fa):
+  return {k: getattr(fa, wrapper).launches for k, wrapper in COUNTERS.items()}
 
 
 def rel_err(got, want):
@@ -197,6 +246,80 @@ def check_k2(fa):
   return path_err
 
 
+def check_blocked(fa):
+  """K3, K4a and K4b against their plain versions on the same inputs (K4a
+  and K4b take K3's o and LSE); returns {kernel: (max abs, max rel error)}
+  at the FlexiViT-B shape of seqhw 40 in f32, the main path's."""
+  f32 = torch.float32
+  cases = [(f"FlexiViT T={t} {dt}", dict(b=FLEXI_B, t=t, h=TRAIN_H, d=TRAIN_D,
+                                          dtype=getattr(torch, dt)), {})
+           for t in FLEXI_T for dt in ("float32", "bfloat16")]
+  # docs/flash_parity.md's grid in bf16; below T=1056 the blocked path is
+  # chosen by passing block sizes, as the JAX package's callers do.
+  cases += [(f"T={t} D={d}{' seg' if seg else ''}", dict(b=4, t=t, h=4, d=d),
+             dict(seg=seg)) for t in (197, 577, 1056) for d in (64, 128)
+            for seg in (False, True)]
+  cases += [
+      ("causal", dict(b=2, t=300, h=4, d=64, dtype=f32), dict(causal=True)),
+      ("Tq!=Tkv", dict(b=2, t=100, h=4, d=64, tkv=300, dtype=f32), {}),
+      ("Tq!=Tkv causal", dict(b=2, t=300, h=4, d=128, tkv=100, dtype=f32),
+       dict(causal=True)),
+      ("seg f32", dict(b=3, t=150, h=4, d=72, dtype=f32), dict(seg=True)),
+      ("D=256 causal", dict(b=2, t=200, h=4, d=256), dict(causal=True)),
+      ("D=18 f32", dict(b=2, t=130, h=3, d=18, dtype=f32), {}),
+  ]
+  path_err = {}
+  for i, (name, shape, opts) in enumerate(cases):
+    b, t, h, d = shape["b"], shape["t"], shape["h"], shape["d"]
+    dtype = shape.get("dtype", torch.bfloat16)
+    q, k, v, do = blocked_inputs(b, t, h, d, tkv=shape.get("tkv"),
+                                 seed=80 + 2 * i, dtype=dtype)
+    kw = {"causal": opts.get("causal", False)}
+    if opts.get("seg"):
+      kw["seg"] = seg_ids(q)  # row 2 is all padding: exact zeros
+    # The public entry point takes the blocked path: K3 launched once.
+    blocks = ({} if not fa.oneshot_fits(t, k.shape[1], d)
+              else dict(block_q=128, block_kv=128))
+    before = fa.flash_attention_blocked_forward.launches
+    o_path = fa.flash_attention(q, k, v, **kw, **blocks)
+    assert fa.flash_attention_blocked_forward.launches == before + 1, name
+    o, lse = fa.flash_attention_blocked_forward(q, k, v, **kw)
+    delta = fa.blocked_delta(o, do)
+    got = {"o": o, "lse": lse,
+           "dq": fa.flash_attention_blocked_dq(q, k, v, do, lse, delta, **kw)}
+    got["dk"], got["dv"] = fa.flash_attention_blocked_dkv(q, k, v, do, lse,
+                                                           delta, **kw)
+    want = dict(zip(("o", "lse"), fa.flash_attention_blocked_reference(
+        q, k, v, **kw)))
+    want["dq"] = fa.flash_attention_blocked_dq_reference(q, k, v, do, lse,
+                                                         delta, **kw)
+    want["dk"], want["dv"] = fa.flash_attention_blocked_dkv_reference(
+        q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o_path, o), name
+    visible = want["lse"] > fa.NEG_INF  # rows with at least one key
+    assert torch.equal(got["lse"][~visible], want["lse"][~visible]), name
+    got["lse"], want["lse"] = got["lse"][visible], want["lse"][visible]
+    bar = BLOCKED_BAR[dtype]
+    assert all(want[n].abs().max().item() > 0 for n in want), name
+    errs = {n: rel_err(got[n], want[n]) for n in got}
+    print(f"K3/K4 {name:16s} {tuple(q.shape)} kv {tuple(k.shape)} rel err " +
+          " ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (bar {bar})")
+    assert all(math.isfinite(e) and e <= bar for e in errs.values()), (
+        name, errs)
+    if opts.get("seg"):
+      zero = kw["seg"] == 0  # [B, T]: padding rows and keys
+      for n in ("o", "dq", "dk", "dv"):
+        assert got[n][zero].abs().max().item() == 0.0, (name, n)
+    if i == 0:
+      for kern, names in (("K3", ("o",)), ("K4a", ("dq",)),
+                          ("K4b", ("dk", "dv"))):
+        path_err[kern] = (max((got[n].float() - want[n].float()).abs().max()
+                              .item() for n in names),
+                          max(errs[n] for n in names))
+  return path_err
+
+
 def check_k6(da):
   """Returns (max abs, max rel error) at the gemma_2b serving shape."""
   cases = [
@@ -236,11 +359,11 @@ def serve(model, plain, batch, fa, da):
   from big_vision_torch.models.proj.paligemma import predict_fns
   fns = predict_fns.make_predict_fns(model, max_decode_len=DECODE,
                                      eos_token=-1)
-  fa.flash_attention.launches = da.decode_attention.launches = 0
+  reset_launches(fa)
+  da.decode_attention.launches = 0
   tokens, logp = fns["decode_with_logp"](batch)
   torch.cuda.synchronize()
-  counts = {"K1": fa.flash_attention.launches,
-            "K6": da.decode_attention.launches}
+  counts = {"K1": launches(fa)["K1"], "K6": da.decode_attention.launches}
   depth_img = len(model.img.encoder.blocks)
   depth_llm = len(model.llm.model.layers)
   print(f"serving: {BATCH} requests, {DECODE} greedy tokens; launches "
@@ -293,17 +416,17 @@ def train_main_path(fa, workdir):
   end-to-end numbers from the metric rows)."""
   from big_vision_torch import train
   shutil.rmtree(workdir, ignore_errors=True)
-  fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+  reset_launches(fa)
   trainer = train.main(["--config", f"{TRAIN_CONFIG}:stop={TRAIN_STEPS},"
                         f"log={TRAIN_LOG}", "--workdir", workdir])
   torch.cuda.synchronize()
-  counts = {"K1": fa.flash_attention.launches,
-            "K2": fa.flash_attention_bwd.launches}
+  counts = launches(fa)
   depth = len(trainer.model.encoder.blocks)
   print(f"training: {TRAIN_STEPS} steps of batch {trainer.batch_size}; "
-        f"launches K1 {counts['K1']}, K2 {counts['K2']} (want {depth} x "
-        f"{TRAIN_STEPS} each)")
-  assert counts == {"K1": depth * TRAIN_STEPS, "K2": depth * TRAIN_STEPS}
+        f"launches {counts} (want K1 and K2 {depth} x {TRAIN_STEPS} each, "
+        "no K3, K4a or K4b)")
+  assert counts == {**dict.fromkeys(COUNTERS, 0), "K1": depth * TRAIN_STEPS,
+                    "K2": depth * TRAIN_STEPS}, counts
   assert trainer.batch_size == TRAIN_B and depth == TRAIN_DEPTH
   with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
     rows = [r for r in map(json.loads, f) if "training_loss" in r]
@@ -317,7 +440,7 @@ def train_main_path(fa, workdir):
   windows = rows[1:]  # the first window holds the start-up
   e2e = {k: statistics.median(r[k] for r in windows)
          for k in ("img/sec", "step_ms", "input_stall_pct")}
-  return trainer, {k: v // TRAIN_STEPS for k, v in counts.items()}, e2e
+  return trainer, {k: counts[k] // TRAIN_STEPS for k in ("K1", "K2")}, e2e
 
 
 def fixed_batch_steps(trainer):
@@ -479,6 +602,176 @@ def kernel_vs_plain_training(fa, trainer, batch):
   assert len(exact) == depth * 7
 
 
+# ----------------------------------------------------------------------------
+# Phase 5: FlexiViT-B training.
+# ----------------------------------------------------------------------------
+
+
+def flexi_want(depth, seqhw):
+  """The launches of one FlexiViT-B step at `seqhw`: T = seqhw^2 + 1 is
+  901 and 1601 at seqhw 30 and 40, past the one-shot boundary at D=64
+  (blocked: K3, K4a, K4b), and at most 577 below (one-shot: K1, K2)."""
+  kernels = ("K3", "K4a", "K4b") if seqhw in (30, 40) else ("K1", "K2")
+  return {**dict.fromkeys(COUNTERS, 0), **dict.fromkeys(kernels, depth)}
+
+
+def flexi_main_path(fa, workdir):
+  """FLEXI_STEPS steps of the FlexiViT trainer's own loop, with its seqhw
+  draws; returns the trainer."""
+  from big_vision_torch.trainers.proj.flexi import train as flexi_train
+  shutil.rmtree(workdir, ignore_errors=True)
+  reset_launches(fa)
+  trainer = flexi_train.main(["--config", f"{FLEXI_CONFIG}:stop="
+                              f"{FLEXI_STEPS},log=1", "--workdir", workdir])
+  torch.cuda.synchronize()
+  counts = launches(fa)
+  depth = len(trainer.model.encoder.blocks)
+  draws = [trainer.step_kwargs(s)["seqhw"] for s in range(1, FLEXI_STEPS + 1)]
+  want = {k: sum(flexi_want(depth, s)[k] for s in draws) for k in COUNTERS}
+  print(f"FlexiViT-B training: {FLEXI_STEPS} steps of batch "
+        f"{trainer.batch_size}, seqhw drawn {draws}; launches {counts} (want "
+        f"{want})")
+  assert counts == want and {30, 40} <= set(draws), (counts, want, draws)
+  assert trainer.batch_size == FLEXI_B and depth == TRAIN_DEPTH
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    rows = [r for r in map(json.loads, f) if "training_loss" in r]
+  assert [r["step"] for r in rows] == list(range(1, FLEXI_STEPS + 1)), rows
+  for r, seqhw in zip(rows, draws):
+    print(f"  step {r['step']} (seqhw {seqhw}): loss "
+          f"{r['training_loss']:.6f}, l2_grads {r['l2_grads']:.6f}, "
+          f"{r['step_ms']:.3f} ms")
+    assert math.isfinite(r["training_loss"]), r
+  return trainer
+
+
+def flexi_steps(fa, trainer, gpu):
+  """Steps at seqhw 40, 30, 15, twice, on one batch (CUDA events, launches
+  and peak memory of each step), a profile of one step at seqhw 40, then
+  FIXED_STEPS steps at seqhw 40 whose loss must fall. Returns (the batch, the next batch, which no update
+  sees, {seqhw: [ms of each step]})."""
+  it = trainer.input_iter()
+  batch, unseen = next(it), next(it)
+  it.close()
+  depth = len(trainer.model.encoder.blocks)
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  times, memory = {}, {}
+  for seqhw in FLEXI_CYCLE:
+    reset_launches(fa)
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    trainer.update(batch, seqhw=seqhw)
+    end.record()
+    end.synchronize()
+    counts = launches(fa)
+    assert counts == flexi_want(depth, seqhw), (seqhw, counts)
+    times.setdefault(seqhw, []).append(start.elapsed_time(end))
+    memory[seqhw] = max(memory.get(seqhw, 0), torch.cuda.max_memory_allocated())
+  for seqhw, ms in times.items():
+    used = {k: n for k, n in flexi_want(depth, seqhw).items() if n}
+    print(f"[{gpu}] FlexiViT-B seqhw {seqhw} (T={seqhw * seqhw + 1}) batch "
+          f"{FLEXI_B}: step {', '.join(f'{x:.3f}' for x in ms)} ms, "
+          f"{1e3 * FLEXI_B / ms[-1]:.1f} img/s (last step); launches per "
+          f"step {used}; max memory allocated {memory[seqhw] / 2**30:.2f} GiB")
+  from big_vision_torch.tools import bench_decode
+  bench_decode.print_profile(kernel_timing.device_profile(
+      {"FlexiViT-B step at seqhw 40": lambda: trainer.update(batch,
+                                                             seqhw=40)},
+      top=12), prefix=f"[{gpu}] ")
+  losses = [trainer.update(batch, seqhw=40)["training_loss"]
+            for _ in range(FIXED_STEPS)]
+  losses = [x.item() for x in losses]
+  print(f"fixed batch, seqhw 40, {FIXED_STEPS} steps: loss "
+        + " ".join(f"{x:.6f}" for x in losses))
+  assert all(math.isfinite(x) for x in losses), losses
+  assert losses[-1] < losses[0], losses
+  return batch, unseen, times
+
+
+def flexi_kernel_vs_plain(fa, trainer, batch):
+  """The kernel path against the plain path (attn_impl="xla") from the
+  trainer's state at seqhw 40, on FLEXI_CHECK_B images no update saw
+  (the plain path holds [B, 12, 1601, 1601] f32 scores per layer): loss,
+  encoder output and every attention-projection gradient within E2E_BAR
+  of max|plain|; each K4a and K4b launch of the kernel path's backward,
+  on the inputs it was given, within BLOCKED_BAR of its plain version."""
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.flexi import train as flexi_train
+  batch = {k: v[:FLEXI_CHECK_B] for k, v in batch.items()}
+
+  def run(t, records=None):
+    for p in t.params.values():
+      p.grad = None
+    tokens = []
+    hook = t.model.encoder.register_forward_hook(
+        lambda mod, args, out: tokens.append(out.detach().clone()))
+    with (contextlib.nullcontext() if records is None
+          else capture_attention(records)):
+      logits, _ = t.model(batch["image"], seqhw=40)
+      loss = t.loss_fn(logits=logits, labels=batch["labels"])
+      loss.backward()
+    hook.remove()
+    return loss.item(), tokens[0], {n: p.grad.clone() for n, p in
+                                    t.params.items() if _attn_projection(n)}
+
+  records = []
+  reset_launches(fa)
+  lk, xk, gk = run(trainer, records)
+  torch.cuda.synchronize()
+  depth = len(trainer.model.encoder.blocks)
+  assert launches(fa) == flexi_want(depth, 40), launches(fa)
+  assert len(records) == depth, len(records)
+  rows = []
+  for layer, r in enumerate(records):
+    q, k, v, do = r["q"], r["k"], r["v"], r["do"]
+    # K3 is deterministic (no atomics, a fixed order of sums), so this is
+    # the o and LSE that the backward was given.
+    o, lse = fa.flash_attention_blocked_forward(q, k, v)
+    delta = fa.blocked_delta(o, do)
+    want = dict(zip(("dk", "dv"), fa.flash_attention_blocked_dkv_reference(
+        q, k, v, do, lse, delta)))
+    want["dq"] = fa.flash_attention_blocked_dq_reference(q, k, v, do, lse,
+                                                         delta)
+    for name, w in want.items():
+      assert w.abs().max().item() > 0, (layer, name)
+      rows.append((rel_err(r[name], w), f"layer {layer} {name}"))
+  del records
+  rows.sort(reverse=True)
+  bar = BLOCKED_BAR[torch.float32]
+  print(f"K4a/K4b in the seqhw-40 backward: {len(rows)} outputs of {depth} "
+        f"launches each against the plain version on their own inputs, the "
+        f"4 worst (bar {bar}): " + ", ".join(f"{n} {e:.3e}"
+                                             for e, n in rows[:4]))
+  assert all(e <= bar for e, _ in rows), rows[:4]
+
+  plain = flexi_train.Trainer(train.load_config(f"{FLEXI_CONFIG}:attn=xla"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  lp, xp, gp = run(plain)
+  del plain
+  torch.cuda.empty_cache()
+  loss_err, tok_err = abs(lk - lp) / abs(lp), rel_err(xk, xp)
+  worst = max((rel_err(gk[n], gp[n]), n) for n in gp)
+  print(f"FlexiViT kernel vs plain path, seqhw 40, {FLEXI_CHECK_B} unseen "
+        f"images: loss {lk:.6f} vs {lp:.6f}, rel err {loss_err:.3e}; encoder "
+        f"output {tuple(xk.shape)} rel err {tok_err:.3e}; {len(gp)} "
+        f"attention-projection gradients, worst rel err {worst[0]:.3e} "
+        f"({worst[1]}) (bar {E2E_BAR})")
+  assert len(gp) == depth * 7
+  assert loss_err <= E2E_BAR and tok_err <= E2E_BAR and worst[0] <= E2E_BAR
+
+
+def flexi_phase(fa, gpu):
+  """Phase 5 and the FlexiViT-B step times; returns launches per step at
+  seqhw 40."""
+  workdir = os.path.join(ROOT, "build", "chip_smoke_flexi")
+  trainer = flexi_main_path(fa, workdir)
+  _, unseen, _ = flexi_steps(fa, trainer, gpu)
+  flexi_kernel_vs_plain(fa, trainer, unseen)
+  depth = len(trainer.model.encoder.blocks)
+  del trainer, unseen
+  torch.cuda.empty_cache()
+  return {k: n for k, n in flexi_want(depth, 40).items() if n}
+
+
 def matmul_peak_tflops(n=8192, iters=20):
   """bf16 [n, n] x [n, n] TFLOP/s between CUDA events (the MFU yardstick)."""
   a = torch.randn((n, n), device="cuda").to(torch.bfloat16)
@@ -535,6 +828,57 @@ def training_phase(fa, gpu):
   return per_step
 
 
+def blocked_entries(fa, counts):
+  """K3, K4a and K4b at the FlexiViT-B shape of seqhw 40 in f32 (B=32,
+  T=1601, H=12, D=64; launches per step), each beside its plain version,
+  SDPA in bf16 (its forward for K3, its autograd backward, which computes
+  dq, dk and dv together, for K4a and for K4b) and its bound, with the f32
+  operations at the f32 rate outside the tensor cores."""
+  b, t, h, d = FLEXI_B, FLEXI_T[0], TRAIN_H, TRAIN_D
+  sets = [blocked_inputs(b, t, h, d, seed=100 + 2 * i) for i in range(2)]
+  sdpa_fwd, sdpa_bwd, k4_sets = [], [], []
+  for q, k, v, do in sets:
+    o, lse = fa.flash_attention_blocked_forward(q, k, v)
+    k4_sets.append((q, k, v, do, lse, fa.blocked_delta(o, do)))
+    bf = [x.transpose(1, 2).to(torch.bfloat16).contiguous()
+          for x in (q, k, v, do)]
+    sdpa_fwd.append(tuple(bf[:3]))
+    ins = [x.clone().requires_grad_() for x in bf[:3]]
+    sdpa_bwd.append((F.scaled_dot_product_attention(*ins), ins, bf[3]))
+  sdpa_bwd_ms = time_ms(lambda out, ins, do: torch.autograd.grad(
+      out, ins, do, retain_graph=True), sdpa_bwd)
+  timed = [
+      ("flash_blocked_fwd", "K3", "flash_blocked_fwd.cu", 145,
+       lambda q, k, v, do, lse, delta: fa.flash_attention_blocked_forward(
+           q, k, v),
+       lambda q, k, v, do, lse, delta: fa.flash_attention_blocked_reference(
+           q, k, v),
+       time_ms(F.scaled_dot_product_attention, sdpa_fwd), k3_work),
+      ("flash_blocked_dq", "K4a", "flash_blocked_bwd.cu", 632,
+       fa.flash_attention_blocked_dq, fa.flash_attention_blocked_dq_reference,
+       sdpa_bwd_ms, k4a_work),
+      ("flash_blocked_dkv", "K4b", "flash_blocked_bwd.cu", 653,
+       fa.flash_attention_blocked_dkv,
+       fa.flash_attention_blocked_dkv_reference, sdpa_bwd_ms, k4b_work),
+  ]
+  entries = []
+  for name, key, src, line, fn, plain, lib_ms, work in timed:
+    bms, by = bound(*work(b, t, h, d), F32_FLOPS)
+    print(f"{name}: bound {bms:.4f} ms ({by}) at the f32 rate, "
+          f"{bound(*work(b, t, h, d))[0]:.4f} ms at the bf16 tensor-core "
+          "rate")
+    entries.append(dict(
+        name=name, route="cuda", source=f"big_vision_torch/csrc/{src}",
+        replaces=f"big_vision_tpu/ops/flash_attention.py:{line}",
+        launches=counts[key], max_abs_err=counts[f"{key} err"][0],
+        max_rel_err=counts[f"{key} err"][1],
+        rel_tolerance=BLOCKED_BAR[torch.float32],
+        ms=time_ms(fn, k4_sets, iters=10),
+        plain_ms=time_ms(plain, k4_sets, iters=3), bound_ms=bms,
+        bound_by=by, library_ms=lib_ms))
+  return entries
+
+
 def kernel_entries(fa, da, counts):
   """The {"kernels": [...]} entries: K1 and K2 at the training shape, K6
   at the serving shape, each beside its plain version, SDPA and bound."""
@@ -581,6 +925,7 @@ def kernel_entries(fa, da, counts):
       max_rel_err=counts["K2 err"][1], rel_tolerance=K2_BAR, ms=ms,
       plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
   del sets, k2_sets, sdpa_sets
+  kernels += blocked_entries(fa, counts)
   # K6 at gemma_2b's AR shape over the serving run's cache.
   b, kh, g, s, hd = BATCH, 1, 8, CACHE, 256
   sets = [k6_inputs(b, kh, g, s, hd, seed=20 + i)[:4] for i in range(24)]
@@ -617,7 +962,8 @@ def main():
 
   # 1. Build.
   t0 = time.perf_counter()
-  logs = _build.build_all(["flash_fwd", "flash_bwd", "decode_attention"])
+  logs = _build.build_all(["flash_fwd", "flash_bwd", "flash_blocked_fwd",
+                           "flash_blocked_bwd", "decode_attention"])
   print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
   for name, log in logs.items():
     for line in log.splitlines():
@@ -627,14 +973,17 @@ def main():
   # 2. Kernels vs plain versions.
   counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa),
             "K6 err": check_k6(da)}
+  counts.update({f"{k} err": e for k, e in check_blocked(fa).items()})
   torch.cuda.empty_cache()
 
-  # 3. Serving PaliGemma-3B; 4. training ViT-B/16 (launches per step).
+  # 3. Serving PaliGemma-3B; 4. training ViT-B/16; 5. training FlexiViT-B
+  # (launches per step).
   counts.update(serving_phase(fa, da, gpu))
   torch.cuda.empty_cache()
   counts.update(training_phase(fa, gpu))
+  counts.update(flexi_phase(fa, gpu))
 
-  # 5. Kernel times.
+  # 6. Kernel times.
   kernels = kernel_entries(fa, da, counts)
   for kern in kernels:
     print(f"[{gpu}] {kern['name']}: {kern['ms']:.4f} ms (bound "
