@@ -58,17 +58,27 @@ def _repeated(source, seed):
     epoch += 1
 
 
-def _pp_threaded(stream, pfn, num_threads, seed, chunk_size=16):
+def _skipped(stream, n):
+  """Drops the first n raw examples (before any pp): a resumed run's stream
+  is the uninterrupted one's from that position on."""
+  for _ in range(n):
+    next(stream)
+  return stream
+
+
+def _pp_threaded(stream, pfn, num_threads, seed, chunk_size=16,
+                 index_offset=0):
   """Ordered, bounded map of the host pp phase over a thread pool; example
-  i of the stream gets the rng `default_rng((seed, i))` whatever thread or
-  chunk runs it."""
+  i of the stream gets the rng `default_rng((seed, index_offset + i))`
+  whatever thread or chunk runs it."""
   if num_threads <= 1:
     for i, ex in enumerate(stream):
-      yield pfn.host(ex, np.random.default_rng((seed, i)))
+      yield pfn.host(ex, np.random.default_rng((seed, index_offset + i)))
     return
 
   def work(chunk, start):
-    return [pfn.host(ex, np.random.default_rng((seed, start + j)))
+    return [pfn.host(ex, np.random.default_rng((seed, index_offset + start
+                                                + j)))
             for j, ex in enumerate(chunk)]
 
   def chunks():
@@ -170,15 +180,16 @@ def _to_device(batch, device, stream):
             for k, v in batch.items()}
 
 
-def _device_feed(batches, pfn, device, seed, n_prefetch):
-  """Local numpy batches -> device batches after the device pp phase."""
+def _device_feed(batches, pfn, device, seed, n_prefetch, step_offset=0):
+  """Local numpy batches -> device batches after the device pp phase, batch
+  i with the generator of step `step_offset + i`."""
   stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
   def produce():
     try:
       for step, batch in enumerate(batches):
         batch = _to_device(batch, device, stream)
-        gen = step_generator(seed, step, device)
+        gen = step_generator(seed, step_offset + step, device)
         if stream is None:
           yield pfn.device(batch, gen), None
           continue
@@ -208,10 +219,14 @@ def total_training_examples(input_config):
   return ds_core.get(**dict(input_config)["data"]).total_examples
 
 
-def training(input_config, *, device="cuda", seed=0):
+def training(input_config, *, device="cuda", seed=0, skip_examples=0):
   """Builds the training iterator from config["input"].
 
-  Returns (iterator of device batches, total train examples).
+  `skip_examples` drops that many raw examples from the start of the
+  stream, keeping the per-example and per-batch rng keys of the
+  uninterrupted stream (a resumed run's batches equal those of a run that
+  was never stopped). Returns (iterator of device batches, total train
+  examples).
   """
   device = torch.device(device)
   cfg = dict(input_config)
@@ -234,12 +249,23 @@ def training(input_config, *, device="cuda", seed=0):
   source = ds_core.get(**cfg["data"])
   raw = _shuffled(_repeated(source, seed), shuffle_buffer,
                   np.random.default_rng((seed, 17)))
-  examples = _pp_threaded(raw, pfn, num_threads, seed=seed)
+  raw = _skipped(raw, skip_examples)
+  examples = _pp_threaded(raw, pfn, num_threads, seed=seed,
+                          index_offset=skip_examples)
   batches = _prefetched(_batched(examples, cfg["batch_size"]),
                         max(cfg.get("prefetch", 2), 1))
   it = _device_feed(batches, pfn, device, seed,
-                    max(cfg.get("prefetch", 2), 1))
+                    max(cfg.get("prefetch", 2), 1),
+                    step_offset=skip_examples // cfg["batch_size"])
   return it, source.total_examples
+
+
+def training_from_step(input_config, first_step, *, device="cuda", seed=0):
+  """The training iterator positioned at `first_step` (sample-exact
+  resume): skips first_step * batch_size raw examples."""
+  skip = first_step * input_config["batch_size"]
+  return training(input_config, device=device, seed=seed,
+                  skip_examples=skip)[0]
 
 
 def element_spec(input_config, *, seed=0):

@@ -10,6 +10,9 @@ names its initializers as the JAX model does, and `reset_parameters`
 draws them from an explicit `torch.Generator`. A weight stored [out, in]
 has fan_in = in and fan_out = out, which are the fans flax takes of the
 flattened DenseGeneral kernels too.
+
+`merge_params` reconciles a loaded param tree with an inited one, as the
+JAX package's does, on nested dicts of numpy arrays in the JAX layout.
 """
 
 from __future__ import annotations
@@ -19,6 +22,43 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from big_vision_torch.utils import trees
+
+
+def merge_params(loaded, inited, dont_load=(), match_dtype=False):
+  """Reconciles a loaded checkpoint tree with a model-inited tree.
+
+  Keys matched by a `dont_load` regex keep their init value (or are dropped
+  if only in the checkpoint). Any other structural mismatch is an error that
+  lists the offending keys.
+  """
+  if inited is None:
+    return loaded
+  patterns = trees.compile_patterns(dont_load)
+
+  def keep_init(name):
+    return any(p.fullmatch(name) for p in patterns)
+
+  have, want = trees.flatten(loaded), trees.flatten(inited)
+  merged, problems = {}, []
+  for name in sorted(set(have) | set(want)):
+    if name not in want:
+      # Checkpoint-only entry: silently dropped when dont_load'ed.
+      if not keep_init(name):
+        problems.append(f" + {name}  (in checkpoint, not in model)")
+    elif name in have and not keep_init(name):
+      val = have[name]
+      merged[name] = val.astype(want[name].dtype) if match_dtype else val
+    else:
+      merged[name] = want[name]
+      if name not in have and not keep_init(name):
+        problems.append(f" - {name}  (in model, not in checkpoint)")
+  if problems:
+    raise ValueError(
+        "Checkpoint/model structure mismatch not covered by dont_load:\n"
+        + "\n".join(problems))
+  return trees.unflatten(merged)
 
 
 def resolve_dtype(dtype) -> torch.dtype | None:

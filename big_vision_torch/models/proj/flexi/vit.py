@@ -18,7 +18,11 @@ head over every token: at seqhw 40 and 21843 classes that is 4.5 GB per
 32 images, which XLA drops under jit as unused and an eager forward would
 compute) and no per-block `encoder` outputs; `attn_impl` selects the
 attention implementation as in `models/vit.py` (the JAX model always
-takes "auto"). `load` (checkpoints) is not ported yet.
+takes "auto").
+
+`load` reads a (Flexi)ViT checkpoint as `vit.load` does and resizes its
+posemb (`vit.resample_posemb`) and patch kernel (`resample_patchemb`) to
+this model's, on numpy trees in the JAX layout.
 """
 
 from __future__ import annotations
@@ -32,6 +36,22 @@ from torch import nn
 
 from big_vision_torch.models import common
 from big_vision_torch.models import vit
+from big_vision_torch.utils import checkpoints
+
+# Published FlexiViT checkpoints, keyed by vanity name.
+_CKPT_DIR = "gs://big_vision/flexivit"
+VANITY_NAMES = {
+    vanity: f"{_CKPT_DIR}/{fname}.npz" for vanity, fname in (
+        ("FlexiViT-L i1k", "flexivit_l_i1k"),
+        ("FlexiViT-B i1k", "flexivit_b_i1k"),
+        ("FlexiViT-S i1k", "flexivit_s_i1k"),
+        ("FlexiViT-B i21k 90ep", "flexivit_b_i21k_90ep"),
+        ("FlexiViT-B i21k 300ep", "flexivit_b_i21k_300ep"),
+        ("FlexiViT-B i21k 1000ep", "flexivit_b_i21k_1000ep"),
+        ("ViT-B/16 i21k", "vit_b16_i21k_300ep"),
+        ("ViT-B/30 i21k", "vit_b30_i21k_300ep"),
+    )
+}
 
 
 def _linear_resize_mat_1d(n_in, n_out):
@@ -215,3 +235,28 @@ class _Model(nn.Module):
 def Model(num_classes, *, variant=None, **kw):  # pylint: disable=invalid-name
   """Factory taking the JAX model's config keys ("B" etc. in `variant`)."""
   return _Model(num_classes, **{**vit.decode_variant(variant), **kw})
+
+
+def load(init_params, init_file, model_cfg, dont_load=()):
+  """Loads (Flexi)ViT checkpoints, resizing pos+patch embeddings.
+
+  `init_params` is the model's own tree (numpy, JAX layout; see
+  `utils/convert.vit_params`); returns the merged tree in the same layout.
+  """
+  vanity = {**vit.VANITY_NAMES, **VANITY_NAMES}
+  restored = vit.fix_old_checkpoints(
+      checkpoints.load_params(vanity.get(init_file, init_file)))
+  kernel = restored["embedding"]["kernel"]  # [h, w, c, width]
+  new_hw = tuple(dict(model_cfg)["patch_size"])
+  weight = resample_patchemb(
+      torch.from_numpy(np.ascontiguousarray(
+          kernel.reshape(-1, kernel.shape[-1]).T)), kernel.shape[:2], new_hw)
+  resized = {
+      "pos_embedding": vit.resample_posemb(
+          old=restored["pos_embedding"],
+          new=init_params["pos_embedding"]),
+      "embedding": {**restored["embedding"],
+                    "kernel": weight.numpy().T.reshape(
+                        *new_hw, *kernel.shape[2:])},
+  }
+  return common.merge_params({**restored, **resized}, init_params, dont_load)

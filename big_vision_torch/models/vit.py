@@ -17,17 +17,30 @@ the JAX model does (after the posemb, inside the MLP, on each residual
 branch), drawing from the given `torch.Generator`. `initialize(generator)`
 draws every parameter from scratch with the JAX model's initializers (see
 `models/common.init`).
+
+Checkpoints: `load` reads a ViT checkpoint of any historical layout
+(`fix_old_checkpoints`), in either layer layout (`pyloop_to_scan`,
+`scan_to_pyloop`), merges it with the model's own params
+(`common.merge_params`) and resamples the learned posemb
+(`resample_posemb`), all on nested dicts of numpy arrays in the JAX layout,
+as the JAX package's `load` does; `utils/convert.vit` maps the result onto
+the module. `VANITY_NAMES` are the JAX package's names of the published
+checkpoints; nothing is fetched.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from big_vision_torch.models import common
 from big_vision_torch.ops import attention as attn_ops
+from big_vision_torch.utils import checkpoints
+from big_vision_torch.utils import trees
 
 
 def posemb_sincos_2d(h, w, width, temperature=10_000., dtype=torch.float32,
@@ -367,3 +380,154 @@ def decode_variant(variant):
   if patch:
     cfg["patch_size"] = (int(patch),) * 2
   return cfg
+
+
+def resample_posemb(old, new):
+  """Bilinear-resizes a learned posemb grid [1, N, C] to `new`'s length."""
+  if old.shape == new.shape:
+    return old
+  import scipy.ndimage  # pylint: disable=g-import-not-at-top
+  side_old, side_new = (int(np.sqrt(p.shape[1])) for p in (old, new))
+  zoom = (side_new / side_old, side_new / side_old, 1)
+  grid = scipy.ndimage.zoom(old.reshape(side_old, side_old, -1), zoom,
+                            order=1)
+  return grid.reshape(1, side_new * side_new, -1)
+
+
+_FLOAT = re.compile(r"([-+]?(?:\d+(?:\.\d*)?|\.\d+)(?:[eE][-+]?\d+)?)")
+_MODULE_NUM = re.compile(r"(.*)_\d+$")
+
+
+def _natural_sort(names):
+  """Sorts names with their numbers compared as numbers (flax's
+  `natural_sort`: module_2 before module_10)."""
+  def key(name):
+    return [float(c) if _FLOAT.match(c) else c for c in _FLOAT.split(name)]
+  return sorted(names, key=key)
+
+
+def _convert_pre_linen(params):
+  """flax's `convert_pre_linen` on a nested dict: pre-Linen checkpoints
+  numbered submodules across classes (Conv_0, Dense_1); Linen numbers each
+  class on its own (Conv_0, Dense_0). A tree in Linen naming is unchanged."""
+  if not isinstance(params, dict):
+    return params
+  renamed, counts = {}, {}
+  for name in _natural_sort(params):
+    value = params[name]
+    if m := _MODULE_NUM.match(name):
+      num = counts.get(m.group(1), 0)
+      counts[m.group(1)] = num + 1
+      name = f"{m.group(1)}_{num}"
+    renamed[name] = _convert_pre_linen(value)
+  return renamed
+
+
+def fix_old_checkpoints(params):
+  """Upgrades historical ViT checkpoint layouts to the current tree."""
+  params = _convert_pre_linen(params)
+
+  # The posemb has lived in two places inside the encoder over the years:
+  # its own "posembed_input" module (very old) or directly in "Transformer"
+  # (pre-2022). Hoist either to the top level.
+  trunk = params.get("Transformer", {})
+  if "posembed_input" in trunk:
+    params["pos_embedding"] = trunk.pop("posembed_input")["pos_embedding"]
+  if "pos_embedding" in trunk:
+    params["pos_embedding"] = trunk.pop("pos_embedding")
+
+  # Oldest layout concatenated [cls] before adding posemb, giving N+1
+  # posembs; fold the extra slot's posemb into the cls token itself.
+  pe = params.get("pos_embedding")
+  if pe is not None and int(np.sqrt(pe.shape[1])) ** 2 + 1 == pe.shape[1]:
+    params["pos_embedding"] = pe[:, 1:]
+    if "cls" in params:
+      params["cls"] = params["cls"] + pe[:, :1]
+
+  # ViT-G-era checkpoints had the MAP head's submodules inlined at the top.
+  if "probe" in params:
+    inlined = ("probe", "MlpBlock_0", "MultiHeadDotProductAttention_0",
+               "LayerNorm_0")
+    params["MAPHead_0"] = {k: params.pop(k) for k in inlined}
+  return params
+
+
+def _map_leaves(fn, *trees_):
+  """fn over the leaves of nested dicts of the same structure."""
+  if isinstance(trees_[0], dict):
+    return {k: _map_leaves(fn, *(t[k] for t in trees_)) for k in trees_[0]}
+  return fn(*trees_)
+
+
+def pyloop_to_scan(params_pyloop):
+  """Stacks per-layer encoderblock_{i} subtrees for the scan encoder."""
+  params = _map_leaves(lambda x: x, params_pyloop)
+  t = params["Transformer"]
+  depth = 1 + max(int(k.split("_")[-1]) for k in t
+                  if k.startswith("encoderblock_"))
+  t["encoderblock"] = _map_leaves(
+      lambda *xs: np.stack(xs), *[t[f"encoderblock_{i}"] for i in range(depth)])
+  for i in range(depth):
+    del t[f"encoderblock_{i}"]
+  return params
+
+
+def scan_to_pyloop(params_scan):
+  """Inverse of pyloop_to_scan."""
+  params = _map_leaves(lambda x: x, params_scan)
+  t = params["Transformer"]
+  depth = len(next(iter(trees.flatten(t["encoderblock"]).values())))
+  for i in range(depth):
+    t[f"encoderblock_{i}"] = _map_leaves(lambda x, i=i: x[i],
+                                         t["encoderblock"])
+  del t["encoderblock"]
+  return params
+
+
+def load(init_params, init_file, model_cfg, dont_load=()):
+  """Loads a ViT checkpoint (any historical layout), with posemb resample.
+
+  `init_params` is the model's own tree (numpy, JAX layout; see
+  `utils/convert.vit_params`); returns the merged tree in the same layout.
+  """
+  restored = fix_old_checkpoints(
+      checkpoints.load_params(VANITY_NAMES.get(init_file, init_file)))
+  model_cfg = dict(model_cfg or {})
+  if model_cfg.get("scan") and "encoderblock" not in restored["Transformer"]:
+    restored = pyloop_to_scan(restored)
+  if not model_cfg.get("scan") and "encoderblock" in restored["Transformer"]:
+    restored = scan_to_pyloop(restored)
+
+  restored = common.merge_params(restored, init_params, dont_load)
+
+  if init_params and "pos_embedding" in init_params:
+    restored["pos_embedding"] = resample_posemb(
+        old=restored["pos_embedding"], new=init_params["pos_embedding"])
+  return restored
+
+
+# Canonical public checkpoints, by the JAX package's names (which configs
+# use); nothing is fetched: a checkpoint is read from a local path.
+VANITY_NAMES = {
+    "howto-i21k-Ti/16": "gs://vit_models/augreg/Ti_16-i21k-300ep-lr_0.001-aug_none-wd_0.03-do_0.0-sd_0.0.npz",
+    "howto-i21k-S/32": "gs://vit_models/augreg/S_32-i21k-300ep-lr_0.001-aug_none-wd_0.1-do_0.0-sd_0.0.npz",
+    "howto-i21k-S/16": "gs://vit_models/augreg/S_16-i21k-300ep-lr_0.001-aug_light1-wd_0.03-do_0.0-sd_0.0.npz",
+    "howto-i21k-B/32": "gs://vit_models/augreg/B_32-i21k-300ep-lr_0.001-aug_light1-wd_0.1-do_0.0-sd_0.0.npz",
+    "howto-i21k-B/16": "gs://vit_models/augreg/B_16-i21k-300ep-lr_0.001-aug_medium1-wd_0.1-do_0.0-sd_0.0.npz",
+    "howto-i21k-B/8": "gs://vit_models/augreg/B_8-i21k-300ep-lr_0.001-aug_medium2-wd_0.1-do_0.0-sd_0.0.npz",
+    "howto-i21k-L/16": "gs://vit_models/augreg/L_16-i21k-300ep-lr_0.001-aug_strong1-wd_0.1-do_0.0-sd_0.0.npz",
+    "i1k-s16-90ep": "gs://big_vision/vit_s16_i1k_90ep.npz",
+    "i1k-s16-150ep": "gs://big_vision/vit_s16_i1k_150ep.npz",
+    "i1k-s16-300ep": "gs://big_vision/vit_s16_i1k_300ep.npz",
+    "SigLIP B/16 224": "gs://big_vision/siglip/webli_en_b16_224_63724782.npz:img",
+    "SigLIP B/16 256": "gs://big_vision/siglip/webli_en_b16_256_60500360.npz:img",
+    "SigLIP B/16 384": "gs://big_vision/siglip/webli_en_b16_384_68578854.npz:img",
+    "SigLIP L/16 256": "gs://big_vision/siglip/webli_en_l16_256_60552751.npz:img",
+    "SigLIP L/16 384": "gs://big_vision/siglip/webli_en_l16_384_63634585.npz:img",
+    "SigLIP So400m/14 224": "gs://big_vision/siglip/webli_en_so400m_224_57633886.npz:img",
+    "SigLIP So400m/14 384": "gs://big_vision/siglip/webli_en_so400m_384_58765454.npz:img",
+    "SigLIP2 B/16 224": "gs://big_vision/siglip2/siglip2_b16_224.npz:img",
+    "SigLIP2 B/16 256": "gs://big_vision/siglip2/siglip2_b16_256.npz:img",
+    "SigLIP2 L/16 256": "gs://big_vision/siglip2/siglip2_l16_256.npz:img",
+    "SigLIP2 So400m/14 224": "gs://big_vision/siglip2/siglip2_so400m14_224.npz:img",
+}

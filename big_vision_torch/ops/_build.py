@@ -2,7 +2,8 @@
 
 Each source is one shared library with a plain C interface (no PyTorch
 headers), so a build takes seconds. Libraries go to `build/kernels/` at the
-root of the checkout, named by a hash of the source, and are built at first
+root of the checkout, named by a hash of the source and of the shared
+headers in `csrc/` (`*.cuh`), and are built at first
 use in a process. `build_all()` starts one nvcc per source at once.
 
 Every C entry point takes its pointers and the CUDA stream as `void*`,
@@ -40,8 +41,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+  """(csrc/<name>.cu, its library, named by a hash of the source, the
+  headers of csrc/ and the flags)."""
   src = _CSRC / f"{name}.cu"
   digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+  for header in sorted(_CSRC.glob("*.cuh")):
+    digest.update(header.read_bytes())
   return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

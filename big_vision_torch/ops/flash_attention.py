@@ -1,4 +1,4 @@
-"""Fused attention: kernels K1-K4b of the port, and the dispatch between them.
+"""Fused attention: kernels K1-K5 of the port, and the dispatch between them.
 
 `flash_attention` computes one of two functions, as the JAX package's does
 (big_vision_tpu/ops/flash_attention.py, `flash_attention`):
@@ -16,13 +16,18 @@
   delta = rowsum(do.o), computed outside the kernels. K3
   (`csrc/flash_blocked_fwd.cu`) replaces `_fwd_kernel` (launched by
   `_fwd`), K4a and K4b (`csrc/flash_blocked_bwd.cu`) replace
-  `_bwd_dq_kernel` and `_bwd_dkv_kernel` (launched by `_bwd`).
+  `_bwd_dq_kernel` and `_bwd_dkv_kernel` (launched by `_bwd`). With
+  `FUSED_BLOCKED_BWD` set (off by default, as in the JAX package) and
+  `fused_bwd_fits` holding, the backward is K5
+  (`csrc/flash_blocked_bwd_fused.cu`) instead, which replaces
+  `_bwd_fused_kernel` (launched by `_bwd_fused`): one recompute of the
+  scores per pair of tiles, dq summed in f32 over the key tiles in order.
 
 Each path is one autograd Function whose forward and backward launch the
 kernels on CUDA tensors and run the plain versions
 (`flash_attention_reference`, `flash_attention_bwd_reference`,
-`flash_attention_blocked_reference`, `flash_attention_blocked_bwd_reference`)
-on CPU tensors. Each kernel's source says how it tiles and what bounds it
+`flash_attention_blocked_reference`, `flash_attention_blocked_bwd_reference`,
+`flash_attention_blocked_bwd_fused_reference`) on CPU tensors. Each kernel's source says how it tiles and what bounds it
 on the card; each wrapper counts its launches in `<wrapper>.launches`.
 """
 
@@ -39,6 +44,10 @@ from big_vision_torch.ops import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
 MAX_ONESHOT = 1024
+DEFAULT_BLOCK_Q = DEFAULT_BLOCK_KV = 128
+# The blocked backward: K5 where this is set and `fused_bwd_fits` holds,
+# K4a + K4b otherwise (the JAX package's `FUSED_BLOCKED_BWD`, off there too).
+FUSED_BLOCKED_BWD = False
 
 
 # The one-shot/blocked boundary, copied from the JAX package (`_r`,
@@ -62,6 +71,32 @@ def oneshot_fits(tq, tkv, d):
   """True where the JAX package takes the one-shot path."""
   per = _oneshot_bytes(tq, tkv, d, bwd=True)
   return max(tq, tkv) <= MAX_ONESHOT and per <= 12 * 1024 * 1024
+
+
+def fused_bwd_fits(tq, tkv, d, block_q, block_kv):
+  """The JAX package's gate of K5 (a VMEM budget), on the lengths padded to
+  the blocks as the JAX `_bwd` receives them."""
+  del tkv
+  per = (2 * _r(tq, 16) * _r(d, 128) * 2     # q, do (bf16)
+         + _r(tq, 8) * _r(d, 128) * 4        # dq accumulator (f32)
+         + 2 * _r(tq, 128) * 4               # lse, delta
+         + 2 * _r(block_kv, 16) * _r(d, 128) * 4
+         + 3 * _r(block_q, 8) * _r(block_kv, 128) * 4)
+  return per <= 10 * 1024 * 1024
+
+
+def block_sizes(tq, tkv, block_q=None, block_kv=None):
+  """The JAX `flash_attention`'s blocked-path block sizes for the given
+  (or default) `block_q`, `block_kv`."""
+  return (block_q or min(DEFAULT_BLOCK_Q, max(16, tq)),
+          block_kv or min(DEFAULT_BLOCK_KV, max(16, tkv)))
+
+
+def takes_fused_bwd(tq, tkv, d, block_q, block_kv):
+  """Whether the blocked backward of this call is K5, as the JAX `_bwd`
+  decides it: the flag, and the gate on T padded to the blocks."""
+  return FUSED_BLOCKED_BWD and fused_bwd_fits(
+      _r(tq, block_q), _r(tkv, block_kv), d, block_q, block_kv)
 
 
 @functools.cache
@@ -100,6 +135,16 @@ def _blocked_bwd_lib(which):
   fn = getattr(_build.load("flash_blocked_bwd"), f"bvt_flash_blocked_{which}")
   fn.restype = ctypes.c_int
   fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+      ctypes.c_float, ctypes.c_void_p]
+  return fn
+
+
+@functools.cache
+def _blocked_bwd_fused_lib():
+  """K5's C entry point, built and typed once per process."""
+  fn = _build.load("flash_blocked_bwd_fused").bvt_flash_blocked_bwd_fused
+  fn.restype = ctypes.c_int
+  fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
       ctypes.c_float, ctypes.c_void_p]
   return fn
 
@@ -302,6 +347,42 @@ def flash_attention_blocked_bwd_reference(q, k, v, o, lse, do, *,
                                                      **kw))
 
 
+def fused_bwd_tile(d):
+  """Keys per tile of the K5 kernel at head dim `d` (its shared-memory tiles,
+  csrc/flash_blocked_bwd_fused.cu): the grouping of its dq sums."""
+  return 64 if d <= 128 else 32
+
+
+def flash_attention_blocked_bwd_fused_reference(q, k, v, o, lse, do, *,
+                                                causal=False, seg=None,
+                                                block_kv=None):
+  """Plain PyTorch backward with the semantics of `_bwd_fused_kernel` (K5);
+  returns (dq, dk, dv).
+
+  As `flash_attention_blocked_bwd_reference`, but dq is summed in f32 over
+  key tiles of `block_kv` rows in key order, each tile's ds.k multiplied by
+  scale before it is added, and rounded to q's dtype once. `block_kv`
+  defaults to the kernel's own tile (`fused_bwd_tile`), which is what the
+  CUDA kernel sums over; the JAX kernel sums over its `block_kv` grid
+  blocks instead, so the two group the f32 dq sums alike only where those
+  are equal (a difference of rounding only).
+  """
+  if block_kv is None:
+    block_kv = fused_bwd_tile(q.shape[-1])
+  _check_inputs(q, k, v, seg)
+  scale = 1.0 / math.sqrt(q.shape[-1])
+  delta = blocked_delta(o, do)
+  qs, p, ds = _blocked_probs(q, k, v, lse, delta, do, causal, seg)
+  dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+  dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+  dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+  kf = k.float()
+  for j in range(0, k.shape[1], block_kv):
+    dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds[..., j:j + block_kv],
+                           kf[:, j:j + block_kv]) * scale
+  return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_forward(q, k, v, *, causal=False, seg=None):
   """K1 on CUDA tensors: (o, row log-sum-exp [B*H, Tq] f32).
 
@@ -476,12 +557,45 @@ def flash_attention_blocked_bwd(q, k, v, o, lse, do, *, causal=False,
   return dq, dk, dv
 
 
+def flash_attention_blocked_bwd_fused(q, k, v, o, lse, do, *, causal=False,
+                                      seg=None):
+  """K5 on CUDA tensors: delta (a plain torch op, as the JAX package
+  computes it outside Pallas), then one launch for (dq, dk, dv), with the
+  semantics of `flash_attention_blocked_bwd_fused_reference`.
+
+  `o` and `lse` are K3's. Counts the launch in
+  `flash_attention_blocked_bwd_fused.launches`.
+  """
+  if q.device.type != "cuda":
+    raise ValueError(f"the K5 kernel runs on cuda, not {q.device}")
+  b, tq, h, d = q.shape
+  if lse.dtype != torch.float32 or tuple(lse.shape) != (b * h, tq):
+    raise ValueError(f"lse must be [B*H, Tq] = {(b * h, tq)} float32")
+  if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
+    raise ValueError(f"do {tuple(do.shape)} {do.dtype} and o "
+                     f"{tuple(o.shape)} must match q")
+  delta = blocked_delta(o, do)
+  seg, shape = _launch_args(q, k, v, seg, (("do", do), ("lse", lse)))
+  dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+  dq_acc = torch.empty((b * h, tq, d), dtype=torch.float32, device=q.device)
+  err = _blocked_bwd_fused_lib()(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+      lse.data_ptr(), delta.data_ptr(),
+      None if seg is None else seg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+      dv.data_ptr(), dq_acc.data_ptr(), *shape, int(bool(causal)),
+      1.0 / math.sqrt(d), _build.stream_ptr(q.device))
+  _build.check(err, "flash_blocked_bwd_fused")
+  flash_attention_blocked_bwd_fused.launches += 1
+  return dq, dk, dv
+
+
 class _FlashAttentionBlocked(torch.autograd.Function):
-  """K3 forward; delta, K4a and K4b backward (plain versions on the CPU)."""
+  """K3 forward; delta and K4a + K4b, or K5, backward (plain versions on
+  the CPU)."""
 
   @staticmethod
-  def forward(ctx, q, k, v, seg, causal):
-    ctx.causal = causal
+  def forward(ctx, q, k, v, seg, causal, block_q, block_kv):
+    ctx.causal, ctx.block_q, ctx.block_kv = causal, block_q, block_kv
     if q.device.type == "cpu":
       o, lse = flash_attention_blocked_reference(q, k, v, causal=causal,
                                                  seg=seg)
@@ -494,11 +608,17 @@ class _FlashAttentionBlocked(torch.autograd.Function):
   @staticmethod
   def backward(ctx, do):
     q, k, v, o, lse, seg = ctx.saved_tensors
-    fn = (flash_attention_blocked_bwd_reference if q.device.type == "cpu"
-          else flash_attention_blocked_bwd)
+    cpu = q.device.type == "cpu"
+    if takes_fused_bwd(q.shape[1], k.shape[1], q.shape[-1], ctx.block_q,
+                       ctx.block_kv):
+      fn = (flash_attention_blocked_bwd_fused_reference if cpu
+            else flash_attention_blocked_bwd_fused)
+    else:
+      fn = (flash_attention_blocked_bwd_reference if cpu
+            else flash_attention_blocked_bwd)
     dq, dk, dv = fn(q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
                     seg=seg)
-    return dq, dk, dv, None, None
+    return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=False, seg=None, block_q=None,
@@ -511,12 +631,13 @@ def flash_attention(q, k, v, *, causal=False, seg=None, block_q=None,
 
   Dispatch, as in the JAX package: the one-shot semantics (K1 forward, K2
   backward) where `oneshot_fits(Tq, Tkv, D)` and no block size was given,
-  the blocked semantics (K3 forward, K4a and K4b backward) otherwise. The
-  JAX package pads T to a multiple of its blocks (default
-  min(128, max(16, T)) rows) and masks the pad; the port's kernels mask the
-  ragged edge of their own 64-row tiles instead, so the unpadded rows are
-  the same and `block_q`/`block_kv` only choose the blocked path. On CPU
-  tensors the plain versions run instead of the kernels.
+  the blocked semantics (K3 forward; K4a and K4b backward, or K5 where
+  `takes_fused_bwd`) otherwise. The JAX package pads T to a multiple of its
+  blocks (`block_sizes`: default min(128, max(16, T)) rows) and masks the pad;
+  the port's kernels mask the ragged edge of their own 64-row tiles
+  instead, so the unpadded rows are the same and `block_q`/`block_kv` only
+  choose the blocked path and the backward. On CPU tensors the plain
+  versions run instead of the kernels.
   """
   if q.device.type not in ("cpu", "cuda"):
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
@@ -527,7 +648,9 @@ def flash_attention(q, k, v, *, causal=False, seg=None, block_q=None,
   if (block_q is None and block_kv is None
       and oneshot_fits(q.shape[1], k.shape[1], q.shape[-1])):
     return _FlashAttention.apply(q, k, v, seg, causal)
-  return _FlashAttentionBlocked.apply(q, k, v, seg, causal)
+  return _FlashAttentionBlocked.apply(
+      q, k, v, seg, causal, *block_sizes(q.shape[1], k.shape[1], block_q,
+                                    block_kv))
 
 
 flash_attention_forward.launches = 0
@@ -535,3 +658,4 @@ flash_attention_bwd.launches = 0
 flash_attention_blocked_forward.launches = 0
 flash_attention_blocked_dq.launches = 0
 flash_attention_blocked_dkv.launches = 0
+flash_attention_blocked_bwd_fused.launches = 0

@@ -143,6 +143,12 @@ def k4b_work(b, t, h, d, itemsize=4):
   return 6 * b * t * h * d * itemsize + 8 * b * h * t, 8 * b * h * t * t * d
 
 
+def k5_work(b, t, h, d, itemsize=4):
+  """(bytes, flops) of one K5 call: q, k, v, do, LSE and delta read and dq,
+  dk, dv written once; five products (s, dp, p^T.do, ds^T.q, ds.k)."""
+  return 7 * b * t * h * d * itemsize + 8 * b * h * t, 10 * b * h * t * t * d
+
+
 def blocked_inputs(b, t, h, d, tkv=None, seed=0, dtype=torch.float32):
   """(q, k, v, do): `k1_inputs` in `dtype` (default f32, the FlexiViT
   path's) and an output gradient do shaped like q."""

@@ -12,11 +12,21 @@ as the JAX model names them, and the measurements `training_loss`,
 `log_training_steps` with `global_schedule` and the throughput of the
 window since the last row. A non-finite loss aborts the run.
 
+Checkpoints and initialization follow the JAX trainer's resume ladder
+(`train.py:229-268`): the workdir's `ckpt.bv-LAST`, else `resume`, restores
+params, optimizer state and the step (`utils/checkpoints.py`), and the
+input stream seeks to that step (`input_pipeline.training_from_step`);
+else `model_init` loads params through the model's `load` (with
+`model_load` as its keyword arguments). A checkpoint is written every
+`ckpt_steps` (or `ckpt_{examples,epochs,percent}`) and at the last step,
+kept for good every `keep_ckpt_steps`.
+
 Keys whose feature is not ported yet are refused, not ignored: `mixup`
-with p > 0, `evals`, checkpoints (`ckpt_*`), `resume`, `model_init`, and
-models other than "vit". The FlexiViT trainer
-(`trainers/proj/flexi/train.py`) reuses this loop and `Trainer` through
-its hooks: `build_model`, `step_kwargs` and `update(batch, **kw)`.
+with p > 0, `evals`, and models other than "vit". The FlexiViT trainers
+(`trainers/proj/flexi/train.py`, `distill.py`) reuse this loop and
+`Trainer` through its hooks: `check_config`, `build_model`,
+`load_weights`, `state`/`restore_state`, `step_kwargs` and
+`update(batch, **kw)`.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import math
+import os
 import time
 
 import torch
@@ -31,13 +42,13 @@ import torch
 from big_vision_torch import input_pipeline
 from big_vision_torch import optim
 from big_vision_torch.models import vit
+from big_vision_torch.utils import checkpoints
 from big_vision_torch.utils import convert
 from big_vision_torch.utils import losses
 from big_vision_torch.utils import schedules
 from big_vision_torch.utils import writers
 
-_UNPORTED = ("evals", "resume", "model_init", "ckpt_steps", "ckpt_examples",
-             "ckpt_epochs", "ckpt_percent")
+_UNPORTED = ("evals",)
 
 
 def check_ported(config, *, model_name="vit", mixup=False):
@@ -48,13 +59,16 @@ def check_ported(config, *, model_name="vit", mixup=False):
       raise ValueError(f"config key {key!r} is not ported yet")
   if not mixup and dict(config.get("mixup") or {}).get("p"):
     raise ValueError("config key 'mixup' (p > 0) is not ported yet")
+  if not dict(config.get("input") or {}).get("resume_seek", True):
+    raise ValueError("config key 'input.resume_seek'=False is not ported; "
+                     "a resumed run always seeks the input stream")
   if config.get("model_name", model_name) != model_name:
     raise ValueError(f"config key 'model_name'={config['model_name']!r} is "
                      f"not ported yet by this trainer; only {model_name!r} "
                      "is")
 
 
-def _jax_name_params(model):
+def jax_name_params(model):
   """{JAX param name: parameter} (what the config's regexes match)."""
   named = dict(model.named_parameters())
   return {jax: named[port] for port, jax in convert.vit_names(model).items()}
@@ -66,14 +80,35 @@ def l2(tensors):
       list(tensors))))
 
 
+def load_into(model, model_mod, init_file, model_cfg, load_kw=None):
+  """Loads `init_file` into `model` through `model_mod.load` (the JAX
+  package's `load` of that model, on the model's own params as the init
+  tree), replacing its parameters."""
+  loaded = model_mod.load(convert.vit_params(model), init_file,
+                          dict(model_cfg or {}), **dict(load_kw or {}))
+  convert.load(model, convert.vit(loaded))
+
+
+def _to_device(tree, device):
+  if isinstance(tree, dict):
+    return {k: _to_device(v, device) for k, v in tree.items()}
+  return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 class Trainer:
-  """The model, its params by JAX name, the optimizer and its state."""
+  """The model, its params by JAX name, the optimizer and its state.
+
+  With a `workdir`, checkpoints go to `{workdir}/ckpt.bv-*`; the
+  constructor resumes from the workdir's last one, else from the config's
+  `resume`, and sets `first_step`.
+  """
   MODEL_NAME = "vit"  # the config's model_name that `build_model` builds
+  MODEL_MODULE = vit  # the module whose `load` reads `model_init`
   MIXUP = False  # whether `update` ports the config's mixup
 
-  def __init__(self, config, *, device="cuda"):
+  def __init__(self, config, *, device="cuda", workdir=None):
     config = dict(config)
-    check_ported(config, model_name=self.MODEL_NAME, mixup=self.MIXUP)
+    self.check_config(config)
     self.device = torch.device(device)
     if self.device.type == "cuda" and not torch.cuda.is_available():
       raise RuntimeError("no CUDA device; pass --device cpu to train on the "
@@ -89,13 +124,47 @@ class Trainer:
     self.model = self.build_model(res, channels)
     gen = torch.Generator(device=self.device).manual_seed(self.seed)
     self.model.initialize(gen, head_bias=config.get("init_head_bias"))
-    self.params = _jax_name_params(self.model)
+    self.ckpt_prefix = os.path.join(workdir, "ckpt.bv") if workdir else None
+    resume = (self.ckpt_prefix
+              and checkpoints.last_checkpoint_dir(self.ckpt_prefix)
+              ) or config.get("resume")
+    self.load_weights(resumed=bool(resume))
+    self.params = jax_name_params(self.model)
     self.tx, self.sched_fns = optim.make(
         config, self.params, sched_kw=dict(
             total_steps=self.total_steps, batch_size=self.batch_size,
             data_size=ntrain))
     self.opt_state = self.tx.init(self.params)
+    self.first_step = 0
+    if resume:
+      writers.write_note(f"Resuming from {resume}...")
+      self.restore_state(checkpoints.load_checkpoint(resume))
+      self.first_step = optim.get_count(self.opt_state)
     self.loss_fn = getattr(losses, config.get("loss", "sigmoid_xent"))
+
+  def check_config(self, config):
+    """Raises on a config key this trainer does not port."""
+    check_ported(config, model_name=self.MODEL_NAME, mixup=self.MIXUP)
+
+  def load_weights(self, resumed):
+    """Loads `model_init` into the model unless the run resumes."""
+    if not resumed and self.config.get("model_init"):
+      writers.write_note(f"Initializing from {self.config['model_init']}...")
+      load_into(self.model, self.MODEL_MODULE, self.config["model_init"],
+                self.config.get("model"), self.config.get("model_load"))
+
+  def state(self):
+    """What a checkpoint holds: {"params": {JAX name: tensor}, "opt": the
+    optimizer state}."""
+    return {"params": self.params, "opt": self.opt_state}
+
+  def restore_state(self, loaded):
+    """Copies a loaded `state()` into the params (in place) and the
+    optimizer state."""
+    with torch.no_grad():
+      for name, p in self.params.items():
+        p.copy_(loaded["params"][name])
+    self.opt_state = _to_device(loaded["opt"], self.device)
 
   def build_model(self, res, channels):
     """The config's model, for images of res x res x channels."""
@@ -108,10 +177,11 @@ class Trainer:
     del step
     return {}
 
-  def input_iter(self):
-    """The training iterator of config["input"] on this trainer's device."""
-    return input_pipeline.training(self.config["input"], device=self.device,
-                                   seed=self.seed)[0]
+  def input_iter(self, first_step=0):
+    """The training iterator of config["input"] on this trainer's device,
+    positioned at `first_step`."""
+    return input_pipeline.training_from_step(
+        self.config["input"], first_step, device=self.device, seed=self.seed)
 
   def loss_and_grads(self, batch):
     """(loss, {JAX name: gradient}) of the config's loss on `batch`."""
@@ -140,7 +210,7 @@ class Trainer:
 def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
   """Runs the training loop of `config` with a `trainer_cls`; returns the
   trainer."""
-  trainer = trainer_cls(config, device=device)
+  trainer = trainer_cls(config, device=device, workdir=workdir)
   mw = writers.MetricWriter(workdir)
   n_params = sum(p.numel() for p in trainer.params.values())
   writers.write_note(f"Model has {n_params:,} parameters; training for "
@@ -150,12 +220,19 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
   total = trainer.total_steps
   log_steps = schedules.steps("log_training", config, default=50)
   stop = config.get("stop_after_steps")
-  it = trainer.input_iter()
+  ntrain = input_pipeline.total_training_examples(config["input"])
+  ckpt_steps = schedules.steps("ckpt", config, ntrain, trainer.batch_size,
+                               total, default=None)
+  keep_steps = schedules.steps("keep_ckpt", config, ntrain,
+                               trainer.batch_size, total, default=None)
+  ckpt_mgr = (checkpoints.CheckpointManager()
+              if trainer.ckpt_prefix and ckpt_steps else None)
+  it = trainer.input_iter(trainer.first_step)
   sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
           else lambda: None)
   t_window, stall, n_window = time.perf_counter(), 0.0, 0
   try:
-    for step in range(1, total + 1):
+    for step in range(trainer.first_step + 1, total + 1):
       mw.step_start(step)
       t0 = time.perf_counter()
       batch = next(it)
@@ -177,6 +254,9 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
         mw.measure("step_ms", 1e3 * dt / n_window)
         mw.measure("input_stall_pct", 100.0 * stall / dt)
         t_window, stall, n_window = time.perf_counter(), 0.0, 0
+      if ckpt_mgr and (step % ckpt_steps == 0 or step == total):
+        ckpt_mgr.save(trainer.state(), trainer.ckpt_prefix, step,
+                      keep=bool(keep_steps and step % keep_steps == 0))
       mw.step_end()
       if stop and step >= stop:
         writers.write_note(f"stop_after_steps={stop}: stopping early.")
@@ -184,6 +264,8 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
   finally:
     it.close()
     mw.close()
+    if ckpt_mgr:
+      ckpt_mgr.close()
   return trainer
 
 

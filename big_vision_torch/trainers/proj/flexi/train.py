@@ -14,10 +14,12 @@ and `l2_grads`. The loop, the metric writer and the refusal of unported
 config keys are `big_vision_torch/train.py`'s. `update(batch, seqhw=...)`
 takes the flexi args explicitly, so that a caller can choose them.
 
+Checkpoints, `resume` and `model_init` (through the FlexiViT `load`, which
+resizes the posemb and the patch kernel) are the classification trainer's.
 Unlike the JAX flexi trainer, which builds its params with `model.init`
 alone, the port fills the head's bias with the config's `init_head_bias`,
-as the classification trainer does. Evaluators (`predict_seqhw=...`),
-checkpoints and `model_init` are not ported yet and are refused.
+as the classification trainer does. Evaluators (`predict_seqhw=...`) are
+not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from big_vision_torch.utils import schedules
 class Trainer(train.Trainer):
   """`train.Trainer` with the FlexiViT model, flexi args and mixup."""
   MODEL_NAME = "proj.flexi.vit"
+  MODEL_MODULE = flexi_vit
   MIXUP = True
 
   def build_model(self, res, channels):

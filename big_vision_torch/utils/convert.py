@@ -165,6 +165,32 @@ def vit_names(module: torch.nn.Module) -> dict[str, str]:
   return out
 
 
+def vit_params(module: torch.nn.Module) -> dict:
+  """The inverse of `vit`: a `models.vit` or `models.proj.flexi.vit`
+  module's parameters as the JAX model's param tree (nested dicts of f32
+  numpy arrays, pyloop layout, flax's kernel shapes)."""
+  out = {}
+  for name, jax_name in vit_names(module).items():
+    x = module.get_parameter(name).detach().float().cpu().numpy()
+    layer = name.rsplit(".", 1)[0]
+    if jax_name == "embedding/kernel":  # [width, ph*pw*c] -> [ph, pw, c, w]
+      ph, pw = module.embedding.patch_size
+      x = x.T.reshape(ph, pw, -1, x.shape[0])
+    elif re.search(r"/(query|key|value|out)/(kernel|bias)$", jax_name):
+      heads = module.get_submodule(layer.rsplit(".", 1)[0]).num_heads
+      width = x.shape[0]
+      if jax_name.endswith("out/kernel"):  # [D, H*hd] -> [H, hd, D]
+        x = x.T.reshape(heads, -1, width)
+      elif jax_name.endswith("kernel"):  # [H*hd, D] -> [D, H, hd]
+        x = x.T.reshape(x.shape[1], heads, -1)
+      elif not jax_name.endswith("out/bias"):  # [H*hd] -> [H, hd]
+        x = x.reshape(heads, -1)
+    elif jax_name.endswith("/kernel"):  # [out, in] -> [in, out]
+      x = x.T
+    out[jax_name] = np.ascontiguousarray(x)
+  return trees.unflatten(out)
+
+
 def _heads_last(w):
   """[..., D, hd] einsum weight -> [(..., hd), D] matrix."""
   return np.swapaxes(w, -1, -2).reshape(-1, w.shape[-2])

@@ -64,13 +64,31 @@ def tree_map_with_regex(fn, named: Mapping[str, Any], regex_rules,
 def make_mask_trees(named: Mapping[str, Any], patterns) -> list[dict]:
   """One {name: bool} mask per pattern; a leaf is True in at most one mask,
   the first whose pattern fullmatches its name. Names never start with /."""
-  if isinstance(patterns, str):
-    patterns = [patterns]
-  for p in patterns:
-    if p.startswith("/"):
-      raise ValueError(f"Param names never start with '/': {p!r}")
-  compiled = [re.compile(p) for p in patterns]
+  compiled = compile_patterns(patterns)
   first = {name: next((i for i, pat in enumerate(compiled)
                        if pat.fullmatch(name)), None) for name in named}
   return [{name: hit == i for name, hit in first.items()}
           for i in range(len(compiled))]
+
+
+def compile_patterns(patterns) -> list[re.Pattern]:
+  """Compiles a pattern or list of patterns; names never start with /."""
+  if isinstance(patterns, str):
+    patterns = [patterns]
+  if not isinstance(patterns, (list, tuple)):
+    raise ValueError(f"want a pattern or a list of them, got {patterns!r}")
+  for p in patterns:
+    if p.startswith("/"):
+      raise ValueError(f"Param names never start with '/': {p!r}")
+  return [re.compile(p) for p in patterns]
+
+
+def get(tree, name: str):
+  """The node (a leaf or an inner dict) of `tree` at the flat `name`."""
+  node = tree
+  for key in name.split("/"):
+    if not isinstance(node, Mapping) or key not in node:
+      raise KeyError(f"{name!r} not in tree. Available: "
+                     f"{sorted(flatten(tree))[:50]}")
+    node = node[key]
+  return node

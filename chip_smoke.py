@@ -20,6 +20,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      on the docs/flash_parity.md grid (T in {197, 577, 1056} x D in {64,
      128} x seg, the blocked path chosen by block sizes below T=1056), and
      at causal, Tq != Tkv, seg with an all-padding row, D=256 and D=18;
+     K5 (dq, dk, dv on K3's o and LSE) against its plain version on the
+     same cases and bars, against K4a + K4b in f32 (bar 1e-4), and through
+     `flash_attention`'s backward with `FUSED_BLOCKED_BWD` set (one K5
+     launch, the same gradients);
   3. serves PaliGemma-3B (So400m/14 at 224px + gemma_2b, random bf16
      weights from SEED) to a batch of 8 requests through predict_fns,
      checks that the image tower launched K1 once per layer and every AR
@@ -49,22 +53,41 @@ Phases, each of which raises (and so exits non-zero) on failure:
      events, with its peak memory, and with 12 launches of K3, K4a and K4b
      (none of K1, K2) at seqhw 30 and 40 and 12 of K1 and K2 at 15; a
      profile of one step at seqhw 40 (device busy time); the loss falling
-     over 10 steps on one batch at seqhw 40; and the kernel
+     over FLEXI_FIXED_STEPS steps on one batch at seqhw 40; and the kernel
      path against the plain path at seqhw 40 on 8 unseen images (loss,
      encoder output and attention-projection gradients within 2e-2; each
      K4a and K4b launch of the backward, on its own inputs, within 1e-4 of
      its plain version);
-  6. times prefill, the AR step, the training step (end to end: median of
+  6. distils FlexiViT-B from a ViT-B/8 teacher (f32, batch 32) through
+     `big_vision_torch.trainers.proj.flexi.distill` and
+     configs/proj/flexivit/i21k_distill.py with `FUSED_BLOCKED_BWD` set:
+     the teacher has random weights from SEED and a seeded nonzero head,
+     written with `npz_save` in the oldest published layout (a posemb with
+     a [cls] row, for 224px) and loaded through `prof_init` and `vit.load`
+     (the row folded into [cls], 28x28 resampled to 30x30); DISTILL_STEPS
+     steps of the trainer's own loop and draws, with a checkpoint at the
+     last, from which a new trainer resumes to equal params, optimizer
+     state, next seqhw and next loss; then steps at seqhw 40, 30, 15,
+     twice, through `update(batch, seqhw=...)` (CUDA events, peak memory,
+     and per step 24 K3 and 12 K5 launches at seqhw 30 and 40, none of K4a
+     and K4b; 12 K3, 12 K1 and 12 K2 at 15); a profile of one step at
+     seqhw 40; the loss falling over 10 steps on one batch at seqhw 40;
+     and the kernel path against the plain path at seqhw 40 on 8 unseen
+     images (loss, student encoder output and attention-projection
+     gradients within 2e-2; each K5 launch of the backward, on its own
+     inputs, within 1e-4 of its plain version);
+  7. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
      beside its plain version and F.scaled_dot_product_attention in bf16
-     (forward, or its autograd backward for K2, K4a and K4b), which the
-     port never calls.
+     (forward, or its autograd backward for K2, K4a, K4b and K5), which
+     the port never calls; and K5 against K4a + K4b on the same inputs.
 The line before the last is {"kernels": [...]}: K1 and K2 are reported at
 the ViT training shape (B=256, T=196, H=12, D=64; launches per step), K3,
-K4a and K4b at the FlexiViT-B shape of seqhw 40 (B=32, T=1601, H=12, D=64,
-f32; launches per step), K6 at the serving shape (launches per request
+K4a, K4b and K5 at the FlexiViT-B shape of seqhw 40 (B=32, T=1601, H=12,
+D=64, f32; launches per step of the FlexiViT phase, and for K5 of the
+distillation phase), K6 at the serving shape (launches per request
 batch); max_abs_err and max_rel_err are at those shapes, and rel_tolerance
 is the bar the relative error was held to. The last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero and prints no
@@ -96,6 +119,7 @@ from big_vision_torch.tools.kernel_timing import k2_work
 from big_vision_torch.tools.kernel_timing import k3_work
 from big_vision_torch.tools.kernel_timing import k4a_work
 from big_vision_torch.tools.kernel_timing import k4b_work
+from big_vision_torch.tools.kernel_timing import k5_work
 from big_vision_torch.tools.kernel_timing import k6_inputs
 from big_vision_torch.tools.kernel_timing import k6_work
 from big_vision_torch.tools.kernel_timing import nvidia_smi
@@ -125,7 +149,16 @@ FLEXI_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
 FLEXI_B, FLEXI_T = 32, (1601, 901)  # FlexiViT-B at 240px, seqhw 40 and 30
 # The trainer's own loop draws seqhw 15, 15, 15, 40, 30 at steps 1-5.
 FLEXI_STEPS, FLEXI_CYCLE, FLEXI_CHECK_B = 5, (40, 30, 15) * 2, 8
+# Fixed-batch steps at seqhw 40 of the FlexiViT phase (the distillation
+# phase runs FIXED_STEPS): each is 1.3 s, and the loss falls at every one.
+FLEXI_FIXED_STEPS = 4
 BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                              "flexivit", "i21k_distill.py")
+# The distill trainer's loop draws the FlexiViT trainer's seqhw (15, 15, 15,
+# 40, 30 at steps 1-5) and checkpoints at its last step.
+DISTILL_STEPS = 5
+TEACHER_HEAD_STD = 0.02  # logits of std ~0.5 over 21843 classes
 FLOPS_PER_IMG_TRAIN = 3 * 35.2e9  # bench.py:31-32: 3x the forward's FLOPs
 
 
@@ -133,7 +166,8 @@ FLOPS_PER_IMG_TRAIN = 3 * 35.2e9  # bench.py:31-32: 3x the forward's FLOPs
 COUNTERS = {"K1": "flash_attention_forward", "K2": "flash_attention_bwd",
             "K3": "flash_attention_blocked_forward",
             "K4a": "flash_attention_blocked_dq",
-            "K4b": "flash_attention_blocked_dkv"}
+            "K4b": "flash_attention_blocked_dkv",
+            "K5": "flash_attention_blocked_bwd_fused"}
 
 
 def reset_launches(fa):
@@ -246,10 +280,10 @@ def check_k2(fa):
   return path_err
 
 
-def check_blocked(fa):
-  """K3, K4a and K4b against their plain versions on the same inputs (K4a
-  and K4b take K3's o and LSE); returns {kernel: (max abs, max rel error)}
-  at the FlexiViT-B shape of seqhw 40 in f32, the main path's."""
+def blocked_cases():
+  """[(name, shape, options)] of the blocked kernels' checks: the FlexiViT-B
+  shapes first (seqhw 40 in f32 first of all), the parity grid, the edge
+  cases."""
   f32 = torch.float32
   cases = [(f"FlexiViT T={t} {dt}", dict(b=FLEXI_B, t=t, h=TRAIN_H, d=TRAIN_D,
                                           dtype=getattr(torch, dt)), {})
@@ -268,8 +302,15 @@ def check_blocked(fa):
       ("D=256 causal", dict(b=2, t=200, h=4, d=256), dict(causal=True)),
       ("D=18 f32", dict(b=2, t=130, h=3, d=18, dtype=f32), {}),
   ]
+  return cases
+
+
+def check_blocked(fa):
+  """K3, K4a and K4b against their plain versions on the same inputs (K4a
+  and K4b take K3's o and LSE); returns {kernel: (max abs, max rel error)}
+  at the FlexiViT-B shape of seqhw 40 in f32, the main path's."""
   path_err = {}
-  for i, (name, shape, opts) in enumerate(cases):
+  for i, (name, shape, opts) in enumerate(blocked_cases()):
     b, t, h, d = shape["b"], shape["t"], shape["h"], shape["d"]
     dtype = shape.get("dtype", torch.bfloat16)
     q, k, v, do = blocked_inputs(b, t, h, d, tkv=shape.get("tkv"),
@@ -317,6 +358,71 @@ def check_blocked(fa):
         path_err[kern] = (max((got[n].float() - want[n].float()).abs().max()
                               .item() for n in names),
                           max(errs[n] for n in names))
+  return path_err
+
+
+@contextlib.contextmanager
+def fused_blocked_bwd(fa):
+  """The blocked backward is K5 (where `fused_bwd_fits` holds) inside."""
+  old, fa.FUSED_BLOCKED_BWD = fa.FUSED_BLOCKED_BWD, True
+  try:
+    yield
+  finally:
+    fa.FUSED_BLOCKED_BWD = old
+
+
+def check_fused(fa):
+  """K5 against its plain version on the cases of `check_blocked` (on K3's
+  o and LSE), against K4a + K4b in f32, and through the public
+  `flash_attention`'s backward with `FUSED_BLOCKED_BWD` set; returns (max
+  abs, max rel error) at the FlexiViT-B shape of seqhw 40 in f32."""
+  path_err = None
+  for i, (name, shape, opts) in enumerate(blocked_cases()):
+    b, t, h, d = shape["b"], shape["t"], shape["h"], shape["d"]
+    dtype = shape.get("dtype", torch.bfloat16)
+    q, k, v, do = blocked_inputs(b, t, h, d, tkv=shape.get("tkv"),
+                                 seed=180 + 2 * i, dtype=dtype)
+    kw = {"causal": opts.get("causal", False)}
+    if opts.get("seg"):
+      kw["seg"] = seg_ids(q)  # row 2 is all padding: exact zeros
+    blocks = ({} if not fa.oneshot_fits(t, k.shape[1], d)
+              else dict(block_q=128, block_kv=128))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = fa.flash_attention_blocked_bwd_fused.launches
+    with fused_blocked_bwd(fa):
+      fa.flash_attention(*leaves, **kw, **blocks).backward(do)
+    assert fa.flash_attention_blocked_bwd_fused.launches == before + 1, name
+    o, lse = fa.flash_attention_blocked_forward(q, k, v, **kw)
+    got = fa.flash_attention_blocked_bwd_fused(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_blocked_bwd_fused_reference(q, k, v, o, lse, do,
+                                                          **kw)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    for n, x, leaf in zip(names, got, leaves):
+      assert torch.equal(x, leaf.grad), (name, n)
+    bar = BLOCKED_BAR[dtype]
+    assert all(w.abs().max().item() > 0 for w in want), name
+    errs = [rel_err(x, y) for x, y in zip(got, want)]
+    line = " ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+    if dtype == torch.float32:
+      delta = fa.blocked_delta(o, do)
+      two = (fa.flash_attention_blocked_dq(q, k, v, do, lse, delta, **kw),
+             *fa.flash_attention_blocked_dkv(q, k, v, do, lse, delta, **kw))
+      two_errs = [rel_err(x, y) for x, y in zip(got, two)]
+      line += "; vs K4a+K4b " + " ".join(
+          f"{n} {e:.3e}" for n, e in zip(names, two_errs))
+      assert all(math.isfinite(e) and e <= bar for e in two_errs), (
+          name, two_errs)
+    print(f"K5 {name:16s} {tuple(q.shape)} kv {tuple(k.shape)} rel err "
+          f"{line} (bar {bar})")
+    assert all(math.isfinite(e) and e <= bar for e in errs), (name, errs)
+    if opts.get("seg"):
+      zero = kw["seg"] == 0  # [B, T]: padding rows and keys
+      for n, x in zip(names, got):
+        assert x[zero].abs().max().item() == 0.0, (name, n)
+    if i == 0:
+      path_err = (max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(got, want)), max(errs))
   return path_err
 
 
@@ -480,6 +586,8 @@ def capture_attention(records):
   orig = attention.dot_product_attention
 
   def recorded(q, k, v, **kw):
+    if not q.requires_grad:  # a frozen teacher's: no backward to record
+      return orig(q, k, v, **kw)
     rec = {"q": q.detach(), "k": k.detach(), "v": v.detach()}
     records.append(rec)
     for name, x in (("dq", q), ("dk", k), ("dv", v)):
@@ -647,14 +755,15 @@ def flexi_main_path(fa, workdir):
 def flexi_steps(fa, trainer, gpu):
   """Steps at seqhw 40, 30, 15, twice, on one batch (CUDA events, launches
   and peak memory of each step), a profile of one step at seqhw 40, then
-  FIXED_STEPS steps at seqhw 40 whose loss must fall. Returns (the batch, the next batch, which no update
-  sees, {seqhw: [ms of each step]})."""
+  FLEXI_FIXED_STEPS steps at seqhw 40 whose loss must fall. Returns (the
+  next batch, which no update sees, the launches read after the last step
+  at seqhw 40)."""
   it = trainer.input_iter()
   batch, unseen = next(it), next(it)
   it.close()
   depth = len(trainer.model.encoder.blocks)
   start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-  times, memory = {}, {}
+  times, memory, per_step = {}, {}, {}
   for seqhw in FLEXI_CYCLE:
     reset_launches(fa)
     torch.cuda.reset_peak_memory_stats()
@@ -664,6 +773,7 @@ def flexi_steps(fa, trainer, gpu):
     end.synchronize()
     counts = launches(fa)
     assert counts == flexi_want(depth, seqhw), (seqhw, counts)
+    per_step[seqhw] = counts
     times.setdefault(seqhw, []).append(start.elapsed_time(end))
     memory[seqhw] = max(memory.get(seqhw, 0), torch.cuda.max_memory_allocated())
   for seqhw, ms in times.items():
@@ -678,13 +788,13 @@ def flexi_steps(fa, trainer, gpu):
                                                              seqhw=40)},
       top=12), prefix=f"[{gpu}] ")
   losses = [trainer.update(batch, seqhw=40)["training_loss"]
-            for _ in range(FIXED_STEPS)]
+            for _ in range(FLEXI_FIXED_STEPS)]
   losses = [x.item() for x in losses]
-  print(f"fixed batch, seqhw 40, {FIXED_STEPS} steps: loss "
+  print(f"fixed batch, seqhw 40, {FLEXI_FIXED_STEPS} steps: loss "
         + " ".join(f"{x:.6f}" for x in losses))
   assert all(math.isfinite(x) for x in losses), losses
   assert losses[-1] < losses[0], losses
-  return batch, unseen, times
+  return unseen, per_step[40]
 
 
 def flexi_kernel_vs_plain(fa, trainer, batch):
@@ -760,16 +870,260 @@ def flexi_kernel_vs_plain(fa, trainer, batch):
 
 
 def flexi_phase(fa, gpu):
-  """Phase 5 and the FlexiViT-B step times; returns launches per step at
-  seqhw 40."""
+  """Phase 5 and the FlexiViT-B step times; returns the launches of the
+  last step at seqhw 40, as the counters read them."""
   workdir = os.path.join(ROOT, "build", "chip_smoke_flexi")
   trainer = flexi_main_path(fa, workdir)
-  _, unseen, _ = flexi_steps(fa, trainer, gpu)
+  unseen, counts = flexi_steps(fa, trainer, gpu)
   flexi_kernel_vs_plain(fa, trainer, unseen)
-  depth = len(trainer.model.encoder.blocks)
   del trainer, unseen
   torch.cuda.empty_cache()
-  return {k: n for k, n in flexi_want(depth, 40).items() if n}
+  return {k: n for k, n in counts.items() if n}
+
+
+# ----------------------------------------------------------------------------
+# Phase 6: FlexiViT-B distillation from a ViT-B/8 teacher, with K5.
+# ----------------------------------------------------------------------------
+
+
+def write_teacher(path):
+  """Writes a random ViT-B/8 (21843 classes, [cls] readout) from SEED with
+  a seeded nonzero head, as the oldest published checkpoints lay it out:
+  224px, the posemb under Transformer/posembed_input with a [cls] row (785
+  rows). Returns (the 224px tree's cls + posemb row 0, its posemb)."""
+  import numpy as np
+  from big_vision_torch.models import vit
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  teacher = vit.Model(21843, variant="B/8", pool_type="tok", image_size=224,
+                      device="cuda")
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+  teacher.initialize(gen)
+  with torch.no_grad():
+    teacher.head.weight.normal_(0.0, TEACHER_HEAD_STD, generator=gen)
+  tree = convert.vit_params(teacher)
+  del teacher
+  pe = tree.pop("pos_embedding")
+  row = np.random.RandomState(SEED).randn(1, 1, pe.shape[-1]).astype(
+      np.float32) * 0.02
+  tree["Transformer"]["posembed_input"] = {
+      "pos_embedding": np.concatenate([row, pe], axis=1)}
+  checkpoints.npz_save(tree, path)
+  return tree["cls"] + row, pe
+
+
+def distill_want(depth, seqhw):
+  """The launches of one distillation step at `seqhw`: the teacher's
+  forward at T=901 (K3), and the student's at seqhw 30, 40 (K3, then K5 as
+  its backward) or below (K1, K2)."""
+  want = dict.fromkeys(COUNTERS, 0)
+  want["K3"] = depth
+  kernels = ("K3", "K5") if seqhw in (30, 40) else ("K1", "K2")
+  for k in kernels:
+    want[k] += depth
+  return want
+
+
+def distill_main_path(fa, workdir, teacher_npz):
+  """DISTILL_STEPS steps of the distill trainer's own loop, draws and
+  checkpoint; returns the trainer."""
+  from big_vision_torch.trainers.proj.flexi import distill
+  reset_launches(fa)
+  trainer = distill.main([
+      "--config", f"{DISTILL_CONFIG}:stop={DISTILL_STEPS},log=1,"
+      f"ckpt={DISTILL_STEPS},prof_init={teacher_npz}", "--workdir", workdir])
+  torch.cuda.synchronize()
+  counts = launches(fa)
+  depth = len(trainer.model.encoder.blocks)
+  draws = [trainer.step_kwargs(s)["seqhw"]
+           for s in range(1, DISTILL_STEPS + 1)]
+  want = {k: sum(distill_want(depth, s)[k] for s in draws) for k in COUNTERS}
+  print(f"FlexiViT-B distillation: {DISTILL_STEPS} steps of batch "
+        f"{trainer.batch_size}, seqhw drawn {draws}; launches {counts} (want "
+        f"{want})")
+  assert counts == want and {30, 40} <= set(draws), (counts, want, draws)
+  assert trainer.batch_size == FLEXI_B and depth == TRAIN_DEPTH
+  assert len(trainer.teachers["prof"].encoder.blocks) == TRAIN_DEPTH
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    rows = [r for r in map(json.loads, f) if "training_loss" in r]
+  assert [r["step"] for r in rows] == list(range(1, DISTILL_STEPS + 1)), rows
+  for r, seqhw in zip(rows, draws):
+    print(f"  step {r['step']} (seqhw {seqhw}): loss "
+          f"{r['training_loss']:.6f}, task loss student "
+          f"{r['task_loss_student']:.6f} teacher {r['task_loss_prof']:.6f}, "
+          f"l2_grads {r['l2_grads']:.6f}, {r['step_ms']:.3f} ms")
+    assert math.isfinite(r["training_loss"]) and r["training_loss"] > 0, r
+  return trainer
+
+
+def distill_resume(trainer, workdir):
+  """A new trainer on the workdir resumes from the checkpoint of the last
+  step: params (student and teacher) and optimizer state equal, and the
+  next step's seqhw and loss equal to the first trainer's."""
+  from big_vision_torch.trainers.proj.flexi import distill
+  resumed = distill.Trainer(trainer.config, workdir=workdir)
+  assert resumed.first_step == trainer.first_step + DISTILL_STEPS, (
+      resumed.first_step)
+  for name, p in trainer.params.items():
+    assert torch.equal(p, resumed.params[name]), name
+  for part in ("mu", "nu"):
+    for name, x in trainer.opt_state[part].items():
+      assert torch.equal(x, resumed.opt_state[part][name]), (part, name)
+  assert trainer.opt_state["count"] == resumed.opt_state["count"]
+  teacher = dict(trainer.teachers["prof"].named_parameters())
+  for name, p in resumed.teachers["prof"].named_parameters():
+    assert torch.equal(p, teacher[name]), name
+  step = resumed.first_step + 1
+  it = resumed.input_iter(resumed.first_step)
+  batch = next(it)
+  it.close()
+  kw = resumed.step_kwargs(step)
+  assert kw == trainer.step_kwargs(step)
+  losses = [t.update(batch, **kw)["training_loss"].item()
+            for t in (trainer, resumed)]
+  print(f"resumed at step {resumed.first_step} from "
+        f"{os.path.basename(resumed.ckpt_prefix)}-LAST: params, optimizer "
+        f"state and teacher equal; step {step} (seqhw {kw['seqhw']}) loss "
+        f"{losses[0]:.6f} continued, {losses[1]:.6f} resumed")
+  assert losses[0] == losses[1], losses
+  del resumed
+
+
+def distill_steps(fa, trainer, gpu):
+  """Steps at seqhw 40, 30, 15, twice, on one batch (CUDA events, launches
+  and peak memory of each step), a profile of one step at seqhw 40, then
+  FIXED_STEPS steps at seqhw 40 whose loss must fall. Returns (the next
+  batch, which no update sees, the launches read after the last step at
+  seqhw 40)."""
+  it = trainer.input_iter()
+  batch, unseen = next(it), next(it)
+  it.close()
+  depth = len(trainer.model.encoder.blocks)
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  times, memory, per_step = {}, {}, {}
+  for seqhw in FLEXI_CYCLE:
+    reset_launches(fa)
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    trainer.update(batch, seqhw=seqhw)
+    end.record()
+    end.synchronize()
+    counts = launches(fa)
+    assert counts == distill_want(depth, seqhw), (seqhw, counts)
+    per_step[seqhw] = counts
+    times.setdefault(seqhw, []).append(start.elapsed_time(end))
+    memory[seqhw] = max(memory.get(seqhw, 0), torch.cuda.max_memory_allocated())
+  for seqhw, ms in times.items():
+    used = {k: n for k, n in distill_want(depth, seqhw).items() if n}
+    print(f"[{gpu}] distillation FlexiViT-B seqhw {seqhw} "
+          f"(T={seqhw * seqhw + 1}) from ViT-B/8 (T=901) batch {FLEXI_B}: "
+          f"step {', '.join(f'{x:.3f}' for x in ms)} ms, "
+          f"{1e3 * FLEXI_B / ms[-1]:.1f} img/s (last step); launches per "
+          f"step {used}; max memory allocated {memory[seqhw] / 2**30:.2f} GiB")
+  from big_vision_torch.tools import bench_decode
+  bench_decode.print_profile(kernel_timing.device_profile(
+      {"distillation step at seqhw 40": lambda: trainer.update(
+          batch, seqhw=40)}, top=12), prefix=f"[{gpu}] ")
+  losses = [trainer.update(batch, seqhw=40)["training_loss"]
+            for _ in range(FIXED_STEPS)]
+  losses = [x.item() for x in losses]
+  print(f"distillation, fixed batch, seqhw 40, {FIXED_STEPS} steps: loss "
+        + " ".join(f"{x:.6f}" for x in losses))
+  assert all(math.isfinite(x) for x in losses), losses
+  assert losses[-1] < losses[0], losses
+  return unseen, per_step[40]
+
+
+def distill_kernel_vs_plain(fa, trainer, batch, teacher_npz):
+  """The kernel path (K5 backward) against the plain path (attn_impl="xla"
+  for student and teacher) from the trainer's state at seqhw 40, on
+  FLEXI_CHECK_B images no update saw: loss, student encoder output and
+  every attention-projection gradient within E2E_BAR of max|plain|; each
+  K5 launch of the kernel path's backward, on the inputs it was given,
+  within BLOCKED_BAR of its plain version."""
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.flexi import distill
+  batch = {k: v[:FLEXI_CHECK_B] for k, v in batch.items()}
+
+  def run(t, records=None):
+    tokens = []
+    hook = t.model.encoder.register_forward_hook(
+        lambda mod, args, out: tokens.append(out.detach().clone()))
+    with (contextlib.nullcontext() if records is None
+          else capture_attention(records)):
+      loss, grads, _ = t.loss_and_grads(batch, seqhw=40)
+    hook.remove()
+    return loss.item(), tokens[0], {n: g.clone() for n, g in grads.items()
+                                    if _attn_projection(n)}
+
+  records = []
+  reset_launches(fa)
+  lk, xk, gk = run(trainer, records)
+  torch.cuda.synchronize()
+  depth = len(trainer.model.encoder.blocks)
+  assert launches(fa) == distill_want(depth, 40), launches(fa)
+  assert len(records) == depth, len(records)  # the student's layers
+  rows = []
+  for layer, r in enumerate(records):
+    q, k, v, do = r["q"], r["k"], r["v"], r["do"]
+    # K3 is deterministic (no atomics, a fixed order of sums), so this is
+    # the o and LSE that the backward was given.
+    o, lse = fa.flash_attention_blocked_forward(q, k, v)
+    want = fa.flash_attention_blocked_bwd_fused_reference(q, k, v, o, lse, do)
+    for name, w in zip(("dq", "dk", "dv"), want):
+      assert w.abs().max().item() > 0, (layer, name)
+      rows.append((rel_err(r[name], w), f"layer {layer} {name}"))
+  del records
+  rows.sort(reverse=True)
+  bar = BLOCKED_BAR[torch.float32]
+  print(f"K5 in the seqhw-40 distillation backward: {len(rows)} outputs of "
+        f"{depth} launches against the plain version on their own inputs, "
+        f"the 4 worst (bar {bar}): "
+        + ", ".join(f"{n} {e:.3e}" for e, n in rows[:4]))
+  assert all(e <= bar for e, _ in rows), rows[:4]
+
+  plain = distill.Trainer(train.load_config(
+      f"{DISTILL_CONFIG}:attn=xla,prof_init={teacher_npz}"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  lp, xp, gp = run(plain)
+  del plain
+  torch.cuda.empty_cache()
+  loss_err, tok_err = abs(lk - lp) / abs(lp), rel_err(xk, xp)
+  worst = max((rel_err(gk[n], gp[n]), n) for n in gp)
+  print(f"distillation kernel vs plain path, seqhw 40, {FLEXI_CHECK_B} "
+        f"unseen images: loss {lk:.6f} vs {lp:.6f}, rel err {loss_err:.3e}; "
+        f"student encoder output {tuple(xk.shape)} rel err {tok_err:.3e}; "
+        f"{len(gp)} attention-projection gradients, worst rel err "
+        f"{worst[0]:.3e} ({worst[1]}) (bar {E2E_BAR})")
+  assert len(gp) == depth * 7
+  assert loss_err <= E2E_BAR and tok_err <= E2E_BAR and worst[0] <= E2E_BAR
+
+
+def distill_phase(fa, gpu):
+  """Phase 6 with `FUSED_BLOCKED_BWD` set; returns the K5 launches of the
+  last step at seqhw 40, as its counter read them."""
+  workdir = os.path.join(ROOT, "build", "chip_smoke_distill")
+  shutil.rmtree(workdir, ignore_errors=True)
+  os.makedirs(workdir)
+  teacher_npz = os.path.join(workdir, "vit_b8_random.npz")
+  t0 = time.perf_counter()
+  cls, pe = write_teacher(teacher_npz)
+  print(f"teacher: random ViT-B/8 written to {os.path.basename(teacher_npz)}"
+        f" ({os.path.getsize(teacher_npz) / 2**20:.1f} MiB, posemb "
+        f"{(1, pe.shape[1] + 1, pe.shape[2])} at 224px) in "
+        f"{time.perf_counter() - t0:.1f} s")
+  with fused_blocked_bwd(fa):
+    trainer = distill_main_path(fa, workdir, teacher_npz)
+    teacher = trainer.teachers["prof"]
+    assert torch.equal(teacher.cls.cpu(), torch.from_numpy(cls))
+    assert tuple(teacher.pos_embedding.shape) == (1, 900, 768)
+    assert teacher.head.weight.abs().max().item() > 0
+    distill_resume(trainer, workdir)
+    unseen, counts = distill_steps(fa, trainer, gpu)
+    distill_kernel_vs_plain(fa, trainer, unseen, teacher_npz)
+  del trainer, unseen
+  torch.cuda.empty_cache()
+  return {"K5": counts["K5"]}
 
 
 def matmul_peak_tflops(n=8192, iters=20):
@@ -828,18 +1182,20 @@ def training_phase(fa, gpu):
   return per_step
 
 
-def blocked_entries(fa, counts):
-  """K3, K4a and K4b at the FlexiViT-B shape of seqhw 40 in f32 (B=32,
+def blocked_entries(fa, counts, gpu):
+  """K3, K4a, K4b and K5 at the FlexiViT-B shape of seqhw 40 in f32 (B=32,
   T=1601, H=12, D=64; launches per step), each beside its plain version,
   SDPA in bf16 (its forward for K3, its autograd backward, which computes
-  dq, dk and dv together, for K4a and for K4b) and its bound, with the f32
-  operations at the f32 rate outside the tensor cores."""
+  dq, dk and dv together, for K4a, K4b and K5) and its bound, with the f32
+  operations at the f32 rate outside the tensor cores; and K5 against K4a
+  + K4b on the same inputs, in turns."""
   b, t, h, d = FLEXI_B, FLEXI_T[0], TRAIN_H, TRAIN_D
   sets = [blocked_inputs(b, t, h, d, seed=100 + 2 * i) for i in range(2)]
-  sdpa_fwd, sdpa_bwd, k4_sets = [], [], []
+  sdpa_fwd, sdpa_bwd, k4_sets, k5_sets = [], [], [], []
   for q, k, v, do in sets:
     o, lse = fa.flash_attention_blocked_forward(q, k, v)
     k4_sets.append((q, k, v, do, lse, fa.blocked_delta(o, do)))
+    k5_sets.append((q, k, v, o, lse, do))
     bf = [x.transpose(1, 2).to(torch.bfloat16).contiguous()
           for x in (q, k, v, do)]
     sdpa_fwd.append(tuple(bf[:3]))
@@ -862,7 +1218,12 @@ def blocked_entries(fa, counts):
        fa.flash_attention_blocked_dkv_reference, sdpa_bwd_ms, k4b_work),
   ]
   entries = []
-  for name, key, src, line, fn, plain, lib_ms, work in timed:
+  for name, key, src, line, fn, plain, lib_ms, work in timed + [
+      ("flash_blocked_bwd_fused", "K5", "flash_blocked_bwd_fused.cu", 482,
+       fa.flash_attention_blocked_bwd_fused,
+       fa.flash_attention_blocked_bwd_fused_reference, sdpa_bwd_ms,
+       k5_work)]:
+    arg_sets = k5_sets if key == "K5" else k4_sets
     bms, by = bound(*work(b, t, h, d), F32_FLOPS)
     print(f"{name}: bound {bms:.4f} ms ({by}) at the f32 rate, "
           f"{bound(*work(b, t, h, d))[0]:.4f} ms at the bf16 tensor-core "
@@ -873,13 +1234,21 @@ def blocked_entries(fa, counts):
         launches=counts[key], max_abs_err=counts[f"{key} err"][0],
         max_rel_err=counts[f"{key} err"][1],
         rel_tolerance=BLOCKED_BAR[torch.float32],
-        ms=time_ms(fn, k4_sets, iters=10),
-        plain_ms=time_ms(plain, k4_sets, iters=3), bound_ms=bms,
+        ms=time_ms(fn, arg_sets, iters=10),
+        plain_ms=time_ms(plain, arg_sets, iters=3), bound_ms=bms,
         bound_by=by, library_ms=lib_ms))
+  # The whole blocked backward, one way and the other, in turns.
+  k5 = [time_ms(fa.flash_attention_blocked_bwd_fused, k5_sets, iters=10)]
+  two = [time_ms(fa.flash_attention_blocked_bwd, k5_sets, iters=10)
+         for _ in range(2)]
+  k5.append(time_ms(fa.flash_attention_blocked_bwd_fused, k5_sets, iters=10))
+  print(f"[{gpu}] blocked backward at B={b} T={t} H={h} D={d} f32, delta "
+        f"included: K5 {k5[0]:.4f}, {k5[1]:.4f} ms; K4a + K4b {two[0]:.4f}, "
+        f"{two[1]:.4f} ms (K5, K4, K4, K5)")
   return entries
 
 
-def kernel_entries(fa, da, counts):
+def kernel_entries(fa, da, counts, gpu):
   """The {"kernels": [...]} entries: K1 and K2 at the training shape, K6
   at the serving shape, each beside its plain version, SDPA and bound."""
   kernels = []
@@ -925,7 +1294,7 @@ def kernel_entries(fa, da, counts):
       max_rel_err=counts["K2 err"][1], rel_tolerance=K2_BAR, ms=ms,
       plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
   del sets, k2_sets, sdpa_sets
-  kernels += blocked_entries(fa, counts)
+  kernels += blocked_entries(fa, counts, gpu)
   # K6 at gemma_2b's AR shape over the serving run's cache.
   b, kh, g, s, hd = BATCH, 1, 8, CACHE, 256
   sets = [k6_inputs(b, kh, g, s, hd, seed=20 + i)[:4] for i in range(24)]
@@ -947,6 +1316,13 @@ def kernel_entries(fa, da, counts):
   return kernels
 
 
+def phase_end(name, t0):
+  """Prints the wall time since `t0` of a phase; returns the time now."""
+  now = time.perf_counter()
+  print(f"phase {name}: {now - t0:.1f} s wall")
+  return now
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -963,7 +1339,8 @@ def main():
   # 1. Build.
   t0 = time.perf_counter()
   logs = _build.build_all(["flash_fwd", "flash_bwd", "flash_blocked_fwd",
-                           "flash_blocked_bwd", "decode_attention"])
+                           "flash_blocked_bwd", "flash_blocked_bwd_fused",
+                           "decode_attention"])
   print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
   for name, log in logs.items():
     for line in log.splitlines():
@@ -971,20 +1348,29 @@ def main():
         print(f"  {name}: {line.strip()}")
 
   # 2. Kernels vs plain versions.
+  t0 = phase_end("build", t0)
   counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa),
             "K6 err": check_k6(da)}
   counts.update({f"{k} err": e for k, e in check_blocked(fa).items()})
+  counts["K5 err"] = check_fused(fa)
   torch.cuda.empty_cache()
+  t0 = phase_end("kernels vs plain versions", t0)
 
-  # 3. Serving PaliGemma-3B; 4. training ViT-B/16; 5. training FlexiViT-B
-  # (launches per step).
+  # 3. Serving PaliGemma-3B; 4. training ViT-B/16; 5. training FlexiViT-B;
+  # 6. distilling FlexiViT-B (launches per step).
   counts.update(serving_phase(fa, da, gpu))
   torch.cuda.empty_cache()
+  t0 = phase_end("serving", t0)
   counts.update(training_phase(fa, gpu))
+  t0 = phase_end("ViT-B/16 training", t0)
   counts.update(flexi_phase(fa, gpu))
+  t0 = phase_end("FlexiViT-B training", t0)
+  counts.update(distill_phase(fa, gpu))
+  t0 = phase_end("FlexiViT-B distillation", t0)
 
-  # 6. Kernel times.
-  kernels = kernel_entries(fa, da, counts)
+  # 7. Kernel times.
+  kernels = kernel_entries(fa, da, counts, gpu)
+  phase_end("kernel times", t0)
   for kern in kernels:
     print(f"[{gpu}] {kern['name']}: {kern['ms']:.4f} ms (bound "
           f"{kern['bound_ms']:.4f} ms by {kern['bound_by']}), plain "

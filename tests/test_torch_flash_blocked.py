@@ -149,6 +149,7 @@ def test_kernels_need_cuda():
     with pytest.raises(ValueError, match="cuda"):
       fn(*args)
   meta = [x.to("meta") for x in (q, k, v, q, lse)] + [None]
-  ctx = types.SimpleNamespace(saved_tensors=meta, causal=False)
+  ctx = types.SimpleNamespace(saved_tensors=meta, causal=False, block_q=16,
+                              block_kv=16)
   with pytest.raises(ValueError, match="cuda, not meta"):
     t_flash._FlashAttentionBlocked.backward(ctx, do.to("meta"))

@@ -185,7 +185,7 @@ def test_refuses_to_start_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("evals", dict(test={})), ("ckpt_steps", 10), ("model_name", "vit"),
+    ("evals", dict(test={})), ("model_name", "vit"),
 ])
 def test_unported_keys_are_refused(key, value):
   with pytest.raises(ValueError, match=key):

@@ -18,7 +18,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(
     big_vision_torch.__path__, "big_vision_torch."))
 for name in names:
   importlib.import_module(name)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -29,4 +29,9 @@ def test_port_imports_without_jax():
   out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=root, env=env,
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr[-3000:]
-  assert int(out.stdout.strip().splitlines()[-1]) >= 30
+  names = out.stdout.strip().splitlines()[-1].split()
+  assert len(names) >= 30
+  for name in ("utils.checkpoints", "evaluators.proj.distill.distance",
+               "trainers.proj.flexi.distill",
+               "configs.proj.flexivit.i21k_distill"):
+    assert f"big_vision_torch.{name}" in names, name

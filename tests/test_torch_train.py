@@ -108,13 +108,26 @@ def test_command_line_runs_three_steps(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("mixup", dict(p=0.2)), ("evals", dict(val={})), ("ckpt_steps", 10),
-    ("resume", "/some/ckpt"), ("model_init", "i1k-s16-300ep"),
-    ("model_name", "bit"),
+    ("mixup", dict(p=0.2)), ("evals", dict(val={})), ("model_name", "bit"),
 ])
 def test_unported_keys_are_refused(key, value):
   with pytest.raises(ValueError, match=key):
     t_train.Trainer({**_config(), key: value}, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("ckpt_steps", 10), ("resume", "/some/ckpt"),
+    ("model_init", "i1k-s16-300ep"),
+])
+def test_checkpoint_keys_are_ported(key, value):
+  t_train.check_ported({**_config(), key: value})
+
+
+def test_resume_without_seeking_the_stream_is_refused():
+  config = _config()
+  config["input"] = {**config["input"], "resume_seek": False}
+  with pytest.raises(ValueError, match="resume_seek"):
+    t_train.Trainer(config, device="cpu")
 
 
 def test_unported_key_without_effect_is_accepted():
