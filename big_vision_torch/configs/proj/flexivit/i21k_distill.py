@@ -36,8 +36,10 @@ Args (`:name=value,...`): `runlocal` (the tiny version for CPU tests:
 ViT-mu student and mu/8 teacher, batch 8, 3 steps), `prof_init` (the
 teacher's `.npz`), `stop` (stop after that many steps, the schedule
 unchanged), `log` (steps between metric rows), `ckpt` (steps between
-checkpoints), `attn` (the attention impl of both models: "auto", the fused
-kernels, or "xla", the plain path).
+checkpoints), `attn` (the attention impl of both models: "auto", the JAX
+package's gate, which at batch 32 takes the plain path at T = 901 and 1601,
+the teacher's included; "flash", the fused kernels at every seqhw; or "xla",
+the plain path everywhere).
 """
 
 from big_vision_torch.configs import common

@@ -31,7 +31,10 @@ Cut, for one card and no dataset:
 Args (`:name=value,...`): `runlocal` (the tiny version for CPU tests:
 ViT-mu, batch 8, 3 steps), `stop` (stop after that many steps, the
 schedule unchanged), `log` (steps between metric rows), `attn` (the
-attention impl: "auto", the fused kernels, or "xla", the plain path).
+attention impl: "auto", the JAX package's gate, which at batch 32 takes the
+one-shot kernels K1/K2 at seqhw <= 24 and the plain path at seqhw 30 and 40;
+"flash", the fused kernels at every seqhw, the blocked K3-K5 at 30 and 40;
+or "xla", the plain path everywhere).
 """
 
 from big_vision_torch.configs import common

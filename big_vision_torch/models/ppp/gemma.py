@@ -9,8 +9,10 @@ operands to the promoted type first.
 The KV cache is a `KVCache` object that the caller passes in and gets back,
 in place of Flax's mutable "cache" collection. Its storage is updated in
 place (one slot per step), which saves a copy of the whole cache per token.
-`decode_impl="flash"` sends every one-token step to the fused decode kernel
-K6 (ops/decode_attention.py), which reads the cache in its storage dtype.
+`decode_impl="flash"` sends a one-token step to the fused decode kernel K6
+(ops/decode_attention.py), which reads the cache in its storage dtype,
+where the JAX package's gate `decode_attention.fits` holds; elsewhere the
+step takes the einsum path, as in the JAX model.
 
 Left for later: int8 weights (`quant=True`), the int8 KV cache, the fused
 flash path for training (`attn_impl="flash"`), dropout.
@@ -178,8 +180,12 @@ class Attention(nn.Module):
       store = self.cache_dtype or k.dtype
       k_store, v_store = cache.update(layer, k, v, attn_mask.shape[-1],
                                       store)
-      if self.decode_impl == "flash" and t == 1:
+      # The JAX model gates its kernel on the itemsize of the cache it
+      # hands over: a float cache cast to the compute dtype (k's here).
+      if (self.decode_impl == "flash" and t == 1
+          and da.fits(k_store.shape[2], h, k.element_size())):
         # One-token step: kernel K6 reads the cache in its storage dtype.
+        # Past the `fits` gate, the einsum path, as in the JAX model.
         grouped = q[:, 0].reshape(b, kh, n // kh, h).contiguous()
         mixed = da.decode_attention(
             grouped, k_store, v_store, attn_mask[:, 0, 0, :].contiguous(),

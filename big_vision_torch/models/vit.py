@@ -5,7 +5,8 @@ Same variant table, posembs, readouts and dtype rules as the JAX model:
 residual stream stays in it; LayerNorm statistics are f32), while
 `encoder_norm`, `pre_logits` and `head` compute in the promoted type of
 their input and parameters, as flax does with `dtype=None`. Attention goes
-through `ops.attention`, so "auto" runs the fused kernel K1 on the GPU.
+through `ops.attention`, whose "auto" takes the JAX package's gate (the
+fused kernel K1 wherever `oneshot_fits`).
 
 Scan-over-layers is a JAX compile-time device, not a model: the port has a
 plain list of blocks, and `utils/convert.py` reads both param layouts. The

@@ -15,7 +15,8 @@ bf16 -> f32 -> bf16 round trip is exact, so the port passes the bf16
 storage itself: the same numbers, half the bytes.
 
 `decode_attention` launches the kernel for a CUDA tensor (or raises) and
-runs `decode_attention_reference` for a CPU tensor.
+runs `decode_attention_reference` for a CPU tensor. The model reaches it
+only where `fits` holds, the JAX package's gate.
 """
 
 from __future__ import annotations
@@ -28,8 +29,27 @@ import torch
 from big_vision_torch.ops import _build
 
 NEG_INF = -1e30
+_GP = 8  # the TPU kernel's query rows per program
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _r(x, m):
+  return -(-x // m) * m
+
+
+def fits(s, h, store_bytes):
+  """The JAX package's gate of its decode kernel, copied: whether one
+  (batch, kv_head) cache plane of S slots and head dim h, stored in
+  `store_bytes`-byte elements, fits that kernel's VMEM budget
+  (double-buffered k and v blocks, the bf16 copies of an int8 cache, three
+  [GP, S] f32 mats, against 12 MB). Where it fails, the model takes its
+  einsum path, as the JAX model does, so both compute the same function."""
+  s, h = _r(s, 128), _r(h, 128)
+  blocks = 2 * 2 * s * h * store_bytes
+  copies = 2 * s * h * 2 if store_bytes == 1 else 0
+  mats = 3 * _GP * s * 4
+  return blocks + copies + mats <= 12 * 1024 * 1024
 
 
 @functools.cache

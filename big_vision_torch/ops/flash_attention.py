@@ -50,6 +50,11 @@ DEFAULT_BLOCK_Q = DEFAULT_BLOCK_KV = 128
 FUSED_BLOCKED_BWD = False
 
 
+def supports(t, d):
+  """The JAX package's shape gate of its auto dispatch (`ops.attention`)."""
+  return d <= 256 and t >= 16
+
+
 # The one-shot/blocked boundary, copied from the JAX package (`_r`,
 # `_oneshot_bytes`, `oneshot_fits`). It is where that package switches
 # numerics, sized for a TPU core's 16 MB of VMEM, not a memory limit of

@@ -5,9 +5,9 @@ and `jax.image.resize(..., "linear")`; then a tiny FlexiViT (width 32,
 depth 2, 2 heads, 24px, stored patch 8x8, posemb 3x3, tok pool) built from
 the JAX init through `convert.vit`: logits and gradients at several token
 grids, in f32 within 1e-5 of max|x|, first with each package's own
-attention dispatch (the port's "auto" takes its fused attention's plain
-versions; JAX's takes XLA below T=16 and the one-shot kernel above, equal
-in f32), then with the blocked path inside the model on both sides.
+attention dispatch (both packages' "auto" take the plain path below T=16
+and the one-shot kernel above, the port's its plain version), then with
+the blocked path inside the model on both sides.
 """
 
 import jax
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from big_vision_torch.models.proj.flexi import vit as t_flexi
+from big_vision_torch.ops import attention as t_attention
 from big_vision_torch.ops import flash_attention as t_flash
 from big_vision_torch.utils import convert
 from big_vision_tpu.models.proj.flexi import vit as j_flexi
@@ -119,11 +120,13 @@ def test_tiny_flexivit_matches_jax():
 
 def test_tiny_flexivit_blocked_path_matches_jax(monkeypatch):
   """seqhw 4 and 6 (T = 17 and 37 >= 16, JAX's `supports` gate) with the
-  one-shot path switched off in both packages and JAX's "auto" sent to
-  its fused kernel: the blocked semantics inside the model on both sides."""
+  one-shot path switched off in both packages and both packages' "auto"
+  sent to the fused kernel: the blocked semantics inside the model on both
+  sides."""
   monkeypatch.setattr(j_flash, "oneshot_fits", lambda *a: False)
   monkeypatch.setattr(t_flash, "oneshot_fits", lambda *a: False)
   monkeypatch.setattr(j_attention, "XLA_SCORES_BYTES_LIMIT", 0)
+  monkeypatch.setattr(t_attention, "XLA_SCORES_BYTES_LIMIT", 0)
   calls = {"jax": 0, "port": 0}
 
   def counted(side, fn):
