@@ -1,6 +1,8 @@
-// One-shot attention backward for Hopper (sm_90a): the port of the TPU kernel
-// `_oneshot_bwd_kernel` in big_vision_tpu/ops/flash_attention.py (reached
-// from `_oneshot_bwd`), the gradient of K1 (csrc/flash_fwd.cu).
+// One-shot attention backward in f32 for Hopper (sm_90a): kernel K2 for f32
+// inputs, the port of the TPU kernel `_oneshot_bwd_kernel` in
+// big_vision_tpu/ops/flash_attention.py (reached from `_oneshot_bwd`), the
+// gradient of K1 (csrc/flash_fwd.cu). bf16 inputs take the tensor-core
+// kernel of csrc/flash_bwd_tc.cu, which keeps the same contract.
 //
 // What it computes, per (batch, head), with the forward's masks (causal:
 // col <= row; segment: 0 < seg[j] <= seg[i]; rows and columns past the end):
@@ -40,39 +42,24 @@
 // touches (each thread always owns the same elements), so there are no
 // atomics and the result does not depend on the order of blocks. With
 // causal both passes skip tiles that lie wholly above the diagonal.
-// Products are scalar f32 FMAs, as in K1; tensor-core MMAs are later work.
+// Products are scalar f32 FMAs, as in K1: f32 semantics on the tensor
+// cores would need TF32 or split-bf16 products held to the f32 bar, which
+// is later work. (round_v and round_q, the casts to the inputs' dtype, are
+// the identity in f32.)
 //
-// Bound at the B/16 training shape (B*H=3072, T=196, D=64, bf16): q, k, v,
-// do read and dq, dk, dv written once are 539 MB, 0.16 ms at 3.35 TB/s;
-// its five products are 75.5 GFLOP, 0.076 ms on the bf16 tensor cores. So
-// the bytes bound it; scalar f32 FMAs (67 TFLOP/s) and the first pass's
-// two extra products make the arithmetic this version's limit.
+// Bound at FlexiViT-B's seqhw 15 (B*H=384, T=226, D=64, f32): q, k, v, do
+// read and dq, dk, dv written once are 156 MB, 0.046 ms at 3.35 TB/s; its
+// five products are 12.6 GFLOP, 0.19 ms at the f32 rate outside the
+// tensor cores (67 TFLOP/s), which bounds it; the first pass's two extra
+// products add two fifths.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int NT = 256;  // threads: a 16 x 16 grid
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Rounds an f32 value to T's precision and back (the casts of p and ds).
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // Shared memory, in floats: sQ, sdO, sK, sV [BR][DS] each; sP, sdS
 // [BR][BR + 1]; sLse, sDelta, sL [BR]; then ints sSegQ, sSegK [BR]. DS = D | 1
@@ -86,15 +73,16 @@ inline size_t smem_bytes(int br, int d) {
 }
 
 // Fills dst[r * stride + d] (r < ROWS, d < D) with rows r of src (row r at
-// src + r * row_elems), as floats; rows r >= nrows read as zeros. With VEC
-// (D a multiple of the 16-byte vector and 16-byte aligned rows) each thread
-// issues up to 4 vector loads before it stores any.
-template <typename T, int ROWS, bool VEC>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
+// src + r * row_elems); rows r >= nrows read as zeros. With VEC (D a
+// multiple of 4 and 16-byte aligned rows) each thread issues up to 4 vector
+// loads before it stores any.
+template <int ROWS, bool VEC>
+__device__ __forceinline__ void load_tile(float* dst, int stride,
+                                          const float* src,
                                           long long row_elems, int nrows,
                                           int D, int tid) {
   if (VEC) {
-    constexpr int W = 16 / sizeof(T);  // elements per vector
+    constexpr int W = 4;  // elements per vector
     const int vpr = D / W, total = ROWS * vpr;
     for (int base = 0; base < total; base += 4 * NT) {
       uint4 buf[4];
@@ -109,16 +97,17 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
       for (int u = 0; u < 4; ++u) {
         const int i = base + u * NT + tid;
         if (i >= total) break;
-        const T* x = reinterpret_cast<const T*>(&buf[u]);
+        // Element stores: the odd row stride leaves rows unaligned.
+        const float* x = reinterpret_cast<const float*>(&buf[u]);
         float* out = dst + (i / vpr) * stride + (i % vpr) * W;
 #pragma unroll
-        for (int e = 0; e < W; ++e) out[e] = to_f(x[e]);
+        for (int e = 0; e < W; ++e) out[e] = x[e];
       }
     }
   } else {
     for (int i = tid; i < ROWS * D; i += NT) {
       const int r = i / D, d = i % D;
-      dst[r * stride + d] = r < nrows ? to_f(src[r * row_elems + d]) : 0.f;
+      dst[r * stride + d] = r < nrows ? src[r * row_elems + d] : 0.f;
     }
   }
 }
@@ -126,13 +115,13 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
 // BR: rows of a query or key tile (64 or 32); RI = BR / 16 rows (and score
 // columns) per thread. MAXC: column groups of 16 per thread in the dk, dv
 // and dq sums (D <= 16 * MAXC).
-template <typename T, int BR, int MAXC, bool VEC>
+template <int BR, int MAXC, bool VEC>
 __global__ void __launch_bounds__(NT)
-flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const int32_t* __restrict__ seg, T* __restrict__ dq,
-                 T* __restrict__ dk, T* __restrict__ dv,
+                 const int32_t* __restrict__ seg, float* __restrict__ dq,
+                 float* __restrict__ dk, float* __restrict__ dv,
                  float* __restrict__ dq_acc, float* __restrict__ delta,
                  int Tq, int Tkv, int H, int D, int causal, float scale) {
   constexpr int RI = BR / 16;
@@ -156,21 +145,21 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const long long row = (long long)H * D;  // elements between rows
-  const T* qb = q + ((long long)b * Tq * H + h) * D;
-  const T* dob = dout + ((long long)b * Tq * H + h) * D;
-  const T* kb = k + ((long long)b * Tkv * H + h) * D;
-  const T* vb = v + ((long long)b * Tkv * H + h) * D;
-  T* dqb = dq + ((long long)b * Tq * H + h) * D;
-  T* dkb = dk + ((long long)b * Tkv * H + h) * D;
-  T* dvb = dv + ((long long)b * Tkv * H + h) * D;
+  const float* qb = q + ((long long)b * Tq * H + h) * D;
+  const float* dob = dout + ((long long)b * Tq * H + h) * D;
+  const float* kb = k + ((long long)b * Tkv * H + h) * D;
+  const float* vb = v + ((long long)b * Tkv * H + h) * D;
+  float* dqb = dq + ((long long)b * Tq * H + h) * D;
+  float* dkb = dk + ((long long)b * Tkv * H + h) * D;
+  float* dvb = dv + ((long long)b * Tkv * H + h) * D;
   float* dqa = dq_acc + (long long)bh * Tq * D;
   float* dl = delta + (long long)bh * 2 * Tq;  // delta [Tq], then l [Tq]
   const float* lseb = lse + (long long)bh * Tq;
 
   // Loads query tile q0 (q, do, lse, seg) into shared memory.
   auto load_q = [&](int q0, int qn) {
-    load_tile<T, BR, VEC>(sQ, ds, qb + q0 * row, row, qn, D, tid);
-    load_tile<T, BR, VEC>(sdO, ds, dob + q0 * row, row, qn, D, tid);
+    load_tile<BR, VEC>(sQ, ds, qb + q0 * row, row, qn, D, tid);
+    load_tile<BR, VEC>(sdO, ds, dob + q0 * row, row, qn, D, tid);
     if (tid < BR) {
       const bool in = tid < qn;
       sLse[tid] = in ? lseb[q0 + tid] : 0.f;
@@ -179,8 +168,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   // Loads key tile kv0 (k, v, seg) into shared memory.
   auto load_kv = [&](int kv0, int kvn) {
-    load_tile<T, BR, VEC>(sK, ds, kb + kv0 * row, row, kvn, D, tid);
-    load_tile<T, BR, VEC>(sV, ds, vb + kv0 * row, row, kvn, D, tid);
+    load_tile<BR, VEC>(sK, ds, kb + kv0 * row, row, kvn, D, tid);
+    load_tile<BR, VEC>(sV, ds, vb + kv0 * row, row, kvn, D, tid);
     if (seg && tid < BR)
       sSegK[tid] = tid < kvn ? seg[(long long)b * Tkv + kv0 + tid] : 0;
   };
@@ -305,8 +294,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < RI; ++j) {
           const int c = tx + 16 * j;
-          sP[r * PS + c] = round_to<T>(p[i][j]);  // cast to v's dtype for dv
-          sdS[r * PS + c] = round_to<T>(p[i][j] * (dp[i][j] - sDelta[r]));
+          sP[r * PS + c] = p[i][j];
+          sdS[r * PS + c] = p[i][j] * (dp[i][j] - sDelta[r]);
         }
       }
       __syncthreads();
@@ -368,8 +357,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < MAXC; ++c) {
         const int d = tx + 16 * c;
         if (d < D) {
-          dkb[kr * row + d] = from_f<T>(dk_acc[i][c] * scale);
-          dvb[kr * row + d] = from_f<T>(dv_acc[i][c]);
+          dkb[kr * row + d] = dk_acc[i][c] * scale;
+          dvb[kr * row + d] = dv_acc[i][c];
         }
       }
     }
@@ -385,7 +374,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < MAXC; ++c) {
         const int d = tx + 16 * c;
         if (d < D)
-          dqb[qrow * row + d] = from_f<T>(dqa[(long long)qrow * D + d] * scale);
+          dqb[qrow * row + d] = dqa[(long long)qrow * D + d] * scale;
       }
     }
   }
@@ -401,47 +390,38 @@ struct Args {
   float scale;
 };
 
-template <typename T, int BR, int MAXC>
+template <int BR, int MAXC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const bool vec = a.D % (16 / sizeof(T)) == 0 &&
+  const bool vec = a.D % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
         reinterpret_cast<uintptr_t>(a.v) |
         reinterpret_cast<uintptr_t>(a.dout)) % 16) == 0;
-  auto kern = vec ? flash_bwd_kernel<T, BR, MAXC, true>
-                  : flash_bwd_kernel<T, BR, MAXC, false>;
+  auto kern = vec ? flash_bwd_kernel<BR, MAXC, true>
+                  : flash_bwd_kernel<BR, MAXC, false>;
   const size_t smem = smem_bytes(BR, a.D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<a.B * a.H, NT, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.seg, static_cast<T*>(a.dq),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dq_acc, a.delta, a.Tq,
-      a.Tkv, a.H, a.D, a.causal, a.scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.seg, static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.dq_acc, a.delta, a.Tq, a.Tkv, a.H, a.D,
+      a.causal, a.scale);
   return cudaGetLastError();
-}
-
-// 64-row tiles up to D=128; 32-row tiles above, so that four [BR, D] f32
-// tiles stay within a block's shared memory.
-template <typename T>
-cudaError_t dispatch_d(const Args& a, cudaStream_t stream) {
-  if (a.D <= 64) return launch<T, 64, 4>(a, stream);
-  if (a.D <= 128) return launch<T, 64, 8>(a, stream);
-  return launch<T, 32, 16>(a, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. seg may be null. dq_acc [B*H, Tq, D]
-// and delta [B*H, 2, Tq] (delta and l per row) are f32 scratch, written
-// before they are read.
+// f32 only. seg may be null. dq_acc [B*H, Tq, D] and delta [B*H, 2, Tq]
+// (delta and l per row) are f32 scratch, written before they are read.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int bvt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* seg, void* dq, void* dk, void* dv,
-                             void* dq_acc, void* delta, int dtype, int B,
-                             int Tq, int Tkv, int H, int D, int causal,
-                             float scale, void* stream) {
+                             void* dq_acc, void* delta, int B, int Tq,
+                             int Tkv, int H, int D, int causal, float scale,
+                             void* stream) {
   if (D < 1 || D > 256 || B < 1 || H < 1 || Tq < 1 || Tkv < 1)
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse),
@@ -449,9 +429,9 @@ extern "C" int bvt_flash_bwd(const void* q, const void* k, const void* v,
          static_cast<float*>(dq_acc), static_cast<float*>(delta),
          B, Tq, Tkv, H, D, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)dispatch_d<float>(a, st);
-    case 1: return (int)dispatch_d<__nv_bfloat16>(a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // 64-row tiles up to D=128; 32-row tiles above, so that four [BR, D] f32
+  // tiles stay within a block's shared memory.
+  if (D <= 64) return (int)launch<64, 4>(a, st);
+  if (D <= 128) return (int)launch<64, 8>(a, st);
+  return (int)launch<32, 16>(a, st);
 }

@@ -33,7 +33,7 @@ from big_vision_torch.ops import flash_attention
 XLA_SCORES_BYTES_LIMIT = 2 * 1024**3
 
 
-def _kernel_ok(t, d, b=1, h=1):
+def _kernel_ok(t, d, b, h):
   """The JAX package's auto-dispatch policy with a batch-shard factor of 1
   (one GPU, no mesh): the one-shot kernels wherever `oneshot_fits`, the
   blocked ones only where the plain path's scores would pass the limit."""

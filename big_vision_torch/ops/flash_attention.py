@@ -6,8 +6,10 @@
 * one-shot, where `oneshot_fits(Tq, Tkv, D)` holds and no block size was
   passed: bf16 products with f32 sums, p rounded to v's dtype before p.v.
   K1 (`csrc/flash_fwd.cu`) replaces `_oneshot_fwd_kernel` with
-  `_oneshot_softmax` (launched by `_oneshot_fwd`), K2 (`csrc/flash_bwd.cu`)
-  `_oneshot_bwd_kernel` (launched by `_oneshot_bwd`). On the card K1 also
+  `_oneshot_softmax` (launched by `_oneshot_fwd`), K2
+  `_oneshot_bwd_kernel` (launched by `_oneshot_bwd`): for bf16 inputs on the
+  tensor cores (`csrc/flash_bwd_tc.cu`), for f32 on the scalar units
+  (`csrc/flash_bwd.cu`). On the card K1 also
   emits each row's log-sum-exp, which K2 takes instead of recomputing the
   row max (it sums each row of exp(s - lse) again, so that p sums to 1 as
   the plain version's does).
@@ -114,13 +116,35 @@ def _fwd_lib():
   return fn
 
 
+# K2's two kernels, by input dtype: bf16 on the tensor cores, f32 on the
+# scalar units (its f32 semantics would need TF32 or split-bf16 products).
+BWD_KERNELS = {torch.bfloat16: "flash_bwd_tc", torch.float32: "flash_bwd"}
+
+
+def bwd_kernel(dtype):
+  """The name of the K2 kernel (its source in csrc/) that takes `dtype`."""
+  if dtype not in BWD_KERNELS:
+    raise ValueError(f"K2 takes {sorted(map(str, BWD_KERNELS))}, not {dtype}")
+  return BWD_KERNELS[dtype]
+
+
 @functools.cache
-def _bwd_lib():
-  """K2's C entry point, built and typed once per process."""
-  fn = _build.load("flash_bwd").bvt_flash_bwd
+def _bwd_lib(name):
+  """The C entry point of K2's kernel `name`, built and typed once per
+  process."""
+  fn = getattr(_build.load(name), f"bvt_{name}")
   fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+  fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
       ctypes.c_float, ctypes.c_void_p]
+  return fn
+
+
+@functools.cache
+def _tc_scratch():
+  """The tensor-core K2's dq scratch size, in floats per (batch, head)."""
+  fn = _build.load("flash_bwd_tc").bvt_flash_bwd_tc_scratch
+  fn.restype = ctypes.c_longlong
+  fn.argtypes = [ctypes.c_int, ctypes.c_int]
   return fn
 
 
@@ -415,12 +439,15 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=False, seg=None):
   """K2 on CUDA tensors: (dq, dk, dv) of `flash_attention`.
 
   `lse` is the row log-sum-exp `flash_attention_forward` returned for q,
-  k, v. Launches the kernel and counts the launch in
-  `flash_attention_bwd.launches`.
+  k, v. Launches the kernel `bwd_kernel(q.dtype)` (bf16: the tensor-core
+  kernel, csrc/flash_bwd_tc.cu; f32: the scalar one, csrc/flash_bwd.cu)
+  and counts the launch in `flash_attention_bwd.launches`, and a launch of
+  the tensor-core kernel also in `flash_attention_bwd.tc_launches`.
   """
   if q.device.type != "cuda":
     raise ValueError(f"the K2 kernel runs on cuda, not {q.device}")
   _check_inputs(q, k, v, seg)
+  name = bwd_kernel(q.dtype)
   if do.shape != q.shape or do.dtype != q.dtype:
     raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q")
   b, tq, h, d = q.shape
@@ -430,17 +457,21 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=False, seg=None):
   seg = _check_cuda((("q", q), ("k", k), ("v", v), ("do", do),
                      ("lse", lse)), seg)
   dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-  dq_acc = torch.empty((b * h, tq, d), dtype=torch.float32, device=q.device)
+  per_head = (_tc_scratch()(tq, d) if name == "flash_bwd_tc" else tq * d)
+  dq_acc = torch.empty(b * h * per_head, dtype=torch.float32,
+                       device=q.device)
   # Row statistics: delta and the row sum of exp(s - lse) per query row.
   delta = torch.empty((b * h, 2, tq), dtype=torch.float32, device=q.device)
-  err = _bwd_lib()(
+  err = _bwd_lib(name)(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
       None if seg is None else seg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-      dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(),
-      _DTYPES[q.dtype], b, tq, k.shape[1], h, d, int(bool(causal)),
-      1.0 / math.sqrt(d), _build.stream_ptr(q.device))
-  _build.check(err, "flash_bwd")
+      dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(), b, tq, k.shape[1],
+      h, d, int(bool(causal)), 1.0 / math.sqrt(d),
+      _build.stream_ptr(q.device))
+  _build.check(err, name)
   flash_attention_bwd.launches += 1
+  if name == "flash_bwd_tc":
+    flash_attention_bwd.tc_launches += 1
   return dq, dk, dv
 
 
@@ -660,6 +691,7 @@ def flash_attention(q, k, v, *, causal=False, seg=None, block_q=None,
 
 flash_attention_forward.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
 flash_attention_blocked_forward.launches = 0
 flash_attention_blocked_dq.launches = 0
 flash_attention_blocked_dkv.launches = 0

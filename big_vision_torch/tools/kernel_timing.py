@@ -117,11 +117,11 @@ def k1_work(b, tq, h, d, tkv=None):
   return 2 * (2 * b * tq * h * d + 2 * b * tkv * h * d), 4 * b * h * tq * tkv * d
 
 
-def k2_work(b, tq, h, d, tkv=None):
+def k2_work(b, tq, h, d, tkv=None, itemsize=2):
   """(bytes, flops) of one K2 call: q, k, v, do read and dq, dk, dv written
-  once; five products of 2*Tq*Tkv*D each."""
+  once in `itemsize`-byte elements; five products of 2*Tq*Tkv*D each."""
   tkv = tkv or tq
-  return 2 * (4 * b * tq * h * d + 3 * b * tkv * h * d), \
+  return itemsize * (3 * b * tq * h * d + 4 * b * tkv * h * d), \
       10 * b * h * tq * tkv * d
 
 

@@ -11,9 +11,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
   2. holds each kernel against its plain PyTorch version in bf16 (K1 and K2
      also in f32), at the shapes of the serving and training paths and at
      the edge cases (masks, Tq != Tkv, int8 cache, softcap, fully masked
-     rows, which must give exact zeros), with the bar
+     rows, which must give exact zeros; for K2 also D=20, which the
+     tensor-core kernel loads without 16-byte copies), with the bar
      max|kernel - plain| / max|plain| <= 1e-2 (docs/flash_parity.md); for
-     K2 each of dq, dk and dv is held to it; the blocked kernels K3, K4a
+     K2 each of dq, dk and dv is held to it (bf16 inputs run its
+     tensor-core kernel, f32 inputs its scalar one); the blocked kernels K3, K4a
      and K4b (o, LSE, dq, dk, dv; K4a and K4b on K3's o and LSE) at the
      FlexiViT-B shapes (B=32, H=12, D=64, T=901 and 1601) in f32 (bar 1e-4:
      their semantics are f32, only the order of sums differs) and bf16,
@@ -34,7 +36,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
   4. trains ViT-B/16 at 224px, batch 256, through `big_vision_torch.train`
      and configs/vit_b16_synthetic.py (random init from the config's seed,
      the real input pipeline) for TRAIN_STEPS steps: every loss finite, K1
-     and K2 launched 12 times per step; then 10 more steps on one fixed
+     and K2's tensor-core kernel launched 12 times per step; then 10 more
+     steps on one fixed
      batch, whose loss must fall (timed with CUDA events: the step without
      the input pipeline), a profile of one step (device busy time), and
      the kernel path against the plain path (attn_impl="xla") from the
@@ -47,20 +50,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the f32 plain path's, floor 2e-2 (see `kernel_vs_plain_training`);
   5. trains FlexiViT-B (f32, batch 32, random init from the config's seed)
      through `big_vision_torch.trainers.proj.flexi.train` and
-     configs/proj/flexivit/i21k_sup.py: FLEXI_STEPS steps of its own loop
+     configs/proj/flexivit/i21k_sup.py with attn=flash (the config's
+     default "auto" follows the JAX package's gate, which takes the plain
+     path at seqhw 30 and 40): FLEXI_STEPS steps of its own loop
      and seqhw draws (15, 15, 15, 40, 30), then steps at seqhw 40, 30, 15,
      twice, through `update(batch, seqhw=...)`, each timed with CUDA
      events, with its peak memory, and with 12 launches of K3, K4a and K4b
-     (none of K1, K2) at seqhw 30 and 40 and 12 of K1 and K2 at 15; a
+     (none of K1, K2) at seqhw 30 and 40 and 12 of K1 and K2's f32 kernel
+     at 15; a
      profile of one step at seqhw 40 (device busy time); the loss falling
      over FLEXI_FIXED_STEPS steps on one batch at seqhw 40; and the kernel
      path against the plain path at seqhw 40 on 8 unseen images (loss,
      encoder output and attention-projection gradients within 2e-2; each
      K4a and K4b launch of the backward, on its own inputs, within 1e-4 of
-     its plain version);
+     its plain version); then the same state under attn=auto: two steps
+     each at seqhw 40 and 30 (CUDA events, peak memory) with no kernel
+     launched;
   6. distils FlexiViT-B from a ViT-B/8 teacher (f32, batch 32) through
      `big_vision_torch.trainers.proj.flexi.distill` and
-     configs/proj/flexivit/i21k_distill.py with `FUSED_BLOCKED_BWD` set:
+     configs/proj/flexivit/i21k_distill.py with attn=flash and
+     `FUSED_BLOCKED_BWD` set:
      the teacher has random weights from SEED and a seeded nonzero head,
      written with `npz_save` in the oldest published layout (a posemb with
      a [cls] row, for 224px) and loaded through `prof_init` and `vit.load`
@@ -70,7 +79,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      state, next seqhw and next loss; then steps at seqhw 40, 30, 15,
      twice, through `update(batch, seqhw=...)` (CUDA events, peak memory,
      and per step 24 K3 and 12 K5 launches at seqhw 30 and 40, none of K4a
-     and K4b; 12 K3, 12 K1 and 12 K2 at 15); a profile of one step at
+     and K4b; 12 K3, 12 K1 and 12 of K2's f32 kernel at 15); a profile of
+     one step at
      seqhw 40; the loss falling over 10 steps on one batch at seqhw 40;
      and the kernel path against the plain path at seqhw 40 on 8 unseen
      images (loss, student encoder output and attention-projection
@@ -82,9 +92,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
      beside its plain version and F.scaled_dot_product_attention in bf16
      (forward, or its autograd backward for K2, K4a, K4b and K5), which
-     the port never calls; and K5 against K4a + K4b on the same inputs.
-The line before the last is {"kernels": [...]}: K1 and K2 are reported at
-the ViT training shape (B=256, T=196, H=12, D=64; launches per step), K3,
+     the port never calls; K2's bf16 kernel and its plain version in turns;
+     and K5 against K4a + K4b on the same inputs.
+The line before the last is {"kernels": [...]}: K1 and K2's bf16
+tensor-core kernel are reported at the ViT training shape (B=256, T=196,
+H=12, D=64; launches per step), K2's f32 kernel at FlexiViT-B's seqhw 15
+(B=32, T=226, H=12, D=64, f32; launches per step of the FlexiViT phase), K3,
 K4a, K4b and K5 at the FlexiViT-B shape of seqhw 40 (B=32, T=1601, H=12,
 D=64, f32; launches per step of the FlexiViT phase, and for K5 of the
 distillation phase), K6 at the serving shape (launches per request
@@ -162,8 +175,11 @@ TEACHER_HEAD_STD = 0.02  # logits of std ~0.5 over 21843 classes
 FLOPS_PER_IMG_TRAIN = 3 * 35.2e9  # bench.py:31-32: 3x the forward's FLOPs
 
 
-# Each kernel's launch counter: an attribute of its wrapper.
+# Each kernel's launch counter: an attribute of its wrapper. K2's wrapper
+# runs two kernels, by dtype: "K2" is its bf16 tensor-core kernel
+# (`tc_launches`), "K2f" its f32 scalar one (the rest of `launches`).
 COUNTERS = {"K1": "flash_attention_forward", "K2": "flash_attention_bwd",
+            "K2f": "flash_attention_bwd",
             "K3": "flash_attention_blocked_forward",
             "K4a": "flash_attention_blocked_dq",
             "K4b": "flash_attention_blocked_dkv",
@@ -171,12 +187,17 @@ COUNTERS = {"K1": "flash_attention_forward", "K2": "flash_attention_bwd",
 
 
 def reset_launches(fa):
-  for wrapper in COUNTERS.values():
+  for wrapper in set(COUNTERS.values()):
     getattr(fa, wrapper).launches = 0
+  fa.flash_attention_bwd.tc_launches = 0
 
 
 def launches(fa):
-  return {k: getattr(fa, wrapper).launches for k, wrapper in COUNTERS.items()}
+  counts = {k: getattr(fa, wrapper).launches
+            for k, wrapper in COUNTERS.items()}
+  counts["K2"] = fa.flash_attention_bwd.tc_launches
+  counts["K2f"] -= counts["K2"]
+  return counts
 
 
 def rel_err(got, want):
@@ -249,6 +270,8 @@ def check_k2(fa):
       ("Tq!=Tkv", dict(b=2, tq=100, h=4, d=64, tkv=300), {}),
       ("Tq!=Tkv causal", dict(b=2, tq=100, h=4, d=128, tkv=300),
        dict(causal=True)),
+      # D % 8 != 0: the tensor-core kernel's element loads, no cp.async.
+      ("D=20", dict(b=2, tq=130, h=3, d=20), {}),
   ]
   path_err = None
   for i, (name, shape, opts) in enumerate(cases):
@@ -529,8 +552,8 @@ def train_main_path(fa, workdir):
   counts = launches(fa)
   depth = len(trainer.model.encoder.blocks)
   print(f"training: {TRAIN_STEPS} steps of batch {trainer.batch_size}; "
-        f"launches {counts} (want K1 and K2 {depth} x {TRAIN_STEPS} each, "
-        "no K3, K4a or K4b)")
+        f"launches {counts} (want K1 and K2, the tensor-core kernel, "
+        f"{depth} x {TRAIN_STEPS} each, no other)")
   assert counts == {**dict.fromkeys(COUNTERS, 0), "K1": depth * TRAIN_STEPS,
                     "K2": depth * TRAIN_STEPS}, counts
   assert trainer.batch_size == TRAIN_B and depth == TRAIN_DEPTH
@@ -716,10 +739,11 @@ def kernel_vs_plain_training(fa, trainer, batch):
 
 
 def flexi_want(depth, seqhw):
-  """The launches of one FlexiViT-B step at `seqhw`: T = seqhw^2 + 1 is
-  901 and 1601 at seqhw 30 and 40, past the one-shot boundary at D=64
-  (blocked: K3, K4a, K4b), and at most 577 below (one-shot: K1, K2)."""
-  kernels = ("K3", "K4a", "K4b") if seqhw in (30, 40) else ("K1", "K2")
+  """The launches of one FlexiViT-B step at `seqhw` with attn=flash: T =
+  seqhw^2 + 1 is 901 and 1601 at seqhw 30 and 40, past the one-shot
+  boundary at D=64 (blocked: K3, K4a, K4b), and at most 577 below
+  (one-shot: K1, and K2's f32 kernel)."""
+  kernels = ("K3", "K4a", "K4b") if seqhw in (30, 40) else ("K1", "K2f")
   return {**dict.fromkeys(COUNTERS, 0), **dict.fromkeys(kernels, depth)}
 
 
@@ -730,7 +754,8 @@ def flexi_main_path(fa, workdir):
   shutil.rmtree(workdir, ignore_errors=True)
   reset_launches(fa)
   trainer = flexi_train.main(["--config", f"{FLEXI_CONFIG}:stop="
-                              f"{FLEXI_STEPS},log=1", "--workdir", workdir])
+                              f"{FLEXI_STEPS},log=1,attn=flash",
+                              "--workdir", workdir])
   torch.cuda.synchronize()
   counts = launches(fa)
   depth = len(trainer.model.encoder.blocks)
@@ -757,7 +782,7 @@ def flexi_steps(fa, trainer, gpu):
   and peak memory of each step), a profile of one step at seqhw 40, then
   FLEXI_FIXED_STEPS steps at seqhw 40 whose loss must fall. Returns (the
   next batch, which no update sees, the launches read after the last step
-  at seqhw 40)."""
+  at each seqhw, and {seqhw: (step ms, peak bytes)})."""
   it = trainer.input_iter()
   batch, unseen = next(it), next(it)
   it.close()
@@ -794,7 +819,7 @@ def flexi_steps(fa, trainer, gpu):
         + " ".join(f"{x:.6f}" for x in losses))
   assert all(math.isfinite(x) for x in losses), losses
   assert losses[-1] < losses[0], losses
-  return unseen, per_step[40]
+  return unseen, per_step, {s: (times[s], memory[s]) for s in times}
 
 
 def flexi_kernel_vs_plain(fa, trainer, batch):
@@ -869,16 +894,58 @@ def flexi_kernel_vs_plain(fa, trainer, batch):
   assert loss_err <= E2E_BAR and tok_err <= E2E_BAR and worst[0] <= E2E_BAR
 
 
+def flexi_auto_steps(fa, auto, batch, flash, gpu):
+  """The trainer `auto` of the config's default attn=auto, which follows
+  the JAX package's gate: at batch 32 its scores are under
+  XLA_SCORES_BYTES_LIMIT at seqhw 40 and 30, so the plain path runs there
+  (under a checkpoint) and no kernel is launched. Two steps at each (CUDA
+  events, peak memory), printed beside the attn=flash steps `flash`."""
+  assert auto.model.encoder.blocks[0].attn.attn_impl == "auto"
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  for seqhw in (40, 30):
+    times = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+      reset_launches(fa)
+      start.record()
+      loss = auto.update(batch, seqhw=seqhw)["training_loss"]
+      end.record()
+      end.synchronize()
+      assert math.isfinite(loss.item()), (seqhw, loss)
+      counts = launches(fa)
+      assert counts == dict.fromkeys(COUNTERS, 0), (seqhw, counts)
+      times.append(start.elapsed_time(end))
+    mem = torch.cuda.max_memory_allocated()
+    f_ms, f_mem = flash[seqhw]
+    print(f"[{gpu}] FlexiViT-B seqhw {seqhw} (T={seqhw * seqhw + 1}) batch "
+          f"{FLEXI_B}, attn=auto (plain path, no kernel launched): step "
+          f"{', '.join(f'{x:.3f}' for x in times)} ms, max memory allocated "
+          f"{mem / 2**30:.2f} GiB; attn=flash: step "
+          f"{', '.join(f'{x:.3f}' for x in f_ms)} ms, {f_mem / 2**30:.2f} GiB")
+
+
 def flexi_phase(fa, gpu):
   """Phase 5 and the FlexiViT-B step times; returns the launches of the
-  last step at seqhw 40, as the counters read them."""
+  last step at seqhw 40 (K3, K4a, K4b) and at 15 (K2's f32 kernel), as the
+  counters read them."""
   workdir = os.path.join(ROOT, "build", "chip_smoke_flexi")
   trainer = flexi_main_path(fa, workdir)
-  unseen, counts = flexi_steps(fa, trainer, gpu)
+  unseen, per_step, flash = flexi_steps(fa, trainer, gpu)
   flexi_kernel_vs_plain(fa, trainer, unseen)
-  del trainer, unseen
+  # The same state under the config's default attn=auto, alone on the card.
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.flexi import train as flexi_train
+  t0 = time.perf_counter()
+  auto = flexi_train.Trainer(train.load_config(FLEXI_CONFIG))
+  auto.model.load_state_dict(trainer.model.state_dict())
+  del trainer
+  flexi_auto_steps(fa, auto, unseen, flash, gpu)
+  print(f"FlexiViT-B attn=auto steps: {time.perf_counter() - t0:.1f} s wall")
+  del auto, unseen
   torch.cuda.empty_cache()
-  return {k: n for k, n in counts.items() if n}
+  return {**{k: n for k, n in per_step[40].items() if n},
+          "K2f": per_step[15]["K2f"]}
 
 
 # ----------------------------------------------------------------------------
@@ -918,7 +985,7 @@ def distill_want(depth, seqhw):
   its backward) or below (K1, K2)."""
   want = dict.fromkeys(COUNTERS, 0)
   want["K3"] = depth
-  kernels = ("K3", "K5") if seqhw in (30, 40) else ("K1", "K2")
+  kernels = ("K3", "K5") if seqhw in (30, 40) else ("K1", "K2f")
   for k in kernels:
     want[k] += depth
   return want
@@ -931,7 +998,8 @@ def distill_main_path(fa, workdir, teacher_npz):
   reset_launches(fa)
   trainer = distill.main([
       "--config", f"{DISTILL_CONFIG}:stop={DISTILL_STEPS},log=1,"
-      f"ckpt={DISTILL_STEPS},prof_init={teacher_npz}", "--workdir", workdir])
+      f"ckpt={DISTILL_STEPS},prof_init={teacher_npz},attn=flash",
+      "--workdir", workdir])
   torch.cuda.synchronize()
   counts = launches(fa)
   depth = len(trainer.model.encoder.blocks)
@@ -1248,9 +1316,49 @@ def blocked_entries(fa, counts, gpu):
   return entries
 
 
+def k2_f32_entry(fa, counts):
+  """K2's f32 kernel (csrc/flash_bwd.cu) at FlexiViT-B's seqhw 15 (B=32,
+  T=226, H=12, D=64, f32; launches per step of the FlexiViT phase), beside
+  its plain version, SDPA's autograd backward on the same f32 inputs, and
+  its bound at the f32 rate outside the tensor cores; its error against
+  the plain version on these inputs."""
+  b, t, h, d = FLEXI_B, 15 * 15 + 1, TRAIN_H, TRAIN_D
+  sets, sdpa_sets = [], []
+  for i in range(2):
+    q, k, v, do = blocked_inputs(b, t, h, d, seed=110 + 2 * i)
+    _, lse = fa.flash_attention_forward(q, k, v)
+    sets.append((q, k, v, lse, do))
+    ins = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+    sdpa_sets.append((F.scaled_dot_product_attention(*ins), ins,
+                      do.transpose(1, 2).contiguous()))
+  assert fa.bwd_kernel(torch.float32) == "flash_bwd"
+  q, k, v, lse, do = sets[0]
+  got = fa.flash_attention_bwd(q, k, v, lse, do)
+  want = fa.flash_attention_bwd_reference(q, k, v, do)
+  abs_err = max((x - y).abs().max().item() for x, y in zip(got, want))
+  rel = max(rel_err(x, y) for x, y in zip(got, want))
+  print(f"K2 flash_bwd (f32) {tuple(q.shape)}: rel err {rel:.3e} (bar "
+        f"{K2_BAR})")
+  assert rel <= K2_BAR, rel
+  plain = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
+      q, k, v, do)
+  bms, by = bound(*k2_work(b, t, h, d, itemsize=4), F32_FLOPS)
+  return dict(
+      name="flash_bwd", route="cuda",
+      source="big_vision_torch/csrc/flash_bwd.cu",
+      replaces="big_vision_tpu/ops/flash_attention.py:329",
+      launches=counts["K2f"], max_abs_err=abs_err, max_rel_err=rel,
+      rel_tolerance=K2_BAR, ms=time_ms(fa.flash_attention_bwd, sets),
+      plain_ms=time_ms(plain, sets, iters=10), bound_ms=bms, bound_by=by,
+      library_ms=time_ms(lambda out, ins, do: torch.autograd.grad(
+          out, ins, do, retain_graph=True), sdpa_sets))
+
+
 def kernel_entries(fa, da, counts, gpu):
-  """The {"kernels": [...]} entries: K1 and K2 at the training shape, K6
-  at the serving shape, each beside its plain version, SDPA and bound."""
+  """The {"kernels": [...]} entries: K1 and K2's bf16 kernel at the ViT
+  training shape, K2's f32 kernel at FlexiViT-B's seqhw 15, K3-K5 at its
+  seqhw 40, K6 at the serving shape, each beside its plain version, SDPA
+  and bound."""
   kernels = []
   b, t, h, d = TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D
   # K1 as training launches it (with the LSE); 2 input sets (460 MB)
@@ -1279,21 +1387,29 @@ def kernel_entries(fa, da, counts, gpu):
     ins = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
     sdpa_sets.append((F.scaled_dot_product_attention(*ins), ins,
                       do.transpose(1, 2).contiguous()))
-  ms = time_ms(fa.flash_attention_bwd, k2_sets)
-  plain_ms = time_ms(lambda q, k, v, lse, do: fa
-                     .flash_attention_bwd_reference(q, k, v, do), k2_sets,
-                     iters=10)
+  plain = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
+      q, k, v, do)
+  assert fa.bwd_kernel(torch.bfloat16) == "flash_bwd_tc"
+  turns = [time_ms(plain, k2_sets, iters=10),
+           time_ms(fa.flash_attention_bwd, k2_sets),
+           time_ms(fa.flash_attention_bwd, k2_sets),
+           time_ms(plain, k2_sets, iters=10)]
+  print(f"[{gpu}] K2 flash_bwd_tc at B={b} T={t} H={h} D={d} bf16, in turns "
+        f"(plain, kernel, kernel, plain): "
+        + ", ".join(f"{x:.4f}" for x in turns) + " ms")
   lib_ms = time_ms(lambda out, ins, do: torch.autograd.grad(
       out, ins, do, retain_graph=True), sdpa_sets)
   bms, by = bound(*k2_work(b, t, h, d))
   kernels.append(dict(
-      name="flash_bwd", route="cuda",
-      source="big_vision_torch/csrc/flash_bwd.cu",
+      name="flash_bwd_tc", route="cuda",
+      source="big_vision_torch/csrc/flash_bwd_tc.cu",
       replaces="big_vision_tpu/ops/flash_attention.py:329",
       launches=counts["K2"], max_abs_err=counts["K2 err"][0],
-      max_rel_err=counts["K2 err"][1], rel_tolerance=K2_BAR, ms=ms,
-      plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
+      max_rel_err=counts["K2 err"][1], rel_tolerance=K2_BAR,
+      ms=(turns[1] + turns[2]) / 2, plain_ms=(turns[0] + turns[3]) / 2,
+      bound_ms=bms, bound_by=by, library_ms=lib_ms))
   del sets, k2_sets, sdpa_sets
+  kernels.append(k2_f32_entry(fa, counts))
   kernels += blocked_entries(fa, counts, gpu)
   # K6 at gemma_2b's AR shape over the serving run's cache.
   b, kh, g, s, hd = BATCH, 1, 8, CACHE, 256
@@ -1338,7 +1454,8 @@ def main():
 
   # 1. Build.
   t0 = time.perf_counter()
-  logs = _build.build_all(["flash_fwd", "flash_bwd", "flash_blocked_fwd",
+  logs = _build.build_all(["flash_fwd", "flash_bwd", "flash_bwd_tc",
+                           "flash_blocked_fwd",
                            "flash_blocked_bwd", "flash_blocked_bwd_fused",
                            "decode_attention"])
   print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
