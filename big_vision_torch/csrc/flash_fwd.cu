@@ -1,17 +1,20 @@
-// One-shot attention forward for Hopper (sm_90a): the port of the TPU kernel
-// `_oneshot_fwd_kernel` / `_oneshot_softmax` in
-// big_vision_tpu/ops/flash_attention.py (reached from `_oneshot_fwd`).
+// One-shot attention forward in f32 for Hopper (sm_90a): kernel K1 for f32
+// inputs, the port of the TPU kernel `_oneshot_fwd_kernel` /
+// `_oneshot_softmax` in big_vision_tpu/ops/flash_attention.py (reached from
+// `_oneshot_fwd`). This file holds only the f32 instantiation; bf16 inputs
+// take the tensor-core kernel of csrc/flash_fwd_tc.cu, which keeps the same
+// contract with p rounded to bf16 before p . v.
 //
 // What it computes, per (batch, head): s = (q . k^T) * scale in f32, the
 // optional causal (col <= row) and segment (0 < seg[j] <= seg[i]) masks,
-// softmax in f32, p rounded to v's dtype, o = (p . v) / l in q's dtype.
+// softmax in f32, o = (p . v) / l in f32.
 // A row with no visible key emits exact zeros (masked entries are excluded
 // from the sum explicitly, so a fully masked row never becomes mean(V)).
 // Tq may differ from Tkv; D is a runtime value up to 256. It also writes
 // each row's log-sum-exp m + log(l) (f32; -1e30 for a row with no visible
 // key), which the backward (csrc/flash_bwd.cu) takes.
 //
-// Layout: q, o [B, Tq, H, D] and k, v [B, Tkv, H, D], contiguous, read in
+// Layout: q, o [B, Tq, H, D] and k, v [B, Tkv, H, D], f32, contiguous, read in
 // place (no transposes around the kernel); seg [B, T] int32 or null; lse
 // [B*H, Tq] f32.
 //
@@ -23,16 +26,15 @@
 // rescale the f32 output accumulator held in registers; m + log l is the
 // log-sum-exp the backward takes. Products are scalar f32 FMAs on a 4x4
 // register tile per thread; tile loads are 16-byte vectors when D allows.
-// Tensor-core MMAs and a prefetch of the next tile are later work.
+// f32 semantics on the tensor cores would need TF32-split or 3xTF32
+// products held to the f32 bar, which is later work.
 //
-// Bound at the serving shapes (So400m/14: B*H=128, T=256, D=72, bf16): the
-// kernel must move q, k, v and o once, 18.9 MB, about 5.6 us at 3.35 TB/s;
-// its 2.4 GFLOP take about 2.4 us on the bf16 tensor cores, so the bytes
-// bound it. Scalar FMAs (67 TFLOP/s peak in f32) make the arithmetic, not
-// the bytes, this version's limit.
+// Bound at FlexiViT-B's seqhw 15 (B*H = 384, T = 226, D = 64, f32): q, k, v
+// read and o written once are 89 MB, 0.027 ms at 3.35 TB/s; its two
+// products are 5.0 GFLOP, 0.075 ms at the f32 rate outside the tensor
+// cores (67 TFLOP/s), which bounds it.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -42,18 +44,6 @@ constexpr int BQ = 64;    // query rows per block
 constexpr int BKV = 64;   // key/value rows per shared-memory tile
 constexpr int NT = 256;   // threads: a 16 x 16 grid of 4 x 4 register tiles
 constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared memory, in floats: sQ [BQ][DS], sK [BKV][DS], sV [BKV][D],
 // sP [BQ][BKV + 1], sM/sL/sAlpha [BQ], then ints sSegQ [BQ], sSegK [BKV].
@@ -69,16 +59,16 @@ inline size_t smem_bytes(int d) {
 }
 
 // Fills dst[r * stride + d] (r < 64, d < D) with rows r of src (row r at
-// src + r * row_elems), as floats; rows r >= nrows read as zeros. With VEC
-// (D a multiple of the 16-byte vector and 16-byte aligned rows), each
-// thread issues up to 4 vector loads before it stores any, so a tile costs
-// few memory round trips.
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
+// src + r * row_elems); rows r >= nrows read as zeros. With VEC (D a
+// multiple of the 16-byte vector and 16-byte aligned rows), each thread
+// issues up to 4 vector loads before it stores any, so a tile costs few
+// memory round trips.
+template <bool VEC>
+__device__ __forceinline__ void load_tile(float* dst, int stride, const float* src,
                                           long long row_elems, int nrows,
                                           int D, int tid) {
   if (VEC) {
-    constexpr int W = 16 / sizeof(T);  // elements per vector
+    constexpr int W = 4;  // floats per vector
     const int vpr = D / W, total = 64 * vpr;
     for (int base = 0; base < total; base += 4 * NT) {
       uint4 buf[4];
@@ -93,25 +83,25 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
       for (int u = 0; u < 4; ++u) {
         const int i = base + u * NT + tid;
         if (i >= total) break;
-        const T* x = reinterpret_cast<const T*>(&buf[u]);
+        const float* x = reinterpret_cast<const float*>(&buf[u]);
         float* out = dst + (i / vpr) * stride + (i % vpr) * W;
 #pragma unroll
-        for (int e = 0; e < W; ++e) out[e] = to_f(x[e]);
+        for (int e = 0; e < W; ++e) out[e] = x[e];
       }
     }
   } else {
     for (int i = tid; i < 64 * D; i += NT) {
       const int r = i / D, d = i % D;
-      dst[r * stride + d] = r < nrows ? to_f(src[r * row_elems + d]) : 0.f;
+      dst[r * stride + d] = r < nrows ? src[r * row_elems + d] : 0.f;
     }
   }
 }
 
 // MAXC: column groups of 16 per thread in the output accumulator (D <= 16*MAXC).
-template <typename T, int MAXC, bool VEC>
+template <int MAXC, bool VEC>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  const int32_t* __restrict__ seg, float* __restrict__ lse,
                  int Tq, int Tkv, int H, int D, int causal, float scale) {
   extern __shared__ float smem[];
@@ -132,12 +122,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * BQ;
   const long long row_q = (long long)H * D;  // elements between rows of q/o
-  const T* qb = q + ((long long)b * Tq * H + h) * D;
-  const T* kb = k + ((long long)b * Tkv * H + h) * D;
-  const T* vb = v + ((long long)b * Tkv * H + h) * D;
-  T* ob = o + ((long long)b * Tq * H + h) * D;
+  const float* qb = q + ((long long)b * Tq * H + h) * D;
+  const float* kb = k + ((long long)b * Tkv * H + h) * D;
+  const float* vb = v + ((long long)b * Tkv * H + h) * D;
+  float* ob = o + ((long long)b * Tq * H + h) * D;
 
-  load_tile<T, VEC>(sQ, ds, qb + q0 * row_q, row_q, Tq - q0, D, tid);
+  load_tile<VEC>(sQ, ds, qb + q0 * row_q, row_q, Tq - q0, D, tid);
   if (tid < BQ) {
     sM[tid] = NEG_INF;
     sL[tid] = 0.f;
@@ -155,8 +145,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     const int kvn = min(BKV, Tkv - kv0);
     __syncthreads();  // previous tile's readers are done with sK/sV/sP
-    load_tile<T, VEC>(sK, ds, kb + kv0 * row_q, row_q, kvn, D, tid);
-    load_tile<T, VEC>(sV, D, vb + kv0 * row_q, row_q, kvn, D, tid);
+    load_tile<VEC>(sK, ds, kb + kv0 * row_q, row_q, kvn, D, tid);
+    load_tile<VEC>(sV, D, vb + kv0 * row_q, row_q, kvn, D, tid);
     if (seg && tid < BKV)
       sSegK[tid] = (tid < kvn) ? seg[(long long)b * Tkv + kv0 + tid] : 0;
     __syncthreads();
@@ -209,7 +199,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 16; ++c) {
         const float p = __expf(prow[c] - m_new);
         sum += p;
-        prow[c] = to_f(from_f<T>(p));  // p is cast to v's dtype before p.v
+        prow[c] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -259,50 +249,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) ob[(q0 + r) * row_q + d] = from_f<T>(acc[i][c] * inv);
+      if (d < D) ob[(q0 + r) * row_q + d] = acc[i][c] * inv;
     }
   }
 }
 
-template <typename T, int MAXC>
+template <int MAXC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int32_t* seg, float* lse, int B, int Tq, int Tkv,
                    int H, int D, int causal, float scale, cudaStream_t stream) {
-  const bool vec = D % (16 / sizeof(T)) == 0 &&
+  const bool vec = D % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-  auto kern = vec ? flash_fwd_kernel<T, MAXC, true>
-                  : flash_fwd_kernel<T, MAXC, false>;
+  auto kern = vec ? flash_fwd_kernel<MAXC, true> : flash_fwd_kernel<MAXC, false>;
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Tq + BQ - 1) / BQ);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seg, lse, Tq, Tkv, H, D,
-      causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), seg, lse, Tq, Tkv,
+      H, D, causal, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       const int32_t* seg, float* lse, int B, int Tq, int Tkv,
-                       int H, int D, int causal, float scale,
-                       cudaStream_t stream) {
-  if (D <= 64)
-    return launch<T, 4>(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale, stream);
-  if (D <= 128)
-    return launch<T, 8>(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale, stream);
-  return launch<T, 16>(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. seg may be null.
+// f32 only. seg may be null.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int bvt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, const void* seg, void* lse, int dtype, int B,
+                             void* o, const void* seg, void* lse, int B,
                              int Tq, int Tkv, int H, int D, int causal,
                              float scale, void* stream) {
   if (D < 1 || D > 256 || B < 1 || H < 1 || Tq < 1 || Tkv < 1)
@@ -311,10 +288,11 @@ extern "C" int bvt_flash_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (dtype) {
-    case 0: err = dispatch_d<float>(q, k, v, o, s, l, B, Tq, Tkv, H, D, causal, scale, st); break;
-    case 1: err = dispatch_d<__nv_bfloat16>(q, k, v, o, s, l, B, Tq, Tkv, H, D, causal, scale, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D <= 64)
+    err = launch<4>(q, k, v, o, s, l, B, Tq, Tkv, H, D, causal, scale, st);
+  else if (D <= 128)
+    err = launch<8>(q, k, v, o, s, l, B, Tq, Tkv, H, D, causal, scale, st);
+  else
+    err = launch<16>(q, k, v, o, s, l, B, Tq, Tkv, H, D, causal, scale, st);
   return (int)err;
 }

@@ -5,11 +5,12 @@
 
 * one-shot, where `oneshot_fits(Tq, Tkv, D)` holds and no block size was
   passed: bf16 products with f32 sums, p rounded to v's dtype before p.v.
-  K1 (`csrc/flash_fwd.cu`) replaces `_oneshot_fwd_kernel` with
-  `_oneshot_softmax` (launched by `_oneshot_fwd`), K2
-  `_oneshot_bwd_kernel` (launched by `_oneshot_bwd`): for bf16 inputs on the
-  tensor cores (`csrc/flash_bwd_tc.cu`), for f32 on the scalar units
-  (`csrc/flash_bwd.cu`). On the card K1 also
+  K1 replaces `_oneshot_fwd_kernel` with `_oneshot_softmax` (launched by
+  `_oneshot_fwd`), K2 `_oneshot_bwd_kernel` (launched by `_oneshot_bwd`);
+  each is two kernels, for bf16 inputs on the tensor cores
+  (`csrc/flash_fwd_tc.cu`, `csrc/flash_bwd_tc.cu`, which share
+  `csrc/flash_tc_common.cuh`), for f32 on the scalar units
+  (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`). On the card K1 also
   emits each row's log-sum-exp, which K2 takes instead of recomputing the
   row max (it sums each row of exp(s - lse) again, so that p sums to 1 as
   the plain version's does).
@@ -106,12 +107,25 @@ def takes_fused_bwd(tq, tkv, d, block_q, block_kv):
       _r(tq, block_q), _r(tkv, block_kv), d, block_q, block_kv)
 
 
+# K1's two kernels, by input dtype: bf16 on the tensor cores, f32 on the
+# scalar units (its f32 semantics would need TF32 or split-bf16 products).
+FWD_KERNELS = {torch.bfloat16: "flash_fwd_tc", torch.float32: "flash_fwd"}
+
+
+def fwd_kernel(dtype):
+  """The name of the K1 kernel (its source in csrc/) that takes `dtype`."""
+  if dtype not in FWD_KERNELS:
+    raise ValueError(f"K1 takes {sorted(map(str, FWD_KERNELS))}, not {dtype}")
+  return FWD_KERNELS[dtype]
+
+
 @functools.cache
-def _fwd_lib():
-  """K1's C entry point, built and typed once per process."""
-  fn = _build.load("flash_fwd").bvt_flash_fwd
+def _fwd_lib(name):
+  """The C entry point of K1's kernel `name`, built and typed once per
+  process."""
+  fn = getattr(_build.load(name), f"bvt_{name}")
   fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
       ctypes.c_float, ctypes.c_void_p]
   return fn
 
@@ -415,23 +429,28 @@ def flash_attention_blocked_bwd_fused_reference(q, k, v, o, lse, do, *,
 def flash_attention_forward(q, k, v, *, causal=False, seg=None):
   """K1 on CUDA tensors: (o, row log-sum-exp [B*H, Tq] f32).
 
-  Launches the kernel and counts the launch in
-  `flash_attention_forward.launches`.
+  Launches the kernel `fwd_kernel(q.dtype)` (bf16: the tensor-core kernel,
+  csrc/flash_fwd_tc.cu; f32: the scalar one, csrc/flash_fwd.cu) and counts
+  the launch in `flash_attention_forward.launches`, and a launch of the
+  tensor-core kernel also in `flash_attention_forward.tc_launches`.
   """
   if q.device.type != "cuda":
     raise ValueError(f"the K1 kernel runs on cuda, not {q.device}")
   _check_inputs(q, k, v, seg)
+  name = fwd_kernel(q.dtype)
   seg = _check_cuda((("q", q), ("k", k), ("v", v)), seg)
   b, tq, h, d = q.shape
   out = torch.empty_like(q)
   row_lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-  err = _fwd_lib()(
+  err = _fwd_lib(name)(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-      None if seg is None else seg.data_ptr(), row_lse.data_ptr(),
-      _DTYPES[q.dtype], b, tq, k.shape[1], h, d,
-      int(bool(causal)), 1.0 / math.sqrt(d), _build.stream_ptr(q.device))
-  _build.check(err, "flash_fwd")
+      None if seg is None else seg.data_ptr(), row_lse.data_ptr(), b, tq,
+      k.shape[1], h, d, int(bool(causal)), 1.0 / math.sqrt(d),
+      _build.stream_ptr(q.device))
+  _build.check(err, name)
   flash_attention_forward.launches += 1
+  if name == "flash_fwd_tc":
+    flash_attention_forward.tc_launches += 1
   return out, row_lse
 
 
@@ -690,6 +709,7 @@ def flash_attention(q, k, v, *, causal=False, seg=None, block_q=None,
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.tc_launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_bwd.tc_launches = 0
 flash_attention_blocked_forward.launches = 0

@@ -1,6 +1,11 @@
 """Times the port's CUDA kernels K1 and K6 on the GPU across shapes.
 
-For each kernel and shape it prints the time per call measured two ways:
+K1 is two kernels: bf16 inputs take the tensor-core kernel
+(csrc/flash_fwd_tc.cu), timed in each of its two block shapes (K and V
+streamed through 64-row tiles, or resident in shared memory for the
+block's group of query tiles; the wrapper's own pick is by shape), and f32
+inputs the scalar kernel (csrc/flash_fwd.cu). For each kernel and shape it
+prints the time per call measured two ways:
   events - CUDA events around 50 calls through the Python wrapper, inputs
            rotated through more than the 50 MB L2 (what a caller sees,
            host launch cost included when it exceeds the kernel's);
@@ -111,10 +116,12 @@ def k1_inputs(b, tq, h, d, tkv=None, seed=0, dtype=torch.bfloat16):
   return mk(tq), mk(tkv or tq), mk(tkv or tq)
 
 
-def k1_work(b, tq, h, d, tkv=None):
-  """(bytes, flops) of one K1 call: q, k, v read and o written once."""
+def k1_work(b, tq, h, d, tkv=None, itemsize=2):
+  """(bytes, flops) of one K1 call: q, k, v read and o written once in
+  `itemsize`-byte elements."""
   tkv = tkv or tq
-  return 2 * (2 * b * tq * h * d + 2 * b * tkv * h * d), 4 * b * h * tq * tkv * d
+  return (itemsize * (2 * b * tq * h * d + 2 * b * tkv * h * d),
+          4 * b * h * tq * tkv * d)
 
 
 def k2_work(b, tq, h, d, tkv=None, itemsize=2):
@@ -187,26 +194,59 @@ def k6_work(b, kh, g, s, h):
       4 * b * kh * g * s * h
 
 
+def tc_block_shape(build):
+  """fn(q, k, v, resident) running K1's tensor-core kernel on bf16 CUDA
+  tensors [B, T, H, D] (no mask) in the block shape `resident` (1: K and V
+  resident, 0: streamed) rather than the one it picks; returns o."""
+  import ctypes
+  fn = build.load("flash_fwd_tc").bvt_flash_fwd_tc_shape
+  fn.restype = ctypes.c_int
+  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+      ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+  def run(q, k, v, resident):
+    b, t, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   None, lse.data_ptr(), b, t, k.shape[1], h, d, 0,
+                   1.0 / math.sqrt(d), resident, build.stream_ptr(q.device)),
+                "flash_fwd_tc")
+    return o
+  return run
+
+
 def main():
   if not torch.cuda.is_available():
     raise SystemExit("kernel_timing needs a CUDA device")
   from big_vision_torch.ops import _build
   from big_vision_torch.ops import decode_attention as da
   from big_vision_torch.ops import flash_attention as fa
-  _build.build_all(["flash_fwd", "decode_attention"])
+  _build.build_all(["flash_fwd", "flash_fwd_tc", "decode_attention"])
   card = nvidia_smi()
 
-  def report(name, fn, sets, work):
+  def report(name, fn, sets, work, flops_per_s=BF16_FLOPS):
     ev, gr = time_ms(fn, sets), graph_ms(fn, sets)
-    bms, by = bound(*work)
+    bms, by = bound(*work, flops_per_s)
     print(f"[{card}] {name}: events {ev:.4f} ms, graph {gr:.4f} ms, bound "
           f"{bms:.4f} ms ({by}), SM clock {nvidia_smi('clocks.sm')}")
 
+  shape_fn = tc_block_shape(_build)
   for b, t, h, d in [(1, 256, 16, 72), (8, 256, 16, 72), (32, 256, 16, 72),
-                     (8, 196, 12, 64), (8, 64, 16, 72)]:
-    sets = [k1_inputs(b, t, h, d, seed=i) for i in range(4)]
-    report(f"K1 flash_fwd B={b} T={t} H={h} D={d}", fa.flash_attention,
+                     (8, 196, 12, 64), (256, 196, 12, 64), (8, 64, 16, 72)]:
+    n = max(4, math.ceil(100e6 / (6 * b * t * h * d)))  # past the L2
+    sets = [k1_inputs(b, t, h, d, seed=i) for i in range(n)]
+    report(f"K1 flash_fwd_tc B={b} T={t} H={h} D={d}", fa.flash_attention,
            sets, k1_work(b, t, h, d))
+    for resident in (0, 1):
+      report(f"  block shape {('streamed', 'resident')[resident]}",
+             lambda q, k, v, r=resident: shape_fn(q, k, v, r), sets,
+             k1_work(b, t, h, d))
+  for b, t, h, d in [(32, 226, 12, 64)]:  # FlexiViT-B at seqhw 15, f32
+    sets = [k1_inputs(b, t, h, d, seed=i, dtype=torch.float32)
+            for i in range(4)]
+    report(f"K1 flash_fwd B={b} T={t} H={h} D={d} f32", fa.flash_attention,
+           sets, k1_work(b, t, h, d, itemsize=4), F32_FLOPS)
   for b, g, s, h in [(1, 8, 352, 256), (8, 8, 352, 256), (64, 8, 352, 256),
                      (132, 8, 352, 256), (8, 8, 64, 256), (8, 8, 1024, 256),
                      (8, 1, 352, 256), (8, 8, 352, 64)]:

@@ -11,11 +11,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
   2. holds each kernel against its plain PyTorch version in bf16 (K1 and K2
      also in f32), at the shapes of the serving and training paths and at
      the edge cases (masks, Tq != Tkv, int8 cache, softcap, fully masked
-     rows, which must give exact zeros; for K2 also D=20, which the
-     tensor-core kernel loads without 16-byte copies), with the bar
+     rows, which must give exact zeros; for K1 and K2 also D=20, which the
+     tensor-core kernels load without 16-byte copies), with the bar
      max|kernel - plain| / max|plain| <= 1e-2 (docs/flash_parity.md); for
-     K2 each of dq, dk and dv is held to it (bf16 inputs run its
-     tensor-core kernel, f32 inputs its scalar one); the blocked kernels K3, K4a
+     K2 each of dq, dk and dv is held to it (bf16 inputs run K1's and K2's
+     tensor-core kernels, f32 inputs their scalar ones); the blocked kernels K3, K4a
      and K4b (o, LSE, dq, dk, dv; K4a and K4b on K3's o and LSE) at the
      FlexiViT-B shapes (B=32, H=12, D=64, T=901 and 1601) in f32 (bar 1e-4:
      their semantics are f32, only the order of sums differs) and bf16,
@@ -28,15 +28,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      launch, the same gradients);
   3. serves PaliGemma-3B (So400m/14 at 224px + gemma_2b, random bf16
      weights from SEED) to a batch of 8 requests through predict_fns,
-     checks that the image tower launched K1 once per layer and every AR
+     checks that the image tower launched K1's tensor-core kernel once per
+     layer and every AR
      step launched K6 once per layer, and holds the prefill logits and 4
      teacher-forced AR steps against the plain path (math attention,
      einsum decode) on the same card within 2e-2 of max|logit|, the bar
      of tests/test_decode_attention.py;
   4. trains ViT-B/16 at 224px, batch 256, through `big_vision_torch.train`
      and configs/vit_b16_synthetic.py (random init from the config's seed,
-     the real input pipeline) for TRAIN_STEPS steps: every loss finite, K1
-     and K2's tensor-core kernel launched 12 times per step; then 10 more
+     the real input pipeline) for TRAIN_STEPS steps: every loss finite, K1's
+     and K2's tensor-core kernels launched 12 times per step; then 10 more
      steps on one fixed
      batch, whose loss must fall (timed with CUDA events: the step without
      the input pipeline), a profile of one step (device busy time), and
@@ -56,8 +57,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and seqhw draws (15, 15, 15, 40, 30), then steps at seqhw 40, 30, 15,
      twice, through `update(batch, seqhw=...)`, each timed with CUDA
      events, with its peak memory, and with 12 launches of K3, K4a and K4b
-     (none of K1, K2) at seqhw 30 and 40 and 12 of K1 and K2's f32 kernel
-     at 15; a
+     (none of K1, K2) at seqhw 30 and 40 and 12 of K1's and K2's f32
+     kernels at 15 (none of their tensor-core kernels); a
      profile of one step at seqhw 40 (device busy time); the loss falling
      over FLEXI_FIXED_STEPS steps on one batch at seqhw 40; and the kernel
      path against the plain path at seqhw 40 on 8 unseen images (loss,
@@ -79,7 +80,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      state, next seqhw and next loss; then steps at seqhw 40, 30, 15,
      twice, through `update(batch, seqhw=...)` (CUDA events, peak memory,
      and per step 24 K3 and 12 K5 launches at seqhw 30 and 40, none of K4a
-     and K4b; 12 K3, 12 K1 and 12 of K2's f32 kernel at 15); a profile of
+     and K4b; 12 K3 and 12 each of K1's and K2's f32 kernels at 15); a
+     profile of
      one step at
      seqhw 40; the loss falling over 10 steps on one batch at seqhw 40;
      and the kernel path against the plain path at seqhw 40 on 8 unseen
@@ -90,14 +92,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
-     beside its plain version and F.scaled_dot_product_attention in bf16
-     (forward, or its autograd backward for K2, K4a, K4b and K5), which
-     the port never calls; K2's bf16 kernel and its plain version in turns;
-     and K5 against K4a + K4b on the same inputs.
-The line before the last is {"kernels": [...]}: K1 and K2's bf16
-tensor-core kernel are reported at the ViT training shape (B=256, T=196,
-H=12, D=64; launches per step), K2's f32 kernel at FlexiViT-B's seqhw 15
-(B=32, T=226, H=12, D=64, f32; launches per step of the FlexiViT phase), K3,
+     beside its plain version and F.scaled_dot_product_attention on the
+     same inputs, in the kernel's own dtype (forward, or its autograd
+     backward for K2, K4a, K4b and K5), which the port never calls; K1's
+     and K2's bf16 kernels and their plain versions in turns; K1's
+     tensor-core kernel also at the serving shape; and K5 against K4a +
+     K4b on the same inputs.
+The line before the last is {"kernels": [...]}: K1's and K2's bf16
+tensor-core kernels are reported at the ViT training shape (B=256, T=196,
+H=12, D=64; launches per step), K1's and K2's f32 kernels at FlexiViT-B's
+seqhw 15 (B=32, T=226, H=12, D=64, f32; launches per step of the FlexiViT
+phase), K3,
 K4a, K4b and K5 at the FlexiViT-B shape of seqhw 40 (B=32, T=1601, H=12,
 D=64, f32; launches per step of the FlexiViT phase, and for K5 of the
 distillation phase), K6 at the serving shape (launches per request
@@ -175,10 +180,13 @@ TEACHER_HEAD_STD = 0.02  # logits of std ~0.5 over 21843 classes
 FLOPS_PER_IMG_TRAIN = 3 * 35.2e9  # bench.py:31-32: 3x the forward's FLOPs
 
 
-# Each kernel's launch counter: an attribute of its wrapper. K2's wrapper
-# runs two kernels, by dtype: "K2" is its bf16 tensor-core kernel
-# (`tc_launches`), "K2f" its f32 scalar one (the rest of `launches`).
-COUNTERS = {"K1": "flash_attention_forward", "K2": "flash_attention_bwd",
+# Each kernel's launch counter: an attribute of its wrapper. K1's and K2's
+# wrappers run two kernels each, by dtype: "K1" and "K2" are their bf16
+# tensor-core kernels (`tc_launches`), "K1f" and "K2f" their f32 scalar
+# ones (the rest of `launches`).
+TC_SPLIT = {"K1": "K1f", "K2": "K2f"}
+COUNTERS = {"K1": "flash_attention_forward",
+            "K1f": "flash_attention_forward", "K2": "flash_attention_bwd",
             "K2f": "flash_attention_bwd",
             "K3": "flash_attention_blocked_forward",
             "K4a": "flash_attention_blocked_dq",
@@ -189,14 +197,16 @@ COUNTERS = {"K1": "flash_attention_forward", "K2": "flash_attention_bwd",
 def reset_launches(fa):
   for wrapper in set(COUNTERS.values()):
     getattr(fa, wrapper).launches = 0
-  fa.flash_attention_bwd.tc_launches = 0
+  for tc in TC_SPLIT:
+    getattr(fa, COUNTERS[tc]).tc_launches = 0
 
 
 def launches(fa):
   counts = {k: getattr(fa, wrapper).launches
             for k, wrapper in COUNTERS.items()}
-  counts["K2"] = fa.flash_attention_bwd.tc_launches
-  counts["K2f"] -= counts["K2"]
+  for tc, scalar in TC_SPLIT.items():
+    counts[tc] = getattr(fa, COUNTERS[tc]).tc_launches
+    counts[scalar] -= counts[tc]
   return counts
 
 
@@ -221,7 +231,8 @@ def seg_ids(q):
 
 
 def check_k1(fa):
-  """Returns (max abs, max rel error) at the B/16 training shape."""
+  """bf16 cases run the tensor-core kernel, f32 ones the scalar kernel;
+  returns (max abs, max rel error) at the B/16 training shape."""
   cases = [
       ("B/16 B=256", dict(b=TRAIN_B, tq=TRAIN_T, h=TRAIN_H, d=TRAIN_D), {}),
       ("So400m/14 B=8", dict(b=8, tq=256, h=16, d=72), {}),
@@ -234,6 +245,8 @@ def check_k1(fa):
       ("Tq!=Tkv", dict(b=2, tq=100, h=4, d=64, tkv=300), {}),
       ("Tq!=Tkv causal", dict(b=2, tq=100, h=4, d=128, tkv=300),
        dict(causal=True)),
+      # D % 8 != 0: the tensor-core kernel's element loads, no cp.async.
+      ("D=20", dict(b=2, tq=130, h=3, d=20), {}),
   ]
   path_err = None
   for i, (name, shape, opts) in enumerate(cases):
@@ -241,12 +254,15 @@ def check_k1(fa):
     kw = {"causal": opts.get("causal", False)}
     if opts.get("seg"):
       kw["seg"] = seg_ids(q)  # row 2's output must be exact 0
+    reset_launches(fa)
     got = fa.flash_attention(q, k, v, **kw)
     want = fa.flash_attention_reference(q, k, v, **kw)
     torch.cuda.synchronize()
+    kernel = "K1" if q.dtype == torch.bfloat16 else "K1f"
+    assert launches(fa)[kernel] == 1, (name, launches(fa))
     err = rel_err(got, want)
     print(f"K1 {name:16s} {tuple(q.shape)} kv {tuple(k.shape)} "
-          f"rel err {err:.3e} (bar {K1_BAR})")
+          f"{fa.fwd_kernel(q.dtype)} rel err {err:.3e} (bar {K1_BAR})")
     assert math.isfinite(err) and err <= K1_BAR, (name, err)
     if opts.get("seg"):
       assert got[2].abs().max().item() == 0.0, "all-zero seg row not zero"
@@ -492,13 +508,15 @@ def serve(model, plain, batch, fa, da):
   da.decode_attention.launches = 0
   tokens, logp = fns["decode_with_logp"](batch)
   torch.cuda.synchronize()
-  counts = {"K1": launches(fa)["K1"], "K6": da.decode_attention.launches}
+  k1 = launches(fa)
+  counts = {"K1": k1["K1"], "K6": da.decode_attention.launches}
   depth_img = len(model.img.encoder.blocks)
   depth_llm = len(model.llm.model.layers)
   print(f"serving: {BATCH} requests, {DECODE} greedy tokens; launches "
-        f"K1 {counts['K1']} (want {depth_img}), K6 {counts['K6']} "
+        f"K1 {counts['K1']} on the tensor cores (want {depth_img}), scalar "
+        f"K1 {k1['K1f']} (want 0), K6 {counts['K6']} "
         f"(want {depth_llm} x {DECODE})")
-  assert counts["K1"] == depth_img, counts
+  assert counts["K1"] == depth_img and k1["K1f"] == 0, k1
   assert counts["K6"] == depth_llm * DECODE, counts
   assert tokens.shape == (BATCH, DECODE) and torch.isfinite(logp).all()
 
@@ -552,7 +570,7 @@ def train_main_path(fa, workdir):
   counts = launches(fa)
   depth = len(trainer.model.encoder.blocks)
   print(f"training: {TRAIN_STEPS} steps of batch {trainer.batch_size}; "
-        f"launches {counts} (want K1 and K2, the tensor-core kernel, "
+        f"launches {counts} (want K1 and K2, the tensor-core kernels, "
         f"{depth} x {TRAIN_STEPS} each, no other)")
   assert counts == {**dict.fromkeys(COUNTERS, 0), "K1": depth * TRAIN_STEPS,
                     "K2": depth * TRAIN_STEPS}, counts
@@ -742,8 +760,8 @@ def flexi_want(depth, seqhw):
   """The launches of one FlexiViT-B step at `seqhw` with attn=flash: T =
   seqhw^2 + 1 is 901 and 1601 at seqhw 30 and 40, past the one-shot
   boundary at D=64 (blocked: K3, K4a, K4b), and at most 577 below
-  (one-shot: K1, and K2's f32 kernel)."""
-  kernels = ("K3", "K4a", "K4b") if seqhw in (30, 40) else ("K1", "K2f")
+  (one-shot: K1's and K2's f32 kernels)."""
+  kernels = ("K3", "K4a", "K4b") if seqhw in (30, 40) else ("K1f", "K2f")
   return {**dict.fromkeys(COUNTERS, 0), **dict.fromkeys(kernels, depth)}
 
 
@@ -927,8 +945,8 @@ def flexi_auto_steps(fa, auto, batch, flash, gpu):
 
 def flexi_phase(fa, gpu):
   """Phase 5 and the FlexiViT-B step times; returns the launches of the
-  last step at seqhw 40 (K3, K4a, K4b) and at 15 (K2's f32 kernel), as the
-  counters read them."""
+  last step at seqhw 40 (K3, K4a, K4b) and at 15 (K1's and K2's f32
+  kernels), as the counters read them."""
   workdir = os.path.join(ROOT, "build", "chip_smoke_flexi")
   trainer = flexi_main_path(fa, workdir)
   unseen, per_step, flash = flexi_steps(fa, trainer, gpu)
@@ -945,7 +963,7 @@ def flexi_phase(fa, gpu):
   del auto, unseen
   torch.cuda.empty_cache()
   return {**{k: n for k, n in per_step[40].items() if n},
-          "K2f": per_step[15]["K2f"]}
+          "K1f": per_step[15]["K1f"], "K2f": per_step[15]["K2f"]}
 
 
 # ----------------------------------------------------------------------------
@@ -982,10 +1000,10 @@ def write_teacher(path):
 def distill_want(depth, seqhw):
   """The launches of one distillation step at `seqhw`: the teacher's
   forward at T=901 (K3), and the student's at seqhw 30, 40 (K3, then K5 as
-  its backward) or below (K1, K2)."""
+  its backward) or below (K1's and K2's f32 kernels)."""
   want = dict.fromkeys(COUNTERS, 0)
   want["K3"] = depth
-  kernels = ("K3", "K5") if seqhw in (30, 40) else ("K1", "K2f")
+  kernels = ("K3", "K5") if seqhw in (30, 40) else ("K1f", "K2f")
   for k in kernels:
     want[k] += depth
   return want
@@ -1250,46 +1268,71 @@ def training_phase(fa, gpu):
   return per_step
 
 
+def sdpa_layout(sets, dtype=None):
+  """Each tuple of `sets` in the port's [B, T, H, D] layout as SDPA takes
+  it: [B, H, T, D], contiguous, cast to `dtype` if given."""
+  return [tuple(x.transpose(1, 2).to(dtype or x.dtype).contiguous()
+                for x in s) for s in sets]
+
+
+def sdpa_fwd_ms(sets, dtype=None):
+  """ms of SDPA's forward on the (q, k, v, ...) of `sets`."""
+  return time_ms(F.scaled_dot_product_attention,
+                 [s[:3] for s in sdpa_layout(sets, dtype)])
+
+
+def sdpa_bwd_ms(sets, dtype=None):
+  """ms of SDPA's autograd backward (dq, dk and dv together) alone on the
+  (q, k, v, do) of `sets`: its forward is recorded once per set, outside
+  the timing."""
+  graphs = []
+  for q, k, v, do in sdpa_layout(sets, dtype):
+    ins = [x.requires_grad_() for x in (q, k, v)]
+    graphs.append((F.scaled_dot_product_attention(*ins), ins, do))
+  return time_ms(lambda out, ins, do: torch.autograd.grad(
+      out, ins, do, retain_graph=True), graphs)
+
+
 def blocked_entries(fa, counts, gpu):
   """K3, K4a, K4b and K5 at the FlexiViT-B shape of seqhw 40 in f32 (B=32,
   T=1601, H=12, D=64; launches per step), each beside its plain version,
-  SDPA in bf16 (its forward for K3, its autograd backward, which computes
-  dq, dk and dv together, for K4a, K4b and K5) and its bound, with the f32
-  operations at the f32 rate outside the tensor cores; and K5 against K4a
-  + K4b on the same inputs, in turns."""
+  SDPA on the same f32 inputs (its forward for K3, its autograd backward,
+  which computes dq, dk and dv together, for K4a, K4b and K5) and its
+  bound, with the f32 operations at the f32 rate outside the tensor cores;
+  and K5 against K4a + K4b on the same inputs, in turns. SDPA on bf16
+  copies, a different function, is printed beside for comparison with
+  earlier records."""
   b, t, h, d = FLEXI_B, FLEXI_T[0], TRAIN_H, TRAIN_D
   sets = [blocked_inputs(b, t, h, d, seed=100 + 2 * i) for i in range(2)]
-  sdpa_fwd, sdpa_bwd, k4_sets, k5_sets = [], [], [], []
+  k4_sets, k5_sets = [], []
   for q, k, v, do in sets:
     o, lse = fa.flash_attention_blocked_forward(q, k, v)
     k4_sets.append((q, k, v, do, lse, fa.blocked_delta(o, do)))
     k5_sets.append((q, k, v, o, lse, do))
-    bf = [x.transpose(1, 2).to(torch.bfloat16).contiguous()
-          for x in (q, k, v, do)]
-    sdpa_fwd.append(tuple(bf[:3]))
-    ins = [x.clone().requires_grad_() for x in bf[:3]]
-    sdpa_bwd.append((F.scaled_dot_product_attention(*ins), ins, bf[3]))
-  sdpa_bwd_ms = time_ms(lambda out, ins, do: torch.autograd.grad(
-      out, ins, do, retain_graph=True), sdpa_bwd)
+  print(f"[{gpu}] SDPA at B={b} T={t} H={h} D={d} on bf16 copies of the "
+        f"f32 inputs (not the blocked kernels' function): forward "
+        f"{sdpa_fwd_ms(sets, torch.bfloat16):.4f} ms, autograd backward "
+        f"{sdpa_bwd_ms(sets, torch.bfloat16):.4f} ms")
+  bwd_ms = sdpa_bwd_ms(sets)
   timed = [
       ("flash_blocked_fwd", "K3", "flash_blocked_fwd.cu", 145,
        lambda q, k, v, do, lse, delta: fa.flash_attention_blocked_forward(
            q, k, v),
        lambda q, k, v, do, lse, delta: fa.flash_attention_blocked_reference(
            q, k, v),
-       time_ms(F.scaled_dot_product_attention, sdpa_fwd), k3_work),
+       sdpa_fwd_ms(sets), k3_work),
       ("flash_blocked_dq", "K4a", "flash_blocked_bwd.cu", 632,
        fa.flash_attention_blocked_dq, fa.flash_attention_blocked_dq_reference,
-       sdpa_bwd_ms, k4a_work),
+       bwd_ms, k4a_work),
       ("flash_blocked_dkv", "K4b", "flash_blocked_bwd.cu", 653,
        fa.flash_attention_blocked_dkv,
-       fa.flash_attention_blocked_dkv_reference, sdpa_bwd_ms, k4b_work),
+       fa.flash_attention_blocked_dkv_reference, bwd_ms, k4b_work),
   ]
   entries = []
   for name, key, src, line, fn, plain, lib_ms, work in timed + [
       ("flash_blocked_bwd_fused", "K5", "flash_blocked_bwd_fused.cu", 482,
        fa.flash_attention_blocked_bwd_fused,
-       fa.flash_attention_blocked_bwd_fused_reference, sdpa_bwd_ms,
+       fa.flash_attention_blocked_bwd_fused_reference, bwd_ms,
        k5_work)]:
     arg_sets = k5_sets if key == "K5" else k4_sets
     bms, by = bound(*work(b, t, h, d), F32_FLOPS)
@@ -1323,14 +1366,9 @@ def k2_f32_entry(fa, counts):
   its bound at the f32 rate outside the tensor cores; its error against
   the plain version on these inputs."""
   b, t, h, d = FLEXI_B, 15 * 15 + 1, TRAIN_H, TRAIN_D
-  sets, sdpa_sets = [], []
-  for i in range(2):
-    q, k, v, do = blocked_inputs(b, t, h, d, seed=110 + 2 * i)
-    _, lse = fa.flash_attention_forward(q, k, v)
-    sets.append((q, k, v, lse, do))
-    ins = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
-    sdpa_sets.append((F.scaled_dot_product_attention(*ins), ins,
-                      do.transpose(1, 2).contiguous()))
+  inputs = [blocked_inputs(b, t, h, d, seed=110 + 2 * i) for i in range(2)]
+  sets = [(q, k, v, fa.flash_attention_forward(q, k, v)[1], do)
+          for q, k, v, do in inputs]
   assert fa.bwd_kernel(torch.float32) == "flash_bwd"
   q, k, v, lse, do = sets[0]
   got = fa.flash_attention_bwd(q, k, v, lse, do)
@@ -1350,43 +1388,85 @@ def k2_f32_entry(fa, counts):
       launches=counts["K2f"], max_abs_err=abs_err, max_rel_err=rel,
       rel_tolerance=K2_BAR, ms=time_ms(fa.flash_attention_bwd, sets),
       plain_ms=time_ms(plain, sets, iters=10), bound_ms=bms, bound_by=by,
-      library_ms=time_ms(lambda out, ins, do: torch.autograd.grad(
-          out, ins, do, retain_graph=True), sdpa_sets))
+      library_ms=sdpa_bwd_ms(inputs))
 
 
-def kernel_entries(fa, da, counts, gpu):
-  """The {"kernels": [...]} entries: K1 and K2's bf16 kernel at the ViT
-  training shape, K2's f32 kernel at FlexiViT-B's seqhw 15, K3-K5 at its
-  seqhw 40, K6 at the serving shape, each beside its plain version, SDPA
-  and bound."""
-  kernels = []
-  b, t, h, d = TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D
-  # K1 as training launches it (with the LSE); 2 input sets (460 MB)
-  # exceed the L2.
-  sets = [k1_inputs(b, t, h, d, seed=10 + i) for i in range(2)]
-  sdpa_sets = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
-  ms = time_ms(lambda q, k, v: fa.flash_attention_forward(q, k, v), sets)
-  plain_ms = time_ms(fa.flash_attention_reference, sets, iters=10)
-  lib_ms = time_ms(F.scaled_dot_product_attention, sdpa_sets)
-  bms, by = bound(*k1_work(b, t, h, d))
-  kernels.append(dict(
+def k1_f32_entry(fa, counts):
+  """K1's f32 kernel (csrc/flash_fwd.cu) at FlexiViT-B's seqhw 15 (B=32,
+  T=226, H=12, D=64, f32; launches per step of the FlexiViT phase), beside
+  its plain version, SDPA on the same f32 inputs, and its bound at the f32
+  rate outside the tensor cores; its error against the plain version on
+  these inputs."""
+  b, t, h, d = FLEXI_B, 15 * 15 + 1, TRAIN_H, TRAIN_D
+  sets = [k1_inputs(b, t, h, d, seed=120 + i, dtype=torch.float32)
+          for i in range(2)]
+  assert fa.fwd_kernel(torch.float32) == "flash_fwd"
+  got, _ = fa.flash_attention_forward(*sets[0])
+  want = fa.flash_attention_reference(*sets[0])
+  abs_err, rel = (got - want).abs().max().item(), rel_err(got, want)
+  print(f"K1 flash_fwd (f32) {tuple(got.shape)}: rel err {rel:.3e} (bar "
+        f"{K1_BAR})")
+  assert rel <= K1_BAR, rel
+  bms, by = bound(*k1_work(b, t, h, d, itemsize=4), F32_FLOPS)
+  return dict(
       name="flash_fwd", route="cuda",
       source="big_vision_torch/csrc/flash_fwd.cu",
       replaces="big_vision_tpu/ops/flash_attention.py:306",
+      launches=counts["K1f"], max_abs_err=abs_err, max_rel_err=rel,
+      rel_tolerance=K1_BAR,
+      ms=time_ms(lambda q, k, v: fa.flash_attention_forward(q, k, v), sets),
+      plain_ms=time_ms(fa.flash_attention_reference, sets, iters=10),
+      bound_ms=bms, bound_by=by,
+      library_ms=sdpa_fwd_ms(sets))
+
+
+def kernel_entries(fa, da, counts, gpu):
+  """The {"kernels": [...]} entries: K1's and K2's bf16 kernels at the ViT
+  training shape, their f32 kernels at FlexiViT-B's seqhw 15, K3-K5 at its
+  seqhw 40, K6 at the serving shape, each beside its plain version, SDPA
+  and bound; K1's bf16 kernel also at the serving shape."""
+  kernels = []
+  # K1's tensor-core kernel at the serving shape (the image tower's 27
+  # launches per request batch), 8 input sets (113 MB) past the L2.
+  b, t, h, d = BATCH, IMG_TOKENS, 16, 72
+  sets = [k1_inputs(b, t, h, d, seed=90 + i) for i in range(8)]
+  ms = time_ms(lambda q, k, v: fa.flash_attention_forward(q, k, v), sets)
+  lib_ms = sdpa_fwd_ms(sets)
+  print(f"[{gpu}] K1 flash_fwd_tc at the serving shape B={b} T={t} H={h} "
+        f"D={d} bf16: {ms:.4f} ms (bound {bound(*k1_work(b, t, h, d))[0]:.4f}"
+        f" ms), SDPA {lib_ms:.4f} ms")
+  b, t, h, d = TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D
+  # K1 as training launches it (with the LSE); 2 input sets (460 MB)
+  # exceed the L2. The kernel and its plain version in turns.
+  sets = [k1_inputs(b, t, h, d, seed=10 + i) for i in range(2)]
+  assert fa.fwd_kernel(torch.bfloat16) == "flash_fwd_tc"
+  fwd = lambda q, k, v: fa.flash_attention_forward(q, k, v)
+  turns = [time_ms(fa.flash_attention_reference, sets, iters=10),
+           time_ms(fwd, sets), time_ms(fwd, sets),
+           time_ms(fa.flash_attention_reference, sets, iters=10)]
+  print(f"[{gpu}] K1 flash_fwd_tc at B={b} T={t} H={h} D={d} bf16, in turns "
+        f"(plain, kernel, kernel, plain): "
+        + ", ".join(f"{x:.4f}" for x in turns) + " ms")
+  bms, by = bound(*k1_work(b, t, h, d))
+  kernels.append(dict(
+      name="flash_fwd_tc", route="cuda",
+      source="big_vision_torch/csrc/flash_fwd_tc.cu",
+      replaces="big_vision_tpu/ops/flash_attention.py:306",
       launches=counts["K1"], max_abs_err=counts["K1 err"][0],
-      max_rel_err=counts["K1 err"][1], rel_tolerance=K1_BAR, ms=ms,
-      plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
+      max_rel_err=counts["K1 err"][1], rel_tolerance=K1_BAR,
+      ms=(turns[1] + turns[2]) / 2, plain_ms=(turns[0] + turns[3]) / 2,
+      bound_ms=bms, bound_by=by,
+      library_ms=sdpa_fwd_ms(sets)))
+  kernels.append(k1_f32_entry(fa, counts))
   # K2 on the same inputs with K1's o and LSE; SDPA's autograd backward
   # alone (its forward is recorded once per set, outside the timing).
-  k2_sets, sdpa_sets = [], []
+  k2_sets, inputs = [], []
   for i, (q, k, v) in enumerate(sets):
     _, lse = fa.flash_attention_forward(q, k, v)
     g = torch.Generator(device="cuda").manual_seed(50 + i)
     do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
     k2_sets.append((q, k, v, lse, do))
-    ins = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
-    sdpa_sets.append((F.scaled_dot_product_attention(*ins), ins,
-                      do.transpose(1, 2).contiguous()))
+    inputs.append((q, k, v, do))
   plain = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
       q, k, v, do)
   assert fa.bwd_kernel(torch.bfloat16) == "flash_bwd_tc"
@@ -1397,8 +1477,7 @@ def kernel_entries(fa, da, counts, gpu):
   print(f"[{gpu}] K2 flash_bwd_tc at B={b} T={t} H={h} D={d} bf16, in turns "
         f"(plain, kernel, kernel, plain): "
         + ", ".join(f"{x:.4f}" for x in turns) + " ms")
-  lib_ms = time_ms(lambda out, ins, do: torch.autograd.grad(
-      out, ins, do, retain_graph=True), sdpa_sets)
+  lib_ms = sdpa_bwd_ms(inputs)
   bms, by = bound(*k2_work(b, t, h, d))
   kernels.append(dict(
       name="flash_bwd_tc", route="cuda",
@@ -1408,7 +1487,7 @@ def kernel_entries(fa, da, counts, gpu):
       max_rel_err=counts["K2 err"][1], rel_tolerance=K2_BAR,
       ms=(turns[1] + turns[2]) / 2, plain_ms=(turns[0] + turns[3]) / 2,
       bound_ms=bms, bound_by=by, library_ms=lib_ms))
-  del sets, k2_sets, sdpa_sets
+  del sets, k2_sets, inputs
   kernels.append(k2_f32_entry(fa, counts))
   kernels += blocked_entries(fa, counts, gpu)
   # K6 at gemma_2b's AR shape over the serving run's cache.
@@ -1454,7 +1533,8 @@ def main():
 
   # 1. Build.
   t0 = time.perf_counter()
-  logs = _build.build_all(["flash_fwd", "flash_bwd", "flash_bwd_tc",
+  logs = _build.build_all(["flash_fwd", "flash_fwd_tc", "flash_bwd",
+                           "flash_bwd_tc",
                            "flash_blocked_fwd",
                            "flash_blocked_bwd", "flash_blocked_bwd_fused",
                            "decode_attention"])

@@ -25,7 +25,11 @@ def test_each_dtype_has_its_kernel(dtype, name):
 
 
 def test_tensor_core_kernel_uses_the_tensor_cores():
+  # The instructions sit in the header the kernel shares with K1's
+  # tensor-core kernel.
   src = (_build._CSRC / "flash_bwd_tc.cu").read_text()
+  assert '#include "flash_tc_common.cuh"' in src
+  src += (_build._CSRC / "flash_tc_common.cuh").read_text()
   for instr in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
                 "ldmatrix.sync.aligned.m8n8.x4.shared.b16",
                 "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
