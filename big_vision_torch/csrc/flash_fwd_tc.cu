@@ -67,81 +67,69 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int RES_TILES = 4;  // key tiles a resident block holds: Tkv <= 256
 
-// Shared memory of a block with `nq` query tiles and `ns` key/value slots:
-// q tiles, then slot s's k (2s) and v (2s+1) tiles, bf16 [64][DP + 8];
-// then the segment ids of each query tile and each slot.
-template <int DP>
-__host__ __device__ constexpr int tile_elems() { return BT * (DP + 8); }
-template <int DP>
-size_t smem_bytes(int nq, int ns) {
-  return size_t(nq + 2 * ns) * tile_elems<DP>() * sizeof(__nv_bfloat16) +
-         size_t(nq + ns) * BT * sizeof(int);
+// Shared memory of a block of NW warps: its query tile (16 * NW rows),
+// then slot s's k (2s) and v (2s+1) tiles of 64 rows, bf16 [rows][DP + 8];
+// then the segment ids of the query tile and of each slot.
+template <int DP, int NW>
+constexpr size_t smem_bytes() {
+  return size_t(16 * NW + 4 * BT) * (DP + 8) * sizeof(__nv_bfloat16) +
+         size_t(16 * NW + 2 * BT) * sizeof(int);
 }
 
-template <int DP, int DC, bool VEC, bool RES>
-__global__ void __launch_bounds__(NT)
+template <int DP, int DC, bool VEC, int NW>
+__global__ void __launch_bounds__(32 * NW)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ o,
                     const int32_t* __restrict__ seg, float* __restrict__ lse,
-                    int Tq, int Tkv, int H, int D, int causal, float scale,
-                    int qpb, int ns) {
+                    int Tq, int Tkv, int H, int D, int causal, float scale) {
   constexpr int LD = DP + 8;
-  constexpr int TILE = tile_elems<DP>();
+  constexpr int THREADS = 32 * NW;
+  constexpr int BQ = 16 * NW;  // query rows of the block
+  constexpr int TILE = BT * LD;
   constexpr int NP = DP / 16;  // 16-column steps of D in q . k^T
   constexpr int NC = DC / 8;   // 8-column tiles of O's D chunk
-  constexpr int QB = RES ? 2 : 1;  // query tile buffers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* skv = sq + QB * TILE;
-  int* sseg_q = reinterpret_cast<int*>(skv + 2 * ns * TILE);  // [QB][BT]
-  int* sseg_k = sseg_q + QB * BT;                             // [ns][BT]
+  __nv_bfloat16* skv = sq + BQ * LD;
+  int* sseg_q = reinterpret_cast<int*>(skv + 4 * TILE);  // [BQ]
+  int* sseg_k = sseg_q + BQ;                             // [2][BT]
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int nq = (Tq + BT - 1) / BT, nqb = (nq + qpb - 1) / qpb;
-  const int bh = blockIdx.x / nqb, b = bh / H, h = bh % H;
-  const int qt_begin = (blockIdx.x % nqb) * qpb;
-  const int qt_end = min(nq, qt_begin + qpb);
+  const int nq = (Tq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nq, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % nq) * BQ;
   const long long row = (long long)H * D;
   const __nv_bfloat16* qb = q + ((long long)b * Tq * H + h) * D;
   const __nv_bfloat16* kb = k + ((long long)b * Tkv * H + h) * D;
   const __nv_bfloat16* vb = v + ((long long)b * Tkv * H + h) * D;
   __nv_bfloat16* ob = o + ((long long)b * Tq * H + h) * D;
-  const int32_t* segq = seg ? seg + (long long)b * Tq : nullptr;
   const int32_t* segk = seg ? seg + (long long)b * Tkv : nullptr;
   const float scale2 = scale * LOG2E;
+  // Keys [0, kv_end) can be visible from the block's queries.
+  const int kv_end = causal ? min(Tkv, q0 + BQ) : Tkv;
+  const int nk = (kv_end + BT - 1) / BT;
+  const bool live = q0 + 16 * w < Tq;  // this warp has rows in the tile
 
-  auto load_q = [&](int buf, int qt) {
-    load_tile<DP, VEC>(sq + buf * TILE, qb, row, qt * BT, Tq, D, tid);
-    if (seg && tid < BT) {
-      const int r = qt * BT + tid;
-      sseg_q[buf * BT + tid] = r < Tq ? segq[r] : 0;
-    }
-  };
   auto load_kv = [&](int slot, int kt) {
-    load_tile<DP, VEC>(skv + 2 * slot * TILE, kb, row, kt * BT, Tkv, D, tid);
-    load_tile<DP, VEC>(skv + (2 * slot + 1) * TILE, vb, row, kt * BT, Tkv, D,
-                       tid);
+    load_tile<DP, VEC, BT, THREADS>(skv + 2 * slot * TILE, kb, row, kt * BT,
+                                    Tkv, D, tid);
+    load_tile<DP, VEC, BT, THREADS>(skv + (2 * slot + 1) * TILE, vb, row,
+                                    kt * BT, Tkv, D, tid);
     if (seg && tid < BT) {
       const int r = kt * BT + tid;
       sseg_k[slot * BT + tid] = r < Tkv ? segk[r] : 0;
     }
   };
-  // Keys [0, kv_end) can be visible from query tile qt.
-  auto kv_end = [&](int qt) {
-    return causal ? min(Tkv, (qt + 1) * BT) : Tkv;
-  };
 
-  // One key tile (slot, at keys kt*64..) against this warp's 16 rows of the
-  // query tile in buffer qbuf (at rows q0..): the online softmax update of
-  // (m, l) and of the O sums over columns c0..c0+DC.
-  auto attend = [&](int qbuf, int q0, int slot, int kt, int c0,
-                    float (&acc)[NC][4], float (&m)[2], float (&l)[2]) {
-    const __nv_bfloat16* tq = sq + qbuf * TILE;
+  // One key tile (slot, at keys kt*64..) against this warp's 16 query rows:
+  // the online softmax update of (m, l) and of the O sums over columns
+  // c0..c0+DC.
+  auto attend = [&](int slot, int kt, int c0, float (&acc)[NC][4],
+                    float (&m)[2], float (&l)[2]) {
     const __nv_bfloat16* tk = skv + 2 * slot * TILE;
     const __nv_bfloat16* tv = tk + TILE;
     const int kv0 = kt * BT, kvn = min(BT, Tkv - kv0);
@@ -155,7 +143,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kd = 0; kd < NP; ++kd) {
       uint32_t fa[4];
-      ldsm_x4(fa, tq + ao + kd * 16);
+      ldsm_x4(fa, sq + ao + kd * 16);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         if (np * 16 >= kvn) break;
@@ -176,7 +164,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         if (causal) vis = vis && kv0 + kl <= q0 + ql;
         if (seg) {
           const int sk = sseg_k[slot * BT + kl];
-          vis = vis && sk > 0 && sk <= sseg_q[qbuf * BT + ql];
+          vis = vis && sk > 0 && sk <= sseg_q[ql];
         }
         // -inf marks a masked entry: exp2(-inf - m) is exactly 0 below.
         s[j][e] = vis ? s[j][e] * scale2 : -INFINITY;
@@ -226,8 +214,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // This warp's rows of O over columns c0..c0+DC, divided by l and rounded
   // once; with the first chunk, their lse.
-  auto finish = [&](int q0, int c0, const float (&acc)[NC][4],
-                    const float (&m)[2], float (&l)[2]) {
+  auto finish = [&](int c0, const float (&acc)[NC][4], const float (&m)[2],
+                    float (&l)[2]) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
@@ -256,56 +244,31 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  if (RES) {  // the head's key tiles that any of the block's queries can see
-    const int nk = (kv_end(qt_end - 1) + BT - 1) / BT;
-    load_q(0, qt_begin);
-    for (int kt = 0; kt < nk; ++kt) load_kv(kt, kt);
+  load_tile<DP, VEC, BQ, THREADS>(sq, qb, row, q0, Tq, D, tid);
+  if (seg && tid < BQ)
+    sseg_q[tid] = q0 + tid < Tq ? seg[(long long)b * Tq + q0 + tid] : 0;
+  for (int c0 = 0; c0 < DP; c0 += DC) {
+    float acc[NC][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    if (c0 > 0) __syncthreads();  // the previous chunk's readers are done
+    load_kv(0, 0);
     cp_async_commit();
-  }
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * BT, nk = (kv_end(qt) + BT - 1) / BT;
-    const int qbuf = RES ? (qt - qt_begin) & 1 : 0;
-    const bool live = q0 + 16 * w < Tq;  // this warp has rows in the tile
-    if (RES) {
-      if (qt > qt_begin) __syncthreads();  // the other q buffer is free
-      if (qt + 1 < qt_end) {
-        load_q(qbuf ^ 1, qt + 1);
+    for (int kt = 0; kt < nk; ++kt) {
+      if (kt > 0) __syncthreads();  // the slot of tile kt+1 is free
+      if (kt + 1 < nk) {
+        load_kv((kt + 1) & 1, kt + 1);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
+      if (live) attend(kt & 1, kt, c0, acc, m, l);
     }
-    for (int c0 = 0; c0 < DP; c0 += DC) {
-      float acc[NC][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      if (RES) {
-        if (live)
-          for (int kt = 0; kt < nk; ++kt) attend(qbuf, q0, kt, kt, c0, acc, m, l);
-      } else {
-        __syncthreads();  // the previous chunk's readers are done
-        if (c0 == 0) load_q(0, qt);
-        load_kv(0, 0);
-        cp_async_commit();
-        for (int kt = 0; kt < nk; ++kt) {
-          if (kt > 0) __syncthreads();  // the slot of tile kt+1 is free
-          if (kt + 1 < nk) {
-            load_kv((kt + 1) & 1, kt + 1);
-            cp_async_commit();
-            cp_async_wait<1>();
-          } else {
-            cp_async_wait<0>();
-          }
-          __syncthreads();
-          if (live) attend(0, q0, kt & 1, kt, c0, acc, m, l);
-        }
-      }
-      if (live) finish(q0, c0, acc, m, l);
-    }
+    if (live) finish(c0, acc, m, l);
   }
 }
 
@@ -318,94 +281,72 @@ struct Args {
   float scale;
 };
 
-// Query tiles per resident block: all of a head's, halved while that
-// leaves fewer than 4 blocks per SM.
-int resident_group(const Args& a) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int nq = (a.Tq + BT - 1) / BT;
-  int qpb = nq;
-  while (qpb > 1 &&
-         (long long)a.B * a.H * ((nq + qpb - 1) / qpb) < 4LL * sms)
-    qpb = (qpb + 1) / 2;
-  return qpb;
-}
-
-// resident: 1 forces the resident shape (Tkv <= 256, Dp <= 80), 0 the
-// streamed one, -1 picks by shape.
-template <int DP, int DC>
-cudaError_t launch(const Args& a, int resident, cudaStream_t stream) {
+template <int DP, int DC, int NW>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   const bool vec = a.D % 8 == 0 &&
       ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
         reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o)) %
        16) == 0;
-  const int nq = (a.Tq + BT - 1) / BT, nk = (a.Tkv + BT - 1) / BT;
-  const bool fits = DP <= 80 && nk <= RES_TILES;
-  int qpb = 1;
-  if (resident != 0 && fits) qpb = resident_group(a);
-  const bool res = fits && (resident == 1 || (resident < 0 && qpb > 1));
-  if (resident == 1 && !fits) return cudaErrorInvalidValue;
-  if (!res) qpb = 1;
-  const int ns = res ? nk : 2;
-  using T = __nv_bfloat16;
-  void (*kern)(const T*, const T*, const T*, T*, const int32_t*, float*, int,
-               int, int, int, int, float, int, int);
-  if (res)
-    kern = vec ? flash_fwd_tc_kernel<DP, DC, true, true>
-               : flash_fwd_tc_kernel<DP, DC, false, true>;
-  else
-    kern = vec ? flash_fwd_tc_kernel<DP, DC, true, false>
-               : flash_fwd_tc_kernel<DP, DC, false, false>;
-  const size_t smem = smem_bytes<DP>(res ? 2 : 1, ns);
+  auto kern = vec ? flash_fwd_tc_kernel<DP, DC, true, NW>
+                  : flash_fwd_tc_kernel<DP, DC, false, NW>;
+  constexpr size_t smem = smem_bytes<DP, NW>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)a.B * a.H * ((nq + qpb - 1) / qpb);
-  kern<<<(unsigned)blocks, NT, smem, stream>>>(
+  using T = __nv_bfloat16;
+  // The query tiles of one head are neighbours in the grid.
+  const long long blocks =
+      (long long)a.B * a.H * ((a.Tq + 16 * NW - 1) / (16 * NW));
+  kern<<<(unsigned)blocks, 32 * NW, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.seg, a.lse, a.Tq,
-      a.Tkv, a.H, a.D, a.causal, a.scale, qpb, ns);
+      a.Tkv, a.H, a.D, a.causal, a.scale);
   return cudaGetLastError();
+}
+
+template <int NW>
+cudaError_t dispatch(const Args& a, cudaStream_t st) {
+  // The O sums in chunks of at most 128 columns.
+  switch (dpad(a.D)) {
+    case 64: return launch<64, 64, NW>(a, st);
+    case 80: return launch<80, 80, NW>(a, st);
+    case 128: return launch<128, 128, NW>(a, st);
+    default: return launch<256, 128, NW>(a, st);
+  }
 }
 
 int run(const void* q, const void* k, const void* v, void* o, const void* seg,
         void* lse, int B, int Tq, int Tkv, int H, int D, int causal,
-        float scale, int resident, void* stream) {
+        float scale, int warps, void* stream) {
   if (D < 1 || D > 256 || B < 1 || H < 1 || Tq < 1 || Tkv < 1)
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, static_cast<const int32_t*>(seg),
          static_cast<float*>(lse), B, Tq, Tkv, H, D, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // The O sums in chunks of at most 128 columns.
-  switch (dpad(D)) {
-    case 64: return (int)launch<64, 64>(a, resident, st);
-    case 80: return (int)launch<80, 80>(a, resident, st);
-    case 128: return (int)launch<128, 128>(a, resident, st);
-    default: return (int)launch<256, 128>(a, resident, st);
-  }
+  if (warps == 8) return (int)dispatch<8>(a, st);
+  if (warps == 4) return (int)dispatch<4>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// bf16 only. seg may be null. The block shape is picked by shape (see
-// Design above). Returns cudaGetLastError() after the launch (0 on
-// success).
+// bf16 only. seg may be null. Returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int bvt_flash_fwd_tc(const void* q, const void* k, const void* v,
                                 void* o, const void* seg, void* lse, int B,
                                 int Tq, int Tkv, int H, int D, int causal,
                                 float scale, void* stream) {
-  return run(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale, -1,
+  return run(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale, 4,
              stream);
 }
 
-// The same with the block shape forced, for timing one against the other:
-// resident 1 (refused unless Tkv <= 256 and D <= 80) or 0 (streamed).
+// The same with blocks of `warps` warps (4 or 8), for timing one block
+// shape against the other.
 extern "C" int bvt_flash_fwd_tc_shape(const void* q, const void* k,
                                       const void* v, void* o, const void* seg,
                                       void* lse, int B, int Tq, int Tkv,
                                       int H, int D, int causal, float scale,
-                                      int resident, void* stream) {
-  return run(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale,
-             resident != 0, stream);
+                                      int warps, void* stream) {
+  return run(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale, warps,
+             stream);
 }

@@ -195,22 +195,22 @@ def k6_work(b, kh, g, s, h):
 
 
 def tc_block_shape(build):
-  """fn(q, k, v, resident) running K1's tensor-core kernel on bf16 CUDA
-  tensors [B, T, H, D] (no mask) in the block shape `resident` (1: K and V
-  resident, 0: streamed) rather than the one it picks; returns o."""
+  """fn(q, k, v, warps) running K1's tensor-core kernel on bf16 CUDA
+  tensors [B, T, H, D] (no mask) with blocks of `warps` warps (4 or 8)
+  rather than the ones it picks; returns o."""
   import ctypes
   fn = build.load("flash_fwd_tc").bvt_flash_fwd_tc_shape
   fn.restype = ctypes.c_int
   fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
-  def run(q, k, v, resident):
+  def run(q, k, v, warps):
     b, t, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    None, lse.data_ptr(), b, t, k.shape[1], h, d, 0,
-                   1.0 / math.sqrt(d), resident, build.stream_ptr(q.device)),
+                   1.0 / math.sqrt(d), warps, build.stream_ptr(q.device)),
                 "flash_fwd_tc")
     return o
   return run
@@ -238,9 +238,9 @@ def main():
     sets = [k1_inputs(b, t, h, d, seed=i) for i in range(n)]
     report(f"K1 flash_fwd_tc B={b} T={t} H={h} D={d}", fa.flash_attention,
            sets, k1_work(b, t, h, d))
-    for resident in (0, 1):
-      report(f"  block shape {('streamed', 'resident')[resident]}",
-             lambda q, k, v, r=resident: shape_fn(q, k, v, r), sets,
+    for warps in (4, 8):
+      report(f"  blocks of {warps} warps ({16 * warps} query rows)",
+             lambda q, k, v, n=warps: shape_fn(q, k, v, n), sets,
              k1_work(b, t, h, d))
   for b, t, h, d in [(32, 226, 12, 64)]:  # FlexiViT-B at seqhw 15, f32
     sets = [k1_inputs(b, t, h, d, seed=i, dtype=torch.float32)
