@@ -41,23 +41,19 @@
 //     (T = 196: 4 of 64 keys), and a warp whose 16 query rows all lie past
 //     Tq skips the products.
 //
-// Design. Blocks of 4 warps; a query tile is 64 rows, warp w owning rows
-// 16w..16w+15 of it. Two block shapes:
-//   streamed  a block per (batch*head, query tile); 64-row key and value
-//             tiles stream through a ring of two stages, tile i+1 copying
-//             while tile i computes. The query tiles of one head are
-//             neighbours in the grid, so they read its K and V from L2.
-//   resident  where Tkv <= 256 and Dp <= 80, a block per (batch*head, a
-//             group of query tiles): the head's whole K and V (at most 4
-//             tiles, 94 KB at Dp = 64) are copied into shared memory once,
-//             and the block walks its query tiles, the next one copying
-//             while the current one computes. The group is every query
-//             tile of the head unless that leaves fewer than 4 blocks per
-//             SM (So400m serving: B*H = 128), where it is halved; a group
-//             of one tile is the streamed shape.
-// Above Dp = 128 the O sums (128 f32 per thread at D = 256) would not fit
-// in registers beside S: the key loop then runs once per 128 columns of
-// D, recomputing S (the row max and sum come out the same each time).
+// Design. A block of 4 warps per (batch*head, 64-row query tile), warp w
+// owning rows 16w..16w+15; the query tiles of one head are neighbours in
+// the grid, so they read its K and V from L2. 64-row key and value tiles
+// stream through a ring of two stages, tile i+1 copying while tile i
+// computes. At about 125 registers and 47 KB of shared memory (Dp = 64) an SM
+// holds 4 blocks. Two other block shapes were timed against this one and
+// lost (timed with tools/kernel_timing.py, numbers in PERF.md): the
+// head's whole K and V resident in shared memory for a group of its query
+// tiles (T <= 256: 94 KB, 2 blocks per SM), and blocks of 8 warps over
+// 128 query rows (half the K and V copies per row). Above Dp = 128 the O
+// sums (128 f32 per thread at D = 256) would not fit in registers beside
+// S: the key loop then runs once per 128 columns of D, recomputing S (the
+// row max and sum come out the same each time).
 
 #include "flash_tc_common.cuh"
 
@@ -68,17 +64,24 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Shared memory of a block of NW warps: its query tile (16 * NW rows),
-// then slot s's k (2s) and v (2s+1) tiles of 64 rows, bf16 [rows][DP + 8];
-// then the segment ids of the query tile and of each slot.
-template <int DP, int NW>
+// Shared memory: the query tile, then slot s's k (2s) and v (2s+1) tiles,
+// bf16 [64][DP + 8]; then the segment ids of the query tile and of each
+// slot.
+template <int DP>
 constexpr size_t smem_bytes() {
-  return size_t(16 * NW + 4 * BT) * (DP + 8) * sizeof(__nv_bfloat16) +
-         size_t(16 * NW + 2 * BT) * sizeof(int);
+  return size_t(5 * BT) * (DP + 8) * sizeof(__nv_bfloat16) +
+         size_t(3 * BT) * sizeof(int);
 }
 
-template <int DP, int DC, bool VEC, int NW>
-__global__ void __launch_bounds__(32 * NW)
+// Blocks an SM holds, as shared memory allows (228 KB, 1 KB of it per
+// block for the system): registers up to 65536 / (NT * this) per thread.
+template <int DP>
+constexpr int blocks_per_sm() {
+  return DP <= 64 ? 4 : int(233472 / (smem_bytes<DP>() + 1024));
+}
+
+template <int DP, int DC, bool VEC>
+__global__ void __launch_bounds__(NT, blocks_per_sm<DP>())
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -86,22 +89,20 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const int32_t* __restrict__ seg, float* __restrict__ lse,
                     int Tq, int Tkv, int H, int D, int causal, float scale) {
   constexpr int LD = DP + 8;
-  constexpr int THREADS = 32 * NW;
-  constexpr int BQ = 16 * NW;  // query rows of the block
   constexpr int TILE = BT * LD;
   constexpr int NP = DP / 16;  // 16-column steps of D in q . k^T
   constexpr int NC = DC / 8;   // 8-column tiles of O's D chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* skv = sq + BQ * LD;
-  int* sseg_q = reinterpret_cast<int*>(skv + 4 * TILE);  // [BQ]
-  int* sseg_k = sseg_q + BQ;                             // [2][BT]
+  __nv_bfloat16* skv = sq + TILE;
+  int* sseg_q = reinterpret_cast<int*>(skv + 4 * TILE);  // [BT]
+  int* sseg_k = sseg_q + BT;                             // [2][BT]
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int nq = (Tq + BQ - 1) / BQ;
+  const int nq = (Tq + BT - 1) / BT;
   const int bh = blockIdx.x / nq, b = bh / H, h = bh % H;
-  const int q0 = (blockIdx.x % nq) * BQ;
+  const int q0 = (blockIdx.x % nq) * BT;
   const long long row = (long long)H * D;
   const __nv_bfloat16* qb = q + ((long long)b * Tq * H + h) * D;
   const __nv_bfloat16* kb = k + ((long long)b * Tkv * H + h) * D;
@@ -110,15 +111,14 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int32_t* segk = seg ? seg + (long long)b * Tkv : nullptr;
   const float scale2 = scale * LOG2E;
   // Keys [0, kv_end) can be visible from the block's queries.
-  const int kv_end = causal ? min(Tkv, q0 + BQ) : Tkv;
+  const int kv_end = causal ? min(Tkv, q0 + BT) : Tkv;
   const int nk = (kv_end + BT - 1) / BT;
   const bool live = q0 + 16 * w < Tq;  // this warp has rows in the tile
 
   auto load_kv = [&](int slot, int kt) {
-    load_tile<DP, VEC, BT, THREADS>(skv + 2 * slot * TILE, kb, row, kt * BT,
-                                    Tkv, D, tid);
-    load_tile<DP, VEC, BT, THREADS>(skv + (2 * slot + 1) * TILE, vb, row,
-                                    kt * BT, Tkv, D, tid);
+    load_tile<DP, VEC>(skv + 2 * slot * TILE, kb, row, kt * BT, Tkv, D, tid);
+    load_tile<DP, VEC>(skv + (2 * slot + 1) * TILE, vb, row, kt * BT, Tkv, D,
+                       tid);
     if (seg && tid < BT) {
       const int r = kt * BT + tid;
       sseg_k[slot * BT + tid] = r < Tkv ? segk[r] : 0;
@@ -244,8 +244,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  load_tile<DP, VEC, BQ, THREADS>(sq, qb, row, q0, Tq, D, tid);
-  if (seg && tid < BQ)
+  load_tile<DP, VEC>(sq, qb, row, q0, Tq, D, tid);
+  if (seg && tid < BT)
     sseg_q[tid] = q0 + tid < Tq ? seg[(long long)b * Tq + q0 + tid] : 0;
   for (int c0 = 0; c0 < DP; c0 += DC) {
     float acc[NC][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -281,51 +281,26 @@ struct Args {
   float scale;
 };
 
-template <int DP, int DC, int NW>
+template <int DP, int DC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const bool vec = a.D % 8 == 0 &&
       ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
         reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o)) %
        16) == 0;
-  auto kern = vec ? flash_fwd_tc_kernel<DP, DC, true, NW>
-                  : flash_fwd_tc_kernel<DP, DC, false, NW>;
-  constexpr size_t smem = smem_bytes<DP, NW>();
+  auto kern = vec ? flash_fwd_tc_kernel<DP, DC, true>
+                  : flash_fwd_tc_kernel<DP, DC, false>;
+  constexpr size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   using T = __nv_bfloat16;
   // The query tiles of one head are neighbours in the grid.
-  const long long blocks =
-      (long long)a.B * a.H * ((a.Tq + 16 * NW - 1) / (16 * NW));
-  kern<<<(unsigned)blocks, 32 * NW, smem, stream>>>(
+  const long long blocks = (long long)a.B * a.H * ((a.Tq + BT - 1) / BT);
+  kern<<<(unsigned)blocks, NT, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.seg, a.lse, a.Tq,
       a.Tkv, a.H, a.D, a.causal, a.scale);
   return cudaGetLastError();
-}
-
-template <int NW>
-cudaError_t dispatch(const Args& a, cudaStream_t st) {
-  // The O sums in chunks of at most 128 columns.
-  switch (dpad(a.D)) {
-    case 64: return launch<64, 64, NW>(a, st);
-    case 80: return launch<80, 80, NW>(a, st);
-    case 128: return launch<128, 128, NW>(a, st);
-    default: return launch<256, 128, NW>(a, st);
-  }
-}
-
-int run(const void* q, const void* k, const void* v, void* o, const void* seg,
-        void* lse, int B, int Tq, int Tkv, int H, int D, int causal,
-        float scale, int warps, void* stream) {
-  if (D < 1 || D > 256 || B < 1 || H < 1 || Tq < 1 || Tkv < 1)
-    return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, static_cast<const int32_t*>(seg),
-         static_cast<float*>(lse), B, Tq, Tkv, H, D, causal, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (warps == 8) return (int)dispatch<8>(a, st);
-  if (warps == 4) return (int)dispatch<4>(a, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -336,17 +311,16 @@ extern "C" int bvt_flash_fwd_tc(const void* q, const void* k, const void* v,
                                 void* o, const void* seg, void* lse, int B,
                                 int Tq, int Tkv, int H, int D, int causal,
                                 float scale, void* stream) {
-  return run(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale, 4,
-             stream);
-}
-
-// The same with blocks of `warps` warps (4 or 8), for timing one block
-// shape against the other.
-extern "C" int bvt_flash_fwd_tc_shape(const void* q, const void* k,
-                                      const void* v, void* o, const void* seg,
-                                      void* lse, int B, int Tq, int Tkv,
-                                      int H, int D, int causal, float scale,
-                                      int warps, void* stream) {
-  return run(q, k, v, o, seg, lse, B, Tq, Tkv, H, D, causal, scale, warps,
-             stream);
+  if (D < 1 || D > 256 || B < 1 || H < 1 || Tq < 1 || Tkv < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, o, static_cast<const int32_t*>(seg),
+         static_cast<float*>(lse), B, Tq, Tkv, H, D, causal, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // The O sums in chunks of at most 128 columns.
+  switch (dpad(D)) {
+    case 64: return (int)launch<64, 64>(a, st);
+    case 80: return (int)launch<80, 80>(a, st);
+    case 128: return (int)launch<128, 128>(a, st);
+    default: return (int)launch<256, 128>(a, st);
+  }
 }

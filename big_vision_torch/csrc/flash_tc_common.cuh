@@ -14,8 +14,7 @@
 //       f32 sums;
 //   pack_bf16             two f32 rounded to a bf16 pair: a C fragment
 //       re-laid as an A fragment;
-//   load_tile             the copies of a 64 x Dp tile (or another number
-//       of rows) of a [*, D] head.
+//   load_tile             the copies of a 64 x Dp tile of a [*, D] head.
 
 #pragma once
 
@@ -90,28 +89,28 @@ __device__ __forceinline__ int b_off(int lane, int ld) {
   return ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
 }
 
-// Issues the copies of rows [r0, r0 + min(ROWS, nrows - r0)) of a [*, D]
-// head (rows `row` elements apart) into a ROWS x DP tile, by THREADS
-// threads; rows past nrows and columns past D read as zeros. VEC: 16-byte
-// copies (D % 8 == 0, aligned); otherwise plain element loads.
-template <int DP, bool VEC, int ROWS = BT, int THREADS = NT>
+// Issues the copies of rows [r0, r0 + min(BT, nrows - r0)) of a [*, D]
+// head (rows `row` elements apart) into a BT x DP tile; rows past nrows and
+// columns past D read as zeros. VEC: 16-byte copies (D % 8 == 0, aligned);
+// otherwise plain element loads.
+template <int DP, bool VEC>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* head,
                                           long long row, int r0, int nrows,
                                           int D, int tid) {
   constexpr int LD = DP + 8;
-  const int n = min(ROWS, nrows - r0);
+  const int n = min(BT, nrows - r0);
   if (VEC) {
     constexpr int CPR = DP / 8;  // 16-byte chunks per row
 #pragma unroll 4
-    for (int i = tid; i < ROWS * CPR; i += THREADS) {
+    for (int i = tid; i < BT * CPR; i += NT) {
       const int r = i / CPR, c = (i % CPR) * 8;
       const bool in = r < n && c < D;
       cp_async16(dst + r * LD + c, in ? head + (r0 + r) * row + c : head,
                  in ? 16 : 0);
     }
   } else {
-    for (int i = tid; i < ROWS * DP; i += THREADS) {
+    for (int i = tid; i < BT * DP; i += NT) {
       const int r = i / DP, c = i % DP;
       dst[r * LD + c] = (r < n && c < D) ? head[(r0 + r) * row + c]
                                          : __float2bfloat16(0.f);

@@ -1,11 +1,8 @@
 """Times the port's CUDA kernels K1 and K6 on the GPU across shapes.
 
 K1 is two kernels: bf16 inputs take the tensor-core kernel
-(csrc/flash_fwd_tc.cu), timed in each of its two block shapes (K and V
-streamed through 64-row tiles, or resident in shared memory for the
-block's group of query tiles; the wrapper's own pick is by shape), and f32
-inputs the scalar kernel (csrc/flash_fwd.cu). For each kernel and shape it
-prints the time per call measured two ways:
+(csrc/flash_fwd_tc.cu), f32 inputs the scalar one (csrc/flash_fwd.cu). For
+each kernel and shape it prints the time per call measured two ways:
   events - CUDA events around 50 calls through the Python wrapper, inputs
            rotated through more than the 50 MB L2 (what a caller sees,
            host launch cost included when it exceeds the kernel's);
@@ -194,28 +191,6 @@ def k6_work(b, kh, g, s, h):
       4 * b * kh * g * s * h
 
 
-def tc_block_shape(build):
-  """fn(q, k, v, warps) running K1's tensor-core kernel on bf16 CUDA
-  tensors [B, T, H, D] (no mask) with blocks of `warps` warps (4 or 8)
-  rather than the ones it picks; returns o."""
-  import ctypes
-  fn = build.load("flash_fwd_tc").bvt_flash_fwd_tc_shape
-  fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-      ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-
-  def run(q, k, v, warps):
-    b, t, h, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   None, lse.data_ptr(), b, t, k.shape[1], h, d, 0,
-                   1.0 / math.sqrt(d), warps, build.stream_ptr(q.device)),
-                "flash_fwd_tc")
-    return o
-  return run
-
-
 def main():
   if not torch.cuda.is_available():
     raise SystemExit("kernel_timing needs a CUDA device")
@@ -231,22 +206,17 @@ def main():
     print(f"[{card}] {name}: events {ev:.4f} ms, graph {gr:.4f} ms, bound "
           f"{bms:.4f} ms ({by}), SM clock {nvidia_smi('clocks.sm')}")
 
-  shape_fn = tc_block_shape(_build)
   for b, t, h, d in [(1, 256, 16, 72), (8, 256, 16, 72), (32, 256, 16, 72),
                      (8, 196, 12, 64), (256, 196, 12, 64), (8, 64, 16, 72)]:
     n = max(4, math.ceil(100e6 / (6 * b * t * h * d)))  # past the L2
     sets = [k1_inputs(b, t, h, d, seed=i) for i in range(n)]
     report(f"K1 flash_fwd_tc B={b} T={t} H={h} D={d}", fa.flash_attention,
            sets, k1_work(b, t, h, d))
-    for warps in (4, 8):
-      report(f"  blocks of {warps} warps ({16 * warps} query rows)",
-             lambda q, k, v, n=warps: shape_fn(q, k, v, n), sets,
-             k1_work(b, t, h, d))
-  for b, t, h, d in [(32, 226, 12, 64)]:  # FlexiViT-B at seqhw 15, f32
-    sets = [k1_inputs(b, t, h, d, seed=i, dtype=torch.float32)
-            for i in range(4)]
-    report(f"K1 flash_fwd B={b} T={t} H={h} D={d} f32", fa.flash_attention,
-           sets, k1_work(b, t, h, d, itemsize=4), F32_FLOPS)
+  b, t, h, d = 32, 226, 12, 64  # FlexiViT-B at seqhw 15, f32
+  sets = [k1_inputs(b, t, h, d, seed=i, dtype=torch.float32)
+          for i in range(4)]
+  report(f"K1 flash_fwd B={b} T={t} H={h} D={d} f32", fa.flash_attention,
+         sets, k1_work(b, t, h, d, itemsize=4), F32_FLOPS)
   for b, g, s, h in [(1, 8, 352, 256), (8, 8, 352, 256), (64, 8, 352, 256),
                      (132, 8, 352, 256), (8, 8, 64, 256), (8, 8, 1024, 256),
                      (8, 1, 352, 256), (8, 8, 352, 64)]:
