@@ -12,11 +12,14 @@
 //   lse = m + ln(l) in f32 per row, which both K2 kernels read
 // A row with no visible key gives exact zeros and an lse of -1e30.
 // Inside, the exponentials are base 2 (exp2f of s * scale * log2(e), as in
-// flash_bwd_tc.cu); the lse written is the natural-log one. The softmax is
-// online (flash attention): m is the running max of the keys seen so far,
-// and p is rounded to bf16 against it before the sum is rescaled, as the
-// scalar kernel did, so a rounding of p can fall one bf16 step away from
-// the plain version's, which rounds against the row's final max.
+// flash_bwd_tc.cu); the lse written is the natural-log one. m is the max
+// over all of a row's keys, found by a first pass over the key tiles, so
+// p is rounded to bf16 where the plain version rounds it. (An online
+// softmax, which rounds p against the max of the keys seen so far and
+// rescales the sums, moves those roundings: in the ViT-B/16 check of
+// chip_smoke.py, which holds the bf16 kernel path's encoder output against
+// the plain path's, its worst element came out past the bar while the
+// mean error equalled the plain version's.)
 //
 // Layout: q, o [B, Tq, H, D] and k, v [B, Tkv, H, D], bf16, contiguous,
 // read in place; seg [B, T] int32 or null; lse [B*H, Tq] f32.
@@ -31,7 +34,7 @@
 //     `ldmatrix`; p . v with p re-laid from the f32 C fragments of S as
 //     bf16 A fragments (that rounding is the contract's only rounding of
 //     p) and v through `ldmatrix.trans`;
-//   * the running row max and row sum live in registers, shared by the four
+//   * the row max and row sum live in registers, shared by the four
 //     threads of a row through `__shfl_xor_sync`; so does the O sum;
 //   * tiles stay bf16 in shared memory (flash_tc_common.cuh), loaded by
 //     16-byte `cp.async.cg` copies straight from the [B, T, H, D] layout,
@@ -43,17 +46,18 @@
 //
 // Design. A block of 4 warps per (batch*head, 64-row query tile), warp w
 // owning rows 16w..16w+15; the query tiles of one head are neighbours in
-// the grid, so they read its K and V from L2. 64-row key and value tiles
-// stream through a ring of two stages, tile i+1 copying while tile i
-// computes. At about 125 registers and 47 KB of shared memory (Dp = 64) an SM
-// holds 4 blocks. Two other block shapes were timed against this one and
-// lost (timed with tools/kernel_timing.py, numbers in PERF.md): the
-// head's whole K and V resident in shared memory for a group of its query
-// tiles (T <= 256: 94 KB, 2 blocks per SM), and blocks of 8 warps over
-// 128 query rows (half the K and V copies per row). Above Dp = 128 the O
-// sums (128 f32 per thread at D = 256) would not fit in registers beside
-// S: the key loop then runs once per 128 columns of D, recomputing S (the
-// row max and sum come out the same each time).
+// the grid, so they read its K and V from L2. 64-row tiles stream through
+// a ring of two stages, tile i+1 copying while tile i computes: the key
+// tiles alone in the first pass (S and the row max), key and value tiles
+// in the second (S again, p, l and O), so S is computed twice. At Dp = 64
+// and 47 KB of shared memory an SM holds 4 blocks. Two other block shapes
+// were timed against this one, with the online softmax, and lost (timed
+// with tools/kernel_timing.py, numbers in PERF.md): the head's whole K and
+// V resident in shared memory for a group of its query tiles (T <= 256:
+// 94 KB, 2 blocks per SM), and blocks of 8 warps over 128 query rows
+// (half the K and V copies per row). Above Dp = 128 the O sums (128 f32
+// per thread at D = 256) would not fit in registers beside S: the second
+// pass then runs once per 128 columns of D.
 
 #include "flash_tc_common.cuh"
 
@@ -115,26 +119,44 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int nk = (kv_end + BT - 1) / BT;
   const bool live = q0 + 16 * w < Tq;  // this warp has rows in the tile
 
-  auto load_kv = [&](int slot, int kt) {
+  // Issues the copies of key tile kt (and with `with_v` its value tile)
+  // into `slot`.
+  auto load_kv = [&](int slot, int kt, bool with_v) {
     load_tile<DP, VEC>(skv + 2 * slot * TILE, kb, row, kt * BT, Tkv, D, tid);
-    load_tile<DP, VEC>(skv + (2 * slot + 1) * TILE, vb, row, kt * BT, Tkv, D,
-                       tid);
+    if (with_v)
+      load_tile<DP, VEC>(skv + (2 * slot + 1) * TILE, vb, row, kt * BT, Tkv,
+                         D, tid);
     if (seg && tid < BT) {
       const int r = kt * BT + tid;
       sseg_k[slot * BT + tid] = r < Tkv ? segk[r] : 0;
     }
   };
+  // Streams the key tiles (and with `with_v` the value tiles) through the
+  // two slots, tile kt+1 copying while body(slot, kt) runs on tile kt in
+  // the warps that have rows.
+  auto stream = [&](bool with_v, auto&& body) {
+    __syncthreads();  // the slots' previous readers are done
+    load_kv(0, 0, with_v);
+    cp_async_commit();
+    for (int kt = 0; kt < nk; ++kt) {
+      if (kt > 0) __syncthreads();  // the slot of tile kt+1 is free
+      if (kt + 1 < nk) {
+        load_kv((kt + 1) & 1, kt + 1, with_v);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (live) body(kt & 1, kt);
+    }
+  };
 
-  // One key tile (slot, at keys kt*64..) against this warp's 16 query rows:
-  // the online softmax update of (m, l) and of the O sums over columns
-  // c0..c0+DC.
-  auto attend = [&](int slot, int kt, int c0, float (&acc)[NC][4],
-                    float (&m)[2], float (&l)[2]) {
+  // s = q . k^T * scale * log2(e) for this warp's 16 query rows (16w+g,
+  // +8) against key tile kt in `slot` (keys 8j+2t4, +1); -inf where masked.
+  auto scores = [&](int slot, int kt, float (&s)[8][4]) {
     const __nv_bfloat16* tk = skv + 2 * slot * TILE;
-    const __nv_bfloat16* tv = tk + TILE;
     const int kv0 = kt * BT, kvn = min(BT, Tkv - kv0);
-    // S for rows 16w+g (+8), keys 8j+2t4 (+1).
-    float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -153,8 +175,6 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         mma(s[2 * np + 1], fa, fb[2], fb[3]);
       }
     }
-    // Masks, base-2 logits, the tile's row max.
-    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -168,54 +188,70 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
         // -inf marks a masked entry: exp2(-inf - m) is exactly 0 below.
         s[j][e] = vis ? s[j][e] * scale2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
-    float alpha[2];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
-      const float m_new = fmaxf(m[hf], mx[hf]);  // finite: m starts at -1e30
-      alpha[hf] = exp2f(m[hf] - m_new);
-      m[hf] = m_new;
-      l[hf] *= alpha[hf];
-    }
+  };
+
+  load_tile<DP, VEC>(sq, qb, row, q0, Tq, D, tid);  // copied with tile 0
+  if (seg && tid < BT)
+    sseg_q[tid] = q0 + tid < Tq ? seg[(long long)b * Tq + q0 + tid] : 0;
+
+  // First pass: each row's max m over all its keys (-1e30 where none is
+  // visible), so that p below is rounded against it, as the contract says.
+  float m[2] = {NEG_INF, NEG_INF};
+  stream(false, [&](int slot, int kt) {
+    float s[8][4];
+    scores(slot, kt, s);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        l[e >> 1] += p;  // the unrounded p
-        s[j][e] = p;
-      }
+      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+  });
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 1));
+    m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 2));
+  }
+
+  // Second pass, once per chunk of DC columns of O: p = exp2(s - m), l =
+  // sum(p) unrounded, O += round_bf16(p) . v; then O / l, rounded once.
+  for (int c0 = 0; c0 < DP; c0 += DC) {
+    float acc[NC][4], l[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NC; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-    // O += round_bf16(p) . v: p's C fragments as bf16 A fragments, 16 keys
-    // per step.
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    stream(true, [&](int slot, int kt) {
+      float s[8][4];
+      scores(slot, kt, s);
+      const int kvn = min(BT, Tkv - kt * BT);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (kk * 16 >= kvn) break;
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int off = kk * 16 * LD + a_off(lane, LD) + c0;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int np = 0; np < NC / 2; ++np) {
-        uint32_t fv[4];
-        ldsm_x4_t(fv, tv + off + np * 16);
-        mma(acc[2 * np], pa, fv[0], fv[1]);
-        mma(acc[2 * np + 1], pa, fv[2], fv[3]);
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+      // p's C fragments as bf16 A fragments, 16 keys per step; v through
+      // ldmatrix.trans.
+      const __nv_bfloat16* tv = skv + (2 * slot + 1) * TILE;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk * 16 >= kvn) break;
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const int off = kk * 16 * LD + a_off(lane, LD) + c0;
+#pragma unroll
+        for (int np = 0; np < NC / 2; ++np) {
+          uint32_t fv[4];
+          ldsm_x4_t(fv, tv + off + np * 16);
+          mma(acc[2 * np], pa, fv[0], fv[1]);
+          mma(acc[2 * np + 1], pa, fv[2], fv[3]);
+        }
       }
-    }
-  };
-
-  // This warp's rows of O over columns c0..c0+DC, divided by l and rounded
-  // once; with the first chunk, their lse.
-  auto finish = [&](int c0, const float (&acc)[NC][4], const float (&m)[2],
-                    float (&l)[2]) {
+    });
+    if (!live) continue;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
@@ -242,33 +278,6 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-  };
-
-  load_tile<DP, VEC>(sq, qb, row, q0, Tq, D, tid);
-  if (seg && tid < BT)
-    sseg_q[tid] = q0 + tid < Tq ? seg[(long long)b * Tq + q0 + tid] : 0;
-  for (int c0 = 0; c0 < DP; c0 += DC) {
-    float acc[NC][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    if (c0 > 0) __syncthreads();  // the previous chunk's readers are done
-    load_kv(0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt > 0) __syncthreads();  // the slot of tile kt+1 is free
-      if (kt + 1 < nk) {
-        load_kv((kt + 1) & 1, kt + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (live) attend(kt & 1, kt, c0, acc, m, l);
-    }
-    if (live) finish(c0, acc, m, l);
   }
 }
 

@@ -713,6 +713,23 @@ def kernel_vs_plain_training(fa, trainer, batch):
     runs[attn, dtype] = run(t)
     del t
     torch.cuda.empty_cache()
+  # For scale: the one-shot semantics computed by the plain versions of K1
+  # and K2 (autograd through `flash_attention_reference`) in bf16.
+  kernel_fn = fa.flash_attention
+  fa.flash_attention = lambda q, k, v, **kw: fa.flash_attention_reference(
+      q, k, v, **kw)
+  try:
+    xo = run(trainer)[1]
+  finally:
+    fa.flash_attention = kernel_fn
+  xk, xp = runs["flash", "bfloat16"][1], runs["xla", "bfloat16"][1]
+  mean = lambda a, b: ((a - b).abs().mean() / b.abs().mean()).item()
+  print(f"bfloat16 encoder output, for scale: the one-shot plain versions' "
+        f"path vs the plain path rel err {rel_err(xo, xp):.3e}, the kernel "
+        f"path vs the one-shot plain versions' {rel_err(xk, xo):.3e}; mean "
+        f"abs err over mean |plain path|: kernel path {mean(xk, xp):.3e}, "
+        f"one-shot plain versions {mean(xo, xp):.3e}")
+  del xo
   for dtype in ("float32", "bfloat16"):
     (lk, xk, _), (lp, xp, _) = runs["flash", dtype], runs["xla", dtype]
     loss_err, tok_err = abs(lk - lp) / abs(lp), rel_err(xk, xp)
