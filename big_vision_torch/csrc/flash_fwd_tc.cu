@@ -18,8 +18,7 @@
 // softmax, which rounds p against the max of the keys seen so far and
 // rescales the sums, moves those roundings: in the ViT-B/16 check of
 // chip_smoke.py, which holds the bf16 kernel path's encoder output against
-// the plain path's, its worst element came out past the bar while the
-// mean error equalled the plain version's.)
+// the plain path's, its worst element came out past the bar.)
 //
 // Layout: q, o [B, Tq, H, D] and k, v [B, Tkv, H, D], bf16, contiguous,
 // read in place; seg [B, T] int32 or null; lse [B*H, Tq] f32.
@@ -51,13 +50,14 @@
 // tiles alone in the first pass (S and the row max), key and value tiles
 // in the second (S again, p, l and O), so S is computed twice. At Dp = 64
 // and 47 KB of shared memory an SM holds 4 blocks. Two other block shapes
-// were timed against this one, with the online softmax, and lost (timed
-// with tools/kernel_timing.py, numbers in PERF.md): the head's whole K and
-// V resident in shared memory for a group of its query tiles (T <= 256:
-// 94 KB, 2 blocks per SM), and blocks of 8 warps over 128 query rows
-// (half the K and V copies per row). Above Dp = 128 the O sums (128 f32
-// per thread at D = 256) would not fit in registers beside S: the second
-// pass then runs once per 128 columns of D.
+// were timed against this one, with an online softmax, and were slower or
+// no faster at the ViT shape (tools/kernel_timing.py; numbers in
+// PERF.md): the head's whole K and V resident in shared memory for a
+// group of its query tiles (T <= 256: 94 KB, 2 blocks per SM), and blocks
+// of 8 warps over 128 query rows (half the K and V copies per row).
+// Above Dp = 128 the O sums (128 f32 per thread at D = 256) would not fit
+// in registers beside S: the second pass then runs once per 128 columns
+// of D.
 
 #include "flash_tc_common.cuh"
 
@@ -78,10 +78,11 @@ constexpr size_t smem_bytes() {
 }
 
 // Blocks an SM holds, as shared memory allows (228 KB, 1 KB of it per
-// block for the system): registers up to 65536 / (NT * this) per thread.
+// block for the system; 4 at Dp <= 80, 2 at 128, 1 at 256): registers up
+// to 65536 / (NT * this) per thread.
 template <int DP>
 constexpr int blocks_per_sm() {
-  return DP <= 64 ? 4 : int(233472 / (smem_bytes<DP>() + 1024));
+  return int(233472 / (smem_bytes<DP>() + 1024));
 }
 
 template <int DP, int DC, bool VEC>
