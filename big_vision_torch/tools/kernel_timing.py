@@ -29,6 +29,9 @@ import torch
 # H100 SXM data sheet: memory rate, dense bf16 tensor-core rate, and the f32
 # rate outside the tensor cores (the blocked kernels' f32 semantics).
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# f32 products on the tensor cores as three TF32 products (hi.hi + hi.lo +
+# lo.hi): the dense TF32 rate, 495 TFLOP/s, over three.
+TF32X3_FLOPS = 495e12 / 3
 
 
 def nvidia_smi(query="name,power.limit"):

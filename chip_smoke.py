@@ -141,6 +141,7 @@ from big_vision_torch.tools.kernel_timing import k5_work
 from big_vision_torch.tools.kernel_timing import k6_inputs
 from big_vision_torch.tools.kernel_timing import k6_work
 from big_vision_torch.tools.kernel_timing import nvidia_smi
+from big_vision_torch.tools.kernel_timing import TF32X3_FLOPS
 from big_vision_torch.tools.kernel_timing import time_ms
 
 SEED = 0
@@ -148,6 +149,9 @@ BATCH, RES, PROMPT, DECODE = 8, 224, 32, 64
 IMG_TOKENS = (RES // 14) ** 2  # So400m/14 at 224px: 256
 CACHE = IMG_TOKENS + PROMPT + DECODE  # KV cache slots of the serving run
 K1_BAR, K2_BAR, K6_BAR, E2E_BAR = 1e-2, 1e-2, 1e-2, 2e-2
+# Kernels with f32 semantics (K2's f32 kernel, K3-K5 in f32), where only the
+# order of sums may differ from the plain version.
+F32_BAR = 1e-4
 # In the bf16 training backward, where the one-shot semantics themselves
 # (ds rounded to bf16) differ from f32 by more than K2_BAR, each K2 output
 # may be at most K2_INPLACE_FACTOR times as far from the f32 backward as
@@ -170,7 +174,8 @@ FLEXI_STEPS, FLEXI_CYCLE, FLEXI_CHECK_B = 5, (40, 30, 15) * 2, 8
 # Fixed-batch steps at seqhw 40 of the FlexiViT phase (the distillation
 # phase runs FIXED_STEPS): each is 1.3 s, and the loss falls at every one.
 FLEXI_FIXED_STEPS = 4
-BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: F32_BAR}
+K2_BARS = {torch.bfloat16: K2_BAR, torch.float32: F32_BAR}
 DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                               "flexivit", "i21k_distill.py")
 # The distill trainer's loop draws the FlexiViT trainer's seqhw (15, 15, 15,
@@ -272,7 +277,9 @@ def check_k1(fa):
 
 
 def check_k2(fa):
-  """Returns (max abs, max rel error over dq, dk, dv) at the B/16 shape."""
+  """bf16 cases run the tensor-core kernel (bar K2_BAR), f32 ones the f32
+  kernel (bar F32_BAR), each of dq, dk and dv held to the bar; returns (max
+  abs, max rel error over dq, dk, dv) at the B/16 shape."""
   cases = [
       ("B/16 B=256", dict(b=TRAIN_B, tq=TRAIN_T, h=TRAIN_H, d=TRAIN_D), {}),
       ("B/16 B=256 f32", dict(b=TRAIN_B, tq=TRAIN_T, h=TRAIN_H, d=TRAIN_D,
@@ -289,6 +296,21 @@ def check_k2(fa):
       # D % 8 != 0: the tensor-core kernel's element loads, no cp.async.
       ("D=20", dict(b=2, tq=130, h=3, d=20), {}),
   ]
+  # f32 (K2's f32 kernel, bar F32_BAR): FlexiViT-B at seqhw 5, 15 and 24,
+  # the edge cases, and the head dims the kernel pads.
+  f32 = torch.float32
+  cases += [(f"FlexiViT seqhw {s} f32", dict(b=FLEXI_B, tq=s * s + 1,
+                                              h=TRAIN_H, d=TRAIN_D, dtype=f32),
+             {}) for s in (5, 15, 24)]
+  cases += [
+      ("causal f32", dict(b=2, tq=200, h=4, d=64, dtype=f32),
+       dict(causal=True)),
+      ("seg f32", dict(b=3, tq=150, h=4, d=72, dtype=f32), dict(seg=True)),
+      ("Tq!=Tkv f32", dict(b=2, tq=100, h=4, d=64, tkv=300, dtype=f32), {}),
+      ("Tq!=Tkv causal f32", dict(b=2, tq=300, h=4, d=64, tkv=100,
+                                  dtype=f32), dict(causal=True)),
+  ] + [(f"D={d} f32", dict(b=2, tq=t, h=4, d=d, dtype=f32), {})
+       for d, t in ((18, 130), (72, 256), (128, 300), (256, 288))]
   path_err = None
   for i, (name, shape, opts) in enumerate(cases):
     q, k, v = k1_inputs(**shape, seed=30 + i)
@@ -304,9 +326,11 @@ def check_k2(fa):
     want = fa.flash_attention_bwd_reference(q, k, v, do, **kw)
     torch.cuda.synchronize()
     errs = [rel_err(x, y) for x, y in zip(got, want)]
-    print(f"K2 {name:16s} {tuple(q.shape)} kv {tuple(k.shape)} rel err "
-          f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (bar {K2_BAR})")
-    assert all(math.isfinite(e) and e <= K2_BAR for e in errs), (name, errs)
+    bar = K2_BARS[q.dtype]
+    print(f"K2 {name:16s} {tuple(q.shape)} kv {tuple(k.shape)} "
+          f"{fa.bwd_kernel(q.dtype)} rel err dq {errs[0]:.3e} dk "
+          f"{errs[1]:.3e} dv {errs[2]:.3e} (bar {bar})")
+    assert all(math.isfinite(e) and e <= bar for e in errs), (name, errs)
     if opts.get("seg"):
       dq, dk, dv = got
       assert dq[2].abs().max().item() == 0.0, "all-zero seg row: dq not 0"
@@ -929,6 +953,38 @@ def flexi_kernel_vs_plain(fa, trainer, batch):
   assert loss_err <= E2E_BAR and tok_err <= E2E_BAR and worst[0] <= E2E_BAR
 
 
+def flexi_k2_in_place(fa, trainer, batch):
+  """Each K2 launch of the FlexiViT-B backward at seqhw 15 (T=226, its f32
+  kernel), on the q, k, v and do it was given, against its plain version:
+  dq, dk and dv within F32_BAR; on a batch no update saw."""
+  records = []
+  for p in trainer.params.values():
+    p.grad = None
+  reset_launches(fa)
+  with capture_attention(records):
+    logits, _ = trainer.model(batch["image"], seqhw=15)
+    trainer.loss_fn(logits=logits, labels=batch["labels"]).backward()
+  torch.cuda.synchronize()
+  depth = len(trainer.model.encoder.blocks)
+  assert launches(fa) == flexi_want(depth, 15), launches(fa)
+  assert len(records) == depth, len(records)
+  rows = []
+  for layer, r in enumerate(records):
+    want = fa.flash_attention_bwd_reference(r["q"], r["k"], r["v"], r["do"])
+    for name, w in zip(("dq", "dk", "dv"), want):
+      assert w.abs().max().item() > 0, (layer, name)
+      rows.append((rel_err(r[name], w), f"layer {layer} {name}"))
+  del records
+  for p in trainer.params.values():
+    p.grad = None
+  rows.sort(reverse=True)
+  print(f"K2 (f32) in the seqhw-15 backward, batch {batch['image'].shape[0]}: "
+        f"{len(rows)} outputs of {depth} launches against the plain version "
+        f"on their own inputs, the 4 worst (bar {F32_BAR}): "
+        + ", ".join(f"{n} {e:.3e}" for e, n in rows[:4]))
+  assert all(e <= F32_BAR for e, _ in rows), rows[:4]
+
+
 def flexi_auto_steps(fa, auto, batch, flash, gpu):
   """The trainer `auto` of the config's default attn=auto, which follows
   the JAX package's gate: at batch 32 its scores are under
@@ -968,6 +1024,7 @@ def flexi_phase(fa, gpu):
   trainer = flexi_main_path(fa, workdir)
   unseen, per_step, flash = flexi_steps(fa, trainer, gpu)
   flexi_kernel_vs_plain(fa, trainer, unseen)
+  flexi_k2_in_place(fa, trainer, unseen)
   # The same state under the config's default attn=auto, alone on the card.
   from big_vision_torch import train
   from big_vision_torch.trainers.proj.flexi import train as flexi_train
@@ -1365,6 +1422,8 @@ def blocked_entries(fa, counts, gpu):
         ms=time_ms(fn, arg_sets, iters=10),
         plain_ms=time_ms(plain, arg_sets, iters=3), bound_ms=bms,
         bound_by=by, library_ms=lib_ms))
+  print(f"K5 at seqhw 40: bound {bound(*k5_work(b, t, h, d), TF32X3_FLOPS)[0]:.4f}"
+        " ms at the 3xTF32 rate")
   # The whole blocked backward, one way and the other, in turns.
   k5 = [time_ms(fa.flash_attention_blocked_bwd_fused, k5_sets, iters=10)]
   two = [time_ms(fa.flash_attention_blocked_bwd, k5_sets, iters=10)
@@ -1373,16 +1432,37 @@ def blocked_entries(fa, counts, gpu):
   print(f"[{gpu}] blocked backward at B={b} T={t} H={h} D={d} f32, delta "
         f"included: K5 {k5[0]:.4f}, {k5[1]:.4f} ms; K4a + K4b {two[0]:.4f}, "
         f"{two[1]:.4f} ms (K5, K4, K4, K5)")
+  del sets, k4_sets, k5_sets
+  k5_at(fa, gpu, 30)
   return entries
 
 
-def k2_f32_entry(fa, counts):
-  """K2's f32 kernel (csrc/flash_bwd.cu) at FlexiViT-B's seqhw 15 (B=32,
-  T=226, H=12, D=64, f32; launches per step of the FlexiViT phase), beside
-  its plain version, SDPA's autograd backward on the same f32 inputs, and
-  its bound at the f32 rate outside the tensor cores; its error against
-  the plain version on these inputs."""
-  b, t, h, d = FLEXI_B, 15 * 15 + 1, TRAIN_H, TRAIN_D
+def k5_at(fa, gpu, seqhw):
+  """K5 at FlexiViT-B's `seqhw` in f32 (B=32, T=seqhw^2+1, H=12, D=64),
+  beside its plain version, SDPA's autograd backward on the same inputs and
+  its bound at both rates, printed."""
+  b, t, h, d = FLEXI_B, seqhw * seqhw + 1, TRAIN_H, TRAIN_D
+  sets = [blocked_inputs(b, t, h, d, seed=130 + 2 * i) for i in range(2)]
+  k5_sets = [(q, k, v, *fa.flash_attention_blocked_forward(q, k, v), do)
+             for q, k, v, do in sets]
+  ms = time_ms(fa.flash_attention_blocked_bwd_fused, k5_sets, iters=10)
+  plain_ms = time_ms(fa.flash_attention_blocked_bwd_fused_reference, k5_sets,
+                     iters=3)
+  lib_ms = sdpa_bwd_ms(sets)
+  work = k5_work(b, t, h, d)
+  print(f"[{gpu}] K5 flash_blocked_bwd_fused at seqhw {seqhw} B={b} T={t} "
+        f"H={h} D={d} f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{lib_ms:.4f} ms; bound {bound(*work, F32_FLOPS)[0]:.4f} ms at the "
+        f"f32 rate, {bound(*work, TF32X3_FLOPS)[0]:.4f} ms at the 3xTF32 rate")
+
+
+def k2_f32_entry(fa, counts, gpu, seqhw):
+  """K2's f32 kernel at FlexiViT-B's `seqhw` (B=32, T=seqhw^2+1, H=12, D=64,
+  f32; launches per step of the FlexiViT phase at seqhw 15), beside its
+  plain version, SDPA's autograd backward on the same f32 inputs, and its
+  bound (at the f32 rate outside the tensor cores, and at the 3xTF32 rate);
+  its error against the plain version on these inputs."""
+  b, t, h, d = FLEXI_B, seqhw * seqhw + 1, TRAIN_H, TRAIN_D
   inputs = [blocked_inputs(b, t, h, d, seed=110 + 2 * i) for i in range(2)]
   sets = [(q, k, v, fa.flash_attention_forward(q, k, v)[1], do)
           for q, k, v, do in inputs]
@@ -1392,20 +1472,26 @@ def k2_f32_entry(fa, counts):
   want = fa.flash_attention_bwd_reference(q, k, v, do)
   abs_err = max((x - y).abs().max().item() for x, y in zip(got, want))
   rel = max(rel_err(x, y) for x, y in zip(got, want))
-  print(f"K2 flash_bwd (f32) {tuple(q.shape)}: rel err {rel:.3e} (bar "
-        f"{K2_BAR})")
-  assert rel <= K2_BAR, rel
+  del got, want
+  assert rel <= F32_BAR, rel
   plain = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
       q, k, v, do)
-  bms, by = bound(*k2_work(b, t, h, d, itemsize=4), F32_FLOPS)
-  return dict(
+  work = k2_work(b, t, h, d, itemsize=4)
+  bms, by = bound(*work, F32_FLOPS)
+  entry = dict(
       name="flash_bwd", route="cuda",
       source="big_vision_torch/csrc/flash_bwd.cu",
       replaces="big_vision_tpu/ops/flash_attention.py:329",
       launches=counts["K2f"], max_abs_err=abs_err, max_rel_err=rel,
-      rel_tolerance=K2_BAR, ms=time_ms(fa.flash_attention_bwd, sets),
+      rel_tolerance=F32_BAR, ms=time_ms(fa.flash_attention_bwd, sets),
       plain_ms=time_ms(plain, sets, iters=10), bound_ms=bms, bound_by=by,
       library_ms=sdpa_bwd_ms(inputs))
+  print(f"[{gpu}] K2 flash_bwd (f32) at seqhw {seqhw} B={b} T={t} H={h} "
+        f"D={d}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, SDPA "
+        f"{entry['library_ms']:.4f} ms; bound {bms:.4f} ms ({by}) at the f32 "
+        f"rate, {bound(*work, TF32X3_FLOPS)[0]:.4f} ms at the 3xTF32 rate; "
+        f"rel err {rel:.3e} (bar {F32_BAR})")
+  return entry
 
 
 def k1_f32_entry(fa, counts):
@@ -1505,7 +1591,8 @@ def kernel_entries(fa, da, counts, gpu):
       ms=(turns[1] + turns[2]) / 2, plain_ms=(turns[0] + turns[3]) / 2,
       bound_ms=bms, bound_by=by, library_ms=lib_ms))
   del sets, k2_sets, inputs
-  kernels.append(k2_f32_entry(fa, counts))
+  kernels.append(k2_f32_entry(fa, counts, gpu, 15))
+  k2_f32_entry(fa, counts, gpu, 24)  # printed only: T=577, 12 per step
   kernels += blocked_entries(fa, counts, gpu)
   # K6 at gemma_2b's AR shape over the serving run's cache.
   b, kh, g, s, hd = BATCH, 1, 8, CACHE, 256
