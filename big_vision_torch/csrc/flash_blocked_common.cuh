@@ -1,7 +1,6 @@
 // The tiles and the per-tile arithmetic shared by the blocked attention
-// backward kernels: K4a and K4b (csrc/flash_blocked_bwd.cu) and K5
-// (csrc/flash_blocked_bwd_fused.cu). See those files for what each kernel
-// computes and how it is laid out on the card.
+// backward kernels K4a and K4b (csrc/flash_blocked_bwd.cu). See that file
+// for what each kernel computes and how it is laid out on the card.
 
 #pragma once
 
@@ -80,11 +79,9 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   const int32_t* seg;
-  void *out_a, *out_b;  // K4a: dq; K4b and K5: dk, dv
+  void *out_a, *out_b;  // K4a: dq; K4b: dk, dv
   int B, Tq, Tkv, H, D, causal;
   float scale;
-  void* out_c;    // K5: dq
-  float* dq_acc;  // K5: the f32 dq sums, [B*H, Tq, D]
 };
 
 // The shared memory carve-up and the per-tile arithmetic of both kernels.

@@ -7,10 +7,11 @@
   passed: bf16 products with f32 sums, p rounded to v's dtype before p.v.
   K1 replaces `_oneshot_fwd_kernel` with `_oneshot_softmax` (launched by
   `_oneshot_fwd`), K2 `_oneshot_bwd_kernel` (launched by `_oneshot_bwd`);
-  each is two kernels, for bf16 inputs on the tensor cores
+  each is two kernels, for bf16 inputs on the tensor cores in bf16
   (`csrc/flash_fwd_tc.cu`, `csrc/flash_bwd_tc.cu`, which share
-  `csrc/flash_tc_common.cuh`), for f32 on the scalar units
-  (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`). On the card K1 also
+  `csrc/flash_tc_common.cuh`), for f32 inputs K1 on the scalar units
+  (`csrc/flash_fwd.cu`) and K2 on the tensor cores with 3xTF32 products
+  (`csrc/flash_bwd.cu`, on `csrc/flash_tf32_common.cuh`). On the card K1 also
   emits each row's log-sum-exp, which K2 takes instead of recomputing the
   row max (it sums each row of exp(s - lse) again, so that p sums to 1 as
   the plain version's does).
@@ -22,9 +23,11 @@
   `_bwd_dq_kernel` and `_bwd_dkv_kernel` (launched by `_bwd`). With
   `FUSED_BLOCKED_BWD` set (off by default, as in the JAX package) and
   `fused_bwd_fits` holding, the backward is K5
-  (`csrc/flash_blocked_bwd_fused.cu`) instead, which replaces
+  (`csrc/flash_blocked_bwd_fused.cu`, 3xTF32 products on
+  `csrc/flash_tf32_common.cuh`) instead, which replaces
   `_bwd_fused_kernel` (launched by `_bwd_fused`): one recompute of the
-  scores per pair of tiles, dq summed in f32 over the key tiles in order.
+  scores per pair of tiles, dq summed in f32 per chunk of key tiles in
+  order, and the chunks' parts in key order.
 
 Each path is one autograd Function whose forward and backward launch the
 kernels on CUDA tensors and run the plain versions
@@ -108,7 +111,7 @@ def takes_fused_bwd(tq, tkv, d, block_q, block_kv):
 
 
 # K1's two kernels, by input dtype: bf16 on the tensor cores, f32 on the
-# scalar units (its f32 semantics would need TF32 or split-bf16 products).
+# scalar units (the 3xTF32 products of K2's f32 kernel could serve it next).
 FWD_KERNELS = {torch.bfloat16: "flash_fwd_tc", torch.float32: "flash_fwd"}
 
 
@@ -130,8 +133,8 @@ def _fwd_lib(name):
   return fn
 
 
-# K2's two kernels, by input dtype: bf16 on the tensor cores, f32 on the
-# scalar units (its f32 semantics would need TF32 or split-bf16 products).
+# K2's two kernels, by input dtype: bf16 on the tensor cores in bf16, f32 on
+# the tensor cores with 3xTF32 products (f32 to about 2^-20 per product).
 BWD_KERNELS = {torch.bfloat16: "flash_bwd_tc", torch.float32: "flash_bwd"}
 
 
@@ -145,11 +148,12 @@ def bwd_kernel(dtype):
 @functools.cache
 def _bwd_lib(name):
   """The C entry point of K2's kernel `name`, built and typed once per
-  process."""
+  process. The f32 kernel also takes its key tiles per block and D padded."""
   fn = getattr(_build.load(name), f"bvt_{name}")
   fn.restype = ctypes.c_int
+  tail = [ctypes.c_int] * 2 if name == "flash_bwd" else []
   fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-      ctypes.c_float, ctypes.c_void_p]
+      ctypes.c_float] + tail + [ctypes.c_void_p]
   return fn
 
 
@@ -188,8 +192,41 @@ def _blocked_bwd_fused_lib():
   fn = _build.load("flash_blocked_bwd_fused").bvt_flash_blocked_bwd_fused
   fn.restype = ctypes.c_int
   fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-      ctypes.c_float, ctypes.c_void_p]
+      ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
   return fn
+
+
+# The 3xTF32 backward kernels (K2 for f32, K5; csrc/flash_tf32_common.cuh)
+# walk key tiles of TF32_KEY_TILE keys, with D zero-padded (`tf32_dpad`). A
+# block takes a chunk of `key_tiles_per_block` key tiles of one (batch,
+# head) and sums its chunk's dq in its own f32 part; a second kernel sums
+# the parts in key order. Chunks enough for TF32_BLOCKS blocks keep the
+# card's 132 SMs busy (three blocks each at D <= 64) for about ten waves:
+# at FlexiViT-B's shapes more chunks measured faster on the H100, though
+# each adds a part to write and read (tools/kernel_timing.py times them).
+TF32_KEY_TILE, TF32_BLOCKS = 64, 4096
+
+
+def tf32_dpad(d):
+  """D zero-padded as the 3xTF32 kernels pad it."""
+  return 32 if d <= 32 else 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def key_tiles_per_block(bh, tkv):
+  """Key tiles per block of the 3xTF32 backward kernels for B*H = `bh`
+  heads of `tkv` keys: as few as give about TF32_BLOCKS blocks."""
+  nk = -(-tkv // TF32_KEY_TILE)
+  chunks = min(nk, max(1, -(-TF32_BLOCKS // bh)))
+  return -(-nk // chunks)
+
+
+def tf32_dq_parts_shape(bh, tq, tkv, d, key_tiles):
+  """The f32 dq scratch of the 3xTF32 backward kernels: one part per chunk
+  of `key_tiles` key tiles, [chunks, B*H, Tq, tf32_dpad(D)]."""
+  if not isinstance(key_tiles, int) or key_tiles < 1:
+    raise ValueError(f"key_tiles must be a positive int, not {key_tiles!r}")
+  nk = -(-tkv // TF32_KEY_TILE)
+  return -(-nk // key_tiles), bh, tq, tf32_dpad(d)
 
 
 def _check_inputs(q, k, v, seg):
@@ -390,39 +427,41 @@ def flash_attention_blocked_bwd_reference(q, k, v, o, lse, do, *,
                                                      **kw))
 
 
-def fused_bwd_tile(d):
-  """Keys per tile of the K5 kernel at head dim `d` (its shared-memory tiles,
-  csrc/flash_blocked_bwd_fused.cu): the grouping of its dq sums."""
-  return 64 if d <= 128 else 32
-
-
 def flash_attention_blocked_bwd_fused_reference(q, k, v, o, lse, do, *,
                                                 causal=False, seg=None,
-                                                block_kv=None):
+                                                block_kv=None, chunk_keys=None):
   """Plain PyTorch backward with the semantics of `_bwd_fused_kernel` (K5);
   returns (dq, dk, dv).
 
-  As `flash_attention_blocked_bwd_reference`, but dq is summed in f32 over
-  key tiles of `block_kv` rows in key order, each tile's ds.k multiplied by
-  scale before it is added, and rounded to q's dtype once. `block_kv`
-  defaults to the kernel's own tile (`fused_bwd_tile`), which is what the
-  CUDA kernel sums over; the JAX kernel sums over its `block_kv` grid
-  blocks instead, so the two group the f32 dq sums alike only where those
-  are equal (a difference of rounding only).
+  As `flash_attention_blocked_bwd_reference`, but dq is summed in f32 as
+  the K5 kernel groups it: each key tile's ds.k (tiles of `block_kv` keys,
+  default TF32_KEY_TILE) multiplied by scale, summed in key order within
+  each chunk of `chunk_keys` keys (default: the kernel's chunk at this
+  shape, `key_tiles_per_block`), the chunks' parts summed in key order, and
+  rounded to q's dtype once. The JAX kernel sums over its `block_kv` grid
+  blocks in one sequence instead, which is this grouping with one chunk (a
+  difference of rounding only).
   """
-  if block_kv is None:
-    block_kv = fused_bwd_tile(q.shape[-1])
   _check_inputs(q, k, v, seg)
-  scale = 1.0 / math.sqrt(q.shape[-1])
+  b, _, h, d = q.shape
+  tkv = k.shape[1]
+  block_kv = block_kv or TF32_KEY_TILE
+  chunk_keys = chunk_keys or TF32_KEY_TILE * key_tiles_per_block(b * h, tkv)
+  scale = 1.0 / math.sqrt(d)
   delta = blocked_delta(o, do)
   qs, p, ds = _blocked_probs(q, k, v, lse, delta, do, causal, seg)
   dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
   dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
   dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
   kf = k.float()
-  for j in range(0, k.shape[1], block_kv):
-    dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds[..., j:j + block_kv],
-                           kf[:, j:j + block_kv]) * scale
+  for c0 in range(0, tkv, chunk_keys):
+    c1 = min(c0 + chunk_keys, tkv)
+    part = torch.zeros_like(dq)
+    for j in range(c0, c1, block_kv):
+      j1 = min(j + block_kv, c1)
+      part = part + torch.einsum("bhqk,bkhd->bqhd", ds[..., j:j1],
+                                 kf[:, j:j1]) * scale
+    dq = dq + part
   return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -454,14 +493,17 @@ def flash_attention_forward(q, k, v, *, causal=False, seg=None):
   return out, row_lse
 
 
-def flash_attention_bwd(q, k, v, lse, do, *, causal=False, seg=None):
+def flash_attention_bwd(q, k, v, lse, do, *, causal=False, seg=None,
+                        key_tiles=None):
   """K2 on CUDA tensors: (dq, dk, dv) of `flash_attention`.
 
   `lse` is the row log-sum-exp `flash_attention_forward` returned for q,
-  k, v. Launches the kernel `bwd_kernel(q.dtype)` (bf16: the tensor-core
-  kernel, csrc/flash_bwd_tc.cu; f32: the scalar one, csrc/flash_bwd.cu)
-  and counts the launch in `flash_attention_bwd.launches`, and a launch of
-  the tensor-core kernel also in `flash_attention_bwd.tc_launches`.
+  k, v. Launches the kernel `bwd_kernel(q.dtype)` (bf16: the bf16
+  tensor-core kernel, csrc/flash_bwd_tc.cu; f32: the 3xTF32 one,
+  csrc/flash_bwd.cu, with `key_tiles` key tiles per block, by default
+  `key_tiles_per_block`) and counts the launch in
+  `flash_attention_bwd.launches`, and a launch of the bf16 tensor-core
+  kernel also in `flash_attention_bwd.tc_launches`.
   """
   if q.device.type != "cuda":
     raise ValueError(f"the K2 kernel runs on cuda, not {q.device}")
@@ -476,16 +518,22 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=False, seg=None):
   seg = _check_cuda((("q", q), ("k", k), ("v", v), ("do", do),
                      ("lse", lse)), seg)
   dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-  per_head = (_tc_scratch()(tq, d) if name == "flash_bwd_tc" else tq * d)
-  dq_acc = torch.empty(b * h * per_head, dtype=torch.float32,
-                       device=q.device)
+  f32 = dict(dtype=torch.float32, device=q.device)
+  if name == "flash_bwd_tc":
+    dq_acc = torch.empty(b * h * _tc_scratch()(tq, d), **f32)
+    tail = ()
+  else:
+    kt = key_tiles or key_tiles_per_block(b * h, k.shape[1])
+    dq_acc = torch.empty(tf32_dq_parts_shape(b * h, tq, k.shape[1], d, kt),
+                         **f32)
+    tail = (kt, dq_acc.shape[-1])
   # Row statistics: delta and the row sum of exp(s - lse) per query row.
-  delta = torch.empty((b * h, 2, tq), dtype=torch.float32, device=q.device)
+  delta = torch.empty((2, b * h, tq), **f32)
   err = _bwd_lib(name)(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
       None if seg is None else seg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
       dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(), b, tq, k.shape[1],
-      h, d, int(bool(causal)), 1.0 / math.sqrt(d),
+      h, d, int(bool(causal)), 1.0 / math.sqrt(d), *tail,
       _build.stream_ptr(q.device))
   _build.check(err, name)
   flash_attention_bwd.launches += 1
@@ -613,12 +661,13 @@ def flash_attention_blocked_bwd(q, k, v, o, lse, do, *, causal=False,
 
 
 def flash_attention_blocked_bwd_fused(q, k, v, o, lse, do, *, causal=False,
-                                      seg=None):
+                                      seg=None, key_tiles=None):
   """K5 on CUDA tensors: delta (a plain torch op, as the JAX package
   computes it outside Pallas), then one launch for (dq, dk, dv), with the
   semantics of `flash_attention_blocked_bwd_fused_reference`.
 
-  `o` and `lse` are K3's. Counts the launch in
+  `o` and `lse` are K3's; `key_tiles` key tiles per block, by default
+  `key_tiles_per_block`. Counts the launch in
   `flash_attention_blocked_bwd_fused.launches`.
   """
   if q.device.type != "cuda":
@@ -632,13 +681,16 @@ def flash_attention_blocked_bwd_fused(q, k, v, o, lse, do, *, causal=False,
   delta = blocked_delta(o, do)
   seg, shape = _launch_args(q, k, v, seg, (("do", do), ("lse", lse)))
   dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-  dq_acc = torch.empty((b * h, tq, d), dtype=torch.float32, device=q.device)
+  kt = key_tiles or key_tiles_per_block(b * h, k.shape[1])
+  dq_parts = torch.empty(tf32_dq_parts_shape(b * h, tq, k.shape[1], d, kt),
+                         dtype=torch.float32, device=q.device)
   err = _blocked_bwd_fused_lib()(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
       lse.data_ptr(), delta.data_ptr(),
       None if seg is None else seg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-      dv.data_ptr(), dq_acc.data_ptr(), *shape, int(bool(causal)),
-      1.0 / math.sqrt(d), _build.stream_ptr(q.device))
+      dv.data_ptr(), dq_parts.data_ptr(), *shape, int(bool(causal)),
+      1.0 / math.sqrt(d), kt, dq_parts.shape[-1],
+      _build.stream_ptr(q.device))
   _build.check(err, "flash_blocked_bwd_fused")
   flash_attention_blocked_bwd_fused.launches += 1
   return dq, dk, dv

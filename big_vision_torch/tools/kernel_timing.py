@@ -1,8 +1,8 @@
-"""Times the port's CUDA kernels K1 and K6 on the GPU across shapes.
+"""Times the port's CUDA kernels K1, K6, K2's f32 kernel and K5 on the GPU.
 
 K1 is two kernels: bf16 inputs take the tensor-core kernel
 (csrc/flash_fwd_tc.cu), f32 inputs the scalar one (csrc/flash_fwd.cu). For
-each kernel and shape it prints the time per call measured two ways:
+K1 and K6, for each shape, it prints the time per call measured two ways:
   events - CUDA events around 50 calls through the Python wrapper, inputs
            rotated through more than the 50 MB L2 (what a caller sees,
            host launch cost included when it exceeds the kernel's);
@@ -11,6 +11,14 @@ each kernel and shape it prints the time per call measured two ways:
 beside the least time the card could take (bytes over 3.35 TB/s, or bf16
 operations over 989 TFLOP/s on the tensor cores, the H100 SXM data sheet)
 and the SM clock that nvidia-smi reads right after the timing.
+
+K2's f32 kernel (csrc/flash_bwd.cu) at FlexiViT-B's seqhw 15 and 24 and K5
+(csrc/flash_blocked_bwd_fused.cu) at seqhw 40 and 30 (B=32, H=12, D=64,
+f32), both on 3xTF32 products, are timed with CUDA events at a few key
+tiles per block, in turns (each setting once in order, then once in
+reverse), beside the default setting (`key_tiles_per_block`), the plain
+version, SDPA's autograd backward on the same f32 inputs and the bound at
+the 3xTF32 rate; K5 also beside K4a + K4b.
 
 Usage (GPU only):  python -m big_vision_torch.tools.kernel_timing
 
@@ -25,6 +33,7 @@ import subprocess
 import time
 
 import torch
+import torch.nn.functional as F
 
 # H100 SXM data sheet: memory rate, dense bf16 tensor-core rate, and the f32
 # rate outside the tensor cores (the blocked kernels' f32 semantics).
@@ -106,6 +115,31 @@ def device_profile(named_fns, top=10):
                   key=lambda r: -r[1])
     out[name] = (rows[:top], sum(ms for _, ms, _ in rows), wall_ms)
   return out
+
+
+def sdpa_layout(sets, dtype=None):
+  """Each tuple of `sets` in the port's [B, T, H, D] layout as SDPA takes
+  it: [B, H, T, D], contiguous, cast to `dtype` if given."""
+  return [tuple(x.transpose(1, 2).to(dtype or x.dtype).contiguous()
+                for x in s) for s in sets]
+
+
+def sdpa_fwd_ms(sets, dtype=None):
+  """ms of SDPA's forward on the (q, k, v, ...) of `sets`."""
+  return time_ms(F.scaled_dot_product_attention,
+                 [s[:3] for s in sdpa_layout(sets, dtype)])
+
+
+def sdpa_bwd_ms(sets, dtype=None):
+  """ms of SDPA's autograd backward (dq, dk and dv together) alone on the
+  (q, k, v, do) of `sets`: its forward is recorded once per set, outside
+  the timing."""
+  graphs = []
+  for q, k, v, do in sdpa_layout(sets, dtype):
+    ins = [x.requires_grad_() for x in (q, k, v)]
+    graphs.append((F.scaled_dot_product_attention(*ins), ins, do))
+  return time_ms(lambda out, ins, do: torch.autograd.grad(
+      out, ins, do, retain_graph=True), graphs)
 
 
 def k1_inputs(b, tq, h, d, tkv=None, seed=0, dtype=torch.bfloat16):
@@ -194,14 +228,77 @@ def k6_work(b, kh, g, s, h):
       4 * b * kh * g * s * h
 
 
+def flexi_bwd_sets(fa, seqhw, fused, n=2, seed=110):
+  """`n` input sets of K2's f32 kernel (q, k, v, lse, do; `fused` False)
+  or of K5 (q, k, v, o, lse, do) at FlexiViT-B's `seqhw` in f32, with K1's
+  or K3's forward; 2 sets exceed the L2 from seqhw 15 on."""
+  b, t, h, d = 32, seqhw * seqhw + 1, 12, 64
+  out = []
+  for i in range(n):
+    q, k, v, do = blocked_inputs(b, t, h, d, seed=seed + 2 * i)
+    if fused:
+      out.append((q, k, v, *fa.flash_attention_blocked_forward(q, k, v), do))
+    else:
+      out.append((q, k, v, fa.flash_attention_forward(q, k, v)[1], do))
+  return out
+
+
+def time_tf32_bwd(fa, card):
+  """Prints the 3xTF32 backward kernels' times (module docstring)."""
+  cases = [("K2 flash_bwd (f32)", 15, False, (1, 2, 4), k2_work),
+           ("K2 flash_bwd (f32)", 24, False, (1, 2, 5, 10), k2_work),
+           ("K5 flash_blocked_bwd_fused", 40, True, (1, 2, 4, 13), k5_work),
+           ("K5 flash_blocked_bwd_fused", 30, True, (1, 2, 4, 15), k5_work)]
+  for name, seqhw, fused, tiles, work in cases:
+    sets = flexi_bwd_sets(fa, seqhw, fused)
+    fn = fa.flash_attention_blocked_bwd_fused if fused else fa.flash_attention_bwd
+    iters = 10 if fused else 50
+    order = list(tiles) + list(tiles)[::-1]
+    ms = {kt: [] for kt in tiles}
+    for kt in order:
+      ms[kt].append(time_ms(lambda *a, kt=kt: fn(*a, key_tiles=kt), sets,
+                            iters=iters))
+    t = seqhw * seqhw + 1
+    default = fa.key_tiles_per_block(32 * 12, t)
+    if fused:
+      plain = fa.flash_attention_blocked_bwd_fused_reference
+      sdpa = [(q, k, v, do) for q, k, v, _, _, do in sets]
+    else:
+      plain = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
+          q, k, v, do)
+      sdpa = [(q, k, v, do) for q, k, v, _, do in sets]
+    print(f"[{card}] {name} seqhw {seqhw} B=32 T={t} H=12 D=64 f32, key "
+          f"tiles per block in turns: " + "; ".join(
+              f"{kt}: {a:.4f}, {b:.4f} ms" for kt, (a, b) in ms.items())
+          + f" (default {default}: {time_ms(fn, sets, iters=iters):.4f} ms); "
+          f"plain {time_ms(plain, sets, iters=3):.4f} ms; SDPA backward "
+          f"{sdpa_bwd_ms(sdpa):.4f} ms; bound "
+          f"{bound(*work(32, t, 12, 64, itemsize=4), TF32X3_FLOPS)[0]:.4f} ms "
+          f"at the 3xTF32 rate")
+    if fused and seqhw == 40:
+      turns = [time_ms(fn, sets, iters=10),
+               time_ms(fa.flash_attention_blocked_bwd, sets, iters=10),
+               time_ms(fa.flash_attention_blocked_bwd, sets, iters=10),
+               time_ms(fn, sets, iters=10)]
+      print(f"[{card}] blocked backward seqhw 40, delta included, in turns "
+            "(K5, K4a + K4b, K4a + K4b, K5): "
+            + ", ".join(f"{x:.4f}" for x in turns) + " ms")
+    del sets, sdpa
+    torch.cuda.empty_cache()
+
+
 def main():
   if not torch.cuda.is_available():
     raise SystemExit("kernel_timing needs a CUDA device")
   from big_vision_torch.ops import _build
   from big_vision_torch.ops import decode_attention as da
   from big_vision_torch.ops import flash_attention as fa
-  _build.build_all(["flash_fwd", "flash_fwd_tc", "decode_attention"])
+  torch.backends.cuda.matmul.allow_tf32 = False
+  _build.build_all(["flash_fwd", "flash_fwd_tc", "decode_attention",
+                    "flash_bwd", "flash_blocked_fwd", "flash_blocked_bwd",
+                    "flash_blocked_bwd_fused"])
   card = nvidia_smi()
+  time_tf32_bwd(fa, card)
 
   def report(name, fn, sets, work, flops_per_s=BF16_FLOPS):
     ev, gr = time_ms(fn, sets), graph_ms(fn, sets)

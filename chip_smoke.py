@@ -12,10 +12,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      also in f32), at the shapes of the serving and training paths and at
      the edge cases (masks, Tq != Tkv, int8 cache, softcap, fully masked
      rows, which must give exact zeros; for K1 and K2 also D=20, which the
-     tensor-core kernels load without 16-byte copies), with the bar
-     max|kernel - plain| / max|plain| <= 1e-2 (docs/flash_parity.md); for
-     K2 each of dq, dk and dv is held to it (bf16 inputs run K1's and K2's
-     tensor-core kernels, f32 inputs their scalar ones); the blocked kernels K3, K4a
+     bf16 tensor-core kernels load without 16-byte copies), with the bar
+     max|kernel - plain| / max|plain| <= 1e-2 (docs/flash_parity.md) in
+     bf16 (bf16 inputs run K1's and K2's bf16 tensor-core kernels); f32
+     inputs run K1's scalar kernel (bar 1e-2) and K2's 3xTF32 one, held to
+     F32_BAR = 1e-4 (its semantics are f32, only the order of sums
+     differs) at FlexiViT-B's seqhw 5, 15 and 24, causal, seg, Tq != Tkv
+     and D = 18, 72, 128, 256; for K2 each of dq, dk and dv is held to the
+     bar; the blocked kernels K3, K4a
      and K4b (o, LSE, dq, dk, dv; K4a and K4b on K3's o and LSE) at the
      FlexiViT-B shapes (B=32, H=12, D=64, T=901 and 1601) in f32 (bar 1e-4:
      their semantics are f32, only the order of sums differs) and bf16,
@@ -58,13 +62,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      twice, through `update(batch, seqhw=...)`, each timed with CUDA
      events, with its peak memory, and with 12 launches of K3, K4a and K4b
      (none of K1, K2) at seqhw 30 and 40 and 12 of K1's and K2's f32
-     kernels at 15 (none of their tensor-core kernels); a
+     kernels at 15 (none of their bf16 tensor-core kernels); a
      profile of one step at seqhw 40 (device busy time); the loss falling
      over FLEXI_FIXED_STEPS steps on one batch at seqhw 40; and the kernel
      path against the plain path at seqhw 40 on 8 unseen images (loss,
      encoder output and attention-projection gradients within 2e-2; each
      K4a and K4b launch of the backward, on its own inputs, within 1e-4 of
-     its plain version); then the same state under attn=auto: two steps
+     its plain version); each K2 launch (its f32 kernel) of a backward at
+     seqhw 15 on 32 unseen images, on its own inputs, within 1e-4 of its
+     plain version; then the same state under attn=auto: two steps
      each at seqhw 40 and 30 (CUDA events, peak memory) with no kernel
      launched;
   6. distils FlexiViT-B from a ViT-B/8 teacher (f32, batch 32) through
@@ -96,8 +102,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      same inputs, in the kernel's own dtype (forward, or its autograd
      backward for K2, K4a, K4b and K5), which the port never calls; K1's
      and K2's bf16 kernels and their plain versions in turns; K1's
-     tensor-core kernel also at the serving shape; and K5 against K4a +
-     K4b on the same inputs.
+     tensor-core kernel also at the serving shape; K2's f32 kernel at
+     seqhw 15 and 24 and K5 at seqhw 40 and 30, with their bounds at the
+     3xTF32 rate; and K5 against K4a + K4b on the same inputs.
 The line before the last is {"kernels": [...]}: K1's and K2's bf16
 tensor-core kernels are reported at the ViT training shape (B=256, T=196,
 H=12, D=64; launches per step), K1's and K2's f32 kernels at FlexiViT-B's
@@ -141,6 +148,8 @@ from big_vision_torch.tools.kernel_timing import k5_work
 from big_vision_torch.tools.kernel_timing import k6_inputs
 from big_vision_torch.tools.kernel_timing import k6_work
 from big_vision_torch.tools.kernel_timing import nvidia_smi
+from big_vision_torch.tools.kernel_timing import sdpa_bwd_ms
+from big_vision_torch.tools.kernel_timing import sdpa_fwd_ms
 from big_vision_torch.tools.kernel_timing import TF32X3_FLOPS
 from big_vision_torch.tools.kernel_timing import time_ms
 
@@ -187,8 +196,8 @@ FLOPS_PER_IMG_TRAIN = 3 * 35.2e9  # bench.py:31-32: 3x the forward's FLOPs
 
 # Each kernel's launch counter: an attribute of its wrapper. K1's and K2's
 # wrappers run two kernels each, by dtype: "K1" and "K2" are their bf16
-# tensor-core kernels (`tc_launches`), "K1f" and "K2f" their f32 scalar
-# ones (the rest of `launches`).
+# tensor-core kernels (`tc_launches`), "K1f" and "K2f" their f32 ones (the
+# rest of `launches`; K1f scalar, K2f on 3xTF32 products).
 TC_SPLIT = {"K1": "K1f", "K2": "K2f"}
 COUNTERS = {"K1": "flash_attention_forward",
             "K1f": "flash_attention_forward", "K2": "flash_attention_bwd",
@@ -1342,38 +1351,14 @@ def training_phase(fa, gpu):
   return per_step
 
 
-def sdpa_layout(sets, dtype=None):
-  """Each tuple of `sets` in the port's [B, T, H, D] layout as SDPA takes
-  it: [B, H, T, D], contiguous, cast to `dtype` if given."""
-  return [tuple(x.transpose(1, 2).to(dtype or x.dtype).contiguous()
-                for x in s) for s in sets]
-
-
-def sdpa_fwd_ms(sets, dtype=None):
-  """ms of SDPA's forward on the (q, k, v, ...) of `sets`."""
-  return time_ms(F.scaled_dot_product_attention,
-                 [s[:3] for s in sdpa_layout(sets, dtype)])
-
-
-def sdpa_bwd_ms(sets, dtype=None):
-  """ms of SDPA's autograd backward (dq, dk and dv together) alone on the
-  (q, k, v, do) of `sets`: its forward is recorded once per set, outside
-  the timing."""
-  graphs = []
-  for q, k, v, do in sdpa_layout(sets, dtype):
-    ins = [x.requires_grad_() for x in (q, k, v)]
-    graphs.append((F.scaled_dot_product_attention(*ins), ins, do))
-  return time_ms(lambda out, ins, do: torch.autograd.grad(
-      out, ins, do, retain_graph=True), graphs)
-
-
 def blocked_entries(fa, counts, gpu):
   """K3, K4a, K4b and K5 at the FlexiViT-B shape of seqhw 40 in f32 (B=32,
   T=1601, H=12, D=64; launches per step), each beside its plain version,
   SDPA on the same f32 inputs (its forward for K3, its autograd backward,
   which computes dq, dk and dv together, for K4a, K4b and K5) and its
-  bound, with the f32 operations at the f32 rate outside the tensor cores;
-  and K5 against K4a + K4b on the same inputs, in turns. SDPA on bf16
+  bound, with the f32 operations at the rate of the units that run them:
+  the f32 rate outside the tensor cores for K3, K4a and K4b, the 3xTF32
+  rate for K5; and K5 against K4a + K4b on the same inputs, in turns. SDPA on bf16
   copies, a different function, is printed beside for comparison with
   earlier records."""
   b, t, h, d = FLEXI_B, FLEXI_T[0], TRAIN_H, TRAIN_D
@@ -1394,23 +1379,26 @@ def blocked_entries(fa, counts, gpu):
            q, k, v),
        lambda q, k, v, do, lse, delta: fa.flash_attention_blocked_reference(
            q, k, v),
-       sdpa_fwd_ms(sets), k3_work),
+       sdpa_fwd_ms(sets), k3_work, F32_FLOPS),
       ("flash_blocked_dq", "K4a", "flash_blocked_bwd.cu", 632,
        fa.flash_attention_blocked_dq, fa.flash_attention_blocked_dq_reference,
-       bwd_ms, k4a_work),
+       bwd_ms, k4a_work, F32_FLOPS),
       ("flash_blocked_dkv", "K4b", "flash_blocked_bwd.cu", 653,
        fa.flash_attention_blocked_dkv,
-       fa.flash_attention_blocked_dkv_reference, bwd_ms, k4b_work),
-  ]
-  entries = []
-  for name, key, src, line, fn, plain, lib_ms, work in timed + [
+       fa.flash_attention_blocked_dkv_reference, bwd_ms, k4b_work,
+       F32_FLOPS),
       ("flash_blocked_bwd_fused", "K5", "flash_blocked_bwd_fused.cu", 482,
        fa.flash_attention_blocked_bwd_fused,
-       fa.flash_attention_blocked_bwd_fused_reference, bwd_ms,
-       k5_work)]:
+       fa.flash_attention_blocked_bwd_fused_reference, bwd_ms, k5_work,
+       TF32X3_FLOPS),
+  ]
+  entries = []
+  for name, key, src, line, fn, plain, lib_ms, work, rate in timed:
     arg_sets = k5_sets if key == "K5" else k4_sets
-    bms, by = bound(*work(b, t, h, d), F32_FLOPS)
-    print(f"{name}: bound {bms:.4f} ms ({by}) at the f32 rate, "
+    bms, by = bound(*work(b, t, h, d), rate)
+    print(f"{name}: bound {bms:.4f} ms ({by}) at "
+          f"{'the 3xTF32' if rate == TF32X3_FLOPS else 'the f32'} rate; "
+          f"{bound(*work(b, t, h, d), F32_FLOPS)[0]:.4f} ms at the f32 rate, "
           f"{bound(*work(b, t, h, d))[0]:.4f} ms at the bf16 tensor-core "
           "rate")
     entries.append(dict(
@@ -1422,8 +1410,6 @@ def blocked_entries(fa, counts, gpu):
         ms=time_ms(fn, arg_sets, iters=10),
         plain_ms=time_ms(plain, arg_sets, iters=3), bound_ms=bms,
         bound_by=by, library_ms=lib_ms))
-  print(f"K5 at seqhw 40: bound {bound(*k5_work(b, t, h, d), TF32X3_FLOPS)[0]:.4f}"
-        " ms at the 3xTF32 rate")
   # The whole blocked backward, one way and the other, in turns.
   k5 = [time_ms(fa.flash_attention_blocked_bwd_fused, k5_sets, iters=10)]
   two = [time_ms(fa.flash_attention_blocked_bwd, k5_sets, iters=10)
@@ -1460,8 +1446,8 @@ def k2_f32_entry(fa, counts, gpu, seqhw):
   """K2's f32 kernel at FlexiViT-B's `seqhw` (B=32, T=seqhw^2+1, H=12, D=64,
   f32; launches per step of the FlexiViT phase at seqhw 15), beside its
   plain version, SDPA's autograd backward on the same f32 inputs, and its
-  bound (at the f32 rate outside the tensor cores, and at the 3xTF32 rate);
-  its error against the plain version on these inputs."""
+  bound (at the 3xTF32 rate of its products, and at the f32 rate outside
+  the tensor cores); its error against the plain version on these inputs."""
   b, t, h, d = FLEXI_B, seqhw * seqhw + 1, TRAIN_H, TRAIN_D
   inputs = [blocked_inputs(b, t, h, d, seed=110 + 2 * i) for i in range(2)]
   sets = [(q, k, v, fa.flash_attention_forward(q, k, v)[1], do)
@@ -1477,7 +1463,7 @@ def k2_f32_entry(fa, counts, gpu, seqhw):
   plain = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
       q, k, v, do)
   work = k2_work(b, t, h, d, itemsize=4)
-  bms, by = bound(*work, F32_FLOPS)
+  bms, by = bound(*work, TF32X3_FLOPS)
   entry = dict(
       name="flash_bwd", route="cuda",
       source="big_vision_torch/csrc/flash_bwd.cu",
@@ -1488,8 +1474,8 @@ def k2_f32_entry(fa, counts, gpu, seqhw):
       library_ms=sdpa_bwd_ms(inputs))
   print(f"[{gpu}] K2 flash_bwd (f32) at seqhw {seqhw} B={b} T={t} H={h} "
         f"D={d}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, SDPA "
-        f"{entry['library_ms']:.4f} ms; bound {bms:.4f} ms ({by}) at the f32 "
-        f"rate, {bound(*work, TF32X3_FLOPS)[0]:.4f} ms at the 3xTF32 rate; "
+        f"{entry['library_ms']:.4f} ms; bound {bms:.4f} ms ({by}) at the "
+        f"3xTF32 rate, {bound(*work, F32_FLOPS)[0]:.4f} ms at the f32 rate; "
         f"rel err {rel:.3e} (bar {F32_BAR})")
   return entry
 

@@ -10,8 +10,11 @@ and its `flash_attention` with the port's flag set, which on CPU tensors
 runs that plain version inside the blocked autograd Function. Inputs are
 drawn with numpy from a seed; T <= 64 with blocks of 16 keeps the
 interpret-mode kernels fast. Both sides compute in f32 and differ only in
-the order of sums (atol 1e-5, rtol 1e-4).
+the order of sums (atol 1e-5, rtol 1e-4), also where the plain version
+groups its dq sums in chunks of key tiles as the K5 kernel does.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -77,8 +80,9 @@ CASES = [  # (t, d, causal, tkv, with_seg)
 ]
 
 
-@pytest.mark.parametrize("t,d,causal,tkv,with_seg", CASES)
-def test_plain_version_matches_jax_bwd_fused(t, d, causal, tkv, with_seg):
+@functools.cache
+def _jax_bwd_fused(t, d, causal, tkv, with_seg):
+  """(inputs, seg, o, lse, JAX `_bwd_fused`'s dq, dk, dv) of a case."""
   q, k, v, do = _inputs(t, d, tkv)
   seg = _seg(t) if with_seg else None
   seg_bh = None if seg is None else jnp.repeat(jnp.asarray(seg), H, axis=0)
@@ -90,20 +94,37 @@ def test_plain_version_matches_jax_bwd_fused(t, d, causal, tkv, with_seg):
                             causal=causal, block_q=BLOCK, block_kv=BLOCK,
                             seq_q=seq_q, seq_kv=seq_kv)
   want = [_bthd(x, n) for x, n in zip(want, (t, tkv or t, tkv or t))]
+  return (q, k, v, do), seg, _bthd(o, t), np.array(lse[:, 0, :t]), want
 
+
+def _check_plain_version(case, **kw):
+  (q, k, v, do), seg, o, lse, want = _jax_bwd_fused(*case)
   got = t_flash.flash_attention_blocked_bwd_fused_reference(
-      *map(torch.from_numpy, (q, k, v, _bthd(o, t))),
-      torch.from_numpy(np.array(lse[:, 0, :t])), torch.from_numpy(do),
-      causal=causal, seg=None if seg is None else torch.from_numpy(seg),
-      block_kv=BLOCK)
+      *map(torch.from_numpy, (q, k, v, o, lse, do)), causal=case[2],
+      seg=None if seg is None else torch.from_numpy(seg), block_kv=BLOCK,
+      **kw)
   for name, g, w in zip(("dq", "dk", "dv"), got, want):
     assert np.abs(w).max() > 0, name
     np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=1e-4,
                                err_msg=name)
-  if with_seg:
+  if seg is not None:
     zero = seg == 0
     for g in got:
       assert g.numpy()[zero].max() == g.numpy()[zero].min() == 0.0
+
+
+@pytest.mark.parametrize("t,d,causal,tkv,with_seg", CASES)
+def test_plain_version_matches_jax_bwd_fused(t, d, causal, tkv, with_seg):
+  _check_plain_version((t, d, causal, tkv, with_seg))
+
+
+@pytest.mark.parametrize("t,d,causal,tkv,with_seg", CASES)
+def test_chunked_plain_version_matches_jax_bwd_fused(t, d, causal, tkv,
+                                                     with_seg):
+  """The K5 kernel sums dq per chunk of key tiles and then the chunks in
+  key order; its plain version, grouped alike (chunks of two 16-key
+  tiles), still agrees with the JAX kernel's single sequence."""
+  _check_plain_version((t, d, causal, tkv, with_seg), chunk_keys=2 * BLOCK)
 
 
 def test_fused_bwd_fits_matches_jax():
