@@ -200,11 +200,13 @@ def _blocked_bwd_fused_lib():
 # walk key tiles of TF32_KEY_TILE keys, with D zero-padded (`tf32_dpad`). A
 # block takes a chunk of `key_tiles_per_block` key tiles of one (batch,
 # head) and sums its chunk's dq in its own f32 part; a second kernel sums
-# the parts in key order. Chunks enough for TF32_BLOCKS blocks keep the
-# card's 132 SMs busy (three blocks each at D <= 64) for about ten waves:
-# at FlexiViT-B's shapes more chunks measured faster on the H100, though
-# each adds a part to write and read (tools/kernel_timing.py times them).
-TF32_KEY_TILE, TF32_BLOCKS = 64, 4096
+# the parts in key order. One key tile per block measured fastest at
+# FlexiViT-B's shapes on the H100 (tools/kernel_timing.py times them), but
+# the parts, [chunks, B*H, Tq, D] f32, then take as much memory as the f32
+# scores that a fused kernel exists to avoid. So chunks are capped at
+# TF32_PARTS_BYTES of parts: the 2 GiB that the JAX package's attention
+# gate allows a score matrix (`XLA_SCORES_BYTES_LIMIT`).
+TF32_KEY_TILE, TF32_PARTS_BYTES = 64, 2 * 1024**3
 
 
 def tf32_dpad(d):
@@ -212,11 +214,12 @@ def tf32_dpad(d):
   return 32 if d <= 32 else 64 if d <= 64 else 128 if d <= 128 else 256
 
 
-def key_tiles_per_block(bh, tkv):
+def key_tiles_per_block(bh, tq, tkv, d):
   """Key tiles per block of the 3xTF32 backward kernels for B*H = `bh`
-  heads of `tkv` keys: as few as give about TF32_BLOCKS blocks."""
+  heads of `tq` queries and `tkv` keys: one, unless the dq parts would
+  pass TF32_PARTS_BYTES."""
   nk = -(-tkv // TF32_KEY_TILE)
-  chunks = min(nk, max(1, -(-TF32_BLOCKS // bh)))
+  chunks = min(nk, max(1, TF32_PARTS_BYTES // (bh * tq * tf32_dpad(d) * 4)))
   return -(-nk // chunks)
 
 
@@ -446,7 +449,8 @@ def flash_attention_blocked_bwd_fused_reference(q, k, v, o, lse, do, *,
   b, _, h, d = q.shape
   tkv = k.shape[1]
   block_kv = block_kv or TF32_KEY_TILE
-  chunk_keys = chunk_keys or TF32_KEY_TILE * key_tiles_per_block(b * h, tkv)
+  chunk_keys = chunk_keys or TF32_KEY_TILE * key_tiles_per_block(
+      b * h, q.shape[1], tkv, d)
   scale = 1.0 / math.sqrt(d)
   delta = blocked_delta(o, do)
   qs, p, ds = _blocked_probs(q, k, v, lse, delta, do, causal, seg)
@@ -523,7 +527,7 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=False, seg=None,
     dq_acc = torch.empty(b * h * _tc_scratch()(tq, d), **f32)
     tail = ()
   else:
-    kt = key_tiles or key_tiles_per_block(b * h, k.shape[1])
+    kt = key_tiles or key_tiles_per_block(b * h, tq, k.shape[1], d)
     dq_acc = torch.empty(tf32_dq_parts_shape(b * h, tq, k.shape[1], d, kt),
                          **f32)
     tail = (kt, dq_acc.shape[-1])
@@ -681,7 +685,7 @@ def flash_attention_blocked_bwd_fused(q, k, v, o, lse, do, *, causal=False,
   delta = blocked_delta(o, do)
   seg, shape = _launch_args(q, k, v, seg, (("do", do), ("lse", lse)))
   dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-  kt = key_tiles or key_tiles_per_block(b * h, k.shape[1])
+  kt = key_tiles or key_tiles_per_block(b * h, tq, k.shape[1], d)
   dq_parts = torch.empty(tf32_dq_parts_shape(b * h, tq, k.shape[1], d, kt),
                          dtype=torch.float32, device=q.device)
   err = _blocked_bwd_fused_lib()(

@@ -94,12 +94,13 @@ def test_three_tf32_products_hold_the_f32_bar(name):
 
 
 @pytest.mark.parametrize("seqhw,key_tiles,chunks", [
-    (5, 1, 1), (15, 1, 4), (24, 1, 10), (30, 2, 8), (40, 3, 9)])
+    (5, 1, 1), (15, 1, 4), (24, 1, 10), (30, 1, 15), (40, 2, 13)])
 def test_flexivit_chunks(seqhw, key_tiles, chunks):
-  """At FlexiViT-B's shapes (B=32, H=12, D=64) a head's key tiles of 64
-  keys spread over up to 11 blocks, each with its own dq part."""
+  """At FlexiViT-B's shapes (B=32, H=12, D=64) a block takes one key tile
+  of 64 keys, and its own dq part, except at seqhw 40, where 26 parts of
+  157 MB would pass 2 GiB: two tiles there."""
   t = seqhw * seqhw + 1
-  assert t_flash.key_tiles_per_block(32 * 12, t) == key_tiles
+  assert t_flash.key_tiles_per_block(32 * 12, t, t, 64) == key_tiles
   assert t_flash.tf32_dq_parts_shape(32 * 12, t, t, 64, key_tiles) == (
       chunks, 384, t, 64)
 
@@ -108,9 +109,21 @@ def test_flexivit_chunks(seqhw, key_tiles, chunks):
                                   (128, 128), (200, 256), (256, 256)])
 def test_dq_parts_pad_d(d, dp):
   # A few heads: one block per key tile (300 keys, 5 tiles).
-  assert t_flash.key_tiles_per_block(8, 300) == 1
+  assert t_flash.key_tiles_per_block(8, 100, 300, d) == 1
   assert t_flash.tf32_dq_parts_shape(8, 100, 300, d, 1) == (5, 8, 100, dp)
   assert t_flash.tf32_dq_parts_shape(8, 100, 300, d, 2) == (3, 8, 100, dp)
+
+
+def test_dq_parts_stay_under_the_cap():
+  # ViT-B at T=4097 and batch 64: one key tile per block would take
+  # 65 parts of 805 MB.
+  bh, t = 64 * 12, 4097
+  kt = t_flash.key_tiles_per_block(bh, t, t, 64)
+  shape = t_flash.tf32_dq_parts_shape(bh, t, t, 64, kt)
+  assert (kt, shape[0]) == (33, 2)
+  assert 4 * np.prod(shape) <= t_flash.TF32_PARTS_BYTES
+  # One part alone may pass it: never fewer than one chunk.
+  assert t_flash.key_tiles_per_block(4096, 4097, 4097, 256) == 65
 
 
 @pytest.mark.parametrize("key_tiles", [0, -1, 1.5])
