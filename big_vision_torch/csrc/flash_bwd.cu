@@ -70,8 +70,11 @@ namespace {
 using namespace bvt_tf32;
 
 template <int DP> struct StatTiles {
-  static constexpr int BQ = 64;                    // query rows, 16 per warp
-  static constexpr int BKS = DP <= 128 ? 64 : 16;  // keys per key tile
+  static constexpr int BQ = 64;  // query rows, 16 per warp
+  // Keys per key tile. Up to D = 64 the next key tile loads while this one
+  // computes, in 32 registers a thread.
+  static constexpr bool PREFETCH = DP <= 64;
+  static constexpr int BKS = PREFETCH ? 32 : DP <= 128 ? 64 : 16;
   static constexpr int LD = DP + 4;
   // Floats: q, do [BQ][LD]; k, v [BKS][LD]; then ints: seg of the rows.
   static constexpr size_t BYTES = (2 * (BQ + BKS) * LD + BQ + BKS) * 4;
@@ -119,13 +122,27 @@ flash_bwd_stats_kernel(const BwdArgs a, float* __restrict__ delta,
     lse2[hf] = r < a.Tq ? a.lse[(long long)bh * a.Tq + r] * LOG2E : 0.f;
   }
   const int kv_end = a.causal ? min(a.Tkv, q0 + BQ) : a.Tkv;
+  TileRegs<float, BKS, DP> fk, fv;
+  if (St::PREFETCH) {
+    fk.fetch(kb, row, 0, a.Tkv, a.D, vec, tid);
+    fv.fetch(vb, row, 0, a.Tkv, a.D, vec, tid);
+  }
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKS) {
     __syncthreads();  // the previous key tile's readers are done
-    load_tile<float, BKS, DP>(sK, kb, row, kv0, a.Tkv, a.D, 1.f, vec, tid);
-    load_tile<float, BKS, DP>(sV, vb, row, kv0, a.Tkv, a.D, 1.f, vec, tid);
+    if (St::PREFETCH) {
+      fk.store(sK, 1.f, tid);
+      fv.store(sV, 1.f, tid);
+    } else {
+      load_tile<float, BKS, DP>(sK, kb, row, kv0, a.Tkv, a.D, 1.f, vec, tid);
+      load_tile<float, BKS, DP>(sV, vb, row, kv0, a.Tkv, a.D, 1.f, vec, tid);
+    }
     if (segk && tid < BKS)
       sSegK[tid] = kv0 + tid < a.Tkv ? segk[kv0 + tid] : 0;
     __syncthreads();
+    if (St::PREFETCH && kv0 + BKS < kv_end) {
+      fk.fetch(kb, row, kv0 + BKS, a.Tkv, a.D, vec, tid);
+      fv.fetch(vb, row, kv0 + BKS, a.Tkv, a.D, vec, tid);
+    }
     float s[NJ][4], dp[NJ][4];
     strip_products<KD, NJ>(sQ, sK, sdO, sV, LD, 16 * w, s, dp, l);
 #pragma unroll

@@ -219,6 +219,22 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// Columns c..c+3 of the row at p - c as f32, zero past D; `vec` as above.
+template <typename T>
+__device__ __forceinline__ float4 load_cols(const T* p, int c, int D,
+                                            bool vec) {
+  if (vec) return load4(p);
+  float4 x = make_float4(to_f(p[0]), 0.f, 0.f, 0.f);
+  if (c + 1 < D) x.y = to_f(p[1]);
+  if (c + 2 < D) x.z = to_f(p[2]);
+  if (c + 3 < D) x.w = to_f(p[3]);
+  return x;
+}
+
+__device__ __forceinline__ float4 scaled(float4 x, float mul) {
+  return make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
+}
+
 // Rows r0..r0+ROWS-1 of a head (row i at head + i * row elements) into a
 // ROWS x DP f32 tile with row stride DP + 4, times mul; rows past nrows and
 // columns past D are zero. `vec`: D % 4 == 0 and 16-byte aligned rows.
@@ -232,22 +248,43 @@ __device__ __forceinline__ void load_tile(float* dst, const T* head,
 #pragma unroll 4
   for (int i = tid; i < ROWS * C4; i += NT) {
     const int r = i / C4, c = (i % C4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n && c < D) {
-      const T* p = head + (long long)(r0 + r) * row + c;
-      if (vec) {
-        x = load4(p);
-      } else {
-        x.x = to_f(p[0]);
-        if (c + 1 < D) x.y = to_f(p[1]);
-        if (c + 2 < D) x.z = to_f(p[2]);
-        if (c + 3 < D) x.w = to_f(p[3]);
-      }
-    }
-    x.x *= mul, x.y *= mul, x.z *= mul, x.w *= mul;
-    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+    const float4 x = r < n && c < D
+        ? load_cols(head + (long long)(r0 + r) * row + c, c, D, vec)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = scaled(x, mul);
   }
 }
+
+// The same tile in two steps, so that it loads while the previous one
+// computes: `fetch` issues this thread's loads into registers (ROWS * DP /
+// 4 / NT float4, 4 for 32 x 64), `store` scales them into shared memory
+// once the previous tile's readers are done. (bf16 is converted as it
+// arrives, so only f32 loads overlap.)
+template <typename T, int ROWS, int DP>
+struct TileRegs {
+  static constexpr int C4 = DP / 4, N = ROWS * C4 / NT;
+  static_assert(ROWS * C4 % NT == 0, "whole float4 per thread");
+  float4 x[N];
+  __device__ __forceinline__ void fetch(const T* head, long long row, int r0,
+                                        int nrows, int D, bool vec, int tid) {
+    const int n = min(ROWS, nrows - r0);
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int i = tid + u * NT, r = i / C4, c = (i % C4) * 4;
+      x[u] = r < n && c < D
+          ? load_cols(head + (long long)(r0 + r) * row + c, c, D, vec)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ __forceinline__ void store(float* dst, float mul, int tid) const {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int i = tid + u * NT;
+      *reinterpret_cast<float4*>(dst + (i / C4) * (DP + 4) + (i % C4) * 4) =
+          scaled(x[u], mul);
+    }
+  }
+};
 
 // ---- The backward pass ----
 
@@ -318,6 +355,9 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(const BwdArgs a) {
   const int kt0 = blockIdx.y * a.kt_per_block;
   const int kt1 = min(nk, kt0 + a.kt_per_block);
   const bool vec = a.vec;
+  // Up to D = 64 the next query tile loads while this one computes (32
+  // registers a thread); above, each loads in turn.
+  constexpr bool PREFETCH = DP <= 64;
 
   for (int kt = kt0; kt < kt1; ++kt) {
     const int kv0 = kt * BK;
@@ -335,11 +375,21 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(const BwdArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
+      TileRegs<T, BQ, DP> fq, fo;
+      if (PREFETCH && qt0 < nq) {
+        fq.fetch(qb, row, qt0 * BQ, a.Tq, a.D, vec, tid);
+        fo.fetch(dob, row, qt0 * BQ, a.Tq, a.D, vec, tid);
+      }
       for (int qt = qt0; qt < nq; ++qt) {
         const int q0 = qt * BQ;
         __syncthreads();  // the previous query tile's readers are done
-        load_tile<T, BQ, DP>(sQ, qb, row, q0, a.Tq, a.D, q_mul, vec, tid);
-        load_tile<T, BQ, DP>(sdO, dob, row, q0, a.Tq, a.D, 1.f, vec, tid);
+        if (PREFETCH) {
+          fq.store(sQ, q_mul, tid);
+          fo.store(sdO, 1.f, tid);
+        } else {
+          load_tile<T, BQ, DP>(sQ, qb, row, q0, a.Tq, a.D, q_mul, vec, tid);
+          load_tile<T, BQ, DP>(sdO, dob, row, q0, a.Tq, a.D, 1.f, vec, tid);
+        }
         if (tid < BQ) {
           const int r = q0 + tid;
           const bool in = r < a.Tq;
@@ -349,6 +399,10 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(const BwdArgs a) {
           if (segq) sSegQ[tid] = in ? segq[r] : 0;
         }
         __syncthreads();
+        if (PREFETCH && qt + 1 < nq) {
+          fq.fetch(qb, row, q0 + BQ, a.Tq, a.D, vec, tid);
+          fo.fetch(dob, row, q0 + BQ, a.Tq, a.D, vec, tid);
+        }
 
         // S^T and dP^T for keys 16w..16w+15 against the tile's queries.
         float s[NQ][4], dp[NQ][4];
