@@ -259,7 +259,7 @@ def time_tf32_bwd(fa, card):
       ms[kt].append(time_ms(lambda *a, kt=kt: fn(*a, key_tiles=kt), sets,
                             iters=iters))
     t = seqhw * seqhw + 1
-    default = fa.key_tiles_per_block(32 * 12, t)
+    default = fa.key_tiles_per_block(32 * 12, t, t, 64)
     if fused:
       plain = fa.flash_attention_blocked_bwd_fused_reference
       sdpa = [(q, k, v, do) for q, k, v, _, _, do in sets]

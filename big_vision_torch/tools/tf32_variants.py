@@ -1,0 +1,126 @@
+"""Times design variants of the 3xTF32 backward kernels on the GPU.
+
+K2's f32 kernel (csrc/flash_bwd.cu) and K5 (csrc/flash_blocked_bwd_fused.cu)
+share csrc/flash_tf32_common.cuh. Each variant here is a copy of csrc/ with
+one choice of that design undone, built and timed in its own process (so
+that the profiler's per-kernel breakdown works in each), the sources as
+they are first and last:
+  - the TF32 split with `cvt.rna.tf32.f32` for hi and for lo, in place of
+    the integer rounding of hi and the unrounded lo;
+  - query tiles of 64 rows in place of 32;
+  - no loads of the next tile while the current one computes;
+  - one TF32 product in place of three (not f32-accurate: its error is
+    printed; a yardstick of what the products cost).
+For each it prints K2's f32 kernel at FlexiViT-B's seqhw 15 and 24 and K5
+at seqhw 40 and 30 (B=32, H=12, D=64, f32; CUDA events, inputs rotated
+past the L2), the device time of each kernel of K2 at seqhw 15 and of K5
+at seqhw 40 (torch.profiler), and the largest error against the plain
+versions at seqhw 15 (K2) and 30 (K5).
+
+Usage (GPU only):  python -m big_vision_torch.tools.tf32_variants
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+HEADER = "flash_tf32_common.cuh"
+# (file, text in the sources, its replacement) per variant.
+VARIANTS = {
+    "as committed": [],
+    "split with cvt.rna for hi and lo": [(HEADER, """\
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));""", """\
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));""")],
+    "query tiles of 64": [(HEADER, "static constexpr int BQ = 32;",
+                           "static constexpr int BQ = 64;")],
+    "no loads ahead": [
+        (HEADER, "constexpr bool PREFETCH = DP <= 64;",
+         "constexpr bool PREFETCH = false;"),
+        ("flash_bwd.cu", "static constexpr bool PREFETCH = DP <= 64;",
+         "static constexpr bool PREFETCH = false;")],
+    "one TF32 product (timing only)": [(HEADER, """\
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+""", "")],
+}
+ORDER = list(VARIANTS) + ["as committed"]
+
+
+def variant_sources(name):
+  """A copy of csrc/ with variant `name`'s replacements made."""
+  from big_vision_torch.ops import _build
+  tmp = Path(tempfile.mkdtemp(prefix="tf32_variant_"))
+  for f in _build._CSRC.iterdir():
+    shutil.copy(f, tmp / f.name)
+  for fname, old, new in VARIANTS[name]:
+    text = (tmp / fname).read_text()
+    if old not in text:
+      raise RuntimeError(f"variant {name!r}: text not found in {fname}")
+    (tmp / fname).write_text(text.replace(old, new))
+  return tmp
+
+
+def run_variant(name):
+  """Builds and times one variant in this process."""
+  import torch
+  from big_vision_torch.ops import _build
+  _build._CSRC = Path(os.environ["TF32_VARIANT_CSRC"])
+  from big_vision_torch.ops import flash_attention as fa
+  from big_vision_torch.tools import kernel_timing as kt
+  torch.backends.cuda.matmul.allow_tf32 = False
+  _build.build_all(["flash_bwd", "flash_blocked_bwd_fused", "flash_fwd",
+                    "flash_blocked_fwd"])
+  k2 = {s: kt.flexi_bwd_sets(fa, s, False) for s in (15, 24)}
+  k5 = {s: kt.flexi_bwd_sets(fa, s, True) for s in (40, 30)}
+  rel = lambda got, want: max(((x - y).abs().max() / y.abs().max()).item()
+                              for x, y in zip(got, want))
+  q, k, v, lse, do = k2[15][0]
+  err2 = rel(fa.flash_attention_bwd(q, k, v, lse, do),
+             fa.flash_attention_bwd_reference(q, k, v, do))
+  err5 = rel(fa.flash_attention_blocked_bwd_fused(*k5[30][0]),
+             fa.flash_attention_blocked_bwd_fused_reference(*k5[30][0]))
+  ms = {f"K2 seqhw {s}": kt.time_ms(fa.flash_attention_bwd, k2[s])
+        for s in k2}
+  ms.update({f"K5 seqhw {s}": kt.time_ms(fa.flash_attention_blocked_bwd_fused,
+                                         k5[s], iters=10) for s in k5})
+  prof = kt.device_profile({
+      "K2 seqhw 15": lambda: fa.flash_attention_bwd(*k2[15][0]),
+      "K5 seqhw 40": lambda: fa.flash_attention_blocked_bwd_fused(*k5[40][0])},
+      top=3)
+  parts = "; ".join(
+      f"{what}: " + ", ".join(f"{n.split('<')[0].split('::')[-1]} {t:.4f}"
+                              for n, t, _ in rows)
+      for what, (rows, _, _) in prof.items())
+  print(f"[{kt.nvidia_smi()}] {name}: " + ", ".join(
+      f"{what} {t:.4f} ms" for what, t in ms.items())
+        + f"; device ms by kernel: {parts}; rel err K2 {err2:.3e}, K5 "
+        f"{err5:.3e}", flush=True)
+
+
+def main():
+  name = os.environ.get("TF32_VARIANT")
+  if name is not None:
+    run_variant(name)
+    return
+  import torch
+  if not torch.cuda.is_available():
+    raise SystemExit("tf32_variants needs a CUDA device")
+  for name in ORDER:
+    src = variant_sources(name)
+    env = dict(os.environ, TF32_VARIANT=name, TF32_VARIANT_CSRC=str(src))
+    try:
+      subprocess.run([sys.executable, "-m", "big_vision_torch.tools."
+                      "tf32_variants"], env=env, check=True)
+    finally:
+      shutil.rmtree(src, ignore_errors=True)
+
+
+if __name__ == "__main__":
+  main()

@@ -8,9 +8,12 @@ header; TF32 rounding emulated in torch (the 13 low mantissa bits, round to
 nearest, ties away from zero, as `cvt.rna.tf32.f32` rounds and the kernels
 round hi; lo truncated, as the tensor cores read it) shows on numpy inputs
 at FlexiViT-B's scales that three products hold each of K2's five products
-within 1e-6 of f64 while one TF32 product each misses 1e-4; and the
-wrappers' scratch shapes, chunking and refusals.
+within 1e-6 of f64 while one TF32 product each misses 1e-4; the
+wrappers' scratch shapes, chunking and refusals; and that the design
+variants of tools/tf32_variants.py still apply to the sources.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ import torch
 
 from big_vision_torch.ops import _build
 from big_vision_torch.ops import flash_attention as t_flash
+from big_vision_torch.tools import tf32_variants
 
 HEADER = "flash_tf32_common.cuh"
 
@@ -181,3 +185,17 @@ def test_fused_plain_version_groups_dq_by_chunk(causal):
   torch.testing.assert_close(got[0], one[0], rtol=1e-5, atol=1e-6)
   for x, y in zip(got[1:], one[1:]):
     assert torch.equal(x, y)  # dk and dv do not depend on the chunks
+
+
+@pytest.mark.parametrize("name", sorted(tf32_variants.VARIANTS))
+def test_timing_variants_apply_to_the_sources(name):
+  """tools/tf32_variants.py undoes one design choice per variant by a text
+  replacement; each replacement must still find its text."""
+  src = tf32_variants.variant_sources(name)
+  try:
+    changed = [f.name for f in src.iterdir()
+               if f.read_text() != (_build._CSRC / f.name).read_text()]
+    assert sorted(changed) == sorted({f for f, _, _ in
+                                      tf32_variants.VARIANTS[name]})
+  finally:
+    shutil.rmtree(src)
