@@ -7,10 +7,11 @@
 //                to nearest, ties away from zero: the rounding of
 //                `cvt.rna.tf32.f32`, done here with an integer add and
 //                mask, which measured faster on the H100 than the
-//                conversion), lo = x - hi, exact in f32 with |lo| <= 2^-11
-//                |x|. lo is passed as it is: the tensor cores read the top
-//                10 mantissa bits of a TF32 operand, so lo is truncated
-//                there, to within 2^-10 |lo| <= 2^-21 |x|;
+//                conversion, tools/tf32_variants.py), lo = x - hi, exact
+//                in f32 with |lo| <= 2^-11 |x|. lo is passed as it is: the
+//                tensor cores read the top 10 mantissa bits of a TF32
+//                operand, so lo is truncated there, to within 2^-10 |lo|
+//                <= 2^-21 |x|;
 //   mma3         c += a . b as lo_a.hi_b + hi_a.lo_b + hi_a.hi_b on
 //                `mma.sync.m16n8k8` with TF32 operands and f32 sums, the
 //                small products first. Each product is exact in f32; what
@@ -35,7 +36,9 @@
 //                2*t4*LD + g) hit 32 distinct banks;
 //   load_tile    a tile of rows of a [*, H, D] head into shared memory as
 //                f32 times a factor, D zero-padded to DP, rows past the end
-//                zero (so that 0 * pad is 0 in every product).
+//                zero (so that 0 * pad is 0 in every product); TileRegs the
+//                same in two steps, so that the next tile loads into
+//                registers while the current one computes.
 //
 // The backward pass (`bwd_kv_kernel`, then `dq_reduce_kernel`): per (batch,
 // head) and per chunk of `kt_per_block` key tiles of BK = 64 keys, one block
@@ -301,7 +304,7 @@ struct BwdArgs {
 template <int DP> struct Tiles {
   // Queries of a query tile: 32 keeps the S^T and dP^T fragments, and
   // shared memory, small enough for three blocks per SM at D <= 64, which
-  // measured faster than 64 on the H100.
+  // measured faster than 64 on the H100 (tools/tf32_variants.py).
   static constexpr int BQ = 32;
   static constexpr int DC = DP < 64 ? DP : 64;    // dk, dv columns per round
   static constexpr int LD = DP + 4;               // row stride of q, do, k, v

@@ -138,6 +138,7 @@ from big_vision_torch.tools import kernel_timing
 from big_vision_torch.tools.kernel_timing import blocked_inputs
 from big_vision_torch.tools.kernel_timing import bound
 from big_vision_torch.tools.kernel_timing import F32_FLOPS
+from big_vision_torch.tools.kernel_timing import flexi_bwd_sets
 from big_vision_torch.tools.kernel_timing import k1_inputs
 from big_vision_torch.tools.kernel_timing import k1_work
 from big_vision_torch.tools.kernel_timing import k2_work
@@ -1428,13 +1429,11 @@ def k5_at(fa, gpu, seqhw):
   beside its plain version, SDPA's autograd backward on the same inputs and
   its bound at both rates, printed."""
   b, t, h, d = FLEXI_B, seqhw * seqhw + 1, TRAIN_H, TRAIN_D
-  sets = [blocked_inputs(b, t, h, d, seed=130 + 2 * i) for i in range(2)]
-  k5_sets = [(q, k, v, *fa.flash_attention_blocked_forward(q, k, v), do)
-             for q, k, v, do in sets]
+  k5_sets = flexi_bwd_sets(fa, seqhw, fused=True, seed=130)
   ms = time_ms(fa.flash_attention_blocked_bwd_fused, k5_sets, iters=10)
   plain_ms = time_ms(fa.flash_attention_blocked_bwd_fused_reference, k5_sets,
                      iters=3)
-  lib_ms = sdpa_bwd_ms(sets)
+  lib_ms = sdpa_bwd_ms([(q, k, v, do) for q, k, v, _, _, do in k5_sets])
   work = k5_work(b, t, h, d)
   print(f"[{gpu}] K5 flash_blocked_bwd_fused at seqhw {seqhw} B={b} T={t} "
         f"H={h} D={d} f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
@@ -1449,9 +1448,7 @@ def k2_f32_entry(fa, counts, gpu, seqhw):
   bound (at the 3xTF32 rate of its products, and at the f32 rate outside
   the tensor cores); its error against the plain version on these inputs."""
   b, t, h, d = FLEXI_B, seqhw * seqhw + 1, TRAIN_H, TRAIN_D
-  inputs = [blocked_inputs(b, t, h, d, seed=110 + 2 * i) for i in range(2)]
-  sets = [(q, k, v, fa.flash_attention_forward(q, k, v)[1], do)
-          for q, k, v, do in inputs]
+  sets = flexi_bwd_sets(fa, seqhw, fused=False)
   assert fa.bwd_kernel(torch.float32) == "flash_bwd"
   q, k, v, lse, do = sets[0]
   got = fa.flash_attention_bwd(q, k, v, lse, do)
@@ -1471,7 +1468,7 @@ def k2_f32_entry(fa, counts, gpu, seqhw):
       launches=counts["K2f"], max_abs_err=abs_err, max_rel_err=rel,
       rel_tolerance=F32_BAR, ms=time_ms(fa.flash_attention_bwd, sets),
       plain_ms=time_ms(plain, sets, iters=10), bound_ms=bms, bound_by=by,
-      library_ms=sdpa_bwd_ms(inputs))
+      library_ms=sdpa_bwd_ms([(q, k, v, do) for q, k, v, _, do in sets]))
   print(f"[{gpu}] K2 flash_bwd (f32) at seqhw {seqhw} B={b} T={t} H={h} "
         f"D={d}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, SDPA "
         f"{entry['library_ms']:.4f} ms; bound {bms:.4f} ms ({by}) at the "

@@ -1,8 +1,9 @@
 """K2's wrapper picks its kernel by dtype alone, and refuses what neither takes.
 
-bf16 inputs go to the tensor-core kernel (csrc/flash_bwd_tc.cu), f32 inputs
-to the scalar one (csrc/flash_bwd.cu); there is no switch between them and
-no fallback. The kernels themselves run only on the card (chip_smoke.py
+bf16 inputs go to the bf16 tensor-core kernel (csrc/flash_bwd_tc.cu), f32
+inputs to the 3xTF32 one (csrc/flash_bwd.cu, tested further in
+tests/test_torch_tf32_products.py); there is no switch between them and no
+fallback. The kernels themselves run only on the card (chip_smoke.py
 holds both against the plain version); on the CPU the wrapper refuses, and
 the autograd Function runs the plain backward.
 """
@@ -35,7 +36,7 @@ def test_tensor_core_kernel_uses_the_tensor_cores():
                 "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
                 "cp.async.cg.shared.global", "cp.async.wait_group"):
     assert instr in src, instr
-  # The scalar kernel keeps no bf16 instantiation.
+  # The f32 kernel keeps no bf16 instantiation.
   assert "bfloat16" not in (_build._CSRC / "flash_bwd.cu").read_text()
 
 
