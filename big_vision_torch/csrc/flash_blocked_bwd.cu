@@ -1,7 +1,7 @@
-// Blocked attention backward for Hopper (sm_90a), two kernels: the ports of
-// the TPU kernels `_bwd_dq_kernel` (K4a) and `_bwd_dkv_kernel` (K4b) in
-// big_vision_tpu/ops/flash_attention.py (both launched by `_bwd`), the
-// gradient of K3 (csrc/flash_blocked_fwd.cu).
+// Blocked attention backward on Hopper's tensor cores (sm_90a), two kernels:
+// the ports of the TPU kernels `_bwd_dq_kernel` (K4a) and `_bwd_dkv_kernel`
+// (K4b) in big_vision_tpu/ops/flash_attention.py (both launched by `_bwd`,
+// calls at :632 and :653), the gradient of K3 (csrc/flash_blocked_fwd.cu).
 //
 // What they compute, per (batch, head), all in f32 as the TPU bodies do
 // after their casts, with the forward's masks (causal: col <= row;
@@ -10,216 +10,245 @@
 //   p     = exp(s - lse) where visible, exactly 0 where masked
 //   dp    = do . v^T
 //   ds    = p * (dp - delta)
-//   K4a:  dq = (ds . k) * scale                    written in q's dtype
+//   K4a:  dq = (sum over keys of ds . k) * scale   written in q's dtype
 //   K4b:  dv = p^T . do,  dk = ds^T . (q * scale)  written in k's, v's dtypes
 // lse is K3's row log-sum-exp; delta = rowsum(do . o) comes from the
 // wrapper (a torch op, as the JAX package computes it outside Pallas). A
 // row with no visible key has lse = -1e30, so exp(s - lse) overflows there:
-// the mask is applied explicitly, as the TPU kernels' jnp.where does, and a
-// masked entry never enters a product. dq of such a row and dk, dv of a key
-// no row sees are exactly 0.
+// the mask is applied before any product, as the TPU kernels' jnp.where
+// is. dq of such a row and dk, dv of a key no row sees are exactly 0.
 //
-// Layout: q, do, dq [B, Tq, H, D] and k, v, dk, dv [B, Tkv, H, D],
-// contiguous, read in place; lse and delta [B*H, Tq] f32; seg [B, T] int32
-// or null.
+// Layout: q, do, dq [B, Tq, H, D] and k, v, dk, dv [B, Tkv, H, D], f32 or
+// bf16, contiguous, read in place; lse and delta [B*H, Tq] f32; seg [B, T]
+// int32 or null. No scratch.
 //
-// Design. The TPU kernels hold one head's whole K/V (K4a) or Q/dO (K4b) in
-// VMEM and loop over 128-row blocks. Here K4a gives each block one
-// (batch*head, query tile) and loops over key tiles, summing dq in
-// registers; K4b gives each block one (batch*head, key tile) and loops over
-// query tiles, summing dk and dv in registers. Tiles are BR = 64 rows up to
-// D = 128 and 32 rows above, so that four [BR, D] f32 tiles fit a block's
-// shared memory. Each block writes only its own rows, so there are no
-// atomics and the result does not depend on the order of blocks. dq is
-// written once, in q's dtype, with no f32 accumulator across blocks. With
-// causal both skip tiles that lie wholly above the diagonal. At the
-// FlexiViT-B shape (B=32, H=12, T=1601) each grid is 384 x 26 blocks.
+// Bound at the FlexiViT-B shape of seqhw 40 (B=32, H=12, T=1601, D=64) in
+// f32: q, k, v, do read and the gradients written once are 0.6-0.8 GB,
+// 0.2-0.3 ms at 3.35 TB/s. K4a's three products are 3.78e11 FLOP and K4b's
+// four 5.04e11; every product is f32 to about 2^-20 as three TF32 products
+// on the tensor cores (flash_tf32_common.cuh), so at 495/3 TFLOP/s they
+// take at least 2.29 and 3.05 ms (0.73 and 0.97 ms at seqhw 30, T=901):
+// the products bound both. bf16 inputs are converted to f32 as the tiles
+// load and take the same three products (q * scale, p and ds are not
+// exact in TF32, so none is skipped). The scalar f32 FMAs of the first
+// design, with shared-memory operands, ran at 16.32 ms (K4a) and 25.63 ms
+// (K4b) at seqhw 40 (PERF.md), 2.9 and 3.4 times their bounds at the 67
+// TFLOP/s of f32 outside the tensor cores.
 //
-// Bound at that shape in f32: q, k, v, do read and their gradients written
-// once are about 0.6 GB each way, 0.2-0.3 ms at 3.35 TB/s; K4a's three
-// products are 3.78e11 FLOP and K4b's four 5.04e11, 0.38 and 0.51 ms at the
-// bf16 tensor-core rate (989 TFLOP/s), 5.6 and 7.5 ms at the f32 rate
-// outside the tensor cores (67 TFLOP/s). The semantics are f32 and this
-// version runs scalar f32 FMAs with shared-memory operands, so the f32
-// arithmetic is its limit; tensor-core MMAs are later work.
+// K4b is `bwd_kv_kernel` of flash_tf32_common.cuh with the kDkv semantics:
+// one key tile of 64 keys per block, grid (key tiles, B*H) with the key
+// tiles fastest (the JAX grid (bh, tkv // block_kv) walks them fastest
+// too), dk and dv summed in registers over query tiles of 32 rows, S^T and
+// dP^T recomputed per 64 columns of D above D = 64. It leaves out K5's ds
+// staging, ds.k products and dq parts, so at D <= 64 a block takes 52 KB
+// of shared memory (four would fit an SM) and 4 warps.
+//
+// K4a (`bwd_dq_kernel` below): a block of 4 warps per (query tile, batch *
+// head), grid (query tiles, B*H) with the query tiles fastest, so that the
+// blocks of one head run together and read its k and v from L2. q * scale,
+// do and the rows' lse and delta are loaded once (the statistics into the
+// lanes' registers); key tiles of 64 keys stream through shared memory in
+// key order, the next one loading while this one computes (up to D = 64:
+// v's rows during the S and dP products, k's during ds.k, 32 registers a
+// thread). Each warp owns 16 query rows and, per key tile, computes S =
+// q.k^T and dP = do.v^T for its rows from [row][d] tiles, forms p and ds in
+// the C fragments, and adds ds.k to its dq sums with ds re-laid as A
+// fragments (no shared memory, no wait on another warp). The dq sums stay
+// in registers over all key tiles, in key order: no parts, no atomics, no
+// second kernel, a result that does not depend on the order of blocks.
+// Above D = 64 the key loop runs once per 64 columns of dq, recomputing S
+// and dP. Query tiles are 64 rows up to D = 64 (one warp per 16-row
+// strip); above, 32 (two warps per strip, each taking half of every key
+// tile's keys, their sums added at the end), so that q, do, k and v fit a
+// block's shared memory. With causal, key tiles wholly above the diagonal
+// are skipped.
 
-#include "flash_blocked_common.cuh"
+#include "flash_tf32_common.cuh"
 
 namespace {
 
-using namespace bvt_blocked_bwd;
+using namespace bvt_tf32;
 
-// K4a. MAXC: column groups of 16 per thread in the dq sums (D <= 16 * MAXC).
-template <typename T, int BR, int MAXC, bool VEC>
-__global__ void __launch_bounds__(NT) flash_blocked_dq_kernel(Args a) {
-  extern __shared__ float smem[];
-  using Tl = Tiles<T, BR, VEC>;
-  constexpr int RI = Tl::RI, PS = Tl::PS;
-  Tl t(smem, a, blockIdx.x);
-  const int q0 = blockIdx.y * BR;
-  const int qn = min(BR, a.Tq - q0);
-  t.load_q(q0, qn);
+template <int DP> struct DqTiles {
+  static constexpr int BQ = DP <= 64 ? 64 : 32;  // query rows of a block
+  static constexpr int WS = 64 / BQ;             // warps per 16-row strip
+  static constexpr int KW = BK / WS;             // keys of a key tile a warp takes
+  static constexpr int DC = DP < 64 ? DP : 64;   // dq columns per round
+  static constexpr int LD = DP + 4;              // row stride of q, do, k, v
+  static constexpr int LDC = DC + 8;             // row stride of the sums' exchange
+  static constexpr bool PREFETCH = DP <= 64;
+  // Floats: q, do [BQ][LD]; k, v [BK][LD]; then ints: seg of the keys.
+  static constexpr size_t BYTES = (2 * (BQ + BK) * LD + BK) * 4;
+  static_assert((WS - 1) * BQ * LDC <= BK * LD, "the exchange fits in k's tile");
+};
 
-  float acc[RI][MAXC];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) acc[i][c] = 0.f;
+// K4a: dq of query tile blockIdx.x of head blockIdx.y.
+template <typename T, int DP>
+__global__ void __launch_bounds__(NT) bwd_dq_kernel(const BwdArgs a) {
+  using Tl = DqTiles<DP>;
+  constexpr int BQ = Tl::BQ, WS = Tl::WS, KW = Tl::KW, DC = Tl::DC;
+  constexpr int LD = Tl::LD, LDC = Tl::LDC;
+  constexpr int KD = DP / 8;   // k steps over D
+  constexpr int NJ = KW / 8;   // 8-key tiles of a warp's S and dP
+  constexpr int NC = DC / 8;   // 8-column tiles of a dq round
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BQ * LD;
+  float* sK = sdO + BQ * LD;
+  float* sV = sK + BK * LD;
+  int* sSegK = reinterpret_cast<int*>(sV + BK * LD);
 
-  // With causal, key tiles past the last row of this tile are fully masked.
-  const int kv_end = a.causal ? min(a.Tkv, q0 + qn) : a.Tkv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BR) {
-    const int kvn = min(BR, a.Tkv - kv0);
-    __syncthreads();  // the previous key tile's readers are done
-    t.load_kv(kv0, kvn);
-    __syncthreads();
-    float p[RI][RI], dsv[RI][RI];
-    t.probs(q0, qn, kv0, kvn, p, dsv);
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RI; ++j)
-        t.sdS[(t.ty * RI + i) * PS + t.tx + 16 * j] = dsv[i][j];
-    __syncthreads();
+  const int tid = threadIdx.x, w = tid >> 5;
+  const Lane l(tid & 31);
+  const int q0 = blockIdx.x * BQ, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int m0 = 16 * (w / WS), j0 = KW * (w % WS);  // the warp's rows, keys
+  const long long row = (long long)a.H * a.D;
+  const long long qoff = ((long long)b * a.Tq * a.H + h) * a.D;
+  const long long koff = ((long long)b * a.Tkv * a.H + h) * a.D;
+  const T* qb = static_cast<const T*>(a.q) + qoff;
+  const T* dob = static_cast<const T*>(a.dout) + qoff;
+  const T* kb = static_cast<const T*>(a.k) + koff;
+  const T* vb = static_cast<const T*>(a.v) + koff;
+  const int32_t* segk = a.seg ? a.seg + (long long)b * a.Tkv : nullptr;
+  const bool vec = a.vec;
 
-    // dq += ds . k for query rows ty*RI+i, columns tx+16*c.
-    for (int j = 0; j < kvn; ++j) {
-      float sv[RI];
+  load_tile<T, BQ, DP>(sQ, qb, row, q0, a.Tq, a.D, a.scale, vec, tid);
+  load_tile<T, BQ, DP>(sdO, dob, row, q0, a.Tq, a.D, 1.f, vec, tid);
+  // lse * log2(e), delta and seg of the lane's rows m0 + g and m0 + g + 8.
+  float lse2[2], dl[2];
+  int sq[2];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) sv[i] = t.sdS[(t.ty * RI + i) * PS + j];
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + m0 + l.g + 8 * hf;
+    const bool in = r < a.Tq;
+    lse2[hf] = in ? a.lse[(long long)bh * a.Tq + r] * LOG2E : 0.f;
+    dl[hf] = in ? a.delta[(long long)bh * a.Tq + r] : 0.f;
+    sq[hf] = in && a.seg ? a.seg[(long long)b * a.Tq + r] : 0;
+  }
+  // With causal, key tiles past the tile's last row see none of its rows.
+  const int kv_end = a.causal ? min(a.Tkv, q0 + BQ) : a.Tkv;
+
+  for (int c0 = 0; c0 < DP; c0 += DC) {
+    float acc[NC][4];
 #pragma unroll
-      for (int c = 0; c < MAXC; ++c) {
-        const int d = t.tx + 16 * c;
-        if (d < a.D) {
-          const float kval = t.sK[j * t.ds + d];
+    for (int n = 0; n < NC; ++n)
 #pragma unroll
-          for (int i = 0; i < RI; ++i) acc[i][c] = fmaf(sv[i], kval, acc[i][c]);
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    __syncthreads();  // the previous round's readers of k and v are done
+    load_tile<T, BK, DP>(sK, kb, row, 0, a.Tkv, a.D, 1.f, vec, tid);
+    load_tile<T, BK, DP>(sV, vb, row, 0, a.Tkv, a.D, 1.f, vec, tid);
+    if (segk && tid < BK) sSegK[tid] = tid < a.Tkv ? segk[tid] : 0;
+    TileRegs<T, BK, DP> fk, fv;
+    for (int kv0 = 0;; kv0 += BK) {
+      __syncthreads();  // key tile kv0 is in sK, sV and sSegK
+      const bool last = kv0 + BK >= kv_end;
+      const bool ahead = Tl::PREFETCH && !last;
+      if (ahead) fv.fetch(vb, row, kv0 + BK, a.Tkv, a.D, vec, tid);
+
+      // S and dP of the warp's rows and keys; then ds (0 where masked).
+      float s[NJ][4], dp[NJ][4];
+      strip_products<KD, NJ>(sQ, sK + j0 * LD, sdO, sV + j0 * LD, LD, m0, s,
+                             dp, l);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hf = e >> 1, kl = j0 + 8 * j + 2 * l.t4 + (e & 1);
+          const int qi = q0 + m0 + l.g + 8 * hf, ki = kv0 + kl;
+          bool vis = qi < a.Tq && ki < a.Tkv;
+          if (a.causal) vis = vis && ki <= qi;
+          if (segk) vis = vis && sSegK[kl] > 0 && sSegK[kl] <= sq[hf];
+          dp[j][e] = vis ? exp2f(s[j][e] * LOG2E - lse2[hf]) *
+                               (dp[j][e] - dl[hf])
+                         : 0.f;
+        }
+      if (ahead) {
+        __syncthreads();  // every warp's dP products are done with sV
+        fv.store(sV, 1.f, tid);
+        fk.fetch(kb, row, kv0 + BK, a.Tkv, a.D, vec, tid);
+      }
+
+      // dq += ds . k over the warp's keys (k permuted alike in ds's A
+      // fragments and k's B fragments), columns c0..c0+DC-1.
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const FragA da = from_c(dp[j]);
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+          mma3(acc[n], da, ldb_cols(sK, LD, j0 + 8 * j, c0 + 8 * n, l));
+      }
+      if (last) break;
+      __syncthreads();  // every warp's ds.k products are done with sK
+      if (Tl::PREFETCH) {
+        fk.store(sK, 1.f, tid);
+      } else {
+        load_tile<T, BK, DP>(sK, kb, row, kv0 + BK, a.Tkv, a.D, 1.f, vec, tid);
+        load_tile<T, BK, DP>(sV, vb, row, kv0 + BK, a.Tkv, a.D, 1.f, vec, tid);
+      }
+      if (segk && tid < BK)
+        sSegK[tid] = kv0 + BK + tid < a.Tkv ? segk[kv0 + BK + tid] : 0;
+    }
+
+    // With several warps per strip, the sums of the later key halves go
+    // through shared memory (k's tile) to the first warp of the strip,
+    // which adds them in key order.
+    if (WS > 1) {
+      __syncthreads();  // every warp's products are done with sK
+      if (w % WS != 0) {
+        float* x = sK + ((w % WS - 1) * BQ + m0 + l.g) * LDC + 2 * l.t4;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          *reinterpret_cast<float2*>(x + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+          *reinterpret_cast<float2*>(x + 8 * LDC + 8 * n) =
+              make_float2(acc[n][2], acc[n][3]);
         }
       }
-    }
-  }
-
-  T* dqb = static_cast<T*>(a.out_a) + (t.qb - static_cast<const T*>(a.q));
+      __syncthreads();
+      if (w % WS != 0) continue;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = t.ty * RI + i;
-    if (r >= qn) continue;
+      for (int u = 1; u < WS; ++u) {
+        const float* x = sK + ((u - 1) * BQ + m0 + l.g) * LDC + 2 * l.t4;
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      const int d = t.tx + 16 * c;
-      if (d < a.D) dqb[(q0 + r) * t.row + d] = from_f<T>(acc[i][c] * a.scale);
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n][e] += x[8 * LDC * (e >> 1) + 8 * n + (e & 1)];
+      }
     }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + m0 + l.g + 8 * (e >> 1);
+        const int d = c0 + 8 * n + 2 * l.t4 + (e & 1);
+        if (r < a.Tq && d < a.D)
+          static_cast<T*>(a.dq)[qoff + r * row + d] =
+              from_f<T>(acc[n][e] * a.scale);
+      }
   }
 }
 
-// K4b. MAXC: column groups of 16 per thread in the dk and dv sums.
-template <typename T, int BR, int MAXC, bool VEC>
-__global__ void __launch_bounds__(NT) flash_blocked_dkv_kernel(Args a) {
-  extern __shared__ float smem[];
-  using Tl = Tiles<T, BR, VEC>;
-  constexpr int RI = Tl::RI, PS = Tl::PS;
-  Tl t(smem, a, blockIdx.x);
-  const int kv0 = blockIdx.y * BR;
-  const int kvn = min(BR, a.Tkv - kv0);
-  t.load_kv(kv0, kvn);
-
-  float dk_acc[RI][MAXC], dv_acc[RI][MAXC];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  // With causal, query tiles above the diagonal see none of these keys
-  // (query and key tiles start at multiples of BR).
-  for (int q0 = a.causal ? kv0 : 0; q0 < a.Tq; q0 += BR) {
-    const int qn = min(BR, a.Tq - q0);
-    __syncthreads();  // the previous query tile's readers are done
-    t.load_q(q0, qn);
-    __syncthreads();
-    float p[RI][RI], dsv[RI][RI];
-    t.probs(q0, qn, kv0, kvn, p, dsv);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = t.ty * RI + i;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        t.sP[r * PS + t.tx + 16 * j] = p[i][j];
-        t.sdS[r * PS + t.tx + 16 * j] = dsv[i][j];
-      }
-    }
-    __syncthreads();
-
-    // dv += p^T . do and dk += ds^T . (q * scale) for key rows ty*RI+i,
-    // columns tx+16*c.
-    for (int r = 0; r < qn; ++r) {
-      float pv[RI], sv[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        pv[i] = t.sP[r * PS + t.ty * RI + i];
-        sv[i] = t.sdS[r * PS + t.ty * RI + i];
-      }
-#pragma unroll
-      for (int c = 0; c < MAXC; ++c) {
-        const int d = t.tx + 16 * c;
-        if (d < a.D) {
-          const float g = t.sdO[r * t.ds + d], x = t.sQ[r * t.ds + d];
-#pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            dv_acc[i][c] = fmaf(pv[i], g, dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(sv[i], x, dk_acc[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-  const long long off = t.kb - static_cast<const T*>(a.k);
-  T* dkb = static_cast<T*>(a.out_a) + off;
-  T* dvb = static_cast<T*>(a.out_b) + off;
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int kr = t.ty * RI + i;
-    if (kr >= kvn) continue;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      const int d = t.tx + 16 * c;
-      if (d < a.D) {
-        dkb[(kv0 + kr) * t.row + d] = from_f<T>(dk_acc[i][c]);
-        dvb[(kv0 + kr) * t.row + d] = from_f<T>(dv_acc[i][c]);
-      }
-    }
-  }
-}
-
-template <typename T, int BR, int MAXC, bool DQ>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const bool vec = a.D % (16 / sizeof(T)) == 0 &&
-      ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-        reinterpret_cast<uintptr_t>(a.v) |
-        reinterpret_cast<uintptr_t>(a.dout)) % 16) == 0;
-  void (*kern)(Args);
-  if (DQ)
-    kern = vec ? flash_blocked_dq_kernel<T, BR, MAXC, true>
-               : flash_blocked_dq_kernel<T, BR, MAXC, false>;
-  else
-    kern = vec ? flash_blocked_dkv_kernel<T, BR, MAXC, true>
-               : flash_blocked_dkv_kernel<T, BR, MAXC, false>;
-  const size_t smem = smem_bytes(BR, a.D);
+template <typename T, int DP>
+cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
+  auto kern = bwd_dq_kernel<T, DP>;
+  const int smem = (int)DqTiles<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, ((DQ ? a.Tq : a.Tkv) + BR - 1) / BR);
-  kern<<<grid, NT, smem, stream>>>(a);
+  const int nq = (a.Tq + DqTiles<DP>::BQ - 1) / DqTiles<DP>::BQ;
+  kern<<<dim3(nq, a.B * a.H), NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// 64-row tiles up to D=128; 32-row tiles above, so that four [BR, D] f32
-// tiles stay within a block's shared memory.
 template <typename T, bool DQ>
-cudaError_t dispatch_d(const Args& a, cudaStream_t stream) {
-  if (a.D <= 64) return launch<T, 64, 4, DQ>(a, stream);
-  if (a.D <= 128) return launch<T, 64, 8, DQ>(a, stream);
-  return launch<T, 32, 16, DQ>(a, stream);
+cudaError_t dispatch(const BwdArgs& a, cudaStream_t stream) {
+  if (!DQ) return dispatch_bwd<T, Sem::kDkv>(a, stream);
+  switch (dpad(a.D)) {
+    case 32: return launch_dq<T, 32>(a, stream);
+    case 64: return launch_dq<T, 64>(a, stream);
+    case 128: return launch_dq<T, 128>(a, stream);
+    default: return launch_dq<T, 256>(a, stream);
+  }
 }
 
 template <bool DQ>
@@ -229,14 +258,21 @@ int run(const void* q, const void* k, const void* v, const void* dout,
         int causal, float scale, void* stream) {
   if (D < 1 || D > 256 || B < 1 || H < 1 || Tq < 1 || Tkv < 1)
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, dout, static_cast<const float*>(lse),
-         static_cast<const float*>(delta), static_cast<const int32_t*>(seg),
-         out_a, out_b, B, Tq, Tkv, H, D, causal, scale};
+  BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
+            static_cast<const float*>(delta), nullptr,
+            static_cast<const int32_t*>(seg), DQ ? out_a : nullptr,
+            DQ ? nullptr : out_a, DQ ? nullptr : out_b, nullptr, B, Tq, Tkv,
+            H, D, causal, 1, 0, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)dispatch_d<float, DQ>(a, st);
-    case 1: return (int)dispatch_d<__nv_bfloat16, DQ>(a, st);
-    default: return (int)cudaErrorInvalidValue;
+    case 0:
+      a.vec = vec_ok<float>(a);
+      return (int)dispatch<float, DQ>(a, st);
+    case 1:
+      a.vec = vec_ok<__nv_bfloat16>(a);
+      return (int)dispatch<__nv_bfloat16, DQ>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

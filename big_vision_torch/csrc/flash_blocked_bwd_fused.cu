@@ -32,7 +32,7 @@
 // [chunks, B*H, Tq, dpad(D)] f32.
 //
 // Design: the backward pass of flash_tf32_common.cuh with K5's semantics
-// (`bwd_kv_kernel<T, DP, false>`, then `dq_reduce_kernel`): a block of 4
+// (`bwd_kv_kernel<T, DP, Sem::kFused>`, then `dq_reduce_kernel`): a block of 4
 // warps per (batch*head, chunk of key tiles), dk and dv summed in registers
 // over the query tiles, ds staged in shared memory for ds.k, every product
 // f32 to about 2^-20 as three TF32 products on the tensor cores. bf16
@@ -80,10 +80,10 @@ extern "C" int bvt_flash_blocked_bwd_fused(
   switch (dtype) {
     case 0:
       a.vec = vec_ok<float>(a);
-      return (int)dispatch_bwd<float, false>(a, st);
+      return (int)dispatch_bwd<float, Sem::kFused>(a, st);
     case 1:
       a.vec = vec_ok<__nv_bfloat16>(a);
-      return (int)dispatch_bwd<__nv_bfloat16, false>(a, st);
+      return (int)dispatch_bwd<__nv_bfloat16, Sem::kFused>(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

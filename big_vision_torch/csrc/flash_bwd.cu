@@ -223,5 +223,5 @@ extern "C" int bvt_flash_bwd(const void* q, const void* k, const void* v,
     default: err = launch_stats<256>(a, delta, lsum, st); break;
   }
   if (err != cudaSuccess) return (int)err;
-  return (int)dispatch_bwd<float, true>(a, st);
+  return (int)dispatch_bwd<float, Sem::kOneShot>(a, st);
 }

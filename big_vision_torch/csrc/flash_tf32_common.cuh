@@ -1,6 +1,7 @@
 // f32 products on Hopper's tensor cores (sm_90a) as three TF32 products,
 // and the attention backward pass built on them, shared by K2's f32 kernel
-// (flash_bwd.cu) and K5 (flash_blocked_bwd_fused.cu).
+// (flash_bwd.cu), K5 (flash_blocked_bwd_fused.cu) and K4a, K4b
+// (flash_blocked_bwd.cu).
 //
 // Building blocks:
 //   split_tf32   x = hi + lo: hi is x rounded to TF32 (10 mantissa bits,
@@ -61,13 +62,17 @@
 // above the diagonal are skipped, and a chunk's part holds rows from its
 // first key on only (the sum leaves out the rest).
 //
-// Two semantics (template ONE_SHOT):
-//   K2 (one-shot): p = exp(s * scale - lse) / l, l and delta from K2's first
-//       pass; dk = ds^T.q * scale; dq = (sum of ds.k) * scale.
-//   K5 (blocked fused): s = (q * scale).k^T, p = exp(s - lse), delta from
-//       the wrapper; dk = ds^T.(q * scale); each key tile's ds.k is scaled
+// Three semantics (template Sem):
+//   kOneShot (K2): p = exp(s * scale - lse) / l, l and delta from K2's
+//       first pass; dk = ds^T.q * scale; dq = (sum of ds.k) * scale.
+//   kFused (K5): s = (q * scale).k^T, p = exp(s - lse), delta from the
+//       wrapper; dk = ds^T.(q * scale); each key tile's ds.k is scaled
 //       before it is added, as the TPU kernel does.
-// Both: masked p exactly 0 (causal: col <= row; segment: 0 < seg[j] <=
+//   kDkv (K4b): K5's dk and dv alone: no ds staging, no ds.k, no dq parts
+//       and no second kernel; one key tile per block, the grid's key tiles
+//       fastest, so that the blocks of one head run together and share its
+//       q and do in L2.
+// All: masked p exactly 0 (causal: col <= row; segment: 0 < seg[j] <=
 // seg[i]; rows and keys past the end), ds = p * (dp - delta), dv = p^T.do.
 
 #pragma once
@@ -301,6 +306,8 @@ struct BwdArgs {
   float scale;
 };
 
+enum class Sem { kOneShot, kFused, kDkv };
+
 template <int DP> struct Tiles {
   // Queries of a query tile: 32 keeps the S^T and dP^T fragments, and
   // shared memory, small enough for three blocks per SM at D <= 64, which
@@ -309,16 +316,19 @@ template <int DP> struct Tiles {
   static constexpr int DC = DP < 64 ? DP : 64;    // dk, dv columns per round
   static constexpr int LD = DP + 4;               // row stride of q, do, k, v
   static constexpr int LDS = BQ + 4;              // row stride of ds^T
-  // Floats: k, v [BK][LD]; q, do [BQ][LD]; ds^T [BK][LDS]; per query row
-  // lse * log2(e), 1 / l and delta [3][BQ]; then ints: seg of the query
-  // and key rows.
-  static constexpr int FLOATS = 2 * BK * LD + 2 * BQ * LD + BK * LDS + 3 * BQ;
-  static constexpr size_t BYTES = (FLOATS + BQ + BK) * 4;
+  // Floats: k, v [BK][LD]; q, do [BQ][LD]; ds^T [BK][LDS] where dq is
+  // computed; per query row lse * log2(e), 1 / l and delta [3][BQ]; then
+  // ints: seg of the query and key rows.
+  static constexpr size_t bytes(bool dq) {
+    return (2 * BK * LD + 2 * BQ * LD + (dq ? BK * LDS : 0) + 3 * BQ + BQ +
+            BK) * 4;
+  }
 };
 
-template <typename T, int DP, bool ONE_SHOT>
+template <typename T, int DP, Sem SEM>
 __global__ void __launch_bounds__(NT) bwd_kv_kernel(const BwdArgs a) {
   using Tl = Tiles<DP>;
+  constexpr bool ONE_SHOT = SEM == Sem::kOneShot, DQ = SEM != Sem::kDkv;
   constexpr int BQ = Tl::BQ, DC = Tl::DC, LD = Tl::LD, LDS = Tl::LDS;
   constexpr int NQ = BQ / 8;             // 8-query tiles of S^T
   constexpr int KD = DP / 8;             // k steps over D
@@ -331,13 +341,14 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(const BwdArgs a) {
   float* sQ = sV + BK * LD;
   float* sdO = sQ + BQ * LD;
   float* sdS = sdO + BQ * LD;  // ds^T of the current pair, [key][query]
-  float* sStat = sdS + BK * LDS;
+  float* sStat = sdS + (DQ ? BK * LDS : 0);
   int* sSegQ = reinterpret_cast<int*>(sStat + 3 * BQ);
   int* sSegK = sSegQ + BQ;
 
   const int tid = threadIdx.x, w = tid >> 5;
   const Lane l(tid & 31);
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int bh = DQ ? blockIdx.x : blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int chunk = DQ ? blockIdx.y : blockIdx.x;
   const long long row = (long long)a.H * a.D;
   const T* qb = static_cast<const T*>(a.q) + ((long long)b * a.Tq * a.H + h) * a.D;
   const T* dob = static_cast<const T*>(a.dout) + ((long long)b * a.Tq * a.H + h) * a.D;
@@ -348,14 +359,15 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(const BwdArgs a) {
   const int32_t* segk = a.seg ? a.seg + (long long)b * a.Tkv : nullptr;
   const float* lse = a.lse + (long long)bh * a.Tq;
   const float* delta = a.delta + (long long)bh * a.Tq;
-  float* part = a.dq_parts + ((long long)blockIdx.y * gridDim.x + bh) * a.Tq * DP;
+  float* part = DQ ? a.dq_parts + ((long long)chunk * gridDim.x + bh) * a.Tq * DP
+                   : nullptr;
   // K2: s = q.k^T unscaled; K5: q scaled as it is loaded.
   const float s_mul = ONE_SHOT ? a.scale * LOG2E : LOG2E;
   const float q_mul = ONE_SHOT ? 1.f : a.scale;
   const float dk_mul = ONE_SHOT ? a.scale : 1.f;
   const float dq_mul = ONE_SHOT ? 1.f : a.scale;
   const int nq = (a.Tq + BQ - 1) / BQ, nk = (a.Tkv + BK - 1) / BK;
-  const int kt0 = blockIdx.y * a.kt_per_block;
+  const int kt0 = chunk * a.kt_per_block;
   const int kt1 = min(nk, kt0 + a.kt_per_block);
   const bool vec = a.vec;
   // Up to D = 64 the next query tile loads while this one computes (32
@@ -440,7 +452,7 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(const BwdArgs a) {
             mma3(dk_acc[n], da, ldb_cols(sQ, LD, 8 * j, c0 + 8 * n, l));
           }
         }
-        if (c0 != 0) continue;
+        if (!DQ || c0 != 0) continue;
 
         // ds^T to shared memory, then this pair's ds . k for query rows
         // 16*strip.. and dq columns 8*ND*grp.. of the tile.
@@ -523,15 +535,22 @@ __global__ void __launch_bounds__(256) dq_reduce_kernel(
   }
 }
 
-// Launches both kernels of the pass on `stream`; returns the first error.
-template <typename T, int DP, bool ONE_SHOT>
+// Launches the kernels of the pass on `stream` (kDkv: the first alone, one
+// key tile per block); returns the first error.
+template <typename T, int DP, Sem SEM>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  auto kern = bwd_kv_kernel<T, DP, ONE_SHOT>;
-  const int smem = (int)Tiles<DP>::BYTES;
+  constexpr bool ONE_SHOT = SEM == Sem::kOneShot;
+  auto kern = bwd_kv_kernel<T, DP, SEM>;
+  const int smem = (int)Tiles<DP>::bytes(SEM != Sem::kDkv);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nk = (a.Tkv + BK - 1) / BK;
+  if (SEM == Sem::kDkv) {
+    if (a.kt_per_block != 1) return cudaErrorInvalidValue;
+    kern<<<dim3(nk, a.B * a.H), NT, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
   const int chunks = (nk + a.kt_per_block - 1) / a.kt_per_block;
   kern<<<dim3(a.B * a.H, chunks), NT, smem, stream>>>(a);
   err = cudaGetLastError();
@@ -546,13 +565,13 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 }
 
 // By D padded (32, 64, 128 or 256).
-template <typename T, bool ONE_SHOT>
+template <typename T, Sem SEM>
 cudaError_t dispatch_bwd(const BwdArgs& a, cudaStream_t stream) {
   switch (dpad(a.D)) {
-    case 32: return launch_bwd<T, 32, ONE_SHOT>(a, stream);
-    case 64: return launch_bwd<T, 64, ONE_SHOT>(a, stream);
-    case 128: return launch_bwd<T, 128, ONE_SHOT>(a, stream);
-    default: return launch_bwd<T, 256, ONE_SHOT>(a, stream);
+    case 32: return launch_bwd<T, 32, SEM>(a, stream);
+    case 64: return launch_bwd<T, 64, SEM>(a, stream);
+    case 128: return launch_bwd<T, 128, SEM>(a, stream);
+    default: return launch_bwd<T, 256, SEM>(a, stream);
   }
 }
 

@@ -18,7 +18,10 @@ f32), both on 3xTF32 products, are timed with CUDA events at a few key
 tiles per block, in turns (each setting once in order, then once in
 reverse), beside the default setting (`key_tiles_per_block`), the plain
 version, SDPA's autograd backward on the same f32 inputs and the bound at
-the 3xTF32 rate; K5 also beside K4a + K4b.
+the 3xTF32 rate; K5 also beside K4a + K4b. Then K4a and K4b
+(csrc/flash_blocked_bwd.cu, 3xTF32 products too) at seqhw 40 and 30, each
+in turns with the other, and K4a + K4b and K5, beside their plain
+versions, SDPA's backward and their bounds (`time_blocked_bwd`).
 
 Usage (GPU only):  python -m big_vision_torch.tools.kernel_timing
 
@@ -243,6 +246,50 @@ def flexi_bwd_sets(fa, seqhw, fused, n=2, seed=110):
   return out
 
 
+def k4_work(b, t, h, d, itemsize=4):
+  """(bytes, flops) of K4a and K4b together."""
+  return tuple(x + y for x, y in zip(k4a_work(b, t, h, d, itemsize),
+                                     k4b_work(b, t, h, d, itemsize)))
+
+
+def time_blocked_bwd(fa, card, seqhw, seed=130):
+  """Prints K4a, K4b (in turns: K4a, K4b, K4b, K4a), K4a + K4b (delta
+  included) and K5 at FlexiViT-B's `seqhw` in f32 (B=32, T=seqhw^2+1, H=12,
+  D=64), each beside its plain version and its bound at the 3xTF32 rate
+  (and at the f32 rate outside the tensor cores), and SDPA's autograd
+  backward on the same inputs."""
+  b, t, h, d = 32, seqhw * seqhw + 1, 12, 64
+  k5_sets = flexi_bwd_sets(fa, seqhw, fused=True, seed=seed)
+  k4_sets = [(q, k, v, do, lse, fa.blocked_delta(o, do))
+             for q, k, v, o, lse, do in k5_sets]
+  dq, dkv = fa.flash_attention_blocked_dq, fa.flash_attention_blocked_dkv
+  turns = [time_ms(fn, k4_sets, iters=10) for fn in (dq, dkv, dkv, dq)]
+  print(f"[{card}] blocked backward at seqhw {seqhw} B={b} T={t} H={h} "
+        f"D={d} f32: SDPA backward "
+        f"{sdpa_bwd_ms([s[:3] + s[5:] for s in k5_sets]):.4f} ms; K4a, K4b "
+        "in turns (K4a, K4b, K4b, K4a): "
+        + ", ".join(f"{x:.4f}" for x in turns) + " ms")
+  timed = [("K4a flash_blocked_dq", dq, fa.flash_attention_blocked_dq_reference,
+            k4_sets, k4a_work, (turns[0] + turns[3]) / 2),
+           ("K4b flash_blocked_dkv", dkv,
+            fa.flash_attention_blocked_dkv_reference, k4_sets, k4b_work,
+            (turns[1] + turns[2]) / 2),
+           ("K4a + K4b", fa.flash_attention_blocked_bwd,
+            fa.flash_attention_blocked_bwd_reference, k5_sets, k4_work, None),
+           ("K5 flash_blocked_bwd_fused", fa.flash_attention_blocked_bwd_fused,
+            fa.flash_attention_blocked_bwd_fused_reference, k5_sets, k5_work,
+            None)]
+  for name, fn, plain, sets, work, ms in timed:
+    ms = ms if ms is not None else time_ms(fn, sets, iters=10)
+    work = work(b, t, h, d)
+    print(f"[{card}] {name} at seqhw {seqhw}: {ms:.4f} ms, plain "
+          f"{time_ms(plain, sets, iters=3):.4f} ms; bound "
+          f"{bound(*work, TF32X3_FLOPS)[0]:.4f} ms at the 3xTF32 rate, "
+          f"{bound(*work, F32_FLOPS)[0]:.4f} ms at the f32 rate")
+  del k5_sets, k4_sets
+  torch.cuda.empty_cache()
+
+
 def time_tf32_bwd(fa, card):
   """Prints the 3xTF32 backward kernels' times (module docstring)."""
   cases = [("K2 flash_bwd (f32)", 15, False, (1, 2, 4), k2_work),
@@ -299,6 +346,8 @@ def main():
                     "flash_blocked_bwd_fused"])
   card = nvidia_smi()
   time_tf32_bwd(fa, card)
+  for seqhw in (40, 30):
+    time_blocked_bwd(fa, card, seqhw)
 
   def report(name, fn, sets, work, flops_per_s=BF16_FLOPS):
     ev, gr = time_ms(fn, sets), graph_ms(fn, sets)

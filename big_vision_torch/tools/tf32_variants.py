@@ -1,21 +1,26 @@
 """Times design variants of the 3xTF32 backward kernels on the GPU.
 
-K2's f32 kernel (csrc/flash_bwd.cu) and K5 (csrc/flash_blocked_bwd_fused.cu)
-share csrc/flash_tf32_common.cuh. Each variant here is a copy of csrc/ with
-one choice of that design undone, built and timed in its own process (so
-that the profiler's per-kernel breakdown works in each), the sources as
-they are first and last:
+K2's f32 kernel (csrc/flash_bwd.cu), K5 (csrc/flash_blocked_bwd_fused.cu)
+and K4a, K4b (csrc/flash_blocked_bwd.cu) share csrc/flash_tf32_common.cuh.
+Each variant here is a copy of csrc/ with one choice of that design undone,
+built and timed in its own process (so that the profiler's per-kernel
+breakdown works in each), the sources as they are first and last:
   - the TF32 split with `cvt.rna.tf32.f32` for hi and for lo, in place of
     the integer rounding of hi and the unrounded lo;
-  - query tiles of 64 rows in place of 32;
+  - query tiles of 64 rows in place of 32 in K2's, K5's and K4b's key-tile
+    pass (`Tiles`);
+  - K4a's query tiles of 32 rows (two warps per 16-row strip) in place of
+    64 (one) at D <= 64;
+  - K4a's and K4b's grids with the heads fastest, in place of their query
+    or key tiles;
   - no loads of the next tile while the current one computes;
   - one TF32 product in place of three (not f32-accurate: its error is
     printed; a yardstick of what the products cost).
-For each it prints K2's f32 kernel at FlexiViT-B's seqhw 15 and 24 and K5
-at seqhw 40 and 30 (B=32, H=12, D=64, f32; CUDA events, inputs rotated
-past the L2), the device time of each kernel of K2 at seqhw 15 and of K5
-at seqhw 40 (torch.profiler), and the largest error against the plain
-versions at seqhw 15 (K2) and 30 (K5).
+For each it prints K2's f32 kernel at FlexiViT-B's seqhw 15 and 24, K5 at
+seqhw 40 and 30 and K4a and K4b at seqhw 40 (B=32, H=12, D=64, f32; CUDA
+events, inputs rotated past the L2), the device time of each kernel of K2
+at seqhw 15 and of K5 at seqhw 40 (torch.profiler), and the largest error
+against the plain versions at seqhw 15 (K2) and 30 (K5, K4a + K4b).
 
 Usage (GPU only):  python -m big_vision_torch.tools.tf32_variants
 """
@@ -29,7 +34,7 @@ import sys
 import tempfile
 from pathlib import Path
 
-HEADER = "flash_tf32_common.cuh"
+HEADER, K4 = "flash_tf32_common.cuh", "flash_blocked_bwd.cu"
 # (file, text in the sources, its replacement) per variant.
 VARIANTS = {
     "as committed": [],
@@ -40,10 +45,24 @@ VARIANTS = {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));""")],
     "query tiles of 64": [(HEADER, "static constexpr int BQ = 32;",
                            "static constexpr int BQ = 64;")],
+    "K4a query tiles of 32": [
+        (K4, "static constexpr int BQ = DP <= 64 ? 64 : 32;",
+         "static constexpr int BQ = 32;")],
+    "K4a, K4b heads fastest": [
+        (K4, "q0 = blockIdx.x * BQ, bh = blockIdx.y,",
+         "q0 = blockIdx.y * BQ, bh = blockIdx.x,"),
+        (K4, "dim3(nq, a.B * a.H)", "dim3(a.B * a.H, nq)"),
+        (HEADER, "const int bh = DQ ? blockIdx.x : blockIdx.y,",
+         "const int bh = blockIdx.x,"),
+        (HEADER, "const int chunk = DQ ? blockIdx.y : blockIdx.x;",
+         "const int chunk = blockIdx.y;"),
+        (HEADER, "dim3(nk, a.B * a.H)", "dim3(a.B * a.H, nk)")],
     "no loads ahead": [
         (HEADER, "constexpr bool PREFETCH = DP <= 64;",
          "constexpr bool PREFETCH = false;"),
         ("flash_bwd.cu", "static constexpr bool PREFETCH = DP <= 64;",
+         "static constexpr bool PREFETCH = false;"),
+        (K4, "static constexpr bool PREFETCH = DP <= 64;",
          "static constexpr bool PREFETCH = false;")],
     "one TF32 product (timing only)": [(HEADER, """\
   mma_tf32(c, a.lo, b.hi);
@@ -76,9 +95,11 @@ def run_variant(name):
   from big_vision_torch.tools import kernel_timing as kt
   torch.backends.cuda.matmul.allow_tf32 = False
   _build.build_all(["flash_bwd", "flash_blocked_bwd_fused", "flash_fwd",
-                    "flash_blocked_fwd"])
+                    "flash_blocked_fwd", "flash_blocked_bwd"])
   k2 = {s: kt.flexi_bwd_sets(fa, s, False) for s in (15, 24)}
   k5 = {s: kt.flexi_bwd_sets(fa, s, True) for s in (40, 30)}
+  k4 = {s: [(q, k, v, do, lse, fa.blocked_delta(o, do))
+            for q, k, v, o, lse, do in k5[s]] for s in k5}
   rel = lambda got, want: max(((x - y).abs().max() / y.abs().max()).item()
                               for x, y in zip(got, want))
   q, k, v, lse, do = k2[15][0]
@@ -86,10 +107,16 @@ def run_variant(name):
              fa.flash_attention_bwd_reference(q, k, v, do))
   err5 = rel(fa.flash_attention_blocked_bwd_fused(*k5[30][0]),
              fa.flash_attention_blocked_bwd_fused_reference(*k5[30][0]))
+  err4 = rel(fa.flash_attention_blocked_bwd(*k5[30][0]),
+             fa.flash_attention_blocked_bwd_reference(*k5[30][0]))
   ms = {f"K2 seqhw {s}": kt.time_ms(fa.flash_attention_bwd, k2[s])
         for s in k2}
   ms.update({f"K5 seqhw {s}": kt.time_ms(fa.flash_attention_blocked_bwd_fused,
                                          k5[s], iters=10) for s in k5})
+  ms["K4a seqhw 40"] = kt.time_ms(fa.flash_attention_blocked_dq, k4[40],
+                                  iters=10)
+  ms["K4b seqhw 40"] = kt.time_ms(fa.flash_attention_blocked_dkv, k4[40],
+                                  iters=10)
   prof = kt.device_profile({
       "K2 seqhw 15": lambda: fa.flash_attention_bwd(*k2[15][0]),
       "K5 seqhw 40": lambda: fa.flash_attention_blocked_bwd_fused(*k5[40][0])},
@@ -101,7 +128,7 @@ def run_variant(name):
   print(f"[{kt.nvidia_smi()}] {name}: " + ", ".join(
       f"{what} {t:.4f} ms" for what, t in ms.items())
         + f"; device ms by kernel: {parts}; rel err K2 {err2:.3e}, K5 "
-        f"{err5:.3e}", flush=True)
+        f"{err5:.3e}, K4a + K4b {err4:.3e}", flush=True)
 
 
 def main():

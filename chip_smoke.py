@@ -103,8 +103,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      backward for K2, K4a, K4b and K5), which the port never calls; K1's
      and K2's bf16 kernels and their plain versions in turns; K1's
      tensor-core kernel also at the serving shape; K2's f32 kernel at
-     seqhw 15 and 24 and K5 at seqhw 40 and 30, with their bounds at the
-     3xTF32 rate; and K5 against K4a + K4b on the same inputs.
+     seqhw 15 and 24 and K4a, K4b and K5 at seqhw 40 and 30, with their
+     bounds at the 3xTF32 rate; and K5 against K4a + K4b on the same
+     inputs.
 The line before the last is {"kernels": [...]}: K1's and K2's bf16
 tensor-core kernels are reported at the ViT training shape (B=256, T=196,
 H=12, D=64; launches per step), K1's and K2's f32 kernels at FlexiViT-B's
@@ -152,6 +153,7 @@ from big_vision_torch.tools.kernel_timing import nvidia_smi
 from big_vision_torch.tools.kernel_timing import sdpa_bwd_ms
 from big_vision_torch.tools.kernel_timing import sdpa_fwd_ms
 from big_vision_torch.tools.kernel_timing import TF32X3_FLOPS
+from big_vision_torch.tools.kernel_timing import time_blocked_bwd
 from big_vision_torch.tools.kernel_timing import time_ms
 
 SEED = 0
@@ -1358,10 +1360,10 @@ def blocked_entries(fa, counts, gpu):
   SDPA on the same f32 inputs (its forward for K3, its autograd backward,
   which computes dq, dk and dv together, for K4a, K4b and K5) and its
   bound, with the f32 operations at the rate of the units that run them:
-  the f32 rate outside the tensor cores for K3, K4a and K4b, the 3xTF32
-  rate for K5; and K5 against K4a + K4b on the same inputs, in turns. SDPA on bf16
-  copies, a different function, is printed beside for comparison with
-  earlier records."""
+  the f32 rate outside the tensor cores for K3, the 3xTF32 rate for K4a,
+  K4b and K5; and K5 against K4a + K4b on the same inputs, in turns; then
+  K4a, K4b and K5 at seqhw 30. SDPA on bf16 copies, a different function,
+  is printed beside for comparison with earlier records."""
   b, t, h, d = FLEXI_B, FLEXI_T[0], TRAIN_H, TRAIN_D
   sets = [blocked_inputs(b, t, h, d, seed=100 + 2 * i) for i in range(2)]
   k4_sets, k5_sets = [], []
@@ -1383,11 +1385,11 @@ def blocked_entries(fa, counts, gpu):
        sdpa_fwd_ms(sets), k3_work, F32_FLOPS),
       ("flash_blocked_dq", "K4a", "flash_blocked_bwd.cu", 632,
        fa.flash_attention_blocked_dq, fa.flash_attention_blocked_dq_reference,
-       bwd_ms, k4a_work, F32_FLOPS),
+       bwd_ms, k4a_work, TF32X3_FLOPS),
       ("flash_blocked_dkv", "K4b", "flash_blocked_bwd.cu", 653,
        fa.flash_attention_blocked_dkv,
        fa.flash_attention_blocked_dkv_reference, bwd_ms, k4b_work,
-       F32_FLOPS),
+       TF32X3_FLOPS),
       ("flash_blocked_bwd_fused", "K5", "flash_blocked_bwd_fused.cu", 482,
        fa.flash_attention_blocked_bwd_fused,
        fa.flash_attention_blocked_bwd_fused_reference, bwd_ms, k5_work,
@@ -1420,25 +1422,8 @@ def blocked_entries(fa, counts, gpu):
         f"included: K5 {k5[0]:.4f}, {k5[1]:.4f} ms; K4a + K4b {two[0]:.4f}, "
         f"{two[1]:.4f} ms (K5, K4, K4, K5)")
   del sets, k4_sets, k5_sets
-  k5_at(fa, gpu, 30)
+  time_blocked_bwd(fa, gpu, 30)
   return entries
-
-
-def k5_at(fa, gpu, seqhw):
-  """K5 at FlexiViT-B's `seqhw` in f32 (B=32, T=seqhw^2+1, H=12, D=64),
-  beside its plain version, SDPA's autograd backward on the same inputs and
-  its bound at both rates, printed."""
-  b, t, h, d = FLEXI_B, seqhw * seqhw + 1, TRAIN_H, TRAIN_D
-  k5_sets = flexi_bwd_sets(fa, seqhw, fused=True, seed=130)
-  ms = time_ms(fa.flash_attention_blocked_bwd_fused, k5_sets, iters=10)
-  plain_ms = time_ms(fa.flash_attention_blocked_bwd_fused_reference, k5_sets,
-                     iters=3)
-  lib_ms = sdpa_bwd_ms([(q, k, v, do) for q, k, v, _, _, do in k5_sets])
-  work = k5_work(b, t, h, d)
-  print(f"[{gpu}] K5 flash_blocked_bwd_fused at seqhw {seqhw} B={b} T={t} "
-        f"H={h} D={d} f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"{lib_ms:.4f} ms; bound {bound(*work, F32_FLOPS)[0]:.4f} ms at the "
-        f"f32 rate, {bound(*work, TF32X3_FLOPS)[0]:.4f} ms at the 3xTF32 rate")
 
 
 def k2_f32_entry(fa, counts, gpu, seqhw):

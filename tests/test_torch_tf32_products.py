@@ -1,16 +1,19 @@
-"""The 3xTF32 products of K2's f32 kernel and K5, and their wrappers' scratch.
+"""The 3xTF32 products of the f32 attention backwards, and their scratch.
 
-Both kernels (csrc/flash_bwd.cu, csrc/flash_blocked_bwd_fused.cu) run every
-f32 product on the tensor cores as three TF32 products, split and issued by
+K2's f32 kernel, K5 and K4a + K4b (csrc/flash_bwd.cu,
+csrc/flash_blocked_bwd_fused.cu, csrc/flash_blocked_bwd.cu) run every f32
+product on the tensor cores as three TF32 products, split and issued by
 csrc/flash_tf32_common.cuh, and run only on the card (chip_smoke.py holds
 them against their plain versions at 1e-4). Here: the sources use that
-header; TF32 rounding emulated in torch (the 13 low mantissa bits, round to
-nearest, ties away from zero, as `cvt.rna.tf32.f32` rounds and the kernels
-round hi; lo truncated, as the tensor cores read it) shows on numpy inputs
-at FlexiViT-B's scales that three products hold each of K2's five products
-within 1e-6 of f64 while one TF32 product each misses 1e-4; the
-wrappers' scratch shapes, chunking and refusals; and that the design
-variants of tools/tf32_variants.py still apply to the sources.
+header, and no header of csrc/ is left unused; TF32 rounding emulated in
+torch (the 13 low mantissa bits, round to nearest, ties away from zero, as
+`cvt.rna.tf32.f32` rounds and the kernels round hi; lo truncated, as the
+tensor cores read it) shows on numpy inputs at FlexiViT-B's scales that
+three products hold each of K2's five products, and K4a's and K4b's sums
+over 1601 keys or queries tile by tile, within 1e-6 of f64 while one TF32
+product each misses 1e-4; the wrappers' scratch shapes, chunking and
+refusals; and that the design variants of tools/tf32_variants.py still
+apply to the sources.
 """
 
 import shutil
@@ -26,7 +29,8 @@ from big_vision_torch.tools import tf32_variants
 HEADER = "flash_tf32_common.cuh"
 
 
-@pytest.mark.parametrize("name", ["flash_bwd", "flash_blocked_bwd_fused"])
+@pytest.mark.parametrize("name", ["flash_bwd", "flash_blocked_bwd_fused",
+                                  "flash_blocked_bwd"])
 def test_kernels_use_the_tf32_header(name):
   src = (_build._CSRC / f"{name}.cu").read_text()
   assert f'#include "{HEADER}"' in src
@@ -36,6 +40,14 @@ def test_kernels_use_the_tf32_header(name):
   # mask (0x1000, then the 13 low bits cleared), as `tf32` below emulates.
   assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in header
   assert "mma3(" in header and "split_tf32(" in header
+
+
+def test_every_header_is_included():
+  sources = "".join(f.read_text() for f in _build._CSRC.glob("*.cu"))
+  headers = sorted(_build._CSRC.glob("*.cuh"))
+  assert headers
+  for header in headers:
+    assert f'#include "{header.name}"' in sources, header.name
 
 
 def tf32(x):
@@ -95,6 +107,46 @@ def test_three_tf32_products_hold_the_f32_bar(name):
   one = f64(a_hi) @ f64(b_hi)
   assert _rel(three, a, b) <= 1e-6
   assert _rel(one, a, b) > 1e-4  # one TF32 product misses the f32 bar
+
+
+def _blocked_sums(seed=1, t=40 * 40 + 1, d=64):
+  """K4a's and K4b's sums at FlexiViT-B's seqhw 40 (T=1601, D=64) for one
+  head, from numpy N(0, 1) inputs: {name: (a, b, tile)} in f32, where the
+  kernel sums a @ b over a's columns in tiles of `tile`: dq = ds.k over key
+  tiles of 64 (K4a), dk = ds^T.(q * scale) and dv = p^T.do over query
+  tiles of 32 (K4b)."""
+  rs = np.random.RandomState(seed)
+  q, k, v, do = (torch.from_numpy(rs.randn(t, d).astype(np.float32))
+                 for _ in range(4))
+  qs = q * np.float32(d ** -0.5)
+  p = torch.softmax(qs.double() @ k.double().T, -1)
+  dp = do.double() @ v.double().T
+  ds = (p * (dp - (p * dp).sum(-1, keepdim=True))).float()
+  p = p.float()
+  return {"dq": (ds, k, 64), "dk": (ds.T.contiguous(), qs, 32),
+          "dv": (p.T.contiguous(), do, 32)}
+
+
+@pytest.mark.parametrize("name", ["dq", "dk", "dv"])
+def test_blocked_sums_hold_the_f32_bar(name):
+  """Each tile's three TF32 products (exact in f64), the tiles summed in
+  f32 in order, dq scaled once at the end: within 1e-6 of f64 over 1601
+  keys or queries; one TF32 product per tile misses 1e-4."""
+  a, b, tile = _blocked_sums()[name]
+  mul = np.float32(64 ** -0.5 if name == "dq" else 1)  # K4a scales once
+  a_hi, b_hi = tf32(a), tf32(b)
+  a_lo, b_lo = tf32_trunc(a - a_hi), tf32_trunc(b - b_hi)
+  three = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+  one = torch.zeros_like(three)
+  for j in range(0, a.shape[1], tile):
+    f64 = lambda x, y: x[:, j:j + tile].double() @ y[j:j + tile].double()
+    three = three + (f64(a_lo, b_hi) + f64(a_hi, b_lo)
+                     + f64(a_hi, b_hi)).float()
+    one = one + f64(a_hi, b_hi).float()
+  exact = (a.double() @ b.double()) * float(mul)
+  rel = lambda got: ((got - exact).abs().max() / exact.abs().max()).item()
+  assert rel(three * mul) <= 1e-6
+  assert rel(one * mul) > 1e-4  # one TF32 product misses the f32 bar
 
 
 @pytest.mark.parametrize("seqhw,key_tiles,chunks", [
