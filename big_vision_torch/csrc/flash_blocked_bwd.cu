@@ -41,27 +41,32 @@
 // too), dk and dv summed in registers over query tiles of 32 rows, S^T and
 // dP^T recomputed per 64 columns of D above D = 64. It leaves out K5's ds
 // staging, ds.k products and dq parts, so at D <= 64 a block takes 52 KB
-// of shared memory (four would fit an SM) and 4 warps.
+// of shared memory, which would let four blocks share an SM; its 231
+// registers a thread (f32, D = 64) hold an SM to two blocks, 8 warps.
+// Held to 168 registers for three blocks, it spills and measured slower
+// on the H100 (tools/tf32_variants.py).
 //
 // K4a (`bwd_dq_kernel` below): a block of 4 warps per (query tile, batch *
 // head), grid (query tiles, B*H) with the query tiles fastest, so that the
 // blocks of one head run together and read its k and v from L2. q * scale,
 // do and the rows' lse and delta are loaded once (the statistics into the
 // lanes' registers); key tiles of 64 keys stream through shared memory in
-// key order, the next one loading while this one computes (up to D = 64:
-// v's rows during the S and dP products, k's during ds.k, 32 registers a
-// thread). Each warp owns 16 query rows and, per key tile, computes S =
-// q.k^T and dP = do.v^T for its rows from [row][d] tiles, forms p and ds in
-// the C fragments, and adds ds.k to its dq sums with ds re-laid as A
-// fragments (no shared memory, no wait on another warp). The dq sums stay
-// in registers over all key tiles, in key order: no parts, no atomics, no
-// second kernel, a result that does not depend on the order of blocks.
-// Above D = 64 the key loop runs once per 64 columns of dq, recomputing S
-// and dP. Query tiles are 64 rows up to D = 64 (one warp per 16-row
-// strip); above, 32 (two warps per strip, each taking half of every key
-// tile's keys, their sums added at the end), so that q, do, k and v fit a
-// block's shared memory. With causal, key tiles wholly above the diagonal
-// are skipped.
+// key order, each loaded in turn. Each warp owns 16 query rows and, per
+// key tile, computes S = q.k^T and dP = do.v^T for its rows from [row][d]
+// tiles, forms p and ds in the C fragments, and adds ds.k to its dq sums
+// with ds re-laid as A fragments (no shared memory, no wait on another
+// warp). The dq sums stay in registers over all key tiles, in key order:
+// no parts, no atomics, no second kernel, a result that does not depend on
+// the order of blocks. Above D = 64 the key loop runs once per 64 columns
+// of dq, recomputing S and dP. Query tiles are 64 rows up to D = 64 (one
+// warp per 16-row strip); above, 32 (two warps per strip, each taking half
+// of every key tile's keys, their sums added at the end), so that q, do, k
+// and v fit a block's shared memory. At D = 64 a block takes 70 KB of
+// shared memory and 168 registers a thread: three blocks an SM. Tiles of
+// 32 rows at D = 64, and loading the next key tile into registers while
+// this one computes (as K4b does; 32 more registers a thread, two blocks an
+// SM), measured slower on the H100 (tools/tf32_variants.py, PERF.md). With
+// causal, key tiles wholly above the diagonal are skipped.
 
 #include "flash_tf32_common.cuh"
 
@@ -72,14 +77,13 @@ using namespace bvt_tf32;
 template <int DP> struct DqTiles {
   static constexpr int BQ = DP <= 64 ? 64 : 32;  // query rows of a block
   static constexpr int WS = 64 / BQ;             // warps per 16-row strip
-  static constexpr int KW = BK / WS;             // keys of a key tile a warp takes
+  static constexpr int KW = BK / WS;             // a warp's keys of a tile
   static constexpr int DC = DP < 64 ? DP : 64;   // dq columns per round
   static constexpr int LD = DP + 4;              // row stride of q, do, k, v
-  static constexpr int LDC = DC + 8;             // row stride of the sums' exchange
-  static constexpr bool PREFETCH = DP <= 64;
+  static constexpr int LDC = DC + 8;             // row stride of the exchange
   // Floats: q, do [BQ][LD]; k, v [BK][LD]; then ints: seg of the keys.
   static constexpr size_t BYTES = (2 * (BQ + BK) * LD + BK) * 4;
-  static_assert((WS - 1) * BQ * LDC <= BK * LD, "the exchange fits in k's tile");
+  static_assert((WS - 1) * BQ * LDC <= BK * LD, "the exchange fits in sK");
 };
 
 // K4a: dq of query tile blockIdx.x of head blockIdx.y.
@@ -134,16 +138,13 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const BwdArgs a) {
     for (int n = 0; n < NC; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-    __syncthreads();  // the previous round's readers of k and v are done
-    load_tile<T, BK, DP>(sK, kb, row, 0, a.Tkv, a.D, 1.f, vec, tid);
-    load_tile<T, BK, DP>(sV, vb, row, 0, a.Tkv, a.D, 1.f, vec, tid);
-    if (segk && tid < BK) sSegK[tid] = tid < a.Tkv ? segk[tid] : 0;
-    TileRegs<T, BK, DP> fk, fv;
-    for (int kv0 = 0;; kv0 += BK) {
-      __syncthreads();  // key tile kv0 is in sK, sV and sSegK
-      const bool last = kv0 + BK >= kv_end;
-      const bool ahead = Tl::PREFETCH && !last;
-      if (ahead) fv.fetch(vb, row, kv0 + BK, a.Tkv, a.D, vec, tid);
+    for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
+      __syncthreads();  // the previous key tile's readers are done
+      load_tile<T, BK, DP>(sK, kb, row, kv0, a.Tkv, a.D, 1.f, vec, tid);
+      load_tile<T, BK, DP>(sV, vb, row, kv0, a.Tkv, a.D, 1.f, vec, tid);
+      if (segk && tid < BK)
+        sSegK[tid] = kv0 + tid < a.Tkv ? segk[kv0 + tid] : 0;
+      __syncthreads();
 
       // S and dP of the warp's rows and keys; then ds (0 where masked).
       float s[NJ][4], dp[NJ][4];
@@ -162,11 +163,6 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const BwdArgs a) {
                                (dp[j][e] - dl[hf])
                          : 0.f;
         }
-      if (ahead) {
-        __syncthreads();  // every warp's dP products are done with sV
-        fv.store(sV, 1.f, tid);
-        fk.fetch(kb, row, kv0 + BK, a.Tkv, a.D, vec, tid);
-      }
 
       // dq += ds . k over the warp's keys (k permuted alike in ds's A
       // fragments and k's B fragments), columns c0..c0+DC-1.
@@ -177,16 +173,6 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const BwdArgs a) {
         for (int n = 0; n < NC; ++n)
           mma3(acc[n], da, ldb_cols(sK, LD, j0 + 8 * j, c0 + 8 * n, l));
       }
-      if (last) break;
-      __syncthreads();  // every warp's ds.k products are done with sK
-      if (Tl::PREFETCH) {
-        fk.store(sK, 1.f, tid);
-      } else {
-        load_tile<T, BK, DP>(sK, kb, row, kv0 + BK, a.Tkv, a.D, 1.f, vec, tid);
-        load_tile<T, BK, DP>(sV, vb, row, kv0 + BK, a.Tkv, a.D, 1.f, vec, tid);
-      }
-      if (segk && tid < BK)
-        sSegK[tid] = kv0 + BK + tid < a.Tkv ? segk[kv0 + BK + tid] : 0;
     }
 
     // With several warps per strip, the sums of the later key halves go
@@ -198,7 +184,8 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const BwdArgs a) {
         float* x = sK + ((w % WS - 1) * BQ + m0 + l.g) * LDC + 2 * l.t4;
 #pragma unroll
         for (int n = 0; n < NC; ++n) {
-          *reinterpret_cast<float2*>(x + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+          *reinterpret_cast<float2*>(x + 8 * n) =
+              make_float2(acc[n][0], acc[n][1]);
           *reinterpret_cast<float2*>(x + 8 * LDC + 8 * n) =
               make_float2(acc[n][2], acc[n][3]);
         }

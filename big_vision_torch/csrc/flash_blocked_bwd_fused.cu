@@ -32,13 +32,13 @@
 // [chunks, B*H, Tq, dpad(D)] f32.
 //
 // Design: the backward pass of flash_tf32_common.cuh with K5's semantics
-// (`bwd_kv_kernel<T, DP, Sem::kFused>`, then `dq_reduce_kernel`): a block of 4
-// warps per (batch*head, chunk of key tiles), dk and dv summed in registers
-// over the query tiles, ds staged in shared memory for ds.k, every product
-// f32 to about 2^-20 as three TF32 products on the tensor cores. bf16
-// inputs are converted to f32 as the tiles load and take the same three
-// products: q * scale, p and ds are not exact in TF32, so no product is
-// skipped.
+// (`bwd_kv_kernel<T, DP, Sem::kFused>`, then `dq_reduce_kernel`): a block
+// of 4 warps per (batch*head, chunk of key tiles), dk and dv summed in
+// registers over the query tiles, ds staged in shared memory for ds.k,
+// every product f32 to about 2^-20 as three TF32 products on the tensor
+// cores. bf16 inputs are converted to f32 as the tiles load and take the
+// same three products: q * scale, p and ds are not exact in TF32, so no
+// product is skipped.
 //
 // Bound at the FlexiViT-B shape of seqhw 40 (B=32, H=12, T=1601, D=64) in
 // f32: q, k, v, do read and dq, dk, dv written once are 1.1 GB, 0.34 ms at

@@ -69,9 +69,8 @@
 //       wrapper; dk = ds^T.(q * scale); each key tile's ds.k is scaled
 //       before it is added, as the TPU kernel does.
 //   kDkv (K4b): K5's dk and dv alone: no ds staging, no ds.k, no dq parts
-//       and no second kernel; one key tile per block, the grid's key tiles
-//       fastest, so that the blocks of one head run together and share its
-//       q and do in L2.
+//       and no second kernel; the grid's key tiles fastest, so that the
+//       blocks of one head run together and share its q and do in L2.
 // All: masked p exactly 0 (causal: col <= row; segment: 0 < seg[j] <=
 // seg[i]; rows and keys past the end), ds = p * (dp - delta), dv = p^T.do.
 
@@ -359,9 +358,10 @@ __global__ void __launch_bounds__(NT) bwd_kv_kernel(const BwdArgs a) {
   const int32_t* segk = a.seg ? a.seg + (long long)b * a.Tkv : nullptr;
   const float* lse = a.lse + (long long)bh * a.Tq;
   const float* delta = a.delta + (long long)bh * a.Tq;
-  float* part = DQ ? a.dq_parts + ((long long)chunk * gridDim.x + bh) * a.Tq * DP
-                   : nullptr;
-  // K2: s = q.k^T unscaled; K5: q scaled as it is loaded.
+  float* part =
+      DQ ? a.dq_parts + ((long long)chunk * gridDim.x + bh) * a.Tq * DP
+         : nullptr;
+  // K2: s = q.k^T unscaled; K5, K4b: q scaled as it is loaded.
   const float s_mul = ONE_SHOT ? a.scale * LOG2E : LOG2E;
   const float q_mul = ONE_SHOT ? 1.f : a.scale;
   const float dk_mul = ONE_SHOT ? a.scale : 1.f;
@@ -535,8 +535,8 @@ __global__ void __launch_bounds__(256) dq_reduce_kernel(
   }
 }
 
-// Launches the kernels of the pass on `stream` (kDkv: the first alone, one
-// key tile per block); returns the first error.
+// Launches the kernels of the pass on `stream` (kDkv: the first alone);
+// returns the first error.
 template <typename T, int DP, Sem SEM>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr bool ONE_SHOT = SEM == Sem::kOneShot;
@@ -546,15 +546,12 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nk = (a.Tkv + BK - 1) / BK;
-  if (SEM == Sem::kDkv) {
-    if (a.kt_per_block != 1) return cudaErrorInvalidValue;
-    kern<<<dim3(nk, a.B * a.H), NT, smem, stream>>>(a);
-    return cudaGetLastError();
-  }
   const int chunks = (nk + a.kt_per_block - 1) / a.kt_per_block;
-  kern<<<dim3(a.B * a.H, chunks), NT, smem, stream>>>(a);
+  const dim3 grid = SEM == Sem::kDkv ? dim3(chunks, a.B * a.H)
+                                     : dim3(a.B * a.H, chunks);
+  kern<<<grid, NT, smem, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || SEM == Sem::kDkv) return err;
   const long long total = (long long)a.B * a.H * a.Tq * a.D;
   const long long need = (total + 255) / 256;
   const int blocks = need < 132 * 16 ? (int)need : 132 * 16;

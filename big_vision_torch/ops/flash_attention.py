@@ -19,8 +19,9 @@
   product in f32, the output rounded once; the backward takes
   delta = rowsum(do.o), computed outside the kernels. K3
   (`csrc/flash_blocked_fwd.cu`) replaces `_fwd_kernel` (launched by
-  `_fwd`), K4a and K4b (`csrc/flash_blocked_bwd.cu`) replace
-  `_bwd_dq_kernel` and `_bwd_dkv_kernel` (launched by `_bwd`). With
+  `_fwd`), K4a and K4b (`csrc/flash_blocked_bwd.cu`, 3xTF32 products on
+  `csrc/flash_tf32_common.cuh`) replace `_bwd_dq_kernel` and
+  `_bwd_dkv_kernel` (launched by `_bwd`). With
   `FUSED_BLOCKED_BWD` set (off by default, as in the JAX package) and
   `fused_bwd_fits` holding, the backward is K5
   (`csrc/flash_blocked_bwd_fused.cu`, 3xTF32 products on

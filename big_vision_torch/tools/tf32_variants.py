@@ -13,7 +13,11 @@ breakdown works in each), the sources as they are first and last:
     64 (one) at D <= 64;
   - K4a's and K4b's grids with the heads fastest, in place of their query
     or key tiles;
-  - no loads of the next tile while the current one computes;
+  - the key-tile pass (K2, K5, K4b) held to 168 registers a thread, so
+    that three blocks fit an SM, in place of what the compiler takes (K4b
+    and K2 at D = 64 take over 200, two blocks an SM);
+  - no loads of the next tile while the current one computes (K2, K5,
+    K4b; K4a loads each key tile in turn);
   - one TF32 product in place of three (not f32-accurate: its error is
     printed; a yardstick of what the products cost).
 For each it prints K2's f32 kernel at FlexiViT-B's seqhw 15 and 24, K5 at
@@ -56,13 +60,15 @@ VARIANTS = {
          "const int bh = blockIdx.x,"),
         (HEADER, "const int chunk = DQ ? blockIdx.y : blockIdx.x;",
          "const int chunk = blockIdx.y;"),
-        (HEADER, "dim3(nk, a.B * a.H)", "dim3(a.B * a.H, nk)")],
+        (HEADER, "SEM == Sem::kDkv ? dim3(chunks, a.B * a.H)",
+         "SEM == Sem::kDkv ? dim3(a.B * a.H, chunks)")],
+    "three blocks an SM": [
+        (HEADER, "__launch_bounds__(NT) bwd_kv_kernel",
+         "__launch_bounds__(NT, 3) bwd_kv_kernel")],
     "no loads ahead": [
         (HEADER, "constexpr bool PREFETCH = DP <= 64;",
          "constexpr bool PREFETCH = false;"),
         ("flash_bwd.cu", "static constexpr bool PREFETCH = DP <= 64;",
-         "static constexpr bool PREFETCH = false;"),
-        (K4, "static constexpr bool PREFETCH = DP <= 64;",
          "static constexpr bool PREFETCH = false;")],
     "one TF32 product (timing only)": [(HEADER, """\
   mma_tf32(c, a.lo, b.hi);

@@ -1613,7 +1613,9 @@ def main():
   print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
   for name, log in logs.items():
     for line in log.splitlines():
-      if "Used" in line or "spill" in line:
+      if "Compiling entry function" in line:  # the mangled kernel name
+        print(f"  {name}: {line.split(chr(39))[1][:80]}")
+      elif "Used" in line or "spill" in line:
         print(f"  {name}: {line.strip()}")
 
   # 2. Kernels vs plain versions.
