@@ -64,9 +64,9 @@
 // and v fit a block's shared memory. At D = 64 a block takes 70 KB of
 // shared memory and 168 registers a thread: three blocks an SM. Tiles of
 // 32 rows at D = 64, and loading the next key tile into registers while
-// this one computes (as K4b does; 32 more registers a thread, two blocks an
-// SM), measured slower on the H100 (tools/tf32_variants.py, PERF.md). With
-// causal, key tiles wholly above the diagonal are skipped.
+// this one computes (as K4b does; 32 more registers a thread), measured
+// slower on the H100 (tools/tf32_variants.py, PERF.md). With causal, key
+// tiles wholly above the diagonal are skipped.
 
 #include "flash_tf32_common.cuh"
 
