@@ -313,6 +313,15 @@ def flash_attention_reference(q, k, v, *, causal=False, seg=None):
   return (o / l.permute(0, 2, 1, 3)).to(q.dtype)
 
 
+def flash_attention_lse_reference(q, k, v, *, causal=False, seg=None):
+  """Plain PyTorch row log-sum-exp [B*H, Tq] f32 that K1 emits beside o
+  (and K2 takes): m + log(l) of `_masked_probs`, -1e30 for a row with no
+  visible key."""
+  _check_inputs(q, k, v, seg)
+  _, m, l = _masked_probs(q, k, causal, seg)
+  return _lse_rows(m + torch.log(l))
+
+
 def flash_attention_bwd_reference(q, k, v, do, *, causal=False, seg=None):
   """Plain PyTorch backward with the exact semantics of `_oneshot_bwd_kernel`.
 

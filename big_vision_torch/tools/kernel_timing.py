@@ -290,6 +290,50 @@ def time_blocked_bwd(fa, card, seqhw, seed=130):
   torch.cuda.empty_cache()
 
 
+def time_fwd(fa, card, kernel, seqhw, seed=140):
+  """Times K1's f32 kernel (`kernel` "K1f", csrc/flash_fwd.cu) or K3
+  ("K3", csrc/flash_blocked_fwd.cu), both on 3xTF32 products, at
+  FlexiViT-B's `seqhw` in f32 (B=32, T=seqhw^2+1, H=12, D=64; two input
+  sets, past the L2 from seqhw 15 on) beside its plain version (K1's: o
+  alone), SDPA's forward on the same f32 inputs and its bound at the 3xTF32
+  rate (and at the f32 rate outside the tensor cores). Prints one line;
+  returns {ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err,
+  max_rel_err}, the errors the largest of o's and the LSE's against the
+  plain version on the first set."""
+  b, t, h, d = 32, seqhw * seqhw + 1, 12, 64
+  sets = [k1_inputs(b, t, h, d, seed=seed + i, dtype=torch.float32)
+          for i in range(2)]
+  if kernel == "K1f":
+    assert fa.fwd_kernel(torch.float32) == "flash_fwd"
+    name, fn = "K1 flash_fwd (f32)", lambda q, k, v: fa.flash_attention_forward(
+        q, k, v)
+    plain = fa.flash_attention_reference
+    want = (plain(*sets[0]), fa.flash_attention_lse_reference(*sets[0]))
+    work = k1_work(b, t, h, d, itemsize=4)
+  else:
+    name, fn = "K3 flash_blocked_fwd", fa.flash_attention_blocked_forward
+    plain = fa.flash_attention_blocked_reference
+    want = plain(*sets[0])
+    work = k3_work(b, t, h, d)
+  got = fn(*sets[0])
+  abs_err = max((x - y).abs().max().item() for x, y in zip(got, want))
+  rel = max(((x - y).abs().max() / y.abs().max()).item()
+            for x, y in zip(got, want))
+  del got, want
+  bms, by = bound(*work, TF32X3_FLOPS)
+  out = dict(ms=time_ms(fn, sets), plain_ms=time_ms(plain, sets, iters=3),
+             library_ms=sdpa_fwd_ms(sets), bound_ms=bms, bound_by=by,
+             max_abs_err=abs_err, max_rel_err=rel)
+  print(f"[{card}] {name} at seqhw {seqhw} B={b} T={t} H={h} D={d} f32: "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
+        f"{out['library_ms']:.4f} ms; bound {bms:.4f} ms ({by}) at the "
+        f"3xTF32 rate, {bound(*work, F32_FLOPS)[0]:.4f} ms at the f32 rate; "
+        f"rel err (o, LSE) {rel:.3e}")
+  del sets
+  torch.cuda.empty_cache()
+  return out
+
+
 def time_tf32_bwd(fa, card):
   """Prints the 3xTF32 backward kernels' times (module docstring)."""
   cases = [("K2 flash_bwd (f32)", 15, False, (1, 2, 4), k2_work),
