@@ -1,7 +1,9 @@
 // f32 products on Hopper's tensor cores (sm_90a) as three TF32 products,
 // and the attention backward pass built on them, shared by K2's f32 kernel
 // (flash_bwd.cu), K5 (flash_blocked_bwd_fused.cu) and K4a, K4b
-// (flash_blocked_bwd.cu).
+// (flash_blocked_bwd.cu); the forward built on them, for K3
+// (flash_blocked_fwd.cu) and K1's f32 kernel (flash_fwd.cu), is in
+// flash_tf32_fwd.cuh.
 //
 // Building blocks:
 //   split_tf32   x = hi + lo: hi is x rounded to TF32 (10 mantissa bits,

@@ -1,10 +1,12 @@
-"""Times design variants of the 3xTF32 backward kernels on the GPU.
+"""Times design variants of the 3xTF32 attention kernels on the GPU.
 
 K2's f32 kernel (csrc/flash_bwd.cu), K5 (csrc/flash_blocked_bwd_fused.cu)
-and K4a, K4b (csrc/flash_blocked_bwd.cu) share csrc/flash_tf32_common.cuh.
-Each variant here is a copy of csrc/ with one choice of that design undone,
-built and timed in its own process (so that the profiler's per-kernel
-breakdown works in each), the sources as they are first and last:
+and K4a, K4b (csrc/flash_blocked_bwd.cu) share csrc/flash_tf32_common.cuh;
+K3 (csrc/flash_blocked_fwd.cu) and K1's f32 kernel (csrc/flash_fwd.cu)
+share the forward of csrc/flash_tf32_fwd.cuh, built on it. Each variant
+here is a copy of csrc/ with one choice of that design undone, built and
+timed in its own process (so that the profiler's per-kernel breakdown
+works in each), the sources as they are first and last:
   - the TF32 split with `cvt.rna.tf32.f32` for hi and for lo, in place of
     the integer rounding of hi and the unrounded lo;
   - query tiles of 64 rows in place of 32 in K2's, K5's and K4b's key-tile
@@ -18,15 +20,29 @@ breakdown works in each), the sources as they are first and last:
     and K2 at D = 64 take over 200, two blocks an SM);
   - no loads of the next tile while the current one computes (K2, K5,
     K4b; K4a loads each key tile in turn);
+  - the forward's (K3, K1 f32) query tiles of 32 rows (two warps per
+    16-row strip, each taking half of every key tile's keys) in place of
+    64 (one);
+  - the forward loading the next key tile into registers while the
+    current one computes, in place of each in turn;
+  - the forward holding each warp's split q fragments in registers over
+    the key tiles, in place of re-reading and re-splitting them per tile;
+  - the forward summing each key tile's p . v from zero in registers of
+    its own, added to o * alpha on the CUDA cores, in place of adding it
+    to o in the tensor cores' sums;
   - one TF32 product in place of three (not f32-accurate: its error is
     printed; a yardstick of what the products cost).
 For each it prints K2's f32 kernel at FlexiViT-B's seqhw 15 and 24, K5 at
-seqhw 40 and 30 and K4a and K4b at seqhw 40 (B=32, H=12, D=64, f32; CUDA
-events, inputs rotated past the L2), the device time of each kernel of K2
-at seqhw 15 and of K5 at seqhw 40 (torch.profiler), and the largest error
-against the plain versions at seqhw 15 (K2) and 30 (K5, K4a + K4b).
+seqhw 40 and 30, K4a and K4b at seqhw 40, K1's f32 kernel at seqhw 15 and
+24 and K3 at seqhw 40 and 30 (B=32, H=12, D=64, f32; CUDA events, inputs
+rotated past the L2), the device time of each kernel of K2 at seqhw 15
+and of K5 at seqhw 40 (torch.profiler), and the largest error against the
+plain versions at seqhw 15 (K2, K1's o and LSE), 30 (K5, K4a + K4b) and
+40 (K3's o and LSE).
 
-Usage (GPU only):  python -m big_vision_torch.tools.tf32_variants
+Usage (GPU only):  python -m big_vision_torch.tools.tf32_variants [NAME ...]
+(the variants named, each as a separate argument, the sources as they are
+first and last; all by default).
 """
 
 from __future__ import annotations
@@ -39,6 +55,7 @@ import tempfile
 from pathlib import Path
 
 HEADER, K4 = "flash_tf32_common.cuh", "flash_blocked_bwd.cu"
+FWD = "flash_tf32_fwd.cuh"
 # (file, text in the sources, its replacement) per variant.
 VARIANTS = {
     "as committed": [],
@@ -70,6 +87,17 @@ VARIANTS = {
          "constexpr bool PREFETCH = false;"),
         ("flash_bwd.cu", "static constexpr bool PREFETCH = DP <= 64;",
          "static constexpr bool PREFETCH = false;")],
+    "forward query tiles of 32": [(FWD, "static constexpr int BQ = 64;",
+                                   "static constexpr int BQ = 32;")],
+    "forward loads ahead": [
+        (FWD, "static constexpr bool PREFETCH = false;",
+         "static constexpr bool PREFETCH = DP <= 64;")],
+    "forward q fragments held": [
+        (FWD, "static constexpr bool HOLD_Q = false;",
+         "static constexpr bool HOLD_Q = DP <= 64;")],
+    "forward p.v per tile": [
+        (FWD, "static constexpr bool PV_PER_TILE = false;",
+         "static constexpr bool PV_PER_TILE = true;")],
     "one TF32 product (timing only)": [(HEADER, """\
   mma_tf32(c, a.lo, b.hi);
   mma_tf32(c, a.hi, b.lo);
@@ -111,6 +139,12 @@ def run_variant(name):
   q, k, v, lse, do = k2[15][0]
   err2 = rel(fa.flash_attention_bwd(q, k, v, lse, do),
              fa.flash_attention_bwd_reference(q, k, v, do))
+  err1 = rel(fa.flash_attention_forward(q, k, v),
+             (fa.flash_attention_reference(q, k, v),
+              fa.flash_attention_lse_reference(q, k, v)))
+  q, k, v = k5[40][0][:3]
+  err3 = rel(fa.flash_attention_blocked_forward(q, k, v),
+             fa.flash_attention_blocked_reference(q, k, v))
   err5 = rel(fa.flash_attention_blocked_bwd_fused(*k5[30][0]),
              fa.flash_attention_blocked_bwd_fused_reference(*k5[30][0]))
   err4 = rel(fa.flash_attention_blocked_bwd(*k5[30][0]),
@@ -123,6 +157,10 @@ def run_variant(name):
                                   iters=10)
   ms["K4b seqhw 40"] = kt.time_ms(fa.flash_attention_blocked_dkv, k4[40],
                                   iters=10)
+  k1 = lambda q, k, v, lse, do: fa.flash_attention_forward(q, k, v)
+  ms.update({f"K1 f32 seqhw {s}": kt.time_ms(k1, k2[s]) for s in k2})
+  k3 = lambda q, k, v, o, lse, do: fa.flash_attention_blocked_forward(q, k, v)
+  ms.update({f"K3 seqhw {s}": kt.time_ms(k3, k5[s], iters=10) for s in k5})
   prof = kt.device_profile({
       "K2 seqhw 15": lambda: fa.flash_attention_bwd(*k2[15][0]),
       "K5 seqhw 40": lambda: fa.flash_attention_blocked_bwd_fused(*k5[40][0])},
@@ -134,18 +172,23 @@ def run_variant(name):
   print(f"[{kt.nvidia_smi()}] {name}: " + ", ".join(
       f"{what} {t:.4f} ms" for what, t in ms.items())
         + f"; device ms by kernel: {parts}; rel err K2 {err2:.3e}, K5 "
-        f"{err5:.3e}, K4a + K4b {err4:.3e}", flush=True)
+        f"{err5:.3e}, K4a + K4b {err4:.3e}, K1 f32 {err1:.3e}, K3 "
+        f"{err3:.3e}", flush=True)
 
 
-def main():
+def main(argv):
   name = os.environ.get("TF32_VARIANT")
   if name is not None:
     run_variant(name)
     return
+  unknown = sorted(set(argv) - set(VARIANTS))
+  if unknown:
+    raise SystemExit(f"unknown variants {unknown}; known: {sorted(VARIANTS)}")
   import torch
   if not torch.cuda.is_available():
     raise SystemExit("tf32_variants needs a CUDA device")
-  for name in ORDER:
+  order = ORDER if not argv else ["as committed", *argv, "as committed"]
+  for name in order:
     src = variant_sources(name)
     env = dict(os.environ, TF32_VARIANT=name, TF32_VARIANT_CSRC=str(src))
     try:
@@ -156,4 +199,4 @@ def main():
 
 
 if __name__ == "__main__":
-  main()
+  main(sys.argv[1:])

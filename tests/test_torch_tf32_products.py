@@ -1,19 +1,22 @@
-"""The 3xTF32 products of the f32 attention backwards, and their scratch.
+"""The 3xTF32 products of the f32 attention kernels, and their scratch.
 
 K2's f32 kernel, K5 and K4a + K4b (csrc/flash_bwd.cu,
-csrc/flash_blocked_bwd_fused.cu, csrc/flash_blocked_bwd.cu) run every f32
-product on the tensor cores as three TF32 products, split and issued by
+csrc/flash_blocked_bwd_fused.cu, csrc/flash_blocked_bwd.cu), and the
+forwards K3 and K1's f32 kernel (csrc/flash_blocked_fwd.cu,
+csrc/flash_fwd.cu, through csrc/flash_tf32_fwd.cuh) run every f32 product
+on the tensor cores as three TF32 products, split and issued by
 csrc/flash_tf32_common.cuh, and run only on the card (chip_smoke.py holds
 them against their plain versions at 1e-4). Here: the sources use that
 header, and no header of csrc/ is left unused; TF32 rounding emulated in
 torch (the 13 low mantissa bits, round to nearest, ties away from zero, as
 `cvt.rna.tf32.f32` rounds and the kernels round hi; lo truncated, as the
 tensor cores read it) shows on numpy inputs at FlexiViT-B's scales that
-three products hold each of K2's five products, and K4a's and K4b's sums
-over 1601 keys or queries tile by tile, within 1e-6 of f64 while one TF32
-product each misses 1e-4; the wrappers' scratch shapes, chunking and
-refusals; and that the design variants of tools/tf32_variants.py still
-apply to the sources.
+three products hold each of K2's five products, K4a's and K4b's sums over
+1601 keys or queries tile by tile, and the forward's online softmax over
+64-key tiles, within 1e-6 of f64 while one TF32 product each misses 1e-4;
+the forward's rows with no visible key; the wrappers' scratch shapes,
+chunking and refusals; and that the design variants of
+tools/tf32_variants.py still apply to the sources.
 """
 
 import shutil
@@ -26,14 +29,36 @@ from big_vision_torch.ops import _build
 from big_vision_torch.ops import flash_attention as t_flash
 from big_vision_torch.tools import tf32_variants
 
-HEADER = "flash_tf32_common.cuh"
+HEADER, FWD_HEADER = "flash_tf32_common.cuh", "flash_tf32_fwd.cuh"
+
+
+def _included(text):
+  """The headers of csrc/ that `text` includes, directly or through them."""
+  found, todo = set(), [text]
+  while todo:
+    for line in todo.pop().splitlines():
+      if line.startswith('#include "'):
+        name = line.split('"')[1]
+        if name not in found:
+          found.add(name)
+          todo.append((_build._CSRC / name).read_text())
+  return found
 
 
 @pytest.mark.parametrize("name", ["flash_bwd", "flash_blocked_bwd_fused",
-                                  "flash_blocked_bwd"])
+                                  "flash_blocked_bwd", "flash_fwd",
+                                  "flash_blocked_fwd"])
 def test_kernels_use_the_tf32_header(name):
   src = (_build._CSRC / f"{name}.cu").read_text()
-  assert f'#include "{HEADER}"' in src
+  assert HEADER in _included(src)
+  if name.endswith("fwd"):
+    # The forwards are one template on the header's mma3, with no
+    # products of their own and no atomics.
+    assert _included(src) == {FWD_HEADER, HEADER}
+    fwd = (_build._CSRC / FWD_HEADER).read_text()
+    code = "\n".join(line.split("//")[0] for line in (src + fwd).splitlines())
+    assert "mma3(" in code and "fmaf(" not in src.split("#include")[-1]
+    assert "atomic" not in code
   header = (_build._CSRC / HEADER).read_text()
   assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
   # The split rounds hi as cvt.rna.tf32.f32 does, with an integer add and
@@ -147,6 +172,96 @@ def test_blocked_sums_hold_the_f32_bar(name):
   rel = lambda got: ((got - exact).abs().max() / exact.abs().max()).item()
   assert rel(three * mul) <= 1e-6
   assert rel(one * mul) > 1e-4  # one TF32 product misses the f32 bar
+
+
+def _fwd_emulated(q, k, v, mask, scale_first, products=3, tile=64):
+  """The arithmetic of the forward kernel (csrc/flash_tf32_fwd.cuh) for one
+  head in torch: per 64-key tile, S from `products` TF32 products (exact
+  in f64, summed in f32), scaled first (q * scale, K3) or after (K1);
+  masked scores -inf; the running max m (from -1e30) and sum l rescaled by
+  alpha = exp(m_old - m_new); p = exp(s - m_new); o += p . v from
+  `products` TF32 products. Returns (o = o / l, lse = m + log l), with
+  l = 0 taken as 1."""
+  scale = np.float32(q.shape[1] ** -0.5)
+  qs = q * scale if scale_first else q
+
+  def product(a, b):
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32_trunc(a - a_hi), tf32_trunc(b - b_hi)
+    f64 = lambda x, y: x.double() @ y.double()
+    terms = [f64(a_lo, b_hi), f64(a_hi, b_lo)][:products - 1]
+    return (sum(terms) + f64(a_hi, b_hi)).float()
+
+  f32 = torch.float32
+  m = torch.full((q.shape[0], 1), -1e30, dtype=f32)
+  l = torch.zeros((q.shape[0], 1), dtype=f32)
+  o = torch.zeros(q.shape, dtype=f32)
+  for j in range(0, k.shape[0], tile):
+    s = product(qs, k[j:j + tile].T)
+    s = s if scale_first else s * scale
+    s = torch.where(mask[:, j:j + tile], s, -torch.inf)
+    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new)
+    l = l * alpha + p.sum(-1, keepdim=True)
+    o = o * alpha + product(p, v[j:j + tile])
+    m = m_new
+  l = torch.where(l == 0, torch.ones_like(l), l)
+  return o / l, (m + torch.log(l))[:, 0]
+
+
+def _fwd_f64(q, k, v, mask):
+  """(o, lse) in f64 with every visible row's softmax exact."""
+  s = (q.double() @ k.double().T) * q.shape[1] ** -0.5
+  s = torch.where(mask, s, -torch.inf)
+  lse = torch.logsumexp(s, -1)
+  return torch.exp(s - lse[:, None]) @ v.double(), lse
+
+
+@pytest.mark.parametrize("kernel,seqhw", [("K3", 40), ("K1", 15)])
+def test_forward_holds_the_f32_bar(kernel, seqhw):
+  """K3 at FlexiViT-B's seqhw 40 (T=1601, D=64, q scaled first) and K1's
+  f32 kernel at seqhw 15 (T=226, scaled after), one head from numpy N(0, 1)
+  inputs: three TF32 products per tile with the online rescaling are within
+  1e-6 of f64 in o and the LSE; one product per tile misses 1e-4 in o."""
+  t, d = seqhw * seqhw + 1, 64
+  rs = np.random.RandomState(seqhw)
+  q, k, v = (torch.from_numpy(rs.randn(t, d).astype(np.float32))
+             for _ in range(3))
+  mask = torch.ones((t, t), dtype=torch.bool)
+  want_o, want_lse = _fwd_f64(q, k, v, mask)
+  rel = lambda got, want: ((got.double() - want).abs().max()
+                           / want.abs().max()).item()
+  o, lse = _fwd_emulated(q, k, v, mask, scale_first=kernel == "K3")
+  assert rel(o, want_o) <= 1e-6 and rel(lse, want_lse) <= 1e-6
+  o1, _ = _fwd_emulated(q, k, v, mask, scale_first=kernel == "K3",
+                        products=1)
+  assert rel(o1, want_o) > 1e-4  # one TF32 product misses the f32 bar
+
+
+@pytest.mark.parametrize("scale_first", [True, False])
+def test_forward_rows_with_no_visible_key(scale_first):
+  """A row with no visible key (a padding row: seg 0) gives o = 0 and
+  lse = -1e30 exactly; a row whose keys are all in its second tile (the
+  first tile all masked: alpha = 0 once the first key shows) is exact."""
+  t, d = 150, 64
+  rs = np.random.RandomState(5)
+  q, k, v = (torch.from_numpy(rs.randn(t, d).astype(np.float32))
+             for _ in range(3))
+  seg = torch.ones(t, dtype=torch.int32)
+  seg[:70] = 2
+  seg[100:] = 0  # padding: no row sees keys 100.., rows 100.. see nothing
+  mask = (seg[None, :] > 0) & (seg[None, :] <= seg[:, None])
+  mask[5] = False
+  mask[5, 80:90] = True  # row 5 sees keys 80..89 only (the second tile)
+  o, lse = _fwd_emulated(q, k, v, mask, scale_first)
+  empty = ~mask.any(-1)
+  assert empty.sum().item() == 50
+  assert torch.equal(o[empty], torch.zeros_like(o[empty]))
+  assert (lse[empty] == torch.tensor(-1e30)).all()
+  want_o, want_lse = _fwd_f64(q[~empty], k, v, mask[~empty])
+  assert torch.allclose(o[~empty].double(), want_o, rtol=0, atol=1e-6)
+  assert torch.allclose(lse[~empty].double(), want_lse, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("seqhw,key_tiles,chunks", [
