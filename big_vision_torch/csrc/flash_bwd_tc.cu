@@ -2,7 +2,7 @@
 // kernel K2 for bf16 inputs, the port of the TPU kernel
 // `_oneshot_bwd_kernel` in big_vision_tpu/ops/flash_attention.py (reached
 // from `_oneshot_bwd`), the gradient of K1 (csrc/flash_fwd.cu). f32 inputs
-// take the scalar kernel of csrc/flash_bwd.cu, which states the contract
+// take the 3xTF32 kernel of csrc/flash_bwd.cu, which states the contract
 // both keep; in short, per (batch, head), with the forward's masks (causal:
 // col <= row; segment: 0 < seg[j] <= seg[i]; rows and keys past the end):
 //   p     = exp(s * scale - lse) / l     f32, l = rowsum(exp(s * scale - lse))

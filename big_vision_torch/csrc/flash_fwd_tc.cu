@@ -2,7 +2,7 @@
 // kernel K1 for bf16 inputs, the port of the TPU kernel
 // `_oneshot_fwd_kernel` / `_oneshot_softmax` in
 // big_vision_tpu/ops/flash_attention.py (reached from `_oneshot_fwd`).
-// f32 inputs take the scalar kernel of csrc/flash_fwd.cu. Per (batch, head):
+// f32 inputs take the 3xTF32 kernel of csrc/flash_fwd.cu. Per (batch, head):
 //   s = q . k^T * scale              f32 sums
 //   masks: causal col <= row; segment 0 < seg[j] <= seg[i]; keys and rows
 //          past the end

@@ -28,28 +28,33 @@
 // 16w..16w+15. Per key tile it computes S = q . k^T for its rows with
 // `mma3` (q's A fragments from lda_rows, k's B fragments from ldb_rows),
 // masks it, takes each row's tile max over the quad (lane (g, t4) holds
-// rows g and g + 8, so two shuffles, over lanes 1 and 2 apart), rescales
-// its o sums and its part of l by alpha = exp(m_old - m_new), forms p in
-// the S fragments, and adds p . v with p re-laid by `from_c` as A
-// fragments against v's B fragments from ldb_cols: the same permuted key
-// order on both sides, so nothing is staged. The o sums, m and l stay in
-// registers over all key tiles (l per lane, summed over the quad once at
-// the end), in key order: no atomics, no split of a row's keys across
-// blocks, a result that does not depend on the order of blocks. Above
-// D = 64 the o sums would pass the registers (128 floats a thread at
+// rows g and g + 8, so two shuffles, over lanes 1 and 2 apart), forms p
+// in the S fragments and the tile's part of l, sums the tile's p . v from
+// zero in registers of its own (p re-laid by `from_c` as A fragments
+// against v's B fragments from ldb_cols: the same permuted key order on
+// both sides, so nothing is staged), and adds it to o * alpha, alpha =
+// exp(m_old - m_new), with one f32 multiply-add per element. o, m and l
+// stay in registers over all key tiles (l per lane, summed over the quad
+// once at the end), in key order: no atomics, no split of a row's keys
+// across blocks, a result that does not depend on the order of blocks.
+// Above D = 64 the o sums would pass the registers (128 floats a thread at
 // D = 256), so the key loop runs once per 64 columns of o, recomputing S
 // and the softmax (the same m and l in every round; the LSE is written in
 // the first). Shared memory holds q, k and v tiles of 64 rows even at
-// D = 256 (200 KB), so query tiles stay 64 rows at every D.
+// D = 256 (200 KB), so query tiles stay 64 rows at every D. At D = 64 a
+// block takes 52 KB of shared memory and 128 registers a thread: four
+// blocks an SM.
 //
 // Choices measured on the H100 (tools/tf32_variants.py, PERF.md), each a
-// constant of FwdTiles: query tiles of 32 rows (two warps per strip, each
-// taking half of every key tile's keys, their (o, m, l) combined at the
-// end); loading the next key tile into registers while this one computes
-// (TileRegs, 64 more registers a thread at D = 64); the warp's split q
-// fragments held in registers over the key tiles (64 more) instead of
-// re-read and re-split from shared memory per tile; each key tile's p . v
-// summed apart from o (32 more) and added to o * alpha on the CUDA cores.
+// constant of FwdTiles. Each tile's p . v summed apart from o
+// (PV_PER_TILE) ran faster than adding it into o's tensor-core sums (5.37
+// against 5.98 ms at seqhw 40), and its o error stays flat in T (3.3e-06
+// against 1.5e-05 at T = 1601). Slower: query tiles of 32 rows (two
+// warps per strip, each taking half of every key tile's keys, their
+// (o, m, l) combined at the end); loading the next key tile into
+// registers while this one computes (TileRegs, 64 more registers a
+// thread); the warp's split q fragments held in registers over the key
+// tiles (64 more; it spills).
 
 #pragma once
 
@@ -73,7 +78,7 @@ struct FwdArgs {
 enum class FwdSem { kBlocked, kOneShot };
 
 template <int DP> struct FwdTiles {
-  // Query rows of a block, 16 per warp and strip.
+  // Query rows of a block, 16 per warp and strip (32: two warps a strip).
   static constexpr int BQ = 64;
   static constexpr int WS = 64 / BQ;            // warps per 16-row strip
   static constexpr int KW = BK / WS;            // a warp's keys of a tile
@@ -84,9 +89,9 @@ template <int DP> struct FwdTiles {
   static constexpr bool PREFETCH = false;
   // The warp's split q fragments held in registers over the key tiles.
   static constexpr bool HOLD_Q = false;
-  // Each key tile's p . v summed from zero apart from o (32 more registers
-  // a thread), then added to o * alpha with f32 rounding.
-  static constexpr bool PV_PER_TILE = false;
+  // Each key tile's p . v summed from zero apart from o, then added to
+  // o * alpha on the CUDA cores (else into o's own tensor-core sums).
+  static constexpr bool PV_PER_TILE = true;
   // Floats: q [BQ][LD], k, v [BK][LD]; then ints: seg of the keys.
   static constexpr size_t BYTES = ((BQ + 2 * BK) * LD + BK) * 4;
   static_assert((WS - 1) * BQ * LDX <= BK * LD, "the exchange fits in sK");

@@ -9,18 +9,20 @@
   `_oneshot_fwd`), K2 `_oneshot_bwd_kernel` (launched by `_oneshot_bwd`);
   each is two kernels, for bf16 inputs on the tensor cores in bf16
   (`csrc/flash_fwd_tc.cu`, `csrc/flash_bwd_tc.cu`, which share
-  `csrc/flash_tc_common.cuh`), for f32 inputs K1 on the scalar units
-  (`csrc/flash_fwd.cu`) and K2 on the tensor cores with 3xTF32 products
-  (`csrc/flash_bwd.cu`, on `csrc/flash_tf32_common.cuh`). On the card K1 also
-  emits each row's log-sum-exp, which K2 takes instead of recomputing the
-  row max (it sums each row of exp(s - lse) again, so that p sums to 1 as
-  the plain version's does).
+  `csrc/flash_tc_common.cuh`), for f32 inputs on the tensor cores with
+  3xTF32 products (`csrc/flash_fwd.cu`, the forward template of
+  `csrc/flash_tf32_fwd.cuh`; `csrc/flash_bwd.cu`; both on
+  `csrc/flash_tf32_common.cuh`). On the card K1 also emits each row's
+  log-sum-exp, which K2 takes instead of recomputing the row max (it sums
+  each row of exp(s - lse) again, so that p sums to 1 as the plain
+  version's does).
 * blocked, elsewhere: q, k and v cast to f32, q scaled before q.k, every
   product in f32, the output rounded once; the backward takes
   delta = rowsum(do.o), computed outside the kernels. K3
-  (`csrc/flash_blocked_fwd.cu`) replaces `_fwd_kernel` (launched by
-  `_fwd`), K4a and K4b (`csrc/flash_blocked_bwd.cu`, 3xTF32 products on
-  `csrc/flash_tf32_common.cuh`) replace `_bwd_dq_kernel` and
+  (`csrc/flash_blocked_fwd.cu`, the same forward template as K1's f32
+  kernel with q scaled first, 3xTF32 products) replaces `_fwd_kernel`
+  (launched by `_fwd`), K4a and K4b (`csrc/flash_blocked_bwd.cu`, 3xTF32
+  products on `csrc/flash_tf32_common.cuh`) replace `_bwd_dq_kernel` and
   `_bwd_dkv_kernel` (launched by `_bwd`). With
   `FUSED_BLOCKED_BWD` set (off by default, as in the JAX package) and
   `fused_bwd_fits` holding, the backward is K5
@@ -111,8 +113,8 @@ def takes_fused_bwd(tq, tkv, d, block_q, block_kv):
       _r(tq, block_q), _r(tkv, block_kv), d, block_q, block_kv)
 
 
-# K1's two kernels, by input dtype: bf16 on the tensor cores, f32 on the
-# scalar units (the 3xTF32 products of K2's f32 kernel could serve it next).
+# K1's two kernels, by input dtype: bf16 on the tensor cores in bf16, f32 on
+# the tensor cores with 3xTF32 products (f32 to about 2^-20 per product).
 FWD_KERNELS = {torch.bfloat16: "flash_fwd_tc", torch.float32: "flash_fwd"}
 
 
@@ -482,10 +484,10 @@ def flash_attention_blocked_bwd_fused_reference(q, k, v, o, lse, do, *,
 def flash_attention_forward(q, k, v, *, causal=False, seg=None):
   """K1 on CUDA tensors: (o, row log-sum-exp [B*H, Tq] f32).
 
-  Launches the kernel `fwd_kernel(q.dtype)` (bf16: the tensor-core kernel,
-  csrc/flash_fwd_tc.cu; f32: the scalar one, csrc/flash_fwd.cu) and counts
-  the launch in `flash_attention_forward.launches`, and a launch of the
-  tensor-core kernel also in `flash_attention_forward.tc_launches`.
+  Launches the kernel `fwd_kernel(q.dtype)` (bf16: the bf16 tensor-core
+  kernel, csrc/flash_fwd_tc.cu; f32: the 3xTF32 one, csrc/flash_fwd.cu) and
+  counts the launch in `flash_attention_forward.launches`, and a launch of
+  the bf16 tensor-core kernel also in `flash_attention_forward.tc_launches`.
   """
   if q.device.type != "cuda":
     raise ValueError(f"the K1 kernel runs on cuda, not {q.device}")

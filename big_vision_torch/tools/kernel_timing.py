@@ -1,8 +1,9 @@
-"""Times the port's CUDA kernels K1, K6, K2's f32 kernel and K5 on the GPU.
+"""Times the port's CUDA attention kernels on the GPU.
 
 K1 is two kernels: bf16 inputs take the tensor-core kernel
-(csrc/flash_fwd_tc.cu), f32 inputs the scalar one (csrc/flash_fwd.cu). For
-K1 and K6, for each shape, it prints the time per call measured two ways:
+(csrc/flash_fwd_tc.cu), f32 inputs the 3xTF32 one (csrc/flash_fwd.cu).
+For K1's bf16 kernel and K6, for each shape, it prints the time per call
+measured two ways:
   events - CUDA events around 50 calls through the Python wrapper, inputs
            rotated through more than the 50 MB L2 (what a caller sees,
            host launch cost included when it exceeds the kernel's);
@@ -21,7 +22,11 @@ version, SDPA's autograd backward on the same f32 inputs and the bound at
 the 3xTF32 rate; K5 also beside K4a + K4b. Then K4a and K4b
 (csrc/flash_blocked_bwd.cu, 3xTF32 products too) at seqhw 40 and 30, each
 in turns with the other, and K4a + K4b and K5, beside their plain
-versions, SDPA's backward and their bounds (`time_blocked_bwd`).
+versions, SDPA's backward and their bounds (`time_blocked_bwd`). Then the
+two f32 forwards on the same 3xTF32 products (csrc/flash_tf32_fwd.cuh):
+K1's f32 kernel at seqhw 15 and 24 and K3 (csrc/flash_blocked_fwd.cu) at
+seqhw 40 and 30, beside their plain versions, SDPA's forward on the same
+f32 inputs and their bounds (`time_fwd`).
 
 Usage (GPU only):  python -m big_vision_torch.tools.kernel_timing
 
@@ -393,9 +398,9 @@ def main():
   for seqhw in (40, 30):
     time_blocked_bwd(fa, card, seqhw)
 
-  def report(name, fn, sets, work, flops_per_s=BF16_FLOPS):
+  def report(name, fn, sets, work):
     ev, gr = time_ms(fn, sets), graph_ms(fn, sets)
-    bms, by = bound(*work, flops_per_s)
+    bms, by = bound(*work)
     print(f"[{card}] {name}: events {ev:.4f} ms, graph {gr:.4f} ms, bound "
           f"{bms:.4f} ms ({by}), SM clock {nvidia_smi('clocks.sm')}")
 
@@ -405,11 +410,8 @@ def main():
     sets = [k1_inputs(b, t, h, d, seed=i) for i in range(n)]
     report(f"K1 flash_fwd_tc B={b} T={t} H={h} D={d}", fa.flash_attention,
            sets, k1_work(b, t, h, d))
-  b, t, h, d = 32, 226, 12, 64  # FlexiViT-B at seqhw 15, f32
-  sets = [k1_inputs(b, t, h, d, seed=i, dtype=torch.float32)
-          for i in range(4)]
-  report(f"K1 flash_fwd B={b} T={t} H={h} D={d} f32", fa.flash_attention,
-         sets, k1_work(b, t, h, d, itemsize=4), F32_FLOPS)
+  for kernel, seqhw in (("K1f", 15), ("K1f", 24), ("K3", 40), ("K3", 30)):
+    time_fwd(fa, card, kernel, seqhw)
   for b, g, s, h in [(1, 8, 352, 256), (8, 8, 352, 256), (64, 8, 352, 256),
                      (132, 8, 352, 256), (8, 8, 64, 256), (8, 8, 1024, 256),
                      (8, 1, 352, 256), (8, 8, 352, 64)]:

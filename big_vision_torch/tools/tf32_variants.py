@@ -24,12 +24,12 @@ works in each), the sources as they are first and last:
     16-row strip, each taking half of every key tile's keys) in place of
     64 (one);
   - the forward loading the next key tile into registers while the
-    current one computes, in place of each in turn;
+    current one computes (up to D = 64), in place of each in turn;
   - the forward holding each warp's split q fragments in registers over
     the key tiles, in place of re-reading and re-splitting them per tile;
-  - the forward summing each key tile's p . v from zero in registers of
-    its own, added to o * alpha on the CUDA cores, in place of adding it
-    to o in the tensor cores' sums;
+  - the forward adding each key tile's p . v to o in the tensor cores'
+    sums (o rescaled by alpha first), in place of summing it from zero in
+    registers of its own, added to o * alpha on the CUDA cores;
   - one TF32 product in place of three (not f32-accurate: its error is
     printed; a yardstick of what the products cost).
 For each it prints K2's f32 kernel at FlexiViT-B's seqhw 15 and 24, K5 at
@@ -95,9 +95,9 @@ VARIANTS = {
     "forward q fragments held": [
         (FWD, "static constexpr bool HOLD_Q = false;",
          "static constexpr bool HOLD_Q = DP <= 64;")],
-    "forward p.v per tile": [
-        (FWD, "static constexpr bool PV_PER_TILE = false;",
-         "static constexpr bool PV_PER_TILE = true;")],
+    "forward p.v into o": [
+        (FWD, "static constexpr bool PV_PER_TILE = true;",
+         "static constexpr bool PV_PER_TILE = false;")],
     "one TF32 product (timing only)": [(HEADER, """\
   mma_tf32(c, a.lo, b.hi);
   mma_tf32(c, a.hi, b.lo);
@@ -128,8 +128,18 @@ def run_variant(name):
   from big_vision_torch.ops import flash_attention as fa
   from big_vision_torch.tools import kernel_timing as kt
   torch.backends.cuda.matmul.allow_tf32 = False
-  _build.build_all(["flash_bwd", "flash_blocked_bwd_fused", "flash_fwd",
-                    "flash_blocked_fwd", "flash_blocked_bwd"])
+  logs = _build.build_all(["flash_bwd", "flash_blocked_bwd_fused",
+                           "flash_fwd", "flash_blocked_fwd",
+                           "flash_blocked_bwd"])
+  # ptxas's registers and spills of the f32 forward at D = 64 (K3, K1).
+  regs = []
+  for src in ("flash_blocked_fwd", "flash_fwd"):
+    lines = logs[src].splitlines()
+    for i, line in enumerate(lines):
+      if "fwd_kernelIfLi64E" in line and "Compiling entry" in line:
+        regs.append(f"{src}: " + "; ".join(
+            x.split(":")[-1].strip() for x in lines[i + 1:i + 4]
+            if "spill" in x or "registers" in x))
   k2 = {s: kt.flexi_bwd_sets(fa, s, False) for s in (15, 24)}
   k5 = {s: kt.flexi_bwd_sets(fa, s, True) for s in (40, 30)}
   k4 = {s: [(q, k, v, do, lse, fa.blocked_delta(o, do))
@@ -173,7 +183,8 @@ def run_variant(name):
       f"{what} {t:.4f} ms" for what, t in ms.items())
         + f"; device ms by kernel: {parts}; rel err K2 {err2:.3e}, K5 "
         f"{err5:.3e}, K4a + K4b {err4:.3e}, K1 f32 {err1:.3e}, K3 "
-        f"{err3:.3e}", flush=True)
+        f"{err3:.3e}; ptxas, f32 forward at D = 64: {' | '.join(regs)}",
+        flush=True)
 
 
 def main(argv):

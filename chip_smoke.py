@@ -18,11 +18,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      bf16 tensor-core kernels load without 16-byte copies), with the bar
      max|kernel - plain| / max|plain| <= 1e-2 (docs/flash_parity.md) in
      bf16 (bf16 inputs run K1's and K2's bf16 tensor-core kernels); f32
-     inputs run K1's scalar kernel (bar 1e-2) and K2's 3xTF32 one, held to
-     F32_BAR = 1e-4 (its semantics are f32, only the order of sums
-     differs) at FlexiViT-B's seqhw 5, 15 and 24, causal, seg, Tq != Tkv
-     and D = 18, 72, 128, 256; for K2 each of dq, dk and dv is held to the
-     bar; the blocked kernels K3, K4a
+     inputs run K1's and K2's 3xTF32 kernels, held to F32_BAR = 1e-4
+     (their semantics are f32, only the order of sums differs) at
+     FlexiViT-B's seqhw 5, 15 and 24, causal, seg (padding rows: o exact
+     zeros, LSE exactly -1e30), Tq != Tkv and D = 18, 72, 128, 256; for K1
+     o and the row LSE, for K2 each of dq, dk and dv is held to the bar;
+     the blocked kernels K3, K4a
      and K4b (o, LSE, dq, dk, dv; K4a and K4b on K3's o and LSE) at the
      FlexiViT-B shapes (B=32, H=12, D=64, T=901 and 1601) in f32 (bar 1e-4:
      their semantics are f32, only the order of sums differs) and bf16,
@@ -70,10 +71,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      over FLEXI_FIXED_STEPS steps on one batch at seqhw 40; and the kernel
      path against the plain path at seqhw 40 on 8 unseen images (loss,
      encoder output and attention-projection gradients within 2e-2; each
+     K3 launch of the forward (o, and the LSE of a repeat launch) and each
      K4a and K4b launch of the backward, on its own inputs, within 1e-4 of
-     its plain version); each K2 launch (its f32 kernel) of a backward at
-     seqhw 15 on 32 unseen images, on its own inputs, within 1e-4 of its
-     plain version; then the same state under attn=auto: two steps
+     its plain version); each K1 and K2 launch (their f32 kernels) of a
+     forward and backward at seqhw 15 on 32 unseen images, on its own
+     inputs, within 1e-4 of its plain version (K1: o and the LSE of a
+     repeat launch); then the same state under attn=auto: two steps
      each at seqhw 40 and 30 (CUDA events, peak memory) with no kernel
      launched;
   6. distils FlexiViT-B from a ViT-B/8 teacher (f32, batch 32) through
@@ -105,10 +108,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      same inputs, in the kernel's own dtype (forward, or its autograd
      backward for K2, K4a, K4b and K5), which the port never calls; K1's
      and K2's bf16 kernels and their plain versions in turns; K1's
-     tensor-core kernel also at the serving shape; K2's f32 kernel at
-     seqhw 15 and 24 and K4a, K4b and K5 at seqhw 40 and 30, with their
-     bounds at the 3xTF32 rate; and K5 against K4a + K4b on the same
-     inputs.
+     tensor-core kernel also at the serving shape; K1's and K2's f32
+     kernels at seqhw 15 and 24 and K3, K4a, K4b and K5 at seqhw 40 and
+     30, with their bounds at the 3xTF32 rate; and K5 against K4a + K4b
+     on the same inputs.
 The line before the last is {"kernels": [...]}: K1's and K2's bf16
 tensor-core kernels are reported at the ViT training shape (B=256, T=196,
 H=12, D=64; launches per step), K1's and K2's f32 kernels at FlexiViT-B's
@@ -201,8 +204,8 @@ FLOPS_PER_IMG_TRAIN = 3 * 35.2e9  # bench.py:31-32: 3x the forward's FLOPs
 
 # Each kernel's launch counter: an attribute of its wrapper. K1's and K2's
 # wrappers run two kernels each, by dtype: "K1" and "K2" are their bf16
-# tensor-core kernels (`tc_launches`), "K1f" and "K2f" their f32 ones (the
-# rest of `launches`; K1f scalar, K2f on 3xTF32 products).
+# tensor-core kernels (`tc_launches`), "K1f" and "K2f" their f32 ones on
+# 3xTF32 products (the rest of `launches`).
 TC_SPLIT = {"K1": "K1f", "K2": "K2f"}
 COUNTERS = {"K1": "flash_attention_forward",
             "K1f": "flash_attention_forward", "K2": "flash_attention_bwd",
@@ -223,9 +226,9 @@ def reset_launches(fa):
 def launches(fa):
   counts = {k: getattr(fa, wrapper).launches
             for k, wrapper in COUNTERS.items()}
-  for tc, scalar in TC_SPLIT.items():
+  for tc, f32 in TC_SPLIT.items():
     counts[tc] = getattr(fa, COUNTERS[tc]).tc_launches
-    counts[scalar] -= counts[tc]
+    counts[f32] -= counts[tc]
   return counts
 
 
@@ -588,8 +591,8 @@ def serve(model, plain, batch, fa, da):
   depth_img = len(model.img.encoder.blocks)
   depth_llm = len(model.llm.model.layers)
   print(f"serving: {BATCH} requests, {DECODE} greedy tokens; launches "
-        f"K1 {counts['K1']} on the tensor cores (want {depth_img}), scalar "
-        f"K1 {k1['K1f']} (want 0), K6 {counts['K6']} "
+        f"K1 {counts['K1']} in bf16 (want {depth_img}), f32 K1 "
+        f"{k1['K1f']} (want 0), K6 {counts['K6']} "
         f"(want {depth_llm} x {DECODE})")
   assert counts["K1"] == depth_img and k1["K1f"] == 0, k1
   assert counts["K6"] == depth_llm * DECODE, counts

@@ -179,9 +179,9 @@ def _fwd_emulated(q, k, v, mask, scale_first, products=3, tile=64):
   head in torch: per 64-key tile, S from `products` TF32 products (exact
   in f64, summed in f32), scaled first (q * scale, K3) or after (K1);
   masked scores -inf; the running max m (from -1e30) and sum l rescaled by
-  alpha = exp(m_old - m_new); p = exp(s - m_new); o += p . v from
-  `products` TF32 products. Returns (o = o / l, lse = m + log l), with
-  l = 0 taken as 1."""
+  alpha = exp(m_old - m_new); p = exp(s - m_new); o = o * alpha + the
+  tile's p . v from `products` TF32 products. Returns (o = o / l,
+  lse = m + log l), with l = 0 taken as 1."""
   scale = np.float32(q.shape[1] ** -0.5)
   qs = q * scale if scale_first else q
 
