@@ -82,6 +82,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace bvt_tf32 {
 
 constexpr int NT = 128;  // 4 warps
@@ -574,15 +576,20 @@ cudaError_t dispatch_bwd(const BwdArgs& a, cudaStream_t stream) {
   }
 }
 
-// Whether every row of q, k, v and do can be read in 16-byte vectors (f32)
-// or 8-byte vectors (bf16): D % 4 == 0 and aligned base pointers.
+// Whether every row of D elements at these base pointers can be read in
+// 16-byte vectors (f32) or 8-byte vectors (bf16): D % 4 == 0 and aligned
+// base pointers.
+template <typename T>
+inline int vec_ok(int D, std::initializer_list<const void*> bases) {
+  uintptr_t bits = 0;
+  for (const void* p : bases) bits |= reinterpret_cast<uintptr_t>(p);
+  return D % 4 == 0 && bits % (4 * sizeof(T)) == 0;
+}
+
+// The same for every row of q, k, v and do.
 template <typename T>
 inline int vec_ok(const BwdArgs& a) {
-  const uintptr_t align = 4 * sizeof(T);
-  return a.D % 4 == 0 &&
-         ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-           reinterpret_cast<uintptr_t>(a.v) |
-           reinterpret_cast<uintptr_t>(a.dout)) % align) == 0;
+  return vec_ok<T>(a.D, {a.q, a.k, a.v, a.dout});
 }
 
 }  // namespace bvt_tf32

@@ -166,7 +166,8 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const FwdArgs a) {
         load_tile<T, BK, DP>(sK, kb, row, kv0, a.Tkv, a.D, 1.f, vec, tid);
         load_tile<T, BK, DP>(sV, vb, row, kv0, a.Tkv, a.D, 1.f, vec, tid);
       }
-      if (segk && tid < BK) sSegK[tid] = kv0 + tid < a.Tkv ? segk[kv0 + tid] : 0;
+      if (segk && tid < BK)
+        sSegK[tid] = kv0 + tid < a.Tkv ? segk[kv0 + tid] : 0;
       __syncthreads();
       if (Tl::PREFETCH && kv0 + BK < kv_end) {
         fk.fetch(kb, row, kv0 + BK, a.Tkv, a.D, vec, tid);
@@ -182,7 +183,8 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const FwdArgs a) {
       if constexpr (Tl::HOLD_Q) {
         if (kv0 == 0) {
 #pragma unroll
-          for (int kd = 0; kd < KD; ++kd) qf[kd] = lda_rows(sQ, LD, m0, 8 * kd, l);
+          for (int kd = 0; kd < KD; ++kd)
+            qf[kd] = lda_rows(sQ, LD, m0, 8 * kd, l);
         }
 #pragma unroll
         for (int kd = 0; kd < KD; ++kd)
@@ -359,10 +361,7 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
 // By D padded (32, 64, 128 or 256); `vec` set from the pointers and D.
 template <typename T, FwdSem SEM>
 cudaError_t dispatch_fwd(FwdArgs a, cudaStream_t stream) {
-  const uintptr_t align = 4 * sizeof(T);
-  a.vec = a.D % 4 == 0 &&
-          ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-            reinterpret_cast<uintptr_t>(a.v)) % align) == 0;
+  a.vec = vec_ok<T>(a.D, {a.q, a.k, a.v});
   switch (dpad(a.D)) {
     case 32: return launch_fwd<T, 32, SEM>(a, stream);
     case 64: return launch_fwd<T, 64, SEM>(a, stream);
