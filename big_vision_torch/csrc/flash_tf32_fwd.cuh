@@ -45,16 +45,16 @@
 // block takes 52 KB of shared memory and 128 registers a thread: four
 // blocks an SM.
 //
-// Choices measured on the H100 (tools/tf32_variants.py, PERF.md), each a
-// constant of FwdTiles. Each tile's p . v summed apart from o
-// (PV_PER_TILE) ran faster than adding it into o's tensor-core sums (5.37
-// against 5.98 ms at seqhw 40), and its o error stays flat in T (3.3e-06
-// against 1.5e-05 at T = 1601). Slower: query tiles of 32 rows (two
-// warps per strip, each taking half of every key tile's keys, their
-// (o, m, l) combined at the end); loading the next key tile into
-// registers while this one computes (TileRegs, 64 more registers a
-// thread); the warp's split q fragments held in registers over the key
-// tiles (64 more; it spills).
+// Choices measured on "NVIDIA H100 80GB HBM3, 700.00 W" (tools/
+// tf32_variants.py, PERF.md), each a constant of FwdTiles. Each tile's
+// p . v summed apart from o (PV_PER_TILE) ran faster than adding it into
+// o's tensor-core sums (5.36-5.43 against 6.05 ms for K3 at seqhw 40),
+// and its o error stays flat in T (3.3e-06 against 1.5e-05 at T = 1601).
+// Slower: query tiles of 32 rows (two warps per strip, each taking half
+// of every key tile's keys, their (o, m, l) combined at the end); loading
+// the next key tile into registers while this one computes (TileRegs,
+// 255 registers a thread); the warp's split q fragments held in
+// registers over the key tiles (241-255).
 
 #pragma once
 
