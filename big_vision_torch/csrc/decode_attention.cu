@@ -1,299 +1,458 @@
-// Single-token grouped-query decode attention for Hopper (sm_90a): the port
-// of the TPU kernel `_kernel` / `decode_attention` in
+// Single-token grouped-query decode attention for Hopper (sm_90a): kernel
+// K6, the port of the TPU kernel `_kernel` / `decode_attention` in
 // big_vision_tpu/ops/decode_attention.py.
 //
 // What it computes, per (batch b, kv head k), for its G <= 8 query rows:
 // q and the cache rows rounded to bf16 (int8 and bf16 storage are exact),
 // s = q . k in f32, times the per-slot k-scale when the cache is int8, then
-// the optional softcap cap*tanh(s/cap), the [B, S] mask, the softmax sum l
-// taken BEFORE the per-slot v-scale multiplies p, p rounded to bf16, and
-// o = (p . v) / l in q's dtype. There is no 1/sqrt(D): q arrives pre-scaled.
-// A row with no visible slot emits exact zeros.
+// the optional softcap cap*tanh(s/cap), the [B, S] mask (a masked slot gets
+// p = 0 exactly), the softmax sum l taken BEFORE the per-slot v-scale
+// multiplies p, p rounded to bf16, and o = (p . v) / l in q's dtype. There
+// is no 1/sqrt(D): q arrives pre-scaled. A row with no visible slot emits
+// exact zeros.
 //
 // Layout: q [B, K, G, H] (f32 or bf16), cache k, v [B, K, S, H] read in
 // their storage dtype (int8, bf16 or f32), scales [B, K, S] f32 or null,
-// mask [B, S] bool (one byte), out [B, K, G, H] in q's dtype. H is a
-// multiple of 8 up to 256 and rows are 16-byte aligned: lane l owns the 8
-// consecutive elements [8l, 8l + 8) of every row and reads them with one
-// vector load.
+// mask [B, S] bool (one byte), out [B, K, G, H] in q's dtype; any H <= 256.
 //
-// Design. One block per (b, k), 256 threads (8 warps). Each lane keeps its
-// 8 elements of the G query rows in registers; the block walks S in tiles
-// of 64 slots, and warp w owns slots w, w+8, ... of every tile. Per tile:
-// the warp issues the loads of the K rows of its 8 slots at once (with the
-// tile's mask and scales), a warp shuffle reduces each of the G dot
-// products; the warp then issues its V loads, and one warp per query row
-// updates an online softmax (running f32 max m and sum l in shared memory)
-// while they are in flight; then each warp adds p . v into its own partial
-// output in registers. At the end the 8 partial outputs are summed in a
-// fixed order in shared memory. The kernel is bound by the latency of
-// about two memory round trips per tile. The cache is read once, in its
-// storage dtype: a bf16 cache moves 2 bytes per element, int8 one.
+// Bound: the bytes of the cache. At the serving shape (B=8, K=1, S=352,
+// H=256, bf16) that is 2.9 MB, 0.9 us at 3.35 TB/s. The first design, one
+// block per (b, k) walking S in tiles, used 8 of the 132 SMs there and
+// took 60 us: latency, about two memory round trips per tile.
 //
-// Bound: the bytes of K and V. At gemma_2b serving shapes (B=8, K=1, S=352,
-// H=256, bf16) that is 2.9 MB, about 0.9 us at 3.35 TB/s. Known weakness:
-// with one KV head there are only B = 8 blocks for 132 SMs, so a launch is
-// latency-bound far above that; splitting S across blocks is later work.
+// Design: the cache is split over the SMs.
+//   * Grid (splits, B*K) of 4-warp blocks. Split i of (b, k) takes the
+//     slots [i*P, (i+1)*P) in tiles of T <= 64 slots; `plan` in
+//     ops/decode_attention.py picks T and P from B*K and S so that the grid
+//     fills the SMs (16 slots a split at the serving shape).
+//   * Loads: a tile's K rows and V rows are issued at once, as 16-byte
+//     cp.async copies into shared memory (element loads where H or the
+//     pointers do not allow them), with the tile's mask and scales; the V
+//     copies are waited on only before p . v, so one memory round trip
+//     covers the tile.
+//   * Products on the tensor cores (`mma.sync` m16n8k16, bf16 operands, f32
+//     sums; the G query rows fill half of A's 16): scores [G, T] = q . K^T
+//     over H, then o += p . V over T. The cache stays in its storage dtype
+//     in shared memory; its operand pairs are made bf16 as they are read
+//     (int8 and bf16 exactly, f32 rounded), so an int8 cache moves one
+//     byte per element.
+//   * Softmax per split, with a running max over its tiles: p is rounded to
+//     bf16 against the split's max where the plain version uses the row's
+//     (each rounds every p once; K6_BAR holds the difference).
+//   * Each split writes its max m, its sum l (taken before the v-scale) and
+//     its unnormalised o (f32) to scratch. The combine rescales and sums
+//     the splits in split order, with no float atomics (a repeat launch
+//     gives the same bits): w_i = exp(m_i - max m), 0 for a split with no
+//     visible slot (m_i = -inf); o = sum w_i o_i / sum w_i l_i, with 1 for
+//     a zero sum. It is a second small kernel (`combine` 1) or the last
+//     split block of each (b, k) to finish, found by a per-(b, k) counter
+//     that it resets (`combine` 0). A single split writes o itself.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "flash_tc_common.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
 
 namespace {
 
-constexpr int NT = 256;        // threads per block
-constexpr int NW = NT / 32;    // warps per block
-constexpr int TS = 64;         // cache slots per tile
-constexpr int SPW = TS / NW;   // slots per warp per tile
-constexpr int MAXG = 8;        // query rows per kv head
-constexpr int EPL = 8;         // row elements per lane (H <= 32 * EPL)
-constexpr float NEG_INF = -1e30f;
+constexpr int MAXG = 8;         // query rows per kv head (the TPU's _GP)
+constexpr int MAXH = 256;       // head dim
+constexpr int MAXSPLIT = 64;    // splits of one (b, k): the combine's table
+constexpr int ACC = MAXH / 32;  // p . v column tiles of 8 per warp
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;        // [B*K*S] per-slot scales, int8 cache only
+  const float* vs;
+  const uint8_t* mask;    // [B, S]
+  void* o;                // [B*K, G, H] in q's dtype
+  float* part;            // [BK, splits, G, Hp] o, then [BK, splits, G] (m, l)
+  int* counter;           // [BK], zero between launches (combine 0)
+  int BK, K, G, S, H;
+  int tile, per_split, splits;
+  float softcap;
+};
 
-// Eight consecutive elements at p (16-byte aligned for 2- and 4-byte types,
-// 8-byte for int8) as floats.
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load8(const int8_t* p, float* out) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = (float)b[i];
-}
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-// This warp's rows j = warp + NW * i (i < SPW) of a [S, H] plane from slot
-// s0, as floats rounded to bf16 (exact for bf16 and int8 storage). All the
-// loads are issued before any is used; rows past the tile's n read as 0.
+// H padded to the mma depth (16), and to float4s in the scratch.
+__host__ __device__ __forceinline__ int hpad(int h) { return (h + 15) & ~15; }
+__host__ __device__ __forceinline__ int hpart(int h) { return (h + 3) & ~3; }
+// Shared-memory row stride in bytes of a cache tile: the padded row plus
+// 16 bytes, so that the 8 rows of an operand load start in distinct banks.
 template <typename CT>
-__device__ __forceinline__ void load_rows(const CT* plane, int s0, int n,
-                                          int H, int h0, bool active,
-                                          int warp, float (&out)[SPW][EPL]) {
-#pragma unroll
-  for (int i = 0; i < SPW; ++i) {
-    const int j = warp + NW * i;
-    if (j < n && active) {
-      load8(plane + (long long)(s0 + j) * H + h0, out[i]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) out[i][e] = 0.f;
-    }
-  }
-  if (std::is_same<CT, float>::value) {
-#pragma unroll
-    for (int i = 0; i < SPW; ++i)
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) out[i][e] = bf16_round(out[i][e]);
-  }
+__host__ __device__ __forceinline__ int row_bytes(int h) {
+  return hpad(h) * static_cast<int>(sizeof(CT)) + 16;
 }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ int8_t from_f<int8_t>(float x) {
+  return static_cast<int8_t>(x);
+}
 
-template <typename QT, typename CT, bool QUANT>
-__global__ void __launch_bounds__(NT)
-decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
-              const CT* __restrict__ v, const float* __restrict__ k_scale,
-              const float* __restrict__ v_scale,
-              const uint8_t* __restrict__ mask, QT* __restrict__ o, int K,
-              int G, int S, int H, float softcap) {
-  __shared__ float sS[MAXG][TS];  // scores, then bf16 probabilities
-  __shared__ float sO[MAXG][32 * EPL];
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Elements i and i + 1 (i even) of a shared-memory row as a bf16 pair.
+template <typename CT>
+__device__ __forceinline__ uint32_t row_pair(const unsigned char* row, int i);
+template <>
+__device__ __forceinline__ uint32_t row_pair<__nv_bfloat16>(
+    const unsigned char* row, int i) {
+  return ld32(row + 2 * i);
+}
+template <>
+__device__ __forceinline__ uint32_t row_pair<int8_t>(const unsigned char* row,
+                                                     int i) {
+  const char2 c = *reinterpret_cast<const char2*>(row + i);
+  return pack_bf16(static_cast<float>(c.x), static_cast<float>(c.y));
+}
+template <>
+__device__ __forceinline__ uint32_t row_pair<float>(const unsigned char* row,
+                                                    int i) {
+  const float2 f = *reinterpret_cast<const float2*>(row + 4 * i);
+  return pack_bf16(f.x, f.y);
+}
+
+// Element c of two shared-memory rows as a bf16 pair (r0's in the low half).
+template <typename CT>
+__device__ __forceinline__ uint32_t col_pair(const unsigned char* r0,
+                                             const unsigned char* r1, int c) {
+  return pack_bf16(to_f(reinterpret_cast<const CT*>(r0)[c]),
+                   to_f(reinterpret_cast<const CT*>(r1)[c]));
+}
+
+// Issues the copies of the rows [s0, s0 + n) of one [S, H] cache plane into
+// rows [0, n) of a shared tile, zero-filling the rows [n, np) and the
+// columns [H, hpad(H)). VEC: 16-byte cp.async copies (H * sizeof(CT) a
+// multiple of 16, the plane 16-byte aligned); otherwise element loads.
+template <typename CT, bool VEC>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const CT* plane,
+                                          int s0, int n, int np, int H,
+                                          int tid) {
+  const int rb = row_bytes<CT>(H);
+  if (VEC) {
+    constexpr int E = 16 / sizeof(CT);           // elements per copy
+    const int cpr = hpad(H) / E, live = H / E;   // copies per padded row
+    for (int i = tid; i < np * cpr; i += NT) {
+      const int r = i / cpr, c = i % cpr;
+      const bool in = r < n && c < live;
+      cp_async16(dst + r * rb + c * 16,
+                 in ? plane + static_cast<long long>(s0 + r) * H + c * E
+                    : plane,
+                 in ? 16 : 0);
+    }
+  } else {
+    const int hp = hpad(H);
+    for (int i = tid; i < np * hp; i += NT) {
+      const int r = i / hp, c = i % hp;
+      reinterpret_cast<CT*>(dst + r * rb)[c] =
+          (r < n && c < H) ? plane[static_cast<long long>(s0 + r) * H + c]
+                           : from_f<CT>(0.f);
+    }
+  }
+}
+
+// The splits' (m, l) of (b, k) = bk.
+__device__ __forceinline__ float* part_ml(const Args& a, int bk) {
+  return a.part + static_cast<long long>(a.BK) * a.splits * a.G * hpart(a.H) +
+         static_cast<long long>(bk) * a.splits * a.G * 2;
+}
+
+// Writes o for (b, k) = bk from its splits' partial results: the elements
+// [e0, e1) of its [G, Hp / 4] float4s, by `nthr` threads from `tid`.
+template <typename QT>
+__device__ void combine(const Args& a, int bk, int e0, int e1, int tid,
+                        int nthr) {
+  __shared__ float2 sML[MAXSPLIT][MAXG];
+  __shared__ float sW[MAXSPLIT][MAXG];
+  __shared__ float sMax[MAXG], sDen[MAXG];
+  const int G = a.G, H = a.H, hq = hpart(H) / 4, splits = a.splits;
+  const float2* ml = reinterpret_cast<const float2*>(part_ml(a, bk));
+  for (int i = tid; i < splits * G; i += nthr) sML[i / G][i % G] = __ldcg(ml + i);
+  __syncthreads();
+  if (tid < G) {
+    float mx = -INFINITY;
+    for (int i = 0; i < splits; ++i) mx = fmaxf(mx, sML[i][tid].x);
+    sMax[tid] = mx;
+  }
+  __syncthreads();
+  for (int i = tid; i < splits * G; i += nthr) {
+    const float m = sML[i / G][i % G].x;
+    sW[i / G][i % G] = m == -INFINITY ? 0.f : expf(m - sMax[i % G]);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float l = 0.f;
+    for (int i = 0; i < splits; ++i) l = fmaf(sW[i][tid], sML[i][tid].y, l);
+    sDen[tid] = l == 0.f ? 1.f : l;
+  }
+  __syncthreads();
+  const float4* part = reinterpret_cast<const float4*>(a.part) +
+                       static_cast<long long>(bk) * splits * G * hq;
+  QT* out = static_cast<QT*>(a.o) + static_cast<long long>(bk) * G * H;
+  for (int e = e0 + tid; e < e1; e += nthr) {
+    const int g = e / hq, h = (e % hq) * 4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    // Batches of 16 splits: their loads are in flight together.
+    for (int i0 = 0; i0 < splits; i0 += 16) {
+      float4 x[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (i0 + u < splits)
+          x[u] = __ldcg(part + static_cast<long long>(i0 + u) * G * hq + e);
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        if (i0 + u < splits) {
+          const float w = sW[i0 + u][g];
+          o.x = fmaf(w, x[u].x, o.x);
+          o.y = fmaf(w, x[u].y, o.y);
+          o.z = fmaf(w, x[u].z, o.z);
+          o.w = fmaf(w, x[u].w, o.w);
+        }
+      }
+    }
+    const float den = sDen[g], r[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (h + c < H) out[g * H + h + c] = from_f<QT>(r[c] / den);
+  }
+}
+
+template <typename QT, typename CT, bool QUANT, bool VEC>
+__global__ void __launch_bounds__(NT) decode_split(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float sS[MAXG][BT];  // the tile's scores
+  __shared__ __align__(16) __nv_bfloat16 sP[MAXG][BT + 8];  // bf16 p (x v-scale)
+  __shared__ float sKs[BT], sVs[BT];
+  __shared__ bool sVis[BT];
   __shared__ float sM[MAXG], sL[MAXG], sAlpha[MAXG];
-  __shared__ float sKs[TS], sVs[TS];  // per-slot scales of the tile
-  __shared__ bool sVis[TS];           // the tile's mask
+  __shared__ bool sLast;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int bk = blockIdx.x;  // b * K + kv_head
-  const int b = bk / K;
-  const long long plane = (long long)bk * S * H;
-  const uint8_t* mrow = mask + (long long)b * S;
-  const int h0 = lane * EPL;
-  const bool active = h0 < H;  // lanes past H hold zeros
+  const int gq = lane / 4, t2 = 2 * (lane % 4);  // mma fragment row, columns
+  const int split = blockIdx.x, bk = blockIdx.y, b = bk / a.K;
+  const int G = a.G, S = a.S, H = a.H, hp = hpad(H), rb = row_bytes<CT>(H);
+  const int tp = (a.tile + 15) & ~15, qs = hp + 8;
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + tp * rb;
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(sV + tp * rb);
+  const long long plane = static_cast<long long>(bk) * S * H;
+  const CT* kp = static_cast<const CT*>(a.k) + plane;
+  const CT* vp = static_cast<const CT*>(a.v) + plane;
+  const QT* qp = static_cast<const QT*>(a.q) + static_cast<long long>(bk) * G * H;
+  const uint8_t* mrow = a.mask + static_cast<long long>(b) * S;
+  const int s_begin = split * a.per_split;
+  const int s_end = min(S, s_begin + a.per_split);
 
-  // This lane's 8 elements of every query row, rounded to bf16 once.
-  float qr[MAXG][EPL], acc[MAXG][EPL];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < G && active) {
-      load8(q + ((long long)bk * G + g) * H + h0, qr[g]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[g][e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      qr[g][e] = bf16_round(qr[g][e]);
-      acc[g][e] = 0.f;
-    }
+  // q rounded to bf16 [MAXG, hp]; rows past G and columns past H are zero.
+  for (int i = tid; i < MAXG * hp; i += NT) {
+    const int g = i / hp, h = i % hp;
+    sQ[g * qs + h] = __float2bfloat16(g < G && h < H ? to_f(qp[g * H + h]) : 0.f);
   }
   if (tid < MAXG) {
-    sM[tid] = NEG_INF;
+    sM[tid] = -INFINITY;
     sL[tid] = 0.f;
   }
+  // o sums of query row gq, columns nt * 8 + t2 (+1), nt = warp + 4 i.
+  float acc[ACC][4];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  // Per tile: K loads and the tile's mask and scales in flight together;
-  // the V loads are issued before the softmax so that it hides them.
-  for (int s0 = 0; s0 < S; s0 += TS) {
-    const int n = min(TS, S - s0);
-    __syncthreads();  // the previous tile's readers are done with sS, sVis
-    float kv[SPW][EPL];
-    load_rows(k + plane, s0, n, H, h0, active, warp, kv);
-    if (tid < TS) {
-      const bool vis = tid < n && mrow[s0 + tid] != 0;
-      const long long at = (long long)bk * S + s0 + tid;
-      sVis[tid] = vis;
-      sKs[tid] = (QUANT && tid < n) ? k_scale[at] : 1.f;
-      sVs[tid] = (QUANT && tid < n) ? v_scale[at] : 1.f;
+  for (int t0 = s_begin; t0 < s_end; t0 += a.tile) {
+    const int n = min(a.tile, s_end - t0), np = (n + 15) & ~15;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<CT, VEC>(sK, kp, t0, n, np, H, tid);
+    cp_async_commit();
+    load_rows<CT, VEC>(sV, vp, t0, n, np, H, tid);
+    cp_async_commit();
+    if (tid < np) {
+      const bool in = tid < n;
+      sVis[tid] = in && mrow[t0 + tid] != 0;
+      if (QUANT) {
+        const long long at = static_cast<long long>(bk) * S + t0 + tid;
+        sKs[tid] = in ? a.ks[at] : 0.f;
+        sVs[tid] = in ? a.vs[at] : 0.f;
+      }
+    }
+    cp_async_wait<1>();  // K has landed; V may still be in flight
+    __syncthreads();
+
+    // Scores: warp w takes the 8-slot column tiles w, w + 4 of the tile.
+    for (int nt = warp; nt < np / 8; nt += 4) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      const unsigned char* krow = sK + (nt * 8 + gq) * rb;
+      const __nv_bfloat16* qrow = sQ + gq * qs;
+      for (int k0 = 0; k0 < hp; k0 += 16) {
+        const uint32_t fa[4] = {ld32(qrow + k0 + t2), 0u,
+                                ld32(qrow + k0 + 8 + t2), 0u};
+        mma(c, fa, row_pair<CT>(krow, k0 + t2), row_pair<CT>(krow, k0 + 8 + t2));
+      }
+      if (gq < G) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = nt * 8 + t2 + e;
+          float y = c[e];
+          if (QUANT) y *= sKs[j];
+          if (a.softcap > 0.f) y = a.softcap * tanhf(y / a.softcap);
+          sS[gq][j] = sVis[j] ? y : -INFINITY;
+        }
+      }
     }
     __syncthreads();
 
-    // Scores of this warp's slots j = warp + NW * i. The G dot products of
-    // a slot are reduced across lanes together, so their shuffles overlap.
+    // Online softmax over the split's tiles: warp w owns rows w and w + 4,
+    // lane j the slots j and j + 32.
+    for (int g = warp; g < G; g += 4) {
+      float x[2], p[2], mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < SPW; ++i) {
-      const int j = warp + NW * i;
-      float x[MAXG];
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        x[g] = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) x[g] = fmaf(qr[g][e], kv[i][e], x[g]);
+      for (int e = 0; e < 2; ++e) {
+        const int j = lane + 32 * e;
+        x[e] = j < n ? sS[g][j] : -INFINITY;
+        mx = fmaxf(mx, x[e]);
       }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-          x[g] += __shfl_xor_sync(0xffffffffu, x[g], off);
-      if (lane < G) {  // lane g writes query row g's score
-        float y = x[0];
-#pragma unroll
-        for (int g = 1; g < MAXG; ++g) y = lane == g ? x[g] : y;
-        y *= sKs[j];
-        if (softcap > 0.f) y = softcap * tanhf(y / softcap);
-        // -inf marks a masked slot: exp(-inf - m) is exactly 0 below.
-        sS[lane][j] = sVis[j] ? y : -INFINITY;
-      }
-    }
-    float vv[SPW][EPL];
-    load_rows(v + plane, s0, n, H, h0, active, warp, vv);
-    __syncthreads();
-
-    // Online softmax: warp g owns query row g, two slots per lane.
-    if (warp < G) {
-      const int g = warp;
-      const float a = sS[g][lane], c = sS[g][lane + 32];
-      float mx = fmaxf(a, c);
 #pragma unroll
       for (int off = 16; off > 0; off /= 2)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[g];
-      const float m_new = fmaxf(m_old, mx);  // finite: m starts at NEG_INF
-      const float pa = __expf(a - m_new), pc = __expf(c - m_new);
-      float sum = pa + pc;
+      const float m_old = sM[g], m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = lane + 32 * e;
+        p[e] = (j < n && sVis[j]) ? __expf(x[e] - m_new) : 0.f;
+        sum += p[e];
+      }
 #pragma unroll
       for (int off = 16; off > 0; off /= 2)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      // l is summed before the v-scale; p goes to p.v as bf16.
-      sS[g][lane] = bf16_round(pa * sVs[lane]);
-      sS[g][lane + 32] = bf16_round(pc * sVs[lane + 32]);
+      // l is summed before the v-scale; p goes to p . v as bf16.
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = lane + 32 * e;
+        if (j < np) sP[g][j] = __float2bfloat16(QUANT ? p[e] * sVs[j] : p[e]);
+      }
       if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);
+        const float alpha = m_old == -INFINITY ? 0.f : __expf(m_old - m_new);
         sAlpha[g] = alpha;
         sL[g] = sL[g] * alpha + sum;
         sM[g] = m_new;
       }
     }
+    cp_async_wait<0>();
     __syncthreads();
 
-    // This warp's partial output: acc = acc * alpha + p . v over its slots.
+    // o = o * alpha + p . V: warp w takes the 8-column tiles w + 4 i of hp.
+    const float alpha = gq < G ? sAlpha[gq] : 0.f;
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) continue;
-      const float al = sAlpha[g];
+    for (int i = 0; i < ACC; ++i) {
+      acc[i][0] *= alpha;
+      acc[i][1] *= alpha;
+    }
+    for (int k0 = 0; k0 < np; k0 += 16) {
+      const __nv_bfloat16* prow = &sP[gq][0];
+      const uint32_t fa[4] = {gq < G ? ld32(prow + k0 + t2) : 0u, 0u,
+                              gq < G ? ld32(prow + k0 + 8 + t2) : 0u, 0u};
+      const unsigned char* r0 = sV + (k0 + t2) * rb;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] *= al;
-#pragma unroll
-      for (int i = 0; i < SPW; ++i) {
-        const float p = sS[g][warp + NW * i];  // 0 for slots past n
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vv[i][e], acc[g][e]);
+      for (int i = 0; i < ACC; ++i) {
+        const int col = (warp + 4 * i) * 8 + gq;
+        if (col < hp)
+          mma(acc[i], fa, col_pair<CT>(r0, r0 + rb, col),
+              col_pair<CT>(r0 + 8 * rb, r0 + 9 * rb, col));
       }
     }
   }
 
-  // Sum the warps' partial outputs in a fixed order.
-  for (int w = 0; w < NW; ++w) {
-    if (warp == w && active) {
+  if (a.splits == 1) {  // the whole row: o / l
+    if (gq < G) {
+      const float l = sL[gq] == 0.f ? 1.f : sL[gq];
+      QT* out = static_cast<QT*>(a.o) + (static_cast<long long>(bk) * G + gq) * H;
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g >= G) continue;
+      for (int i = 0; i < ACC; ++i)
 #pragma unroll
-        for (int e = 0; e < EPL; ++e)
-          sO[g][h0 + e] = (w == 0 ? 0.f : sO[g][h0 + e]) + acc[g][e];
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int h = (warp + 4 * i) * 8 + t2 + e;
+          if (h < H) out[h] = from_f<QT>(acc[i][e] / l);
+        }
     }
-    __syncthreads();
+    return;
   }
 
-  for (int i = tid; i < G * H; i += NT) {
-    const int g = i / H, h = i % H;
-    const float l = sL[g];
-    o[(long long)bk * G * H + i] = from_f<QT>(sO[g][h] / (l == 0.f ? 1.f : l));
+  const int hq = hpart(H);
+  float* po = a.part + ((static_cast<long long>(bk) * a.splits + split) * G + gq) * hq;
+  if (gq < G) {
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) {
+      const int h = (warp + 4 * i) * 8 + t2;
+      if (h < hq) *reinterpret_cast<float2*>(po + h) = make_float2(acc[i][0], acc[i][1]);
+    }
   }
+  if (tid < G)
+    reinterpret_cast<float2*>(part_ml(a, bk))[split * G + tid] =
+        make_float2(sM[tid], sL[tid]);
+  if (a.counter == nullptr) return;  // the combine kernel follows
+
+  // The last split block of (b, k) to finish combines.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) sLast = atomicAdd(a.counter + bk, 1) == a.splits - 1;
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+  combine<QT>(a, bk, 0, G * hq / 4, tid, NT);
+  if (tid == 0) a.counter[bk] = 0;  // ready for the next launch
+}
+
+template <typename QT>
+__global__ void __launch_bounds__(NT) decode_combine(const Args a) {
+  const int e0 = blockIdx.x * NT;
+  combine<QT>(a, blockIdx.y, e0, min(e0 + NT, a.G * hpart(a.H) / 4),
+              threadIdx.x, NT);
 }
 
 template <typename QT, typename CT>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* ks, const float* vs, const uint8_t* mask,
-                   void* o, int B, int K, int G, int S, int H, float softcap,
-                   cudaStream_t stream) {
-  dim3 grid(B * K);
-  if (ks != nullptr) {
-    decode_kernel<QT, CT, true><<<grid, NT, 0, stream>>>(
-        static_cast<const QT*>(q), static_cast<const CT*>(k),
-        static_cast<const CT*>(v), ks, vs, mask, static_cast<QT*>(o), K, G,
-        S, H, softcap);
-  } else {
-    decode_kernel<QT, CT, false><<<grid, NT, 0, stream>>>(
-        static_cast<const QT*>(q), static_cast<const CT*>(k),
-        static_cast<const CT*>(v), nullptr, nullptr, mask,
-        static_cast<QT*>(o), K, G, S, H, softcap);
+cudaError_t launch(const Args& a, bool vec, int combine_mode,
+                   cudaStream_t st) {
+  constexpr bool QUANT = std::is_same<CT, int8_t>::value;
+  void (*kernel)(Args) = vec ? &decode_split<QT, CT, QUANT, true>
+                             : &decode_split<QT, CT, QUANT, false>;
+  const int smem = 2 * ((a.tile + 15) & ~15) * row_bytes<CT>(a.H) +
+                   MAXG * (hpad(a.H) + 8) * 2;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(a.splits, a.BK), NT, smem, st>>>(a);
+  if (a.splits > 1 && combine_mode == 1) {
+    const int blocks = (a.G * hpart(a.H) / 4 + NT - 1) / NT;
+    decode_combine<QT><<<dim3(blocks, a.BK), NT, 0, st>>>(a);
   }
   return cudaGetLastError();
 }
 
 template <typename QT>
-cudaError_t dispatch_cache(int cache_dtype, const void* q, const void* k,
-                           const void* v, const float* ks, const float* vs,
-                           const uint8_t* mask, void* o, int B, int K, int G,
-                           int S, int H, float softcap, cudaStream_t st) {
+cudaError_t dispatch_cache(int cache_dtype, const Args& a, bool vec16,
+                           int combine_mode, cudaStream_t st) {
+  // vec16: the cache planes are 16-byte aligned; a row of H elements must
+  // be a whole number of 16-byte copies too.
   switch (cache_dtype) {
-    case 0: return launch<QT, float>(q, k, v, ks, vs, mask, o, B, K, G, S, H, softcap, st);
-    case 1: return launch<QT, __nv_bfloat16>(q, k, v, ks, vs, mask, o, B, K, G, S, H, softcap, st);
-    case 2: return launch<QT, int8_t>(q, k, v, ks, vs, mask, o, B, K, G, S, H, softcap, st);
+    case 0: return launch<QT, float>(a, vec16 && a.H % 4 == 0, combine_mode, st);
+    case 1: return launch<QT, __nv_bfloat16>(a, vec16 && a.H % 8 == 0, combine_mode, st);
+    case 2: return launch<QT, int8_t>(a, vec16 && a.H % 16 == 0, combine_mode, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -302,26 +461,54 @@ cudaError_t dispatch_cache(int cache_dtype, const void* q, const void* k,
 
 // q_dtype: 0 = float32, 1 = bfloat16. cache_dtype: 0 = float32,
 // 1 = bfloat16, 2 = int8 (then k_scale and v_scale are required).
-// softcap <= 0 means none. Returns cudaGetLastError() after the launch.
-extern "C" int bvt_decode_attention(const void* q, const void* k,
-                                    const void* v, const void* k_scale,
-                                    const void* v_scale, const void* mask,
-                                    void* o, int q_dtype, int cache_dtype,
-                                    int B, int K, int G, int S, int H,
-                                    float softcap, void* stream) {
-  if (G < 1 || G > MAXG || H < 8 || H > 32 * EPL || H % 8 || S < 1 || B < 1 ||
-      K < 1)
-    return (int)cudaErrorInvalidValue;
+// softcap <= 0 means none. The grid: splits of per_split slots (a multiple
+// of tile, tile <= 64), splits = ceil(S / per_split) <= 64. scratch: f32,
+// B*K*splits*G*(round_up(H, 4) + 2) of them when splits > 1. combine: 1 =
+// a second kernel, 0 = the last split block, with counter: B*K ints that
+// are zero (and are left zero). Returns cudaGetLastError() after the
+// launches.
+extern "C" int bvt_decode_attention(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* mask, void* o, void* scratch,
+    void* counter, int q_dtype, int cache_dtype, int B, int K, int G, int S,
+    int H, float softcap, int tile, int per_split, int splits,
+    int combine_mode, void* stream) {
+  if (G < 1 || G > MAXG || H < 1 || H > MAXH || S < 1 || B < 1 || K < 1 ||
+      tile < 1 || tile > BT || per_split < tile || per_split % tile ||
+      splits != (S + per_split - 1) / per_split || splits > MAXSPLIT ||
+      (combine_mode != 0 && combine_mode != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if ((cache_dtype == 2) != (k_scale != nullptr) ||
       (k_scale == nullptr) != (v_scale == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > 1 && (scratch == nullptr ||
+                     (combine_mode == 0 && counter == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.ks = static_cast<const float*>(k_scale);
+  a.vs = static_cast<const float*>(v_scale);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.o = o;
+  a.part = static_cast<float*>(scratch);
+  a.counter = combine_mode == 0 ? static_cast<int*>(counter) : nullptr;
+  a.BK = B * K;
+  a.K = K;
+  a.G = G;
+  a.S = S;
+  a.H = H;
+  a.tile = tile;
+  a.per_split = per_split;
+  a.splits = splits;
+  a.softcap = softcap;
+  const bool vec16 = (reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
-    case 0: return (int)dispatch_cache<float>(cache_dtype, q, k, v, ks, vs, m, o, B, K, G, S, H, softcap, st);
-    case 1: return (int)dispatch_cache<__nv_bfloat16>(cache_dtype, q, k, v, ks, vs, m, o, B, K, G, S, H, softcap, st);
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return static_cast<int>(dispatch_cache<float>(cache_dtype, a, vec16, combine_mode, st));
+    case 1: return static_cast<int>(dispatch_cache<__nv_bfloat16>(cache_dtype, a, vec16, combine_mode, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

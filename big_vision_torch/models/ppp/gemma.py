@@ -14,8 +14,15 @@ place (one slot per step), which saves a copy of the whole cache per token.
 where the JAX package's gate `decode_attention.fits` holds; elsewhere the
 step takes the einsum path, as in the JAX model.
 
-Left for later: int8 weights (`quant=True`), the int8 KV cache, the fused
-flash path for training (`attn_impl="flash"`), dropout.
+`cache_dtype="int8"` stores k and v as int8 with f32 per-(batch, head,
+slot) scales (`_quant_kv`, absmax over head_dim). The scales commute
+through both attention products, so they are folded into the logits and
+the probabilities, never into the [B, K, S, H] operands: K6 takes them as
+they are; the einsum path multiplies the f32 logits by the k-scale before
+the softcap and the probabilities by the v-scale after the softmax.
+
+Left for later: int8 weights (`quant=True`), the fused flash path for
+training (`attn_impl="flash"`), dropout.
 """
 
 from __future__ import annotations
@@ -66,35 +73,56 @@ def apply_rope(x, *, positions, max_wavelength=10_000):
   return torch.cat([lo * cos - hi * sin, hi * cos + lo * sin], dim=-1)
 
 
+def _quant_kv(x):
+  """Symmetric int8 per (batch, head, slot) over head_dim: (int8 values,
+  f32 scales [..., 1]); the JAX package's `_quant_kv`, bit for bit."""
+  x = x.float()
+  scale = x.abs().amax(-1, keepdim=True).clamp_min(1e-30) / 127.0
+  return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
+
+
 @dataclasses.dataclass
 class KVCache:
   """Per-layer key/value storage [B, K, S, H] plus the shared write slot.
 
   Empty until a prefill fills it; every later step writes one slot. The
   write index is shared across the batch (prompts are right-aligned by the
-  caller), as in the JAX model.
+  caller), as in the JAX model. An int8 cache also holds f32 per-slot
+  scales [B, K, S, 1] for k and for v; unwritten slots keep scale 0.
   """
   k: list = dataclasses.field(default_factory=list)
   v: list = dataclasses.field(default_factory=list)
+  k_scale: list = dataclasses.field(default_factory=list)
+  v_scale: list = dataclasses.field(default_factory=list)
   idx: int = 0
 
   def update(self, layer, k, v, cache_size, store_dtype):
-    """Writes k, v [B, T, K, H]; returns the layer's storage tensors."""
+    """Writes k, v [B, T, K, H], quantized if `store_dtype` is int8.
+
+    Returns the layer's storage tensors and, for an int8 cache, its
+    (k_scale, v_scale), else None.
+    """
     k, v = k.transpose(1, 2), v.transpose(1, 2)  # -> [B, K, T, H]
+    quant = store_dtype == torch.int8
+    if quant:
+      (k, k_s), (v, v_s) = _quant_kv(k), _quant_kv(v)
+      writes = [(self.k, k), (self.v, v), (self.k_scale, k_s),
+                (self.v_scale, v_s)]
+    else:
+      writes = [(self.k, k.to(store_dtype)), (self.v, v.to(store_dtype))]
     t = k.shape[2]
     if layer == len(self.k):  # prefill: allocate and fill slots [0, t)
-      b, kh, _, h = k.shape
-      shape = (b, kh, cache_size, h)
-      self.k.append(torch.zeros(shape, dtype=store_dtype, device=k.device))
-      self.v.append(torch.zeros(shape, dtype=store_dtype, device=k.device))
-      self.k[layer][:, :, :t] = k
-      self.v[layer][:, :, :t] = v
+      for store, x in writes:
+        b, kh, _, h = x.shape
+        store.append(x.new_zeros((b, kh, cache_size, h)))
+        store[layer][:, :, :t] = x
     else:
       if t != 1:
         raise ValueError(f"a filled cache extends one token at a time: {t}")
-      self.k[layer][:, :, self.idx] = k[:, :, 0]
-      self.v[layer][:, :, self.idx] = v[:, :, 0]
-    return self.k[layer], self.v[layer]
+      for store, x in writes:
+        store[layer][:, :, self.idx] = x[:, :, 0]
+    scales = (self.k_scale[layer], self.v_scale[layer]) if quant else None
+    return self.k[layer], self.v[layer], scales
 
 
 class RMSNorm(nn.Module):
@@ -148,8 +176,17 @@ class Attention(nn.Module):
     self.attn_logits_softcap = attn_logits_softcap
     self.decode_impl = decode_impl
     if cache_dtype == "int8":
-      raise NotImplementedError("the int8 KV cache is not ported yet")
-    self.cache_dtype = common.resolve_dtype(cache_dtype)
+      self.cache_dtype = torch.int8  # the quantized (scaled) layout
+    else:
+      self.cache_dtype = common.resolve_dtype(cache_dtype)
+      if self.cache_dtype is not None and not (
+          self.cache_dtype.is_floating_point):
+        # An integer dtype would store the values cast to it, with no
+        # scales: garbage attention. Only the string "int8" selects the
+        # quantized cache, as in the JAX model.
+        raise ValueError(
+            f"Integer cache_dtype {cache_dtype!r} is not a storage format; "
+            "pass cache_dtype='int8' to get the quantized KV cache.")
     q_scales = {"rsqrt_head_dim": head_dim,
                 "rsqrt_emb_per_head": features // num_heads}
     if query_pre_attn_norm not in q_scales:
@@ -176,28 +213,39 @@ class Attention(nn.Module):
     q = apply_rope(q, positions=positions) * self.q_scale
     k = apply_rope(k, positions=positions)
     decode = cache is not None
+    scales = None
     if decode:
       store = self.cache_dtype or k.dtype
-      k_store, v_store = cache.update(layer, k, v, attn_mask.shape[-1],
-                                      store)
+      k_store, v_store, scales = cache.update(layer, k, v,
+                                              attn_mask.shape[-1], store)
       # The JAX model gates its kernel on the itemsize of the cache it
-      # hands over: a float cache cast to the compute dtype (k's here).
+      # hands over: the raw int8 store, or a float cache cast to the
+      # compute dtype (k's here).
+      itemsize = 1 if scales else k.element_size()
       if (self.decode_impl == "flash" and t == 1
-          and da.fits(k_store.shape[2], h, k.element_size())):
+          and da.fits(k_store.shape[2], h, itemsize)):
         # One-token step: kernel K6 reads the cache in its storage dtype.
         # Past the `fits` gate, the einsum path, as in the JAX model.
         grouped = q[:, 0].reshape(b, kh, n // kh, h).contiguous()
+        ks, vs = scales or (None, None)
         mixed = da.decode_attention(
             grouped, k_store, v_store, attn_mask[:, 0, 0, :].contiguous(),
+            k_scale=ks, v_scale=vs,
             logits_softcap=self.attn_logits_softcap or 0.0)
         return common.linear(mixed.reshape(b, 1, n * h), self.o)
-      # The einsum path computes on the cache cast to the compute dtype.
+      # The einsum path computes on the cache cast to the compute dtype
+      # (an int8 cache as its raw values; the scales fold in below).
       k, v = k_store.to(k.dtype), v_store.to(v.dtype)
 
     kv = "bksh" if decode else "bskh"
     grouped = q.reshape(b, t, kh, n // kh, h)
     logits = torch.einsum(f"btkgh,{kv}->bkgts", grouped,
                           k.to(grouped.dtype)).float()
+    # Per-slot int8 scales [B, K, S, 1] -> [B, K, 1, 1, S] on the logits
+    # and the probabilities.
+    fold = lambda x: x[..., 0][:, :, None, None, :]
+    if scales:
+      logits = logits * fold(scales[0])
     if cap := self.attn_logits_softcap:
       logits = cap * torch.tanh(logits / cap)
     s = k.shape[kv.index("s")]
@@ -207,7 +255,10 @@ class Attention(nn.Module):
     big_neg = -2.3819763e38  # matches the released gemma code
     masked = torch.where(attn_mask[:, :, None], logits,
                          torch.full_like(logits, big_neg))
-    probs = torch.softmax(masked, dim=-1).to(k.dtype)
+    probs = torch.softmax(masked, dim=-1)
+    if scales:
+      probs = probs * fold(scales[1])
+    probs = probs.to(k.dtype)
     mixed = torch.einsum(f"bkgts,{kv}->btkgh", probs, v)
     return common.linear(mixed.reshape(b, t, n * h), self.o)
 

@@ -7,7 +7,8 @@ Replaces the TPU kernel `_kernel` / `decode_attention`
 Bound on the card: the bytes of the K and V cache. At gemma_2b serving
 shapes (B=8, K=1, S=352, H=256, bf16) that is 2.9 MB, about 0.9 us at
 3.35 TB/s. The kernel reads the cache in its storage dtype (int8, bf16 or
-f32) and dequantizes in registers.
+f32) and splits it over the SMs (`plan`); a second small kernel combines
+the splits.
 
 The JAX decode path hands the Pallas kernel f32 copies of a bf16 cache
 (`_update_kv_cache` returns the cache cast up to the compute dtype). The
@@ -52,15 +53,69 @@ def fits(s, h, store_bytes):
   return blocks + copies + mats <= 12 * 1024 * 1024
 
 
+# The kernel's grid (csrc/decode_attention.cu): a cache plane is cut into
+# splits of whole tiles, each tile at most TILE slots in shared memory, and
+# at most MAX_SPLITS splits, the combine's table.
+TILE, MAX_SPLITS = 64, 64
+# The combine of the splits: 1, a second kernel; 0, the last split block of
+# each (b, k), found by a counter (kernel_timing times both).
+COMBINE = 1
+
+
+@functools.lru_cache(maxsize=256)
+def plan(bk, s, num_sms):
+  """(slots per tile, slots per split, splits) of K6's grid for `bk` =
+  B * K cache planes of `s` slots on a card of `num_sms` SMs.
+
+  The rule: the tile is the largest of 64, 32 and 16 slots for which one
+  split per tile (ceil(s / tile) * bk blocks) fills the SMs at least once,
+  else 16; a split is one tile, or, past MAX_SPLITS splits, as many slots as
+  keep the splits to MAX_SPLITS, in tiles of up to 64. At the serving shape
+  (bk = 8, s = 352) that is 22 splits of 16 slots; at bk = 64, s = 1120, 18
+  of 64.
+  """
+  for tile in (64, 32, 16):
+    if -(-s // tile) * bk >= num_sms:
+      break
+  per_split = max(tile, -(-s // MAX_SPLITS))
+  if per_split > tile:
+    tile = min(TILE, per_split)
+    per_split = -(-per_split // tile) * tile
+  return tile, per_split, -(-s // per_split)
+
+
+def scratch_floats(bk, g, h, splits):
+  """f32 scratch of one launch: each split's o [G, round_up(H, 4)] and its
+  (m, l) per query row; none for a single split."""
+  return 0 if splits == 1 else bk * splits * g * (-(-h // 4) * 4 + 2)
+
+
 @functools.cache
 def _lib():
   """The kernel's C entry point, built and typed once per process."""
   lib = _build.load("decode_attention")
   fn = lib.bvt_decode_attention
   fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-      ctypes.c_float, ctypes.c_void_p]
+  fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+      ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
   return fn
+
+
+@functools.cache
+def _num_sms(index):
+  return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_counters = {}
+
+
+def _counter(device, n):
+  """`n` int32 zeros on `device` for the last-block combine, which leaves
+  them zero; kept per device and reused by every launch there."""
+  c = _counters.get(device)
+  if c is None or c.numel() < n:
+    c = _counters[device] = torch.zeros(n, dtype=torch.int32, device=device)
+  return c
 
 
 def _check_inputs(q, k, v, mask, k_scale, v_scale):
@@ -118,8 +173,7 @@ def decode_attention(q, k, v, mask, *, k_scale=None, v_scale=None,
 
   Args:
     q: [B, K, G, H] grouped single-token queries, already scaled (no
-      1/sqrt(H) here), f32 or bf16; on the card G <= 8 and H <= 256 is a
-      multiple of 8.
+      1/sqrt(H) here), f32 or bf16; on the card G <= 8 and H <= 256.
     k, v: [B, K, S, H] cache in its storage dtype: int8 (pass the scales),
       bf16 or f32.
     mask: [B, S] bool, True on attendable slots.
@@ -129,40 +183,50 @@ def decode_attention(q, k, v, mask, *, k_scale=None, v_scale=None,
   Returns [B, K, G, H] in q's dtype. On a CUDA tensor this launches the K6
   kernel and counts it in `decode_attention.launches`.
   """
-  if q.device.type == "cpu":
+  dev = q.device
+  if dev.type == "cpu":
     return decode_attention_reference(q, k, v, mask, k_scale=k_scale,
                                       v_scale=v_scale,
                                       logits_softcap=logits_softcap)
-  if q.device.type != "cuda":
-    raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+  if dev.type != "cuda":
+    raise ValueError(f"decode_attention runs on cuda or cpu, not {dev}")
   _check_inputs(q, k, v, mask, k_scale, v_scale)
   b, kh, g, h = q.shape
-  s = k.shape[2]
   if q.dtype not in _Q_DTYPES or k.dtype not in _CACHE_DTYPES:
     raise ValueError(f"unsupported dtypes q={q.dtype} cache={k.dtype}")
-  if g > 8 or h > 256 or h % 8 or v.dtype != k.dtype:
-    raise ValueError(f"kernel takes G <= 8, H <= 256 a multiple of 8, one "
-                     f"cache dtype; got G={g} H={h} {k.dtype}/{v.dtype}")
+  if g > _GP or h > 256 or v.dtype != k.dtype:
+    raise ValueError(f"kernel takes G <= 8, H <= 256, one cache dtype; got "
+                     f"G={g} H={h} {k.dtype}/{v.dtype}")
   if mask.dtype != torch.bool:
     raise ValueError(f"mask must be bool, got {mask.dtype}")
-  tensors = [q, k, v, mask] + ([k_scale, v_scale] if k_scale is not None
-                               else [])
-  for x in tensors:
-    if x.device != q.device or not x.is_contiguous():
-      raise ValueError(f"inputs must be contiguous on {q.device}")
-  if any(x.data_ptr() % 16 for x in (q, k, v)):
-    raise ValueError("q, k and v must be 16-byte aligned (vector loads)")
-  if k_scale is not None and not (k_scale.dtype == v_scale.dtype
-                                  == torch.float32):
+  scales = () if k_scale is None else (k_scale, v_scale)
+  for x in (q, k, v, mask, *scales):
+    if x.device != dev or not x.is_contiguous():
+      raise ValueError(f"inputs must be contiguous on {dev}")
+  if scales and not k_scale.dtype == v_scale.dtype == torch.float32:
     raise ValueError("scales must be float32")
+  return _launch(q, k, v, mask, k_scale, v_scale, logits_softcap,
+                 plan(b * kh, k.shape[2], _num_sms(dev.index)), COMBINE)
+
+
+def _launch(q, k, v, mask, k_scale, v_scale, softcap, grid, combine):
+  """Launches K6 on inputs `decode_attention` has checked, with the grid
+  (slots per tile, slots per split, splits) and the combine `combine`;
+  counts the launch."""
+  b, kh, g, h = q.shape
+  tile, per_split, splits = grid
   out = torch.empty_like(q)
-  fn = _lib()
-  err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           None if k_scale is None else k_scale.data_ptr(),
-           None if v_scale is None else v_scale.data_ptr(),
-           mask.data_ptr(), out.data_ptr(), _Q_DTYPES[q.dtype],
-           _CACHE_DTYPES[k.dtype], b, kh, g, s, h,
-           float(logits_softcap or 0.0), _build.stream_ptr(q.device))
+  n = scratch_floats(b * kh, g, h, splits)
+  scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+  counter = (_counter(q.device, b * kh) if splits > 1 and combine == 0
+             else None)
+  ptr = lambda x: None if x is None else x.data_ptr()
+  err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale),
+               ptr(v_scale), mask.data_ptr(), out.data_ptr(), ptr(scratch),
+               ptr(counter),
+               _Q_DTYPES[q.dtype], _CACHE_DTYPES[k.dtype], b, kh, g,
+               k.shape[2], h, float(softcap or 0.0), tile, per_split, splits,
+               combine, _build.stream_ptr(q.device))
   _build.check(err, "decode_attention")
   decode_attention.launches += 1
   return out

@@ -17,7 +17,8 @@ device time by kernel name (torch.profiler; chip_smoke.py prints it).
 Usage:
   python -m big_vision_torch.tools.bench_decode                # tiny models
   python -m big_vision_torch.tools.bench_decode --variant gemma_2b \
-      --img_variant So400m/14 --res 224 --batch 8 --decode_len 64
+      --img_variant So400m/14 --res 224 --batch 8 --decode_len 64 \
+      [--cache_dtype int8] [--profile]
 """
 
 from __future__ import annotations
@@ -35,21 +36,24 @@ from big_vision_torch.tools import kernel_timing
 
 
 def build_model(variant, img_variant, res, *, cache_dtype="bfloat16",
-                kernels=True, device="cuda", seed=0):
-  """PaliGemma with random bf16 weights from `seed`.
+                kernels=True, device="cuda", seed=0, like=None):
+  """PaliGemma with random bf16 weights from `seed`, or with the weights of
+  the model `like` (shared, not copied).
 
   kernels=True is the serving path: the tower's attention "auto" (K1) and
-  the LLM's decode_impl="flash" (K6). kernels=False builds the plain path
-  (math attention, einsum decode) with no weights of its own: load them,
-  e.g. `plain.load_state_dict(model.state_dict(), assign=True)`.
+  the LLM's decode_impl="flash" (K6). kernels=False is the plain path
+  (math attention, einsum decode).
   """
   model = paligemma.Model(
       img=dict(variant=img_variant, pool_type="none", dtype_mm="bfloat16",
                image_size=res, attn_impl="auto" if kernels else "xla"),
       llm=dict(variant=variant, cache_dtype=cache_dtype,
                decode_impl="flash" if kernels else "xla"),
-      device=device if kernels else "meta", param_dtype=torch.bfloat16)
-  if kernels:
+      device="meta" if like is not None else device,
+      param_dtype=torch.bfloat16)
+  if like is not None:
+    model.load_state_dict(like.state_dict(), assign=True)
+  else:
     common.init_random_(model, seed)
   return model.eval()
 
@@ -122,11 +126,13 @@ def profile(model, batch, decode_len, top=10):
   """Device time by kernel name for the prefill alone and for a decode.
 
   Returns {"prefill": ..., "decode": ...}, each (rows [(name, total_ms,
-  count)], device busy ms, wall ms), both under the profiler.
+  count)] of the `top` kernels and of K6's, device busy ms, wall ms), both
+  under the profiler.
   """
   return kernel_timing.device_profile(
       {"prefill": _prefill_fn(model, batch, decode_len),
-       "decode": _decode_fn(model, batch, decode_len)}, top=top)
+       "decode": _decode_fn(model, batch, decode_len)}, top=top,
+      keep=("decode",))
 
 
 def print_profile(prof, prefix=""):
@@ -149,7 +155,9 @@ def main(argv=None):
   p.add_argument("--decode_len", type=int, default=64)
   p.add_argument("--iters", type=int, default=5)
   p.add_argument("--cache_dtype", default="bfloat16",
-                 choices=["bfloat16", "float32"])
+                 choices=["bfloat16", "float32", "int8"])
+  p.add_argument("--profile", action="store_true",
+                 help="also print the device time by kernel (GPU only)")
   p.add_argument("--device", default="cuda")
   p.add_argument("--seed", type=int, default=0)
   args = p.parse_args(argv)
@@ -169,6 +177,9 @@ def main(argv=None):
   param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
 
   r = measure(model, batch, args.decode_len, args.iters, args.device)
+  if args.profile and on_gpu:
+    print_profile(profile(model, batch, args.decode_len),
+                  prefix=f"[{torch.cuda.get_device_name()}] ")
   step_s = r["step_s"]
   tok_rate = args.batch / step_s if step_s > 0 else None
   device = (torch.cuda.get_device_name(torch.device(args.device))

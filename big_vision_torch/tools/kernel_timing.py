@@ -28,7 +28,12 @@ K1's f32 kernel at seqhw 15 and 24 and K3 (csrc/flash_blocked_fwd.cu) at
 seqhw 40 and 30, beside their plain versions, SDPA's forward on the same
 f32 inputs and their bounds (`time_fwd`).
 
-Usage (GPU only):  python -m big_vision_torch.tools.kernel_timing
+With `--k6` it times K6 alone (`time_k6`) at the shapes of `K6_SHAPES`:
+CUDA events, a CUDA graph, the kernels' device time under torch.profiler
+and the wrapper's host time per call, beside the plain version, SDPA and
+the bound; then its design variants there (`k6_variants`).
+
+Usage (GPU only):  python -m big_vision_torch.tools.kernel_timing [--k6]
 
 Its helpers (inputs at given shapes, the timers, the bound) are also used
 by chip_smoke.py.
@@ -38,10 +43,13 @@ from __future__ import annotations
 
 import math
 import subprocess
+import sys
 import time
 
 import torch
 import torch.nn.functional as F
+
+from big_vision_torch.models.ppp.gemma import _quant_kv
 
 # H100 SXM data sheet: memory rate, dense bf16 tensor-core rate, and the f32
 # rate outside the tensor cores (the blocked kernels' f32 semantics).
@@ -95,12 +103,13 @@ def graph_ms(fn, arg_sets, iters=50):
   return time_ms(graph.replay, [()], iters=5) / iters
 
 
-def device_profile(named_fns, top=10):
+def device_profile(named_fns, top=10, keep=()):
   """Device time by kernel name of one call of each fn, under torch.profiler.
 
   `named_fns` is {name: fn}; each fn is called once to warm, then once
   profiled. Returns {name: (rows [(kernel, total ms, count)] of the `top`
-  kernels, device busy ms, wall ms)}.
+  kernels and of any other kernel whose name holds a string of `keep`,
+  device busy ms, wall ms)}.
   """
   from torch.profiler import ProfilerActivity
   from torch.profiler import profile as torch_profile
@@ -121,7 +130,9 @@ def device_profile(named_fns, top=10):
         by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, n + 1)
     rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                   key=lambda r: -r[1])
-    out[name] = (rows[:top], sum(ms for _, ms, _ in rows), wall_ms)
+    kept = rows[:top] + [r for r in rows[top:]
+                         if any(k in r[0] for k in keep)]
+    out[name] = (kept, sum(ms for _, ms, _ in rows), wall_ms)
   return out
 
 
@@ -206,34 +217,166 @@ def blocked_inputs(b, t, h, d, tkv=None, seed=0, dtype=torch.float32):
   return q, k, v, torch.randn(q.shape, generator=g, device="cuda").to(dtype)
 
 
-def quant_kv(x):
-  """Symmetric int8 per (batch, head, slot) over head_dim, with scales."""
-  scale = x.float().abs().amax(-1, keepdim=True).clamp_min(1e-30) / 127.0
-  q = (x.float() / scale).round().clamp(-127, 127).to(torch.int8)
-  return q, scale
-
-
-def k6_inputs(b, kh, g, s, h, cache="bf16", masked_row=False, seed=0):
-  """(q f32, k, v, mask, scale kwargs); ragged live lengths per example."""
+def k6_inputs(b, kh, g, s, h, cache="bf16", masked_row=False, seed=0,
+              spans=None, q_dtype=torch.float32):
+  """(q, k, v, mask, scale kwargs): q pre-scaled in `q_dtype`, the cache
+  stored as `cache` (int8 through the model's `_quant_kv`); example i sees
+  the slots [lo_i, hi_i) of `spans`, by default [0, S - 5 i)."""
   gen = torch.Generator(device="cuda").manual_seed(seed)
   rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-  q = rnd(b, kh, g, h) / math.sqrt(h)  # arrives pre-scaled
+  q = (rnd(b, kh, g, h) / math.sqrt(h)).to(q_dtype)  # arrives pre-scaled
   kf, vf = rnd(b, kh, s, h), rnd(b, kh, s, h)
-  lengths = torch.tensor([s - 5 * i for i in range(b)], device="cuda")
-  mask = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+  spans = spans or [(0, s - 5 * i) for i in range(b)]
+  lo, hi = (torch.tensor(x, device="cuda")[:, None] for x in zip(*spans))
+  slots = torch.arange(s, device="cuda")[None, :]
+  mask = (slots >= lo) & (slots < hi)
   if masked_row:
     mask[-1] = False
   if cache == "int8":
-    (k, ks), (v, vs) = quant_kv(kf), quant_kv(vf)
+    (k, ks), (v, vs) = _quant_kv(kf), _quant_kv(vf)
     return q, k, v, mask, dict(k_scale=ks, v_scale=vs)
   dtype = torch.bfloat16 if cache == "bf16" else torch.float32
   return q, kf.to(dtype), vf.to(dtype), mask, {}
 
 
-def k6_work(b, kh, g, s, h):
-  """(bytes, flops) of one K6 call on a bf16 cache with f32 q."""
-  return b * kh * g * h * 4 * 2 + 2 * b * kh * s * h * 2 + b * s, \
-      4 * b * kh * g * s * h
+CACHE_BYTES = {"int8": 1, "bf16": 2, "f32": 4}
+
+
+def k6_work(b, kh, g, s, h, cache="bf16"):
+  """(bytes, flops) of one K6 call with f32 q: q read and o written once,
+  the cache's k and v (and, for an int8 cache, their f32 per-slot scales)
+  and the [B, S] mask read once."""
+  scales = 2 * b * kh * s * 4 if cache == "int8" else 0
+  return (b * kh * g * h * 4 * 2 + 2 * b * kh * s * h * CACHE_BYTES[cache]
+          + scales + b * s), 4 * b * kh * g * s * h
+
+
+def host_us(fn, arg_sets, calls=1000):
+  """Host us per call: a host clock around `calls` calls with no
+  synchronise inside (what the caller's thread spends; the device may
+  still be running when the clock stops)."""
+  for args in arg_sets:
+    fn(*args)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for i in range(calls):
+    fn(*arg_sets[i % len(arg_sets)])
+  host = (time.perf_counter() - t0) / calls * 1e6
+  torch.cuda.synchronize()
+  return host
+
+
+def k6_sets(b, s, cache, g=8, h=256, seed=300):
+  """K6 input sets at one KV head: enough of them to pass 100 MB (past the
+  L2)."""
+  per_set = k6_work(b, 1, g, s, h, cache)[0]
+  return [k6_inputs(b, 1, g, s, h, cache=cache, seed=seed + i)
+          for i in range(max(2, math.ceil(100e6 / per_set)))]
+
+
+def time_k6(da, card, b, s, cache="bf16", g=8, h=256, seed=300):
+  """Times K6 at one KV head, G query rows of head dim H (gemma_2b's
+  shape), over a cache of B x S slots stored as `cache`, with enough
+  input sets to pass 100 MB (past the L2): CUDA events around 50 calls of
+  the wrapper, the same calls in a CUDA graph, the kernels' device time per
+  call under torch.profiler, the wrapper's host time per call, the plain
+  version, SDPA on the same bf16 inputs (none for int8: no PyTorch call
+  takes an int8 cache) and the bound. Prints one line; returns the
+  numbers."""
+  sets = k6_sets(b, s, cache, g, h, seed)
+  fn = lambda q, k, v, m, sc: da.decode_attention(q, k, v, m, **sc)
+  out = dict(ms=time_ms(fn, sets), graph_ms=graph_ms(fn, sets))
+  rows, _, _ = device_profile(
+      {"K6": lambda: [fn(*x) for x in sets]}, top=4, keep=("decode",))["K6"]
+  out["profiled_ms"] = sum(ms for n, ms, _ in rows if "decode" in n) / len(
+      sets)
+  out["kernels"] = sorted({n[n.index("decode"):].split("<")[0].split("(")[0]
+                           for n, _, _ in rows if "decode" in n})
+  out["host_us"] = host_us(fn, sets)
+  out["plain_ms"] = time_ms(
+      lambda q, k, v, m, sc: da.decode_attention_reference(q, k, v, m, **sc),
+      sets, iters=10)
+  out["library_ms"] = None
+  if cache == "bf16":
+    sdpa_sets = [(q.reshape(b, g, 1, h).to(torch.bfloat16),
+                  k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+                  m[:, None, None, :]) for q, k, v, m, _ in sets]
+    out["library_ms"] = time_ms(
+        lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, scale=1.0), sdpa_sets)
+    del sdpa_sets
+  out["bound_ms"], out["bound_by"] = bound(*k6_work(b, 1, g, s, h, cache))
+  lib = ("none" if out["library_ms"] is None
+         else f"{out['library_ms']:.4f} ms")
+  print(f"[{card}] K6 decode_attention B={b} K=1 G={g} S={s} H={h} {cache} "
+        f"cache ({len(sets)} sets): events {out['ms']:.4f} ms, graph "
+        f"{out['graph_ms']:.4f} ms, profiled {out['profiled_ms']:.4f} ms a "
+        f"call ({', '.join(out['kernels'])}), host {out['host_us']:.2f} us a "
+        f"call (1000 calls, no synchronise); plain {out['plain_ms']:.4f} ms, "
+        f"SDPA {lib}; bound {out['bound_ms']:.4f} ms ({out['bound_by']}); "
+        f"SM clock {nvidia_smi('clocks.sm')}", flush=True)
+  del sets
+  torch.cuda.empty_cache()
+  return out
+
+
+def k6_variants(da, card, b, s, cache="bf16", g=8, h=256):
+  """K6's design choices undone, at one KV head of B x S slots: the other
+  combine (the last split block, or a second kernel) and the other tiles
+  of one split each, timed in turns with the wrapper's own grid and
+  combine (first and last): CUDA events, CUDA graph, host us a call."""
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  grid = da.plan(b, s, sms)
+  names = {"combine 0 (last block)": 0, "combine 1 (second kernel)": 1}
+  variants = {f"as planned {grid}, combine {da.COMBINE}": (grid, da.COMBINE)}
+  variants.update({n: (grid, c) for n, c in names.items() if c != da.COMBINE})
+  for tile in (16, 32, 64):
+    if -(-s // tile) <= da.MAX_SPLITS and tile != grid[0]:
+      variants[f"tiles of {tile}"] = ((tile, tile, -(-s // tile)), da.COMBINE)
+  order = list(variants) + [next(iter(variants))]
+  sets = k6_sets(b, s, cache, g, h)
+  for name in order:
+    grid, combine = variants[name]
+    fn = lambda q, k, v, m, sc: da._launch(
+        q, k, v, m, sc.get("k_scale"), sc.get("v_scale"), 0.0, grid, combine)
+    print(f"[{card}] K6 variant B={b} S={s} {cache}, {name}: events "
+          f"{time_ms(fn, sets):.4f} ms, graph {graph_ms(fn, sets):.4f} ms, "
+          f"host {host_us(fn, sets):.2f} us", flush=True)
+  del sets
+  torch.cuda.empty_cache()
+
+
+def k6_host_parts(da, card, b=8, s=352, calls=2000):
+  """Host us a call of the parts of K6's wrapper at the serving shape (a
+  host clock around `calls` calls each, no synchronise inside)."""
+  from big_vision_torch.ops import _build
+  q, k, v, m, _ = k6_inputs(b, 1, 8, s, 256)
+  grid = da.plan(b, s, torch.cuda.get_device_properties(0).multi_processor_count)
+  n = da.scratch_floats(b, 8, 256, grid[2])
+  parts = {
+      "input checks": lambda: da._check_inputs(q, k, v, m, None, None),
+      "torch.empty_like(q)": lambda: torch.empty_like(q),
+      "torch.empty(scratch)": lambda: torch.empty(n, device=q.device),
+      "_build.stream_ptr": lambda: _build.stream_ptr(q.device),
+      "plan": lambda: da.plan(b, s, 132),
+      "_launch": lambda: da._launch(q, k, v, m, None, None, 0.0, grid,
+                                    da.COMBINE),
+      "decode_attention": lambda: da.decode_attention(q, k, v, m),
+  }
+  out = {}
+  for name, fn in parts.items():
+    out[name] = host_us(lambda: fn(), [()], calls=calls)
+  print(f"[{card}] K6 wrapper host us a call: " + ", ".join(
+      f"{name} {us:.2f}" for name, us in out.items()), flush=True)
+  return out
+
+
+# K6's timed shapes: (B, S, cache). The serving shape (PaliGemma-3B at 224px,
+# batch 8: 256 image + 32 prompt + 64 decoded slots), and a bandwidth-sized
+# one: PaliGemma at 448px (1024 image tokens) + 32 + 64 slots for 64
+# requests, a 73.4 MB bf16 cache, past the L2.
+K6_SHAPES = [(8, 352, "bf16"), (8, 352, "int8"), (64, 1120, "bf16"),
+             (64, 1120, "int8")]
 
 
 def flexi_bwd_sets(fa, seqhw, fused, n=2, seed=110):
@@ -383,13 +526,24 @@ def time_tf32_bwd(fa, card):
     torch.cuda.empty_cache()
 
 
-def main():
+def main(argv):
+  if argv not in ([], ["--k6"]):
+    raise SystemExit(f"usage: kernel_timing [--k6]; got {argv}")
   if not torch.cuda.is_available():
     raise SystemExit("kernel_timing needs a CUDA device")
   from big_vision_torch.ops import _build
   from big_vision_torch.ops import decode_attention as da
   from big_vision_torch.ops import flash_attention as fa
   torch.backends.cuda.matmul.allow_tf32 = False
+  if argv:
+    _build.build_all(["decode_attention"])
+    card = nvidia_smi()
+    for b, s, cache in K6_SHAPES:
+      time_k6(da, card, b, s, cache)
+    k6_host_parts(da, card)
+    for b, s, cache in K6_SHAPES:
+      k6_variants(da, card, b, s, cache)
+    return
   _build.build_all(["flash_fwd", "flash_fwd_tc", "decode_attention",
                     "flash_bwd", "flash_blocked_fwd", "flash_blocked_bwd",
                     "flash_blocked_bwd_fused"])
@@ -421,4 +575,4 @@ def main():
 
 
 if __name__ == "__main__":
-  main()
+  main(sys.argv[1:])

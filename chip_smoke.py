@@ -139,7 +139,6 @@ import sys
 import time
 
 import torch
-import torch.nn.functional as F
 
 from big_vision_torch.tools import kernel_timing
 from big_vision_torch.tools.kernel_timing import blocked_inputs
@@ -153,16 +152,17 @@ from big_vision_torch.tools.kernel_timing import k4a_work
 from big_vision_torch.tools.kernel_timing import k4b_work
 from big_vision_torch.tools.kernel_timing import k5_work
 from big_vision_torch.tools.kernel_timing import k6_inputs
-from big_vision_torch.tools.kernel_timing import k6_work
 from big_vision_torch.tools.kernel_timing import nvidia_smi
 from big_vision_torch.tools.kernel_timing import sdpa_bwd_ms
 from big_vision_torch.tools.kernel_timing import sdpa_fwd_ms
 from big_vision_torch.tools.kernel_timing import TF32X3_FLOPS
 from big_vision_torch.tools.kernel_timing import time_blocked_bwd
+from big_vision_torch.tools.kernel_timing import time_k6
 from big_vision_torch.tools.kernel_timing import time_ms
 
 SEED = 0
 BATCH, RES, PROMPT, DECODE = 8, 224, 32, 64
+INT8_DECODE = 16  # greedy tokens of the int8 KV cache's pass
 IMG_TOKENS = (RES // 14) ** 2  # So400m/14 at 224px: 256
 CACHE = IMG_TOKENS + PROMPT + DECODE  # KV cache slots of the serving run
 K1_BAR, K2_BAR, K6_BAR, E2E_BAR = 1e-2, 1e-2, 1e-2, 2e-2
@@ -543,33 +543,76 @@ def check_fused(fa):
   return path_err
 
 
+def k6_call(da, q, k, v, mask, scales, combine=None, **opts):
+  """K6 through its wrapper, or with the other combine (`combine` 0: the
+  last split block) on the wrapper's grid."""
+  if combine is None:
+    return da.decode_attention(q, k, v, mask, **scales, **opts)
+  b, kh, _, _ = q.shape
+  grid = da.plan(b * kh, k.shape[2], torch.cuda.get_device_properties(
+      q.device).multi_processor_count)
+  return da._launch(q, k, v, mask, scales.get("k_scale"),
+                    scales.get("v_scale"), opts.get("logits_softcap", 0.0),
+                    grid, combine)
+
+
 def check_k6(da):
-  """Returns (max abs, max rel error) at the gemma_2b serving shape."""
+  """Holds K6 against its plain version in every case below, each launch
+  repeated and asserted bit-equal, every example with no visible slot
+  exact zeros; returns (max abs, max rel error) at the serving shape with
+  a bf16 and with an int8 cache."""
+  serving = dict(b=8, kh=1, g=8, s=CACHE, h=256)
+  # Live spans of the serving shape's 22 splits of 16 slots: ending
+  # mid-split, leading and trailing splits wholly masked, one slot, none.
+  spans = [(0, CACHE), (0, CACHE - 9), (3, 300), (40, 291), (96, 200),
+           (17, 18), (CACHE - 16, CACHE), (0, 0)]
   cases = [
-      ("gemma_2b B=8", dict(b=8, kh=1, g=8, s=CACHE, h=256), {}),
+      ("gemma_2b B=8", serving, {}),
+      ("int8", dict(serving, cache="int8"), {}),
+      ("int8 softcap", dict(serving, cache="int8"), dict(logits_softcap=50.0)),
+      ("spans", dict(serving, spans=spans), {}),
+      ("spans int8", dict(serving, cache="int8", spans=spans), {}),
+      ("last-block combine", dict(serving, spans=spans), dict(combine=0)),
+      ("q bf16", dict(serving, q_dtype=torch.bfloat16), {}),
+      ("S=10 < a split", dict(serving, s=10), {}),
+      ("S=1", dict(serving, s=1), {}),
+      ("S=353", dict(serving, s=353), {}),
+      ("H=72", dict(serving, h=72), {}),
+      ("H=72 int8", dict(serving, h=72, cache="int8"), {}),
+      ("H=20 f32", dict(b=4, kh=2, g=4, s=100, h=20, cache="f32"), {}),
       ("K=4 G=2", dict(b=4, kh=4, g=2, s=300, h=128), {}),
       ("K=2 G=3", dict(b=3, kh=2, g=3, s=129, h=64), {}),
       ("K=2 G=3 f32", dict(b=3, kh=2, g=3, s=129, h=64, cache="f32"), {}),
-      ("int8", dict(b=8, kh=1, g=8, s=CACHE, h=256, cache="int8"), {}),
-      ("int8 softcap", dict(b=4, kh=4, g=2, s=200, h=128, cache="int8"),
+      ("int8 softcap K=4", dict(b=4, kh=4, g=2, s=200, h=128, cache="int8"),
        dict(logits_softcap=0.5)),
       ("masked row", dict(b=3, kh=1, g=8, s=96, h=256, masked_row=True), {}),
+      ("2 tiles a split", dict(b=2, kh=1, g=8, s=5000, h=64,
+                               spans=[(100, 4321), (4200, 4262)]), {}),
+      ("B=64 S=1120", dict(b=64, kh=1, g=8, s=1120, h=256), {}),
+      ("B=64 S=1120 int8", dict(b=64, kh=1, g=8, s=1120, h=256,
+                                cache="int8"), {}),
   ]
-  path_err = None
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  errs = {"gemma_2b B=8": None, "int8": None}
   for i, (name, shape, opts) in enumerate(cases):
     q, k, v, mask, scales = k6_inputs(**shape, seed=i)
-    got = da.decode_attention(q, k, v, mask, **scales, **opts)
+    got = k6_call(da, q, k, v, mask, scales, **opts)
+    again = k6_call(da, q, k, v, mask, scales, **opts)
+    opts.pop("combine", None)
     want = da.decode_attention_reference(q, k, v, mask, **scales, **opts)
     torch.cuda.synchronize()
     err = rel_err(got, want)
-    print(f"K6 {name:16s} q {tuple(q.shape)} cache {tuple(k.shape)} "
-          f"{k.dtype} rel err {err:.3e} (bar {K6_BAR})")
+    grid = da.plan(q.shape[0] * q.shape[1], k.shape[2], sms)
+    print(f"K6 {name:18s} q {tuple(q.shape)} {q.dtype} cache "
+          f"{tuple(k.shape)} {k.dtype} grid {grid} rel err {err:.3e} "
+          f"(bar {K6_BAR})")
     assert math.isfinite(err) and err <= K6_BAR, (name, err)
-    if shape.get("masked_row"):
-      assert got[-1].abs().max().item() == 0.0, "masked row not zero"
-    if i == 0:
-      path_err = (got.float() - want.float()).abs().max().item(), err
-  return path_err
+    assert torch.equal(got, again), f"{name}: a repeat launch differs"
+    empty = ~mask.any(dim=1)
+    assert (got[empty] == 0).all(), f"{name}: a row with no visible slot"
+    if name in errs:
+      errs[name] = (got.float() - want.float()).abs().max().item(), err
+  return errs["gemma_2b B=8"], errs["int8"]
 
 
 # ----------------------------------------------------------------------------
@@ -577,10 +620,10 @@ def check_k6(da):
 # ----------------------------------------------------------------------------
 
 
-def serve(model, plain, batch, fa, da):
+def serve(model, plain, batch, fa, da, decode=DECODE):
   """The main path with its launch counts, then kernel vs plain path."""
   from big_vision_torch.models.proj.paligemma import predict_fns
-  fns = predict_fns.make_predict_fns(model, max_decode_len=DECODE,
+  fns = predict_fns.make_predict_fns(model, max_decode_len=decode,
                                      eos_token=-1)
   reset_launches(fa)
   da.decode_attention.launches = 0
@@ -590,13 +633,14 @@ def serve(model, plain, batch, fa, da):
   counts = {"K1": k1["K1"], "K6": da.decode_attention.launches}
   depth_img = len(model.img.encoder.blocks)
   depth_llm = len(model.llm.model.layers)
-  print(f"serving: {BATCH} requests, {DECODE} greedy tokens; launches "
-        f"K1 {counts['K1']} in bf16 (want {depth_img}), f32 K1 "
-        f"{k1['K1f']} (want 0), K6 {counts['K6']} "
-        f"(want {depth_llm} x {DECODE})")
+  cache = model.llm.model.layers[0].attn.cache_dtype
+  print(f"serving, {cache} KV cache: {BATCH} requests, {decode} greedy "
+        f"tokens; launches K1 {counts['K1']} in bf16 (want {depth_img}), "
+        f"f32 K1 {k1['K1f']} (want 0), K6 {counts['K6']} "
+        f"(want {depth_llm} x {decode})")
   assert counts["K1"] == depth_img and k1["K1f"] == 0, k1
-  assert counts["K6"] == depth_llm * DECODE, counts
-  assert tokens.shape == (BATCH, DECODE) and torch.isfinite(logp).all()
+  assert counts["K6"] == depth_llm * decode, counts
+  assert tokens.shape == (BATCH, decode) and torch.isfinite(logp).all()
 
   # Kernel path vs plain path on the same card: prefill logits, then 4 AR
   # steps teacher-forced with the kernel path's tokens.
@@ -625,7 +669,7 @@ def serve(model, plain, batch, fa, da):
           f"(bar {E2E_BAR}), greedy agreement {a:.3f}")
     assert math.isfinite(e) and e <= E2E_BAR, (what, e)
   plain_tokens = predict_fns.make_predict_fns(
-      plain, max_decode_len=DECODE, eos_token=-1)["decode"](batch)
+      plain, max_decode_len=decode, eos_token=-1)["decode"](batch)
   print(f"greedy tokens equal to the plain path's: "
         f"{(plain_tokens == tokens).float().mean().item():.3f}")
   return counts
@@ -1367,27 +1411,36 @@ def matmul_peak_tflops(n=8192, iters=20):
 
 
 def serving_phase(fa, da, gpu):
-  """Phase 3 and the serving times; returns the launch counts."""
+  """Phase 3 and the serving times: the bf16 KV cache, then the int8 one
+  with the same weights; returns the launch counts."""
   from big_vision_torch.tools import bench_decode
   t0 = time.perf_counter()
-  model = bench_decode.build_model("gemma_2b", "So400m/14", RES, seed=SEED)
-  plain = bench_decode.build_model("gemma_2b", "So400m/14", RES,
-                                   kernels=False)
-  plain.load_state_dict(model.state_dict(), assign=True)
+  build = functools.partial(bench_decode.build_model, "gemma_2b",
+                            "So400m/14", RES)
+  model = build(seed=SEED)
+  plain = build(kernels=False, like=model)
   n_params = sum(p.numel() for p in model.parameters())
   batch = bench_decode.make_batch(BATCH, RES, PROMPT, 256_000, "cuda", SEED)
   print(f"PaliGemma-3B: {n_params / 1e9:.3f} B params (bf16), built in "
         f"{time.perf_counter() - t0:.1f} s")
   counts = serve(model, plain, batch, fa, da)
-  r = bench_decode.measure(model, batch, DECODE, 3, "cuda")
-  rp = bench_decode.measure(plain, batch, DECODE, 3, "cuda")
-  for name, x in (("kernel path", r), ("plain path", rp)):
+  int8 = build(cache_dtype="int8", like=model)
+  int8_plain = build(cache_dtype="int8", kernels=False, like=model)
+  counts["K6 int8"] = serve(int8, int8_plain, batch, fa, da,
+                            decode=INT8_DECODE)["K6"]
+  paths = (("kernel path", model), ("plain path", plain),
+           ("kernel path, int8 KV cache", int8),
+           ("plain path, int8 KV cache", int8_plain))
+  for name, m in paths:
+    x = bench_decode.measure(m, batch, DECODE, 3, "cuda")
     print(f"[{gpu}] serving {name} B={BATCH} prompt {PROMPT} decode "
           f"{DECODE}: prefill {x['prefill_s'] * 1e3:.3f} ms, AR step "
           f"{x['step_s'] * 1e3:.3f} ms, {BATCH / x['step_s']:.1f} tok/s, "
           f"e2e {x['t_full'] * 1e3:.3f} ms")
-  bench_decode.print_profile(bench_decode.profile(model, batch, DECODE),
-                             prefix=f"[{gpu}] kernel path, ")
+  for name, m in (("kernel path", model),
+                  ("kernel path, int8 KV cache", int8)):
+    bench_decode.print_profile(bench_decode.profile(m, batch, DECODE),
+                               prefix=f"[{gpu}] {name}, ")
   return counts
 
 
@@ -1616,24 +1669,24 @@ def kernel_entries(fa, da, counts, gpu):
   kernels.append(k2_f32_entry(fa, counts, gpu, 15))
   k2_f32_entry(fa, counts, gpu, 24)  # printed only: T=577, 12 per step
   kernels += blocked_entries(fa, counts, gpu)
-  # K6 at gemma_2b's AR shape over the serving run's cache.
-  b, kh, g, s, hd = BATCH, 1, 8, CACHE, 256
-  sets = [k6_inputs(b, kh, g, s, hd, seed=20 + i)[:4] for i in range(24)]
-  sdpa_sets = [(q.reshape(b, kh * g, 1, hd).to(torch.bfloat16),
-                k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-                m[:, None, None, :]) for q, k, v, m in sets]
-  ms = time_ms(da.decode_attention, sets)
-  plain_ms = time_ms(da.decode_attention_reference, sets, iters=10)
-  lib_ms = time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
-      q, k, v, attn_mask=m, scale=1.0), sdpa_sets)
-  bms, by = bound(*k6_work(b, kh, g, s, hd))
-  kernels.append(dict(
-      name="decode_attention", route="cuda",
-      source="big_vision_torch/csrc/decode_attention.cu",
-      replaces="big_vision_tpu/ops/decode_attention.py:113",
-      launches=counts["K6"], max_abs_err=counts["K6 err"][0],
-      max_rel_err=counts["K6 err"][1], rel_tolerance=K6_BAR, ms=ms,
-      plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms))
+  # K6 at gemma_2b's AR shape over the serving run's cache (bf16 and int8),
+  # and at B=64, S=1120 (printed only).
+  for cache, name in (("bf16", "decode_attention"),
+                      ("int8", "decode_attention (int8 cache)")):
+    r = time_k6(da, gpu, BATCH, CACHE, cache)
+    kernels.append(dict(
+        name=name, route="cuda",
+        source="big_vision_torch/csrc/decode_attention.cu",
+        replaces="big_vision_tpu/ops/decode_attention.py:113",
+        launches=counts["K6" if cache == "bf16" else "K6 int8"],
+        max_abs_err=counts[f"K6 {cache} err"][0],
+        max_rel_err=counts[f"K6 {cache} err"][1], rel_tolerance=K6_BAR,
+        ms=r["ms"], graph_ms=r["graph_ms"], profiled_ms=r["profiled_ms"],
+        host_us=r["host_us"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"]))
+  for cache in ("bf16", "int8"):
+    time_k6(da, gpu, 64, 1120, cache)
   return kernels
 
 
@@ -1677,8 +1730,8 @@ def main(argv):
 
   # 2. Kernels vs plain versions.
   t0 = phase_end("build", t0)
-  counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa),
-            "K6 err": check_k6(da)}
+  counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa)}
+  counts["K6 bf16 err"], counts["K6 int8 err"] = check_k6(da)
   counts.update({f"{k} err": e for k, e in check_blocked(fa).items()})
   counts["K5 err"] = check_fused(fa)
   torch.cuda.empty_cache()
@@ -1703,9 +1756,11 @@ def main(argv):
   kernels = kernel_entries(fa, da, counts, gpu)
   phase_end("kernel times", t0)
   for kern in kernels:
+    lib = kern["library_ms"]
     print(f"[{gpu}] {kern['name']}: {kern['ms']:.4f} ms (bound "
           f"{kern['bound_ms']:.4f} ms by {kern['bound_by']}), plain "
-          f"{kern['plain_ms']:.4f} ms, SDPA {kern['library_ms']:.4f} ms, "
+          f"{kern['plain_ms']:.4f} ms, SDPA "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}, "
           f"{kern['launches']} launches")
 
   print(nvidia_smi())  # the card's name and power limit, as nvidia-smi reads

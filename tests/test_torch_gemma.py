@@ -99,8 +99,10 @@ def test_gemma_forward_and_decode_match_jax(case):
   assert cache.idx == t + steps
 
 
-@pytest.mark.parametrize("decode_impl", ["xla", "flash"])
-def test_gemma_bv_prefill_extend_match_jax(decode_impl):
+@pytest.mark.parametrize("decode_impl,cache_dtype", [
+    ("xla", "bfloat16"), ("flash", "bfloat16"), ("xla", "int8"),
+    ("flash", "int8")], ids=["xla", "flash", "xla-int8", "flash-int8"])
+def test_gemma_bv_prefill_extend_match_jax(decode_impl, cache_dtype):
   b, n, steps = 2, 7, 4
   cache_size = n + steps + 2
   rs = np.random.RandomState(2)
@@ -109,10 +111,11 @@ def test_gemma_bv_prefill_extend_match_jax(decode_impl):
   mask_ar = np.array([[0, 0, 1, 1, 1, 1, 1], [0, 0, 0, 1, 1, 1, 1]])
   attn = np.asarray(j_paligemma.make_attn_mask(jnp.asarray(input_mask),
                                                jnp.asarray(mask_ar)))
-  jmodel = j_gemma_bv.Model(variant="gemma_test", decode_impl=decode_impl)
+  kw = dict(variant="gemma_test", decode_impl=decode_impl,
+            cache_dtype=cache_dtype)
+  jmodel = j_gemma_bv.Model(**kw)
   params = random_params(jmodel, jnp.asarray(x))
-  tmodel = t_gemma_bv.Model(variant="gemma_test", decode_impl=decode_impl,
-                            device="cpu")
+  tmodel = t_gemma_bv.Model(**kw, device="cpu")
   convert.load(tmodel.model, convert.gemma(params))
 
   want, cvars = jmodel.apply(
@@ -132,3 +135,39 @@ def test_gemma_bv_prefill_extend_match_jax(decode_impl):
     with torch.no_grad():
       got, cache = tmodel.extend_cache(torch.from_numpy(xt), cache)
     close(got, want)
+  if cache_dtype == "int8":  # JAX's int8 cache and scales, per layer
+    jcache = cvars["cache"]["layers"]["attn"]  # the scan stacks axis 1
+    kv = cache.kv
+    for name, got in (("k_cache", kv.k), ("v_cache", kv.v),
+                      ("k_scale", kv.k_scale), ("v_scale", kv.v_scale)):
+      for i, layer in enumerate(got):
+        want = np.asarray(jcache[name])[:, i]
+        assert layer.dtype == torch.from_numpy(want).dtype, name
+        np.testing.assert_allclose(layer.float().numpy(), want,
+                                   rtol=1e-6, atol=0)
+
+
+def test_quant_kv_is_bit_equal_to_jax():
+  rs = np.random.RandomState(4)
+  x = (rs.randn(3, 2, 17, 64) * np.exp(rs.randn(3, 2, 17, 1))).astype(
+      np.float32)
+  x[0, 0, 0] = 0.0  # an all-zero row: the 1e-30 floor
+  x[1, 1, 3, 5] = 1e4  # one large element
+  want_q, want_s = j_gemma._quant_kv(jnp.asarray(x))
+  got_q, got_s = t_gemma._quant_kv(torch.from_numpy(x))
+  assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+  np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+  np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+  # Halfway cases round to even, as jnp.round does.
+  half = np.array([[0.5, 1.5, 2.5, -0.5, -2.5, 127.0]], np.float32)
+  np.testing.assert_array_equal(
+      t_gemma._quant_kv(torch.from_numpy(half))[0].numpy(),
+      np.asarray(j_gemma._quant_kv(jnp.asarray(half))[0]))
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.int8, "int32", "uint8"])
+def test_integer_cache_dtypes_are_refused(cache_dtype):
+  """Only the string "int8" selects the quantized cache; an integer dtype
+  would store unscaled values (the JAX model raises too)."""
+  with pytest.raises(ValueError, match="not a storage format"):
+    t_gemma.Attention(2, 1, 32, 16, cache_dtype=cache_dtype, device="cpu")
