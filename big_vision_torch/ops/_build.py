@@ -97,6 +97,9 @@ def check(err: int, what: str) -> None:
     raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+def stream_ptr(device) -> int:
+  """The current CUDA stream of `device` as an address, by the raw lookup:
+  `torch.cuda.current_stream` builds a Stream object on every call, which
+  costs the host several times as much."""
   import torch
-  return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+  return torch._C._cuda_getCurrentRawStream(device.index)

@@ -57,9 +57,6 @@ def fits(s, h, store_bytes):
 # splits of whole tiles, each tile at most TILE slots in shared memory, and
 # at most MAX_SPLITS splits, the combine's table.
 TILE, MAX_SPLITS = 64, 64
-# The combine of the splits: 1, a second kernel; 0, the last split block of
-# each (b, k), found by a counter (kernel_timing times both).
-COMBINE = 1
 
 
 @functools.lru_cache(maxsize=256)
@@ -96,8 +93,8 @@ def _lib():
   lib = _build.load("decode_attention")
   fn = lib.bvt_decode_attention
   fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-      ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+  fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+      ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
   return fn
 
 
@@ -106,16 +103,19 @@ def _num_sms(index):
   return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_counters = {}
+_scratch = {}
 
 
-def _counter(device, n):
-  """`n` int32 zeros on `device` for the last-block combine, which leaves
-  them zero; kept per device and reused by every launch there."""
-  c = _counters.get(device)
-  if c is None or c.numel() < n:
-    c = _counters[device] = torch.zeros(n, dtype=torch.int32, device=device)
-  return c
+def _scratch_for(device, stream, n):
+  """At least `n` f32 of scratch for launches on (`device`, `stream`): one
+  buffer each, grown when too small and reused by every launch there,
+  which the stream orders (an allocation per call costs the host more
+  than the kernels take at the serving shape)."""
+  buf = _scratch.get((device, stream))
+  if buf is None or buf.numel() < n:
+    buf = _scratch[device, stream] = torch.empty(n, dtype=torch.float32,
+                                                 device=device)
+  return buf
 
 
 def _check_inputs(q, k, v, mask, k_scale, v_scale):
@@ -206,27 +206,24 @@ def decode_attention(q, k, v, mask, *, k_scale=None, v_scale=None,
   if scales and not k_scale.dtype == v_scale.dtype == torch.float32:
     raise ValueError("scales must be float32")
   return _launch(q, k, v, mask, k_scale, v_scale, logits_softcap,
-                 plan(b * kh, k.shape[2], _num_sms(dev.index)), COMBINE)
+                 plan(b * kh, k.shape[2], _num_sms(dev.index)))
 
 
-def _launch(q, k, v, mask, k_scale, v_scale, softcap, grid, combine):
+def _launch(q, k, v, mask, k_scale, v_scale, softcap, grid):
   """Launches K6 on inputs `decode_attention` has checked, with the grid
-  (slots per tile, slots per split, splits) and the combine `combine`;
-  counts the launch."""
+  (slots per tile, slots per split, splits); counts the launch."""
   b, kh, g, h = q.shape
   tile, per_split, splits = grid
   out = torch.empty_like(q)
+  stream = _build.stream_ptr(q.device)
   n = scratch_floats(b * kh, g, h, splits)
-  scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
-  counter = (_counter(q.device, b * kh) if splits > 1 and combine == 0
-             else None)
+  scratch = _scratch_for(q.device, stream, n) if n else None
   ptr = lambda x: None if x is None else x.data_ptr()
   err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale),
                ptr(v_scale), mask.data_ptr(), out.data_ptr(), ptr(scratch),
-               ptr(counter),
                _Q_DTYPES[q.dtype], _CACHE_DTYPES[k.dtype], b, kh, g,
                k.shape[2], h, float(softcap or 0.0), tile, per_split, splits,
-               combine, _build.stream_ptr(q.device))
+               stream)
   _build.check(err, "decode_attention")
   decode_attention.launches += 1
   return out

@@ -288,10 +288,13 @@ def time_k6(da, card, b, s, cache="bf16", g=8, h=256, seed=300):
   out = dict(ms=time_ms(fn, sets), graph_ms=graph_ms(fn, sets))
   rows, _, _ = device_profile(
       {"K6": lambda: [fn(*x) for x in sets]}, top=4, keep=("decode",))["K6"]
-  out["profiled_ms"] = sum(ms for n, ms, _ in rows if "decode" in n) / len(
-      sets)
-  out["kernels"] = sorted({n[n.index("decode"):].split("<")[0].split("(")[0]
-                           for n, _, _ in rows if "decode" in n})
+  by_kernel = {}
+  for n, ms, _ in rows:
+    if "decode" in n:
+      name = n[n.index("decode"):].split("<")[0].split("(")[0]
+      by_kernel[name] = by_kernel.get(name, 0.0) + ms / len(sets)
+  out["profiled_ms"] = sum(by_kernel.values())
+  out["kernels"] = [f"{n} {ms:.4f}" for n, ms in sorted(by_kernel.items())]
   out["host_us"] = host_us(fn, sets)
   out["plain_ms"] = time_ms(
       lambda q, k, v, m, sc: da.decode_attention_reference(q, k, v, m, **sc),
@@ -321,24 +324,20 @@ def time_k6(da, card, b, s, cache="bf16", g=8, h=256, seed=300):
 
 
 def k6_variants(da, card, b, s, cache="bf16", g=8, h=256):
-  """K6's design choices undone, at one KV head of B x S slots: the other
-  combine (the last split block, or a second kernel) and the other tiles
-  of one split each, timed in turns with the wrapper's own grid and
-  combine (first and last): CUDA events, CUDA graph, host us a call."""
+  """K6 at one KV head of B x S slots on other grids than `plan`'s: one
+  split per tile of 16, 32 or 64 slots, in turns with the planned grid
+  (first and last): CUDA events, CUDA graph, host us a call."""
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  grid = da.plan(b, s, sms)
-  names = {"combine 0 (last block)": 0, "combine 1 (second kernel)": 1}
-  variants = {f"as planned {grid}, combine {da.COMBINE}": (grid, da.COMBINE)}
-  variants.update({n: (grid, c) for n, c in names.items() if c != da.COMBINE})
+  planned = da.plan(b, s, sms)
+  grids = {f"as planned {planned}": planned}
   for tile in (16, 32, 64):
-    if -(-s // tile) <= da.MAX_SPLITS and tile != grid[0]:
-      variants[f"tiles of {tile}"] = ((tile, tile, -(-s // tile)), da.COMBINE)
-  order = list(variants) + [next(iter(variants))]
+    grid = (tile, tile, -(-s // tile))
+    if grid[2] <= da.MAX_SPLITS and grid != planned:
+      grids[f"tiles of {tile}"] = grid
   sets = k6_sets(b, s, cache, g, h)
-  for name in order:
-    grid, combine = variants[name]
-    fn = lambda q, k, v, m, sc: da._launch(
-        q, k, v, m, sc.get("k_scale"), sc.get("v_scale"), 0.0, grid, combine)
+  for name in list(grids) + [next(iter(grids))]:
+    fn = lambda q, k, v, m, sc, grid=grids[name]: da._launch(
+        q, k, v, m, sc.get("k_scale"), sc.get("v_scale"), 0.0, grid)
     print(f"[{card}] K6 variant B={b} S={s} {cache}, {name}: events "
           f"{time_ms(fn, sets):.4f} ms, graph {graph_ms(fn, sets):.4f} ms, "
           f"host {host_us(fn, sets):.2f} us", flush=True)
@@ -353,14 +352,24 @@ def k6_host_parts(da, card, b=8, s=352, calls=2000):
   q, k, v, m, _ = k6_inputs(b, 1, 8, s, 256)
   grid = da.plan(b, s, torch.cuda.get_device_properties(0).multi_processor_count)
   n = da.scratch_floats(b, 8, 256, grid[2])
+  out, scratch = torch.empty_like(q), torch.empty(n, device=q.device)
+  args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, m.data_ptr(),
+          out.data_ptr(), scratch.data_ptr(), 0, 1, b, 1, 8, s, 256, 0.0,
+          *grid, _build.stream_ptr(q.device)]
+  refused = list(args)
+  refused[12] = 0  # G = 0: the C entry returns before any CUDA call
+  entry = da._lib()
   parts = {
       "input checks": lambda: da._check_inputs(q, k, v, m, None, None),
       "torch.empty_like(q)": lambda: torch.empty_like(q),
       "torch.empty(scratch)": lambda: torch.empty(n, device=q.device),
       "_build.stream_ptr": lambda: _build.stream_ptr(q.device),
+      "torch._C._cuda_getCurrentRawStream": (
+          lambda: torch._C._cuda_getCurrentRawStream(q.device.index)),
       "plan": lambda: da.plan(b, s, 132),
-      "_launch": lambda: da._launch(q, k, v, m, None, None, 0.0, grid,
-                                    da.COMBINE),
+      "C entry, refused": lambda: entry(*refused),
+      "C entry, two launches": lambda: entry(*args),
+      "_launch": lambda: da._launch(q, k, v, m, None, None, 0.0, grid),
       "decode_attention": lambda: da.decode_attention(q, k, v, m),
   }
   out = {}

@@ -543,19 +543,6 @@ def check_fused(fa):
   return path_err
 
 
-def k6_call(da, q, k, v, mask, scales, combine=None, **opts):
-  """K6 through its wrapper, or with the other combine (`combine` 0: the
-  last split block) on the wrapper's grid."""
-  if combine is None:
-    return da.decode_attention(q, k, v, mask, **scales, **opts)
-  b, kh, _, _ = q.shape
-  grid = da.plan(b * kh, k.shape[2], torch.cuda.get_device_properties(
-      q.device).multi_processor_count)
-  return da._launch(q, k, v, mask, scales.get("k_scale"),
-                    scales.get("v_scale"), opts.get("logits_softcap", 0.0),
-                    grid, combine)
-
-
 def check_k6(da):
   """Holds K6 against its plain version in every case below, each launch
   repeated and asserted bit-equal, every example with no visible slot
@@ -572,7 +559,6 @@ def check_k6(da):
       ("int8 softcap", dict(serving, cache="int8"), dict(logits_softcap=50.0)),
       ("spans", dict(serving, spans=spans), {}),
       ("spans int8", dict(serving, cache="int8", spans=spans), {}),
-      ("last-block combine", dict(serving, spans=spans), dict(combine=0)),
       ("q bf16", dict(serving, q_dtype=torch.bfloat16), {}),
       ("S=10 < a split", dict(serving, s=10), {}),
       ("S=1", dict(serving, s=1), {}),
@@ -596,9 +582,8 @@ def check_k6(da):
   errs = {"gemma_2b B=8": None, "int8": None}
   for i, (name, shape, opts) in enumerate(cases):
     q, k, v, mask, scales = k6_inputs(**shape, seed=i)
-    got = k6_call(da, q, k, v, mask, scales, **opts)
-    again = k6_call(da, q, k, v, mask, scales, **opts)
-    opts.pop("combine", None)
+    got = da.decode_attention(q, k, v, mask, **scales, **opts)
+    again = da.decode_attention(q, k, v, mask, **scales, **opts)
     want = da.decode_attention_reference(q, k, v, mask, **scales, **opts)
     torch.cuda.synchronize()
     err = rel_err(got, want)
