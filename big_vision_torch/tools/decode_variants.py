@@ -5,8 +5,6 @@ built and timed in its own process, the sources as they are first and
 last:
   - loads only: each tile's copies are issued and waited for, and nothing
     is computed (not a result: a yardstick of what the loads alone take);
-  - the score and p . v loops over 16-deep steps not unrolled by the
-    compiler's choice but by 4;
   - the combine launched after the split kernel has finished, in place of
     as its programmatic dependent.
 For each it prints, at the serving shape (B=8, S=352) and at B=64,
@@ -34,17 +32,13 @@ SRC = "decode_attention.cu"
 VARIANTS = {
     "as committed": [],
     "loads only (timing only)": [(
-        "    // Scores: warp w takes the 16-slot column pairs",
+        "    // Scores: warp w sums the depth steps",
         "    if (a.softcap >= 0.f) {  // never false when timed\n"
-        "      cp_async_wait<0>();\n"
+        "      cp_async_wait<2>();\n"
+        "      __syncthreads();\n"
         "      continue;\n"
         "    }\n"
-        "    // Scores: warp w takes the 16-slot column pairs")],
-    "product loops unrolled by 4": [
-        ("      for (int k0 = 0; k0 < hp; k0 += 16) {",
-         "#pragma unroll 4\n      for (int k0 = 0; k0 < hp; k0 += 16) {"),
-        ("    for (int k0 = 0; k0 < np; k0 += 16) {",
-         "#pragma unroll 4\n    for (int k0 = 0; k0 < np; k0 += 16) {")],
+        "    // Scores: warp w sums the depth steps")],
     "combine not a dependent launch": [(
         "attr[0].val.programmaticStreamSerializationAllowed = 1;",
         "attr[0].val.programmaticStreamSerializationAllowed = 0;")],

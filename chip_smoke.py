@@ -572,8 +572,9 @@ def check_k6(da):
       ("int8 softcap K=4", dict(b=4, kh=4, g=2, s=200, h=128, cache="int8"),
        dict(logits_softcap=0.5)),
       ("masked row", dict(b=3, kh=1, g=8, s=96, h=256, masked_row=True), {}),
-      ("2 tiles a split", dict(b=2, kh=1, g=8, s=5000, h=64,
+      ("3 tiles a split", dict(b=2, kh=1, g=8, s=5000, h=64,
                                spans=[(100, 4321), (4200, 4262)]), {}),
+      ("B=64 S=352", dict(serving, b=64), {}),
       ("B=64 S=1120", dict(b=64, kh=1, g=8, s=1120, h=256), {}),
       ("B=64 S=1120 int8", dict(b=64, kh=1, g=8, s=1120, h=256,
                                 cache="int8"), {}),
