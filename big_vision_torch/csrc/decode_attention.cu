@@ -24,18 +24,12 @@
 //   * Grid (splits, B*K) of 4-warp blocks. Split i of (b, k) takes the
 //     slots [i*P, (i+1)*P) in tiles of T <= 64 slots; `plan` in
 //     ops/decode_attention.py picks T and P from B*K and S so that the grid
-//     fills the SMs: one tile a split where that takes at most two blocks
-//     an SM (16 slots at the serving shape), else about two splits an SM
-//     that stream tiles of 32 (four splits of 288 slots at B=64, S=1120).
+//     fills the SMs (16 slots a split at the serving shape).
 //   * Loads: q (on the first tile) and a tile's K rows and V rows are
 //     issued at once, as 16-byte cp.async copies into shared memory
 //     (element loads where H or the pointers do not allow them), with the
 //     tile's mask and scales; the V copies are waited on only before
-//     p . v, so one memory round trip covers the tile. A split of several
-//     tiles holds two in shared memory and issues tile t + 1 before it
-//     computes tile t, so that its loads stream; one tile a split, as at
-//     the serving shape, left the memory idle while both blocks of an SM
-//     computed (PERF.md, PR 11).
+//     p . v, so one memory round trip covers the tile.
 //   * Products on the tensor cores (`mma.sync` m16n8k16, bf16 operands, f32
 //     sums; the G query rows fill half of A's 16): scores [G, T] = q . K^T
 //     over H, then o += p . V over T. The cache stays in its storage dtype
@@ -53,9 +47,13 @@
 //     a zero sum. It is a second small kernel, launched as a programmatic
 //     dependent of the first (its blocks start while the splits finish and
 //     wait for their results); each thread loads all its splits' parts at
-//     once. A single split writes o itself. (The last split block of each
-//     (b, k) combining, found by a counter, took more device time: PERF.md,
-//     PR 11.)
+//     once. A single split writes o itself.
+//   * What holds it back (PERF.md, PR 11): the loads alone reach about
+//     2.4 TB/s at B=64, S=1120; each tile's compute, a chain of dependent
+//     phases between barriers, is not hidden behind them. Three tried
+//     alternatives took more device time: the last split block of each
+//     (b, k) combining (found by a counter), the score depth split over the
+//     warps, and long splits that stream tiles through two buffers.
 
 #include "flash_tc_common.cuh"
 
@@ -224,7 +222,6 @@ template <typename QT, typename CT>
 __global__ void __launch_bounds__(NT) decode_split(const Args a) {
   constexpr bool QUANT = std::is_same<CT, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float sSp[NT / 32][MAXG][BT];  // each warp's part of them
   __shared__ float sS[MAXG][BT];  // the tile's scores
   __shared__ __align__(16) __nv_bfloat16 sP[MAXG][BT + 8];  // bf16 p (x v-scale)
   __shared__ float sKs[BT], sVs[BT];
@@ -236,9 +233,9 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
   const int split = blockIdx.x, bk = blockIdx.y, b = bk / a.K;
   const int G = a.G, S = a.S, H = a.H, hp = hpad(H), rb = row_bytes<CT>(H);
   const int tp = (a.tile + 15) & ~15, qrb = row_bytes<QT>(H);
-  // Stage i of the tile ring: K rows at smem + 2 i tp rb, V rows after.
-  const int stages = a.per_split > a.tile ? 2 : 1;
-  unsigned char* sQ = smem + 2 * stages * tp * rb;  // [MAXG] rows of qrb bytes
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + tp * rb;
+  unsigned char* sQ = sV + tp * rb;  // [MAXG] rows of qrb bytes
   const long long plane = static_cast<long long>(bk) * S * H;
   const CT* kp = static_cast<const CT*>(a.k) + plane;
   const CT* vp = static_cast<const CT*>(a.v) + plane;
@@ -261,84 +258,51 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  // The loads of a tile: K rows, then V rows, each a cp.async group, and
-  // its mask and scales into registers (slot `tid` of the tile); tile t + 1
-  // is issued before tile t is computed.
-  bool vis = false;
-  float kscale = 0.f, vscale = 0.f;
-  auto issue = [&](int t0, int stage) {
+  for (int t0 = s_begin; t0 < s_end; t0 += a.tile) {
     const int n = min(a.tile, s_end - t0), np = (n + 15) & ~15;
-    unsigned char* dk = smem + 2 * stage * tp * rb;
-    load_rows<CT>(dk, rb, kp + static_cast<long long>(t0) * H, n, np, H,
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<CT>(sK, rb, kp + static_cast<long long>(t0) * H, n, np, H,
                   a.cvec, tid);
     cp_async_commit();
-    load_rows<CT>(dk + tp * rb, rb, vp + static_cast<long long>(t0) * H, n,
-                  np, H, a.cvec, tid);
+    load_rows<CT>(sV, rb, vp + static_cast<long long>(t0) * H, n, np, H,
+                  a.cvec, tid);
     cp_async_commit();
-    if (tid < n) {
-      vis = mrow[t0 + tid] != 0;
+    if (tid < np) {
+      const bool in = tid < n;
+      sVis[tid] = in && mrow[t0 + tid] != 0;
       if (QUANT) {
         const long long at = static_cast<long long>(bk) * S + t0 + tid;
-        kscale = a.ks[at];
-        vscale = a.vs[at];
+        sKs[tid] = in ? a.ks[at] : 0.f;
+        sVs[tid] = in ? a.vs[at] : 0.f;
       }
-    }
-  };
-  issue(s_begin, 0);
-
-  for (int t0 = s_begin, stage = 0; t0 < s_end; t0 += a.tile, stage ^= stages - 1) {
-    const int n = min(a.tile, s_end - t0), np = (n + 15) & ~15;
-    const unsigned char* sK = smem + 2 * stage * tp * rb;
-    const unsigned char* sV = sK + tp * rb;
-    if (tid < np) {  // this tile's mask and scales, loaded a tile ago
-      sVis[tid] = tid < n && vis;
-      sKs[tid] = tid < n ? kscale : 0.f;
-      sVs[tid] = tid < n ? vscale : 0.f;
-    }
-    if (t0 + a.tile < s_end) {
-      issue(t0 + a.tile, stage ^ 1);
-    } else {  // two empty groups keep the count of groups per tile
-      cp_async_commit();
-      cp_async_commit();
     }
     // Every block has issued its loads: the combine may start launching.
     asm volatile("griddepcontrol.launch_dependents;");
-    cp_async_wait<3>();  // this tile's q and K have landed
+    cp_async_wait<1>();  // q and K have landed; V may still be in flight
     __syncthreads();
 
-    // Scores: warp w sums the depth steps w, w + 4, ... of H for every
-    // 16-slot pair of the tile (chains of hp / 64 steps, 8 of them side by
-    // side) into its own part; the parts are then summed in warp order.
-    {
-      const unsigned char* qrow = sQ + gq * qrb;
-      float c[BT / 16][2][4] = {};
-      for (int k0 = 16 * warp; k0 < hp; k0 += 64) {
+    // Scores: warp w takes the 16-slot column pairs w, w + 4 of the tile.
+    const unsigned char* qrow = sQ + gq * qrb;
+    for (int pi = warp; pi < np / 16; pi += 4) {
+      float c[2][4] = {};
+      for (int k0 = 0; k0 < hp; k0 += 16) {
         const uint32_t fa[4] = {row_pair<QT>(qrow, k0 + t2), 0u,
                                 row_pair<QT>(qrow, k0 + 8 + t2), 0u};
+        uint32_t fb[4];
+        k_frags<CT>(fb, sK, rb, 16 * pi, k0, lane);
+        mma(c[0], fa, fb[0], fb[1]);
+        mma(c[1], fa, fb[2], fb[3]);
+      }
+      if (gq < G) {
 #pragma unroll
-        for (int pi = 0; pi < BT / 16; ++pi) {
-          if (16 * pi < np) {
-            uint32_t fb[4];
-            k_frags<CT>(fb, sK, rb, 16 * pi, k0, lane);
-            mma(c[pi][0], fa, fb[0], fb[1]);
-            mma(c[pi][1], fa, fb[2], fb[3]);
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int j = 16 * pi + 8 * (e / 2) + t2 + e % 2;
+          float y = c[e / 2][e % 2];
+          if (QUANT) y *= sKs[j];
+          if (a.softcap > 0.f) y = a.softcap * tanhf(y / a.softcap);
+          sS[gq][j] = sVis[j] ? y : -INFINITY;
         }
       }
-#pragma unroll
-      for (int pi = 0; pi < BT / 16; ++pi)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (16 * pi < np)
-            sSp[warp][gq][16 * pi + 8 * (e / 2) + t2 + e % 2] = c[pi][e / 2][e % 2];
-    }
-    __syncthreads();
-    for (int i = tid; i < G * np; i += NT) {
-      const int g = i / np, j = i % np;
-      float y = ((sSp[0][g][j] + sSp[1][g][j]) + sSp[2][g][j]) + sSp[3][g][j];
-      if (QUANT) y *= sKs[j];
-      if (a.softcap > 0.f) y = a.softcap * tanhf(y / a.softcap);
-      sS[g][j] = sVis[j] ? y : -INFINITY;
     }
     __syncthreads();
 
@@ -379,7 +343,7 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
         sM[g] = m_new;
       }
     }
-    cp_async_wait<2>();  // this tile's V has landed
+    cp_async_wait<0>();
     __syncthreads();
 
     // o = o * alpha + p . V: warp w takes the 16-column pairs w + 4 i of hp.
@@ -406,7 +370,6 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
         }
       }
     }
-    __syncthreads();  // this stage's readers are done before it is refilled
   }
 
   // Column of acc[i][e]: 16 (warp + 4 (i / 2)) + 8 (i % 2) + t2 + e.
@@ -515,14 +478,12 @@ __global__ void __launch_bounds__(NT) decode_combine(const Args a) {
 template <typename QT, typename CT>
 cudaError_t launch(const Args& a, cudaStream_t st) {
   // Dynamic shared memory: the K and V tiles and q. The limit is raised
-  // once, to what the largest tile at H = 256 takes (past the 48 KB that
-  // need no opt-in, with the static arrays).
+  // once, to what the largest tile at H = 256 takes.
   static const cudaError_t raised = cudaFuncSetAttribute(
       decode_split<QT, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       2 * BT * row_bytes<CT>(MAXH) + MAXG * row_bytes<QT>(MAXH));
   if (raised != cudaSuccess) return raised;
-  const int stages = a.per_split > a.tile ? 2 : 1;
-  const int smem = 2 * stages * ((a.tile + 15) & ~15) * row_bytes<CT>(a.H) +
+  const int smem = 2 * ((a.tile + 15) & ~15) * row_bytes<CT>(a.H) +
                    MAXG * row_bytes<QT>(a.H);
   decode_split<QT, CT><<<dim3(a.splits, a.BK), NT, smem, st>>>(a);
   if (a.splits > 1) {
@@ -565,9 +526,7 @@ cudaError_t dispatch_cache(int cache_dtype, Args& a, bool cache_aligned,
 // q_dtype: 0 = float32, 1 = bfloat16. cache_dtype: 0 = float32,
 // 1 = bfloat16, 2 = int8 (then k_scale and v_scale are required).
 // softcap <= 0 means none. The grid: splits of per_split slots (a multiple
-// of tile, tile <= 64, or <= 32 where a split has more than one tile: two
-// tiles are then in shared memory), splits = ceil(S / per_split) <= 64.
-// scratch: f32,
+// of tile, tile <= 64), splits = ceil(S / per_split) <= 64. scratch: f32,
 // B*K*splits*G*(round_up(H, 4) + 2) of them when splits > 1. Returns
 // cudaGetLastError() after the launches.
 extern "C" int bvt_decode_attention(
@@ -578,7 +537,6 @@ extern "C" int bvt_decode_attention(
   if (G < 1 || G > MAXG || H < 1 || H > MAXH || S < 1 || B < 1 || K < 1 ||
       tile < 1 || tile > BT || per_split < tile || per_split % tile ||
       splits != (S + per_split - 1) / per_split || splits > MAXSPLIT ||
-      (per_split > tile && tile > BT / 2) ||
       (splits > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((cache_dtype == 2) != (k_scale != nullptr) ||

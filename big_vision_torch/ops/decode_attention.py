@@ -54,10 +54,9 @@ def fits(s, h, store_bytes):
 
 
 # The kernel's grid (csrc/decode_attention.cu): a cache plane is cut into
-# at most MAX_SPLITS splits (the combine's table) of whole tiles; a tile
-# is at most 64 slots, or 32 in a split of several tiles, which streams
-# them through two buffers of shared memory.
-TILE, STREAM_TILE, MAX_SPLITS = 64, 32, 64
+# splits of whole tiles, each tile at most TILE slots in shared memory, and
+# at most MAX_SPLITS splits, the combine's table.
+TILE, MAX_SPLITS = 64, 64
 
 
 @functools.lru_cache(maxsize=256)
@@ -67,21 +66,18 @@ def plan(bk, s, num_sms):
 
   The rule: the tile is the largest of 64, 32 and 16 slots for which one
   split per tile (ceil(s / tile) * bk blocks) fills the SMs at least once,
-  else 16. Where that grid takes at most two blocks an SM (and at most
-  MAX_SPLITS splits), a split is one tile: at the serving shape (bk = 8,
-  s = 352) 22 splits of 16 slots. Past it, about two splits an SM, each
-  streaming tiles of at most 32 slots: at bk = 64, s = 1120, 4 splits of
-  288.
+  else 16; a split is one tile, or, past MAX_SPLITS splits, as many slots as
+  keep the splits to MAX_SPLITS, in tiles of up to 64. At the serving shape
+  (bk = 8, s = 352) that is 22 splits of 16 slots; at bk = 64, s = 1120, 18
+  of 64.
   """
   for tile in (64, 32, 16):
     if -(-s // tile) * bk >= num_sms:
       break
-  tiles = -(-s // tile)
-  if tiles * bk <= 2 * num_sms and tiles <= MAX_SPLITS:
-    return tile, tile, tiles
-  tile = min(tile, STREAM_TILE)
-  splits = min(MAX_SPLITS, max(1, 2 * num_sms // bk))
-  per_split = -(-(-(-s // splits)) // tile) * tile
+  per_split = max(tile, -(-s // MAX_SPLITS))
+  if per_split > tile:
+    tile = min(TILE, per_split)
+    per_split = -(-per_split // tile) * tile
   return tile, per_split, -(-s // per_split)
 
 

@@ -32,13 +32,12 @@ SRC = "decode_attention.cu"
 VARIANTS = {
     "as committed": [],
     "loads only (timing only)": [(
-        "    // Scores: warp w sums the depth steps",
+        "    // Scores: warp w takes the 16-slot column pairs",
         "    if (a.softcap >= 0.f) {  // never false when timed\n"
-        "      cp_async_wait<2>();\n"
-        "      __syncthreads();\n"
+        "      cp_async_wait<0>();\n"
         "      continue;\n"
         "    }\n"
-        "    // Scores: warp w sums the depth steps")],
+        "    // Scores: warp w takes the 16-slot column pairs")],
     "combine not a dependent launch": [(
         "attr[0].val.programmaticStreamSerializationAllowed = 1;",
         "attr[0].val.programmaticStreamSerializationAllowed = 0;")],

@@ -34,6 +34,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      same cases and bars, against K4a + K4b in f32 (bar 1e-4), and through
      `flash_attention`'s backward with `FUSED_BLOCKED_BWD` set (one K5
      launch, the same gradients);
+     K6 (split over the SMs, `decode_attention.plan`) at the serving
+     shape in bf16 and int8 (with and without softcap), with live spans
+     that end mid-split and leave leading and trailing splits wholly
+     masked, S = 1, S shorter than a split, S not a multiple of it, H = 72
+     and 20 (element loads), bf16 q, several tiles a split, B=64 at S=352
+     and S=1120 in bf16 and int8: each launch repeated and asserted
+     bit-equal, every example with no visible slot exact zeros;
   3. serves PaliGemma-3B (So400m/14 at 224px + gemma_2b, random bf16
      weights from SEED) to a batch of 8 requests through predict_fns,
      checks that the image tower launched K1's tensor-core kernel once per
@@ -41,7 +48,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      step launched K6 once per layer, and holds the prefill logits and 4
      teacher-forced AR steps against the plain path (math attention,
      einsum decode) on the same card within 2e-2 of max|logit|, the bar
-     of tests/test_decode_attention.py;
+     of tests/test_decode_attention.py; then the same with the int8 KV
+     cache (the same weights, INT8_DECODE tokens, K6 on the int8 store
+     with its per-slot scales) against the int8 plain path;
   4. trains ViT-B/16 at 224px, batch 256, through `big_vision_torch.train`
      and configs/vit_b16_synthetic.py (random init from the config's seed,
      the real input pipeline) for TRAIN_STEPS steps: every loss finite, K1's
@@ -111,7 +120,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      tensor-core kernel also at the serving shape; K1's and K2's f32
      kernels at seqhw 15 and 24 and K3, K4a, K4b and K5 at seqhw 40 and
      30, with their bounds at the 3xTF32 rate; and K5 against K4a + K4b
-     on the same inputs.
+     on the same inputs; K6 also at B=64, S=1120 in bf16 and int8.
 The line before the last is {"kernels": [...]}: K1's and K2's bf16
 tensor-core kernels are reported at the ViT training shape (B=256, T=196,
 H=12, D=64; launches per step), K1's and K2's f32 kernels at FlexiViT-B's
@@ -119,9 +128,13 @@ seqhw 15 (B=32, T=226, H=12, D=64, f32; launches per step of the FlexiViT
 phase), K3,
 K4a, K4b and K5 at the FlexiViT-B shape of seqhw 40 (B=32, T=1601, H=12,
 D=64, f32; launches per step of the FlexiViT phase, and for K5 of the
-distillation phase), K6 at the serving shape (launches per request
-batch); max_abs_err and max_rel_err are at those shapes, and rel_tolerance
-is the bar the relative error was held to. The last line is {"ok": true,
+distillation phase), K6 at the serving shape with a bf16 and with an int8
+cache (launches per request batch of the bf16 and the int8 pass; its
+"ms" from CUDA events around the wrapper's calls, with "graph_ms", the
+same calls in a CUDA graph, "profiled_ms", its two kernels' device time,
+and "host_us", the wrapper's host time a call; no SDPA on an int8
+cache); max_abs_err and max_rel_err are at those shapes, and
+rel_tolerance is the bar the relative error was held to. The last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -572,7 +585,7 @@ def check_k6(da):
       ("int8 softcap K=4", dict(b=4, kh=4, g=2, s=200, h=128, cache="int8"),
        dict(logits_softcap=0.5)),
       ("masked row", dict(b=3, kh=1, g=8, s=96, h=256, masked_row=True), {}),
-      ("3 tiles a split", dict(b=2, kh=1, g=8, s=5000, h=64,
+      ("2 tiles a split", dict(b=2, kh=1, g=8, s=5000, h=64,
                                spans=[(100, 4321), (4200, 4262)]), {}),
       ("B=64 S=352", dict(serving, b=64), {}),
       ("B=64 S=1120", dict(b=64, kh=1, g=8, s=1120, h=256), {}),

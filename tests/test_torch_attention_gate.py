@@ -219,3 +219,60 @@ def test_plain_path_checkpoint_keeps_the_gradients(dtype, masked):
   assert b * h * tq * tkv not in saved2, saved2
   with torch.no_grad():  # nothing recorded: no checkpoint
     assert torch.equal(t_attention._xla_attention(q, k, v, mask), o1)
+
+
+@pytest.mark.parametrize("cache_size", [6016, 12032])
+def test_int8_decode_step_gates_on_one_byte_slots(monkeypatch, cache_size):
+  """With cache_dtype="int8" the JAX model gates its kernel on the int8
+  store's itemsize, 1 (gemma.py `_da.fits(..., k.dtype.itemsize)`), not on
+  the compute dtype's 4: at 6016 slots of head dim 16 both packages take
+  their decode kernel (f32 slots would not fit), at 12032 neither. The
+  step's logits agree within 1e-5 of max|logit|."""
+  cfg = {**j_gemma.get_config("gemma_test"), "decode_impl": "flash",
+         "scan": False, "cache_dtype": "int8"}
+  head_dim = cfg["head_dim"]
+  takes = cache_size == 6016
+  assert t_da.fits(cache_size, head_dim, 1) == takes
+  assert not t_da.fits(cache_size, head_dim, 4)
+  b, t = 2, 5
+  rs = np.random.RandomState(3)
+  tokens = rs.randint(1, 255, (b, t)).astype(np.int32)
+  jmodel = j_gemma.Model(**cfg)
+  params = _random_params(jmodel, jnp.asarray(tokens))
+  tcfg = {k: v for k, v in cfg.items() if k not in ("scan", "remat_policy")}
+  tmodel = t_gemma.Model(**tcfg, device="cpu")
+  convert.load(tmodel, convert.gemma(params))
+
+  mask = np.zeros((b, 1, t, cache_size), bool)
+  mask[:, :, :, :t] = np.tril(np.ones((t, t), bool))
+  positions = np.arange(t)[None].repeat(b, 0).astype(np.int32)
+  tok = rs.randint(1, 255, (b, 1)).astype(np.int32)
+  pos = np.full((b, 1), t, np.int32)
+  mstep = np.zeros((b, 1, 1, cache_size), bool)
+  mstep[..., :t + 1] = True
+  calls = {"jax": 0, "torch": 0}
+  for name, mod in (("jax", j_da), ("torch", t_da)):
+    real = mod.decode_attention
+    monkeypatch.setattr(
+        mod, "decode_attention",
+        lambda *a, real=real, name=name, **kw: (
+            calls.__setitem__(name, calls[name] + 1) or real(*a, **kw)))
+  _, cvars = jmodel.apply(
+      {"params": params}, jnp.asarray(tokens), positions=positions,
+      mask=jnp.asarray(mask), decode=True, mutable=["cache"])
+  (want, _), _ = jmodel.apply(
+      {"params": params, **cvars}, jnp.asarray(tok), positions=pos,
+      mask=jnp.asarray(mstep), decode=True, mutable=["cache"])
+  cache = t_gemma.KVCache()
+  with torch.no_grad():
+    tmodel(torch.from_numpy(tokens).long(),
+           positions=torch.from_numpy(positions),
+           mask=torch.from_numpy(mask), cache=cache)
+    got, _ = tmodel(torch.from_numpy(tok).long(),
+                    positions=torch.from_numpy(pos),
+                    mask=torch.from_numpy(mstep), cache=cache)
+  want_calls = cfg["depth"] if takes else 0
+  assert calls == {"jax": want_calls, "torch": want_calls}, calls
+  want = np.asarray(want)
+  np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                             atol=1e-5 * float(np.abs(want).max()))

@@ -121,23 +121,22 @@ def test_split_combine_matches_jax_at_the_serving_shape(cache, softcap):
 
 
 def test_split_combine_over_several_tiles_a_split():
-  """B=64, S=1120 (PaliGemma at 448px, 64 requests): 4 splits of nine
-  32-slot tiles each, at head dim 64."""
-  grid = t_da.plan(64, 1120, H100_SMS)
-  assert grid == (32, 288, 4)
-  spans = [(0, 1120 - 17 * i) for i in range(63)] + [(0, 0)]
-  args = _inputs(64, 1, 8, 1120, 64, spans, True, seed=1)
+  """One plane of 5000 slots: 40 splits of two 64-slot tiles each."""
+  grid = t_da.plan(1, 5000, H100_SMS)
+  assert grid == (64, 128, 40)
+  args = _inputs(2, 1, 8, 5000, 64, [(100, 4321), (4200, 4262)], True,
+                 seed=1)
   got, want = _both(args, grid=grid)
   err = np.abs(got - want).max() / np.abs(want).max()
   assert err <= K6_BAR, err
 
 
 # (B * K, S) -> (slots per tile, slots per split, splits) on 132 SMs.
-PLANS = {(8, 352): (16, 16, 22), (64, 1120): (32, 288, 4),
-         (64, 352): (32, 96, 4), (132, 64): (64, 64, 1), (1, 1): (16, 16, 1),
-         (3, 129): (16, 16, 9), (2, 2000): (16, 32, 63),
-         (1, 5000): (32, 96, 53), (16, 6016): (32, 384, 16),
-         (512, 352): (32, 352, 1), (1, 100_000): (32, 1568, 64)}
+PLANS = {(8, 352): (16, 16, 22), (64, 1120): (64, 64, 18),
+         (64, 352): (64, 64, 6), (132, 64): (64, 64, 1), (1, 1): (16, 16, 1),
+         (3, 129): (16, 16, 9), (2, 2000): (32, 32, 63),
+         (1, 5000): (64, 128, 40), (16, 6016): (64, 128, 47),
+         (4, 17): (16, 16, 2), (1, 100_000): (64, 1600, 63)}
 
 
 @pytest.mark.parametrize("bk,s", sorted(PLANS))
@@ -145,10 +144,10 @@ def test_plan(bk, s):
   tile, per_split, splits = t_da.plan(bk, s, H100_SMS)
   assert (tile, per_split, splits) == PLANS[bk, s]
   assert 16 <= tile <= t_da.TILE and per_split % tile == 0
-  if per_split > tile:  # two tiles in shared memory
-    assert tile <= t_da.STREAM_TILE
   assert (splits - 1) * per_split < s <= splits * per_split
   assert splits <= t_da.MAX_SPLITS
+  if -(-s // 16) * bk >= H100_SMS and -(-s // 16) <= t_da.MAX_SPLITS:
+    assert splits * bk >= H100_SMS  # the grid fills the SMs
 
 
 def test_scratch_floats():

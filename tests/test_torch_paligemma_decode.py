@@ -36,10 +36,12 @@ ROOT = Path(__file__).resolve().parents[1]
 IMG = dict(variant="mu/16", pool_type="none")
 
 
-@pytest.mark.parametrize("cache_dtype", [None, "bfloat16"])
-def test_greedy_decode_matches_jax(cache_dtype):
+@pytest.mark.parametrize("cache_dtype,decode_impl", [
+    (None, "flash"), ("bfloat16", "flash"), ("int8", "flash"),
+    ("int8", "xla")], ids=["None", "bfloat16", "int8-flash", "int8-xla"])
+def test_greedy_decode_matches_jax(cache_dtype, decode_impl):
   llm = dict(variant="gemma_test", cache_dtype=cache_dtype,
-             decode_impl="flash")
+             decode_impl=decode_impl)
   rs = np.random.RandomState(0)
   image = rs.randn(2, 64, 64, 3).astype(np.float32)
   text = rs.randint(2, 256, (2, 6)).astype(np.int32)
@@ -138,3 +140,12 @@ def test_bench_decode_runs_on_cpu(capsys):
                      "--decode_len", "4", "--iters", "1"])
   line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
   assert line["device"] == "cpu" and line["e2e_ms_per_batch"] > 0
+
+
+def test_bench_decode_runs_with_the_int8_cache_on_cpu(capsys):
+  bench_decode.main(["--device", "cpu", "--img_variant", "mu/16", "--res",
+                     "32", "--batch", "2", "--prefill_len", "4",
+                     "--decode_len", "4", "--iters", "1", "--cache_dtype",
+                     "int8"])
+  line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+  assert line["cache_dtype"] == "int8" and line["e2e_ms_per_batch"] > 0
