@@ -21,26 +21,25 @@
 // took 60 us: latency, about two memory round trips per tile.
 //
 // Design: the cache is split over the SMs.
-//   * Grid (splits, B*K) of 4-warp blocks. Split i of (b, k) takes the
+//   * Grid (splits, B*K) of 8-warp blocks. Split i of (b, k) takes the
 //     slots [i*P, (i+1)*P) in tiles of T <= 64 slots; `plan` in
-//     ops/decode_attention.py picks T and P from B*K, S and the cache's
-//     dtype. Where one tile a split takes at most two blocks an SM, a
-//     split is one tile (16 slots at the serving shape: 176 blocks);
-//     past that, one split an SM streams its tiles (2 splits of 576 slots
-//     at B=64, S=1120).
-//   * Loads: q (with the first tile), a tile's K rows with its scales and
-//     mask bytes, and its V rows are cp.async copies into shared memory
-//     (16-byte copies of rows, element loads where H or the pointers do
-//     not allow them), V waited on only before p . v. A streaming split
-//     keeps a ring of STAGES tiles of about 34 KB (tiles of 32 slots in
-//     bf16, 64 in int8, 16 in f32) and issues each tile STAGES - 1 tiles
-//     ahead, so that its SM always has some 100 KB of loads in flight.
+//     ops/decode_attention.py picks T and P from B*K and S so that the grid
+//     fills the SMs (16 slots a split at the serving shape).
+//   * Loads: q (on the first tile) and a tile's K rows and V rows are
+//     issued at once, as 16-byte cp.async copies into shared memory
+//     (element loads where H or the pointers do not allow them), with the
+//     tile's mask and scales; the V copies are waited on only before
+//     p . v, so one memory round trip covers the tile.
 //   * Products on the tensor cores (`mma.sync` m16n8k16, bf16 operands, f32
 //     sums; the G query rows fill half of A's 16): scores [G, T] = q . K^T
 //     over H, then o += p . V over T. The cache stays in its storage dtype
 //     in shared memory: a bf16 cache gives its operands by `ldmatrix`, an
 //     int8 or f32 one is made bf16 pair by pair as it is read (int8
 //     exactly, f32 rounded), so an int8 cache moves one byte per element.
+//     Each tile's compute is a chain of phases between barriers, latency
+//     more than work: the eight warps share each phase (a 16-slot pair of
+//     scores and a slice of H's depth each, one query row each in the
+//     softmax, two 16-column pairs each in p . v).
 //   * Softmax per split, with a running max over its tiles: p is rounded to
 //     bf16 against the split's max where the plain version uses the row's
 //     (each rounds every p once; K6_BAR holds the difference).
@@ -53,10 +52,11 @@
 //     dependent of the first (its blocks start while the splits finish and
 //     wait for their results); each thread loads all its splits' parts at
 //     once. A single split writes o itself.
-//   * Measured designs that took more device time (PERF.md, PR 11): the
-//     last split block of each (b, k) combining, found by a counter; one
-//     tile a split at every shape (each block's loads, then its compute,
-//     with the memory idle meanwhile); two buffers instead of STAGES.
+//   * What holds it back (PERF.md, PR 11): the loads alone reach about
+//     2.4 TB/s at B=64, S=1120, and each tile's compute is not hidden
+//     behind them. Tried and measured slower: the last split block of each
+//     (b, k) combining (found by a counter), long splits streaming their
+//     tiles through a ring of two or four buffers.
 
 #include "flash_tc_common.cuh"
 
@@ -69,9 +69,10 @@ namespace {
 constexpr int MAXG = 8;         // query rows per kv head (the TPU's _GP)
 constexpr int MAXH = 256;       // head dim
 constexpr int MAXSPLIT = 64;    // splits of one (b, k): the combine's table
-constexpr int ACC = MAXH / 32;  // p . v column tiles of 8 per warp
+constexpr int KT = 256;         // threads of a split block: 8 warps
+constexpr int KW = KT / 32;
+constexpr int ACC = MAXH / 8 / KW;  // p . v column tiles of 8 per warp
 constexpr int CB = 32;          // splits a combine thread loads at once
-constexpr int STAGES = 4;       // tiles in shared memory in a streaming split
 
 struct Args {
   const void* q;
@@ -86,7 +87,6 @@ struct Args {
   int tile, per_split, splits;
   float softcap;
   bool qvec, cvec;        // 16-byte copies of q rows, of cache rows
-  bool mvec;              // 4-byte copies of the mask
 };
 
 // H padded to the mma depth (16), and to float4s in the scratch.
@@ -98,25 +98,6 @@ __host__ __device__ __forceinline__ int hpart(int h) { return (h + 3) & ~3; }
 template <typename T>
 __host__ __device__ __forceinline__ int row_bytes(int h) {
   return hpad(h) * static_cast<int>(sizeof(T)) + (sizeof(T) == 4 ? 32 : 16);
-}
-
-// The tile of a streaming split: a stage of about 34 KB.
-template <typename CT>
-__host__ __device__ constexpr int stream_tile() {
-  return sizeof(CT) == 1 ? 64 : sizeof(CT) == 2 ? 32 : 16;
-}
-
-// The shared memory of one stage of the tile ring: its K and V tiles.
-template <typename CT>
-__host__ __device__ __forceinline__ int stage_bytes(int tile, int h) {
-  return 2 * ((tile + 15) & ~15) * row_bytes<CT>(h);
-}
-
-// 4 bytes global -> shared; src_bytes < 4 zero-fills the rest.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -214,9 +195,9 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, int rb,
   if (vec) {
     constexpr int E = 16 / sizeof(T);           // elements per copy
     const int cpr = hpad(H) / E, live = H / E;  // copies per padded row
-    // Copy i = tid + NT j is (row r, copy c) of the tile, stepped without
-    // a division (cpr <= 64 < NT).
-    const int dr = NT / cpr, dc = NT % cpr;
+    // Copy i = tid + KT j is (row r, copy c) of the tile, stepped without
+    // a division (cpr <= 64 < KT).
+    const int dr = KT / cpr, dc = KT % cpr;
     int r = tid / cpr, c = tid % cpr;
 #pragma unroll 4
     while (r < np) {
@@ -233,7 +214,7 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, int rb,
     }
   } else {
     const int hp = hpad(H);
-    for (int i = tid; i < np * hp; i += NT) {
+    for (int i = tid; i < np * hp; i += KT) {
       const int r = i / hp, c = i % hp;
       reinterpret_cast<T*>(dst + r * rb)[c] =
           (r < n && c < H) ? src[static_cast<long long>(r) * H + c]
@@ -243,14 +224,16 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, int rb,
 }
 
 template <typename QT, typename CT>
-__global__ void __launch_bounds__(NT) decode_split(const Args a) {
+__global__ void __launch_bounds__(KT) decode_split(const Args a) {
   constexpr bool QUANT = std::is_same<CT, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float sS[MAXG][BT];  // the tile's scores
+  // The scores' parts [slice][MAXG][np]: slice i of the depth for the slot
+  // pair (16 slots) p is summed by warp p + P i, P = np / 16 pairs, KW / P
+  // slices of them; at most KW * MAXG * 16 floats.
+  __shared__ float sS[KW * MAXG * 16];
   __shared__ __align__(16) __nv_bfloat16 sP[MAXG][BT + 8];  // bf16 p (x v-scale)
-  // Each stage's per-slot scales and mask bytes, copied with its K tile.
-  __shared__ float sKs[STAGES][BT], sVs[STAGES][BT];
-  __shared__ __align__(4) uint8_t sVis[STAGES][BT];
+  __shared__ float sKs[BT], sVs[BT];
+  __shared__ bool sVis[BT];
   __shared__ float sM[MAXG], sL[MAXG], sAlpha[MAXG];
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -258,11 +241,9 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
   const int split = blockIdx.x, bk = blockIdx.y, b = bk / a.K;
   const int G = a.G, S = a.S, H = a.H, hp = hpad(H), rb = row_bytes<CT>(H);
   const int tp = (a.tile + 15) & ~15, qrb = row_bytes<QT>(H);
-  // The ring of tiles: stage i's K rows at smem + i sb, its V rows after;
-  // one stage unless a split has several tiles.
-  const int stages = a.per_split > a.tile ? STAGES : 1;
-  const int sb = stage_bytes<CT>(a.tile, H);
-  unsigned char* sQ = smem + stages * sb;  // [MAXG] rows of qrb bytes
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + tp * rb;
+  unsigned char* sQ = sV + tp * rb;  // [MAXG] rows of qrb bytes
   const long long plane = static_cast<long long>(bk) * S * H;
   const CT* kp = static_cast<const CT*>(a.k) + plane;
   const CT* vp = static_cast<const CT*>(a.v) + plane;
@@ -280,69 +261,42 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
     sL[tid] = 0.f;
   }
   // o sums of query row gq, columns nt * 8 + t2 (+1), for the column tiles
-  // nt = 2 pi and 2 pi + 1 of the pairs pi = warp + 4 i.
+  // nt = 2 pi and 2 pi + 1 of the pairs pi = warp + KW i.
   float acc[ACC][4];
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  // Issues the copies of the tile at slot t0 into `stage`: its K rows with
-  // its scales and mask bytes as one cp.async group, its V rows as the
-  // next. Past the split's end, two empty groups keep the count.
-  auto issue = [&](int t0, int stage) {
-    if (t0 >= s_end) {
-      cp_async_commit();
-      cp_async_commit();
-      return;
-    }
+  for (int t0 = s_begin; t0 < s_end; t0 += a.tile) {
     const int n = min(a.tile, s_end - t0), np = (n + 15) & ~15;
-    unsigned char* dk = smem + stage * sb;
-    load_rows<CT>(dk, rb, kp + static_cast<long long>(t0) * H, n, np, H,
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<CT>(sK, rb, kp + static_cast<long long>(t0) * H, n, np, H,
                   a.cvec, tid);
-    if (a.mvec) {
-      if (4 * tid < np) {
-        const int bytes = max(0, min(4, n - 4 * tid));
-        cp_async4(&sVis[stage][4 * tid], bytes ? mrow + t0 + 4 * tid : mrow,
-                  bytes);
+    cp_async_commit();
+    load_rows<CT>(sV, rb, vp + static_cast<long long>(t0) * H, n, np, H,
+                  a.cvec, tid);
+    cp_async_commit();
+    if (tid < np) {
+      const bool in = tid < n;
+      sVis[tid] = in && mrow[t0 + tid] != 0;
+      if (QUANT) {
+        const long long at = static_cast<long long>(bk) * S + t0 + tid;
+        sKs[tid] = in ? a.ks[at] : 0.f;
+        sVs[tid] = in ? a.vs[at] : 0.f;
       }
-    } else if (tid < np) {
-      sVis[stage][tid] = tid < n ? mrow[t0 + tid] : 0;
     }
-    if (QUANT && tid < np) {
-      const long long at = static_cast<long long>(bk) * S + t0 + tid;
-      cp_async4(&sKs[stage][tid], tid < n ? a.ks + at : a.ks, tid < n ? 4 : 0);
-      cp_async4(&sVs[stage][tid], tid < n ? a.vs + at : a.vs, tid < n ? 4 : 0);
-    }
-    cp_async_commit();
-    load_rows<CT>(dk + sb / 2, rb, vp + static_cast<long long>(t0) * H, n,
-                  np, H, a.cvec, tid);
-    cp_async_commit();
-  };
-  // STAGES - 1 tiles ahead (q joins the first); one tile, and empty groups,
-  // where there is one stage.
-  for (int i = 0; i < STAGES - 1; ++i)
-    issue(i < stages ? s_begin + i * a.tile : s_end, i);
-
-  for (int t0 = s_begin, t = 0; t0 < s_end; t0 += a.tile, ++t) {
-    const int n = min(a.tile, s_end - t0), np = (n + 15) & ~15;
-    const int stage = t % stages;
-    const unsigned char* sK = smem + stage * sb;
-    const unsigned char* sV = sK + sb / 2;
-    const uint8_t* vis = sVis[stage];
-    const float* kscale = sKs[stage];
-    const float* vscale = sVs[stage];
-    // The tile STAGES - 1 ahead goes to the stage the last tile freed.
-    issue(stages > 1 ? t0 + (STAGES - 1) * a.tile : s_end,
-          (t + STAGES - 1) % stages);
     // Every block has issued its loads: the combine may start launching.
     asm volatile("griddepcontrol.launch_dependents;");
-    cp_async_wait<2 * STAGES - 1>();  // this tile's q, K, scales, mask
+    cp_async_wait<1>();  // q and K have landed; V may still be in flight
     __syncthreads();
 
-    // Scores: warp w takes the 16-slot column pairs w, w + 4 of the tile.
-    const unsigned char* qrow = sQ + gq * qrb;
-    for (int pi = warp; pi < np / 16; pi += 4) {
+    // Scores: warp w takes the 16-slot column pair w % P of the tile and
+    // the depth steps w / P, w / P + KW / P, ... of H, into its part.
+    const int pairs = np / 16, slices = KW / pairs;
+    if (warp < pairs * slices) {
+      const int pi = warp % pairs;
+      const unsigned char* qrow = sQ + gq * qrb;
       float c[2][4] = {};
-      for (int k0 = 0; k0 < hp; k0 += 16) {
+      for (int k0 = 16 * (warp / pairs); k0 < hp; k0 += 16 * slices) {
         const uint32_t fa[4] = {row_pair<QT>(qrow, k0 + t2), 0u,
                                 row_pair<QT>(qrow, k0 + 8 + t2), 0u};
         uint32_t fb[4];
@@ -350,27 +304,29 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
         mma(c[0], fa, fb[0], fb[1]);
         mma(c[1], fa, fb[2], fb[3]);
       }
-      if (gq < G) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = 16 * pi + 8 * (e / 2) + t2 + e % 2;
-          float y = c[e / 2][e % 2];
-          if (QUANT) y *= kscale[j];
-          if (a.softcap > 0.f) y = a.softcap * tanhf(y / a.softcap);
-          sS[gq][j] = j < n && vis[j] ? y : -INFINITY;
-        }
-      }
+      for (int e = 0; e < 4; ++e)
+        sS[((warp / pairs) * MAXG + gq) * np + 16 * pi + 8 * (e / 2) + t2 +
+           e % 2] = c[e / 2][e % 2];
     }
     __syncthreads();
 
-    // Online softmax over the split's tiles: warp w owns rows w and w + 4,
-    // lane j the slots j and j + 32.
-    for (int g = warp; g < G; g += 4) {
+    // Online softmax over the split's tiles: warp g owns query row g, lane
+    // j the slots j and j + 32. A score is its parts summed in order.
+    if (warp < G) {
+      const int g = warp;
       float x[2], p[2], mx = -INFINITY;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int j = lane + 32 * e;
-        x[e] = j < n ? sS[g][j] : -INFINITY;
+        x[e] = -INFINITY;
+        if (j < n && sVis[j]) {
+          float y = sS[g * np + j];
+          for (int i = 1; i < slices; ++i) y += sS[(i * MAXG + g) * np + j];
+          if (QUANT) y *= sKs[j];
+          if (a.softcap > 0.f) y = a.softcap * tanhf(y / a.softcap);
+          x[e] = y;
+        }
         mx = fmaxf(mx, x[e]);
       }
 #pragma unroll
@@ -381,7 +337,7 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int j = lane + 32 * e;
-        p[e] = (j < n && vis[j]) ? __expf(x[e] - m_new) : 0.f;
+        p[e] = (j < n && sVis[j]) ? __expf(x[e] - m_new) : 0.f;
         sum += p[e];
       }
 #pragma unroll
@@ -391,7 +347,7 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int j = lane + 32 * e;
-        if (j < np) sP[g][j] = __float2bfloat16(QUANT ? p[e] * vscale[j] : p[e]);
+        if (j < np) sP[g][j] = __float2bfloat16(QUANT ? p[e] * sVs[j] : p[e]);
       }
       if (lane == 0) {
         const float alpha = m_old == -INFINITY ? 0.f : __expf(m_old - m_new);
@@ -400,10 +356,10 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
         sM[g] = m_new;
       }
     }
-    cp_async_wait<2 * STAGES - 2>();  // this tile's V
+    cp_async_wait<0>();
     __syncthreads();
 
-    // o = o * alpha + p . V: warp w takes the 16-column pairs w + 4 i of hp.
+    // o = o * alpha + p . V: warp w takes the 16-column pairs w + KW i of hp.
     const float alpha = gq < G ? sAlpha[gq] : 0.f;
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
@@ -418,7 +374,7 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
                               0u};
 #pragma unroll
       for (int i = 0; i < ACC / 2; ++i) {
-        const int c0 = 16 * (warp + 4 * i);
+        const int c0 = 16 * (warp + KW * i);
         if (c0 < hp) {
           uint32_t fb[4];
           v_frags<CT>(fb, sV, rb, k0, c0, lane);
@@ -427,10 +383,9 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
         }
       }
     }
-    __syncthreads();  // this stage's readers are done before it is refilled
   }
 
-  // Column of acc[i][e]: 16 (warp + 4 (i / 2)) + 8 (i % 2) + t2 + e.
+  // Column of acc[i][e]: 16 (warp + KW (i / 2)) + 8 (i % 2) + t2 + e.
   if (a.splits == 1) {  // the whole row: o / l
     if (gq < G) {
       const float l = sL[gq] == 0.f ? 1.f : sL[gq];
@@ -439,7 +394,7 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
       for (int i = 0; i < ACC; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int h = 16 * (warp + 4 * (i / 2)) + 8 * (i % 2) + t2 + e;
+          const int h = 16 * (warp + KW * (i / 2)) + 8 * (i % 2) + t2 + e;
           if (h < H) out[h] = from_f<QT>(acc[i][e] / l);
         }
     }
@@ -451,7 +406,7 @@ __global__ void __launch_bounds__(NT) decode_split(const Args a) {
   if (gq < G) {
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
-      const int h = 16 * (warp + 4 * (i / 2)) + 8 * (i % 2) + t2;
+      const int h = 16 * (warp + KW * (i / 2)) + 8 * (i % 2) + t2;
       if (h < hq) *reinterpret_cast<float2*>(po + h) = make_float2(acc[i][0], acc[i][1]);
     }
   }
@@ -535,19 +490,15 @@ __global__ void __launch_bounds__(NT) decode_combine(const Args a) {
 
 template <typename QT, typename CT>
 cudaError_t launch(const Args& a, cudaStream_t st) {
-  // Dynamic shared memory: the ring of K and V tiles, and q. The limit is
-  // raised once, to what STAGES streaming tiles at H = 256 take (more than
-  // one tile of 64).
+  // Dynamic shared memory: the K and V tiles and q. The limit is raised
+  // once, to what the largest tile at H = 256 takes.
   static const cudaError_t raised = cudaFuncSetAttribute(
       decode_split<QT, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      STAGES * stage_bytes<CT>(stream_tile<CT>(), MAXH) +
-          MAXG * row_bytes<QT>(MAXH));
+      2 * BT * row_bytes<CT>(MAXH) + MAXG * row_bytes<QT>(MAXH));
   if (raised != cudaSuccess) return raised;
-  const bool streams = a.per_split > a.tile;
-  if (streams && a.tile > stream_tile<CT>()) return cudaErrorInvalidValue;
-  const int smem = (streams ? STAGES : 1) * stage_bytes<CT>(a.tile, a.H) +
+  const int smem = 2 * ((a.tile + 15) & ~15) * row_bytes<CT>(a.H) +
                    MAXG * row_bytes<QT>(a.H);
-  decode_split<QT, CT><<<dim3(a.splits, a.BK), NT, smem, st>>>(a);
+  decode_split<QT, CT><<<dim3(a.splits, a.BK), KT, smem, st>>>(a);
   if (a.splits > 1) {
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -587,12 +538,10 @@ cudaError_t dispatch_cache(int cache_dtype, Args& a, bool cache_aligned,
 
 // q_dtype: 0 = float32, 1 = bfloat16. cache_dtype: 0 = float32,
 // 1 = bfloat16, 2 = int8 (then k_scale and v_scale are required).
-// softcap <= 0 means none. The grid: splits of per_split slots, a multiple
-// of tile (tile <= 64; at most the streaming tile, 64, 32 or 16 slots for
-// an int8, bf16 or f32 cache, where per_split > tile), splits =
-// ceil(S / per_split) <= 64. scratch: f32, B*K*splits*G*(round_up(H, 4) +
-// 2) of them when splits > 1. Returns cudaGetLastError() after the
-// launches.
+// softcap <= 0 means none. The grid: splits of per_split slots (a multiple
+// of tile, tile <= 64), splits = ceil(S / per_split) <= 64. scratch: f32,
+// B*K*splits*G*(round_up(H, 4) + 2) of them when splits > 1. Returns
+// cudaGetLastError() after the launches.
 extern "C" int bvt_decode_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* mask, void* o, void* scratch,
@@ -626,7 +575,6 @@ extern "C" int bvt_decode_attention(
   a.softcap = softcap;
   const int q_bytes = q_dtype == 0 ? 4 : 2;
   a.qvec = reinterpret_cast<uintptr_t>(q) % 16 == 0 && H * q_bytes % 16 == 0;
-  a.mvec = reinterpret_cast<uintptr_t>(mask) % 4 == 0 && S % 4 == 0;
   const bool cache_aligned = (reinterpret_cast<uintptr_t>(k) |
                               reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -54,36 +54,30 @@ def fits(s, h, store_bytes):
 
 
 # The kernel's grid (csrc/decode_attention.cu): a cache plane is cut into
-# at most MAX_SPLITS splits (the combine's table) of whole tiles of at most
-# TILE slots. A split of several tiles streams them through a ring of
-# shared memory in tiles of STREAM_TILE[cache itemsize] slots.
+# splits of whole tiles, each tile at most TILE slots in shared memory, and
+# at most MAX_SPLITS splits, the combine's table.
 TILE, MAX_SPLITS = 64, 64
-STREAM_TILE = {1: 64, 2: 32, 4: 16}
 
 
 @functools.lru_cache(maxsize=256)
-def plan(bk, s, num_sms, itemsize):
+def plan(bk, s, num_sms):
   """(slots per tile, slots per split, splits) of K6's grid for `bk` =
-  B * K cache planes of `s` slots stored in `itemsize`-byte elements, on a
-  card of `num_sms` SMs.
+  B * K cache planes of `s` slots on a card of `num_sms` SMs.
 
   The rule: the tile is the largest of 64, 32 and 16 slots for which one
   split per tile (ceil(s / tile) * bk blocks) fills the SMs at least once,
-  else 16. Where that grid takes at most two blocks an SM and MAX_SPLITS
-  splits, a split is one tile: at the serving shape (bk = 8, s = 352) 22
-  splits of 16 slots. Past it, one split an SM (at most MAX_SPLITS a
-  plane), streaming tiles of STREAM_TILE[itemsize] slots at most: at
-  bk = 64, s = 1120 in bf16, 2 splits of 576 slots in tiles of 32.
+  else 16; a split is one tile, or, past MAX_SPLITS splits, as many slots as
+  keep the splits to MAX_SPLITS, in tiles of up to 64. At the serving shape
+  (bk = 8, s = 352) that is 22 splits of 16 slots; at bk = 64, s = 1120, 18
+  of 64.
   """
   for tile in (64, 32, 16):
     if -(-s // tile) * bk >= num_sms:
       break
-  tiles = -(-s // tile)
-  if tiles * bk <= 2 * num_sms and tiles <= MAX_SPLITS:
-    return tile, tile, tiles
-  tile = min(tile, STREAM_TILE[itemsize])
-  splits = min(MAX_SPLITS, max(1, num_sms // bk))
-  per_split = -(-(-(-s // splits)) // tile) * tile
+  per_split = max(tile, -(-s // MAX_SPLITS))
+  if per_split > tile:
+    tile = min(TILE, per_split)
+    per_split = -(-per_split // tile) * tile
   return tile, per_split, -(-s // per_split)
 
 
@@ -212,8 +206,7 @@ def decode_attention(q, k, v, mask, *, k_scale=None, v_scale=None,
   if scales and not k_scale.dtype == v_scale.dtype == torch.float32:
     raise ValueError("scales must be float32")
   return _launch(q, k, v, mask, k_scale, v_scale, logits_softcap,
-                 plan(b * kh, k.shape[2], _num_sms(dev.index),
-                      k.element_size()))
+                 plan(b * kh, k.shape[2], _num_sms(dev.index)))
 
 
 def _launch(q, k, v, mask, k_scale, v_scale, softcap, grid):

@@ -8,7 +8,6 @@ last:
   - compute only: the K and V copies left out (a yardstick too);
   - no scores, no softmax, no p . v: one phase of each tile left out (not
     results either: what each phase adds to the loads);
-  - a ring of two tiles in a streaming split, in place of four;
   - the combine launched after the split kernel has finished, in place of
     as its programmatic dependent.
 For each it prints, at the serving shape (B=8, S=352) and at B=64,
@@ -36,31 +35,27 @@ SRC = "decode_attention.cu"
 VARIANTS = {
     "as committed": [],
     "loads only (timing only)": [(
-        "    // Scores: warp w takes the 16-slot column pairs",
+        "    // Scores: warp w takes the 16-slot column pair",
         "    if (a.softcap >= 0.f) {  // never false when timed\n"
-        "      cp_async_wait<2 * STAGES - 2>();\n"
+        "      cp_async_wait<0>();\n"
         "      continue;\n"
         "    }\n"
-        "    // Scores: warp w takes the 16-slot column pairs")],
+        "    // Scores: warp w takes the 16-slot column pair")],
+    "compute only (timing only)": [
+        ("    load_rows<CT>(sK, rb,", "    if (a.softcap < 0.f)\n"
+         "    load_rows<CT>(sK, rb,"),
+        ("    load_rows<CT>(sV, rb,", "    if (a.softcap < 0.f)\n"
+         "    load_rows<CT>(sV, rb,")],
     "no scores (timing only)": [(
-        "    for (int pi = warp; pi < np / 16; pi += 4) {",
-        "    for (int pi = warp; a.softcap < 0.f && pi < np / 16; pi += 4) {")],
+        "    if (warp < pairs * slices) {",
+        "    if (a.softcap < 0.f && warp < pairs * slices) {")],
     "no softmax (timing only)": [(
-        "    for (int g = warp; g < G; g += 4) {\n      float x[2], p[2]",
-        "    for (int g = warp; a.softcap < 0.f && g < G; g += 4) {\n"
-        "      float x[2], p[2]")],
+        "    if (warp < G) {\n      const int g = warp;",
+        "    if (a.softcap < 0.f && warp < G) {\n      const int g = warp;")],
     "no p . v (timing only)": [(
         "    for (int k0 = 0; k0 < np; k0 += 16) {\n      const unsigned char* prow",
         "    for (int k0 = 0; a.softcap < 0.f && k0 < np; k0 += 16) {\n"
         "      const unsigned char* prow")],
-    "compute only (timing only)": [
-        ("    load_rows<CT>(dk, rb, kp + static_cast<long long>(t0) * H, n, np, H,",
-         "    if (a.softcap < 0.f)\n"
-         "    load_rows<CT>(dk, rb, kp + static_cast<long long>(t0) * H, n, np, H,"),
-        ("    load_rows<CT>(dk + sb / 2, rb,",
-         "    if (a.softcap < 0.f)\n    load_rows<CT>(dk + sb / 2, rb,")],
-    "two stages in the ring": [(
-        "constexpr int STAGES = 4;", "constexpr int STAGES = 2;")],
     "combine not a dependent launch": [(
         "attr[0].val.programmaticStreamSerializationAllowed = 1;",
         "attr[0].val.programmaticStreamSerializationAllowed = 0;")],
@@ -101,15 +96,6 @@ def run_variant(name):
     r = kt.time_k6(da, card, b, s, cache)
     parts.append(f"B={b} S={s} {cache}: graph {r['graph_ms']:.4f} ms ("
                  f"{', '.join(r['kernels'])}), max abs err {err.item():.3e}")
-    tile = 64
-    if da.plan(b, s, 132, kt.CACHE_BYTES[cache])[1] > tile or b == 64:
-      # The same kernel on one tile a split (no streaming).
-      sets = kt.k6_sets(b, s, cache)
-      grid = (tile, tile, -(-s // tile))
-      fn = lambda q, k, v, m, sc: da._launch(
-          q, k, v, m, sc.get("k_scale"), sc.get("v_scale"), 0.0, grid)
-      parts[-1] += f"; one tile a split {grid}: graph {kt.graph_ms(fn, sets):.4f} ms"
-      del sets
   print(f"[{card}] K6 variant {name}: " + "; ".join(parts), flush=True)
 
 

@@ -325,11 +325,10 @@ def time_k6(da, card, b, s, cache="bf16", g=8, h=256, seed=300):
 
 def k6_variants(da, card, b, s, cache="bf16", g=8, h=256):
   """K6 at one KV head of B x S slots on other grids than `plan`'s: one
-  split per tile of 16, 32 or 64 slots (no streaming), in turns with the
-  planned grid (first and last): CUDA events, CUDA graph, host us a
-  call."""
+  split per tile of 16, 32 or 64 slots, in turns with the planned grid
+  (first and last): CUDA events, CUDA graph, host us a call."""
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  planned = da.plan(b, s, sms, CACHE_BYTES[cache])
+  planned = da.plan(b, s, sms)
   grids = {f"as planned {planned}": planned}
   for tile in (16, 32, 64):
     grid = (tile, tile, -(-s // tile))
@@ -351,8 +350,7 @@ def k6_host_parts(da, card, b=8, s=352, calls=2000):
   host clock around `calls` calls each, no synchronise inside)."""
   from big_vision_torch.ops import _build
   q, k, v, m, _ = k6_inputs(b, 1, 8, s, 256)
-  grid = da.plan(b, s,
-                 torch.cuda.get_device_properties(0).multi_processor_count, 2)
+  grid = da.plan(b, s, torch.cuda.get_device_properties(0).multi_processor_count)
   n = da.scratch_floats(b, 8, 256, grid[2])
   out, scratch = torch.empty_like(q), torch.empty(n, device=q.device)
   args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, m.data_ptr(),
@@ -368,7 +366,7 @@ def k6_host_parts(da, card, b=8, s=352, calls=2000):
       "_build.stream_ptr": lambda: _build.stream_ptr(q.device),
       "torch._C._cuda_getCurrentRawStream": (
           lambda: torch._C._cuda_getCurrentRawStream(q.device.index)),
-      "plan": lambda: da.plan(b, s, 132, 2),
+      "plan": lambda: da.plan(b, s, 132),
       "C entry, refused": lambda: entry(*refused),
       "C entry, two launches": lambda: entry(*args),
       "_launch": lambda: da._launch(q, k, v, m, None, None, 0.0, grid),

@@ -33,8 +33,7 @@ def emulate(q, k, v, mask, k_scale=None, v_scale=None, softcap=0.0,
   """K6's arithmetic on the grid (slots per tile, slots per split, splits)."""
   b, kh, g, h = q.shape
   s = k.shape[2]
-  tile, per_split, splits = grid or t_da.plan(b * kh, s, H100_SMS,
-                                              k.element_size())
+  tile, per_split, splits = grid or t_da.plan(b * kh, s, H100_SMS)
   bf = lambda x: x.to(torch.bfloat16).float()
   qb, kb, vb = bf(q), bf(k), bf(v)
   parts = []
@@ -113,7 +112,7 @@ SERVING_SPANS = [(0, 352), (0, 343), (3, 300), (40, 291), (96, 200),
                                            ("int8", 50.0)])
 def test_split_combine_matches_jax_at_the_serving_shape(cache, softcap):
   args = _inputs(8, 1, 8, 352, 256, SERVING_SPANS, cache == "int8")
-  assert t_da.plan(8, 352, H100_SMS, 2) == (16, 16, 22)
+  assert t_da.plan(8, 352, H100_SMS) == (16, 16, 22)
   got, want = _both(args, softcap)
   err = np.abs(got - want).max() / np.abs(want).max()
   assert err <= K6_BAR, err
@@ -122,40 +121,33 @@ def test_split_combine_matches_jax_at_the_serving_shape(cache, softcap):
 
 
 def test_split_combine_over_several_tiles_a_split():
-  """B=64, S=1120 (PaliGemma at 448px, 64 requests), int8 at head dim 64:
-  2 streaming splits of nine 64-slot tiles each."""
-  grid = t_da.plan(64, 1120, H100_SMS, 1)
-  assert grid == (64, 576, 2)
-  spans = [(0, 1120 - 17 * i) for i in range(63)] + [(0, 0)]
-  args = _inputs(64, 1, 8, 1120, 64, spans, True, seed=1)
+  """One plane of 5000 slots: 40 splits of two 64-slot tiles each."""
+  grid = t_da.plan(1, 5000, H100_SMS)
+  assert grid == (64, 128, 40)
+  args = _inputs(2, 1, 8, 5000, 64, [(100, 4321), (4200, 4262)], True,
+                 seed=1)
   got, want = _both(args, grid=grid)
   err = np.abs(got - want).max() / np.abs(want).max()
   assert err <= K6_BAR, err
 
 
-# (B * K, S, cache itemsize) -> (slots per tile, slots per split, splits)
-# on 132 SMs.
-PLANS = {(8, 352, 2): (16, 16, 22), (8, 352, 1): (16, 16, 22),
-         (64, 1120, 2): (32, 576, 2), (64, 1120, 1): (64, 576, 2),
-         (64, 1120, 4): (16, 560, 2), (64, 352, 2): (32, 192, 2),
-         (132, 64, 2): (64, 64, 1), (1, 1, 2): (16, 16, 1),
-         (3, 129, 2): (16, 16, 9), (2, 2000, 2): (16, 32, 63),
-         (1, 5000, 2): (32, 96, 53), (16, 6016, 1): (64, 768, 8),
-         (4, 17, 2): (16, 16, 2), (1, 100_000, 2): (32, 1568, 64),
-         (512, 352, 2): (32, 352, 1)}
+# (B * K, S) -> (slots per tile, slots per split, splits) on 132 SMs.
+PLANS = {(8, 352): (16, 16, 22), (64, 1120): (64, 64, 18),
+         (64, 352): (64, 64, 6), (132, 64): (64, 64, 1), (1, 1): (16, 16, 1),
+         (3, 129): (16, 16, 9), (2, 2000): (32, 32, 63),
+         (1, 5000): (64, 128, 40), (16, 6016): (64, 128, 47),
+         (4, 17): (16, 16, 2), (1, 100_000): (64, 1600, 63)}
 
 
-@pytest.mark.parametrize("bk,s,itemsize", sorted(PLANS))
-def test_plan(bk, s, itemsize):
-  tile, per_split, splits = t_da.plan(bk, s, H100_SMS, itemsize)
-  assert (tile, per_split, splits) == PLANS[bk, s, itemsize]
+@pytest.mark.parametrize("bk,s", sorted(PLANS))
+def test_plan(bk, s):
+  tile, per_split, splits = t_da.plan(bk, s, H100_SMS)
+  assert (tile, per_split, splits) == PLANS[bk, s]
   assert 16 <= tile <= t_da.TILE and per_split % tile == 0
-  if per_split > tile:  # a streaming split
-    assert tile <= t_da.STREAM_TILE[itemsize]
-    assert splits * bk <= H100_SMS or splits == 1 or (
-        splits == t_da.MAX_SPLITS)
   assert (splits - 1) * per_split < s <= splits * per_split
   assert splits <= t_da.MAX_SPLITS
+  if -(-s // 16) * bk >= H100_SMS and -(-s // 16) <= t_da.MAX_SPLITS:
+    assert splits * bk >= H100_SMS  # the grid fills the SMs
 
 
 def test_scratch_floats():
