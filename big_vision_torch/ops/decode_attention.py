@@ -103,21 +103,6 @@ def _num_sms(index):
   return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_scratch = {}
-
-
-def _scratch_for(device, stream, n):
-  """At least `n` f32 of scratch for launches on (`device`, `stream`): one
-  buffer each, grown when too small and reused by every launch there,
-  which the stream orders (an allocation per call costs the host more
-  than the kernels take at the serving shape)."""
-  buf = _scratch.get((device, stream))
-  if buf is None or buf.numel() < n:
-    buf = _scratch[device, stream] = torch.empty(n, dtype=torch.float32,
-                                                 device=device)
-  return buf
-
-
 def _check_inputs(q, k, v, mask, k_scale, v_scale):
   if q.dim() != 4:
     raise ValueError(f"q must be [B, K, G, H], got {tuple(q.shape)}")
@@ -215,15 +200,14 @@ def _launch(q, k, v, mask, k_scale, v_scale, softcap, grid):
   b, kh, g, h = q.shape
   tile, per_split, splits = grid
   out = torch.empty_like(q)
-  stream = _build.stream_ptr(q.device)
   n = scratch_floats(b * kh, g, h, splits)
-  scratch = _scratch_for(q.device, stream, n) if n else None
+  scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
   ptr = lambda x: None if x is None else x.data_ptr()
   err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale),
                ptr(v_scale), mask.data_ptr(), out.data_ptr(), ptr(scratch),
                _Q_DTYPES[q.dtype], _CACHE_DTYPES[k.dtype], b, kh, g,
                k.shape[2], h, float(softcap or 0.0), tile, per_split, splits,
-               stream)
+               _build.stream_ptr(q.device))
   _build.check(err, "decode_attention")
   decode_attention.launches += 1
   return out
