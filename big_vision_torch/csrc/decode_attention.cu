@@ -52,7 +52,7 @@
 //     dependent of the first (its blocks start while the splits finish and
 //     wait for their results); each thread loads all its splits' parts at
 //     once. A single split writes o itself.
-//   * What holds it back (PERF.md, PR 11): the loads alone reach about
+//   * What holds it back (PERF.md, section 6): the loads alone reach about
 //     2.4 TB/s at B=64, S=1120, and each tile's compute is not hidden
 //     behind them. Tried and measured slower: the last split block of each
 //     (b, k) combining (found by a counter), long splits streaming their

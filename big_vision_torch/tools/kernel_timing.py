@@ -286,13 +286,16 @@ def time_k6(da, card, b, s, cache="bf16", g=8, h=256, seed=300):
   sets = k6_sets(b, s, cache, g, h, seed)
   fn = lambda q, k, v, m, sc: da.decode_attention(q, k, v, m, **sc)
   out = dict(ms=time_ms(fn, sets), graph_ms=graph_ms(fn, sets))
+  # At least 24 calls: with two, chip_smoke once got no kernel rows back.
+  calls = max(len(sets), 24)
   rows, _, _ = device_profile(
-      {"K6": lambda: [fn(*x) for x in sets]}, top=4, keep=("decode",))["K6"]
+      {"K6": lambda: [fn(*sets[i % len(sets)]) for i in range(calls)]},
+      top=4, keep=("decode",))["K6"]
   by_kernel = {}
   for n, ms, _ in rows:
     if "decode" in n:
       name = n[n.index("decode"):].split("<")[0].split("(")[0]
-      by_kernel[name] = by_kernel.get(name, 0.0) + ms / len(sets)
+      by_kernel[name] = by_kernel.get(name, 0.0) + ms / calls
   out["profiled_ms"] = sum(by_kernel.values())
   out["kernels"] = [f"{n} {ms:.4f}" for n, ms in sorted(by_kernel.items())]
   out["host_us"] = host_us(fn, sets)
