@@ -25,8 +25,9 @@ Cut, for one card and no dataset:
     chips;
   * data: the port's synthetic source (16,384 raw 256x320 images, 512
     unique, labels i % 21843) with `random_crop(240)` in place of
-    ImageNet-21k's `decode_jpeg_and_inception_crop(240)`, whose decode is
-    not ported; an epoch is the source's 16,384 examples;
+    ImageNet-21k's `decode_jpeg_and_inception_crop(240)` (the port has
+    the JPEG decode now; this config keeps raw images); an epoch is the
+    source's 16,384 examples;
   * `prof_init`: the path of a local `.npz` in the layout of the published
     "howto-i21k-B/8" checkpoint (which is not in the repository) instead of
     that name; empty by default, which leaves the teacher at its random

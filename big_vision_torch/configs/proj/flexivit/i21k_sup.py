@@ -18,8 +18,8 @@ cosine, 90 epochs, mixup p=0.2, and the token grids seqhw (5, 6, 8, 10,
 Cut, for one card and no dataset:
   * data: the port's synthetic source (16,384 raw 256x320 images, 512
     unique, labels i % 21843) with `random_crop(240)` in place of
-    ImageNet-21k's `decode_jpeg_and_inception_crop(240)`, whose decode is
-    not ported; an epoch is the source's 16,384 examples, so 90 epochs are
+    ImageNet-21k's `decode_jpeg_and_inception_crop(240)` (the port has the
+    JPEG decode now; this config keeps raw images); an epoch is the source's 16,384 examples, so 90 epochs are
     46,080 steps;
   * `randaug(2,10)` is left out: RandAugment is not ported;
   * batch 32 per step, one card's share of the JAX run's 4096 over 128

@@ -5,14 +5,18 @@ A DataSource owns a dataset; the input pipeline pulls raw example dicts
 yields every example (the JAX package's per-process splits wait for the
 multi-device slice).
 
-`get(name, **kw)` knows "synthetic" (datasets/synthetic.py); the other
-sources of the JAX package are not ported yet and raise.
+`get(name, **kw)` knows "synthetic" (datasets/synthetic.py) and
+"imagefolder" (datasets/imagefolder.py); the other sources of the JAX
+package are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib
 from typing import Iterator
+
+import numpy as np
 
 
 class DataSource:
@@ -28,7 +32,8 @@ class DataSource:
     raise NotImplementedError
 
 
-_BUILTIN = {"synthetic": "big_vision_torch.datasets.synthetic"}
+_BUILTIN = {"synthetic": "big_vision_torch.datasets.synthetic",
+            "imagefolder": "big_vision_torch.datasets.imagefolder"}
 
 
 def get(name, **kw):
@@ -37,3 +42,12 @@ def get(name, **kw):
     raise ValueError(f"data source {name!r} is not ported; known: "
                      f"{sorted(_BUILTIN)}")
   return importlib.import_module(_BUILTIN[name]).DataSource(**kw)
+
+
+def stable_id(key) -> np.int64:
+  """64-bit stable hash of a string or bytes key (an example's identity):
+  the first 8 bytes of its SHA-256, little-endian, signed."""
+  if isinstance(key, str):
+    key = key.encode()
+  h = hashlib.sha256(key).digest()
+  return np.int64(int.from_bytes(h[:8], "little", signed=True))

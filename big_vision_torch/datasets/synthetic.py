@@ -1,16 +1,19 @@
-"""Synthetic DataSource: port of big_vision_tpu/datasets/synthetic.py for
-raw images (`encoded=False`).
+"""Synthetic DataSource: port of big_vision_tpu/datasets/synthetic.py.
 
 Example i has label i % num_classes and the image that numpy's
 `default_rng(i % unique_images)` draws, the same values as the JAX
-source. Each unique image is drawn once and cached read-only: drawing 245
-KB of random bytes per example in the loader threads would starve a step
-of 256 images. JPEG bytes (`encoded=True`) wait for the port's JPEG decode.
+source: raw uint8 HWC arrays (`encoded=False`) or, by default, those
+arrays as JPEG bytes of quality 90 (`encoded=True`, which exercises the
+host decode as a real dataset does). Each unique image is drawn (and
+encoded) once and cached: drawing 245 KB of random bytes per example in
+the loader threads would starve a step of 256 images, and encoding one
+costs milliseconds.
 """
 
 from __future__ import annotations
 
 import functools
+import io
 
 import numpy as np
 
@@ -24,21 +27,28 @@ def _image(seed, h, w):
   return img
 
 
+@functools.lru_cache(maxsize=None)  # one entry per unique image
+def _jpeg_bytes(seed, h, w):
+  from PIL import Image
+  buf = io.BytesIO()
+  Image.fromarray(_image(seed, h, w)).save(buf, format="JPEG", quality=90)
+  return buf.getvalue()
+
+
 class DataSource(core.DataSource):
 
   def __init__(self, *, n=1024, num_classes=1000, h=256, w=256,
                encoded=True, unique_images=64, split=None):
     del split
-    if encoded:
-      raise ValueError("synthetic(encoded=True) yields JPEG bytes, whose "
-                       "decode is not ported yet; pass encoded=False")
     self.total_examples = n
     self.num_classes = num_classes
     self.h, self.w = h, w
+    self.encoded = encoded
     self.unique_images = unique_images
 
   def _example(self, i):
-    return {"image": _image(int(i) % self.unique_images, self.h, self.w),
+    make = _jpeg_bytes if self.encoded else _image
+    return {"image": make(int(i) % self.unique_images, self.h, self.w),
             "label": np.int32(i % self.num_classes), "_id": np.int64(i)}
 
   def get_examples(self, *, ordered, seed=0, epoch=0):

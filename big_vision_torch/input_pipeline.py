@@ -1,5 +1,5 @@
-"""Training input pipeline: port of `training` in
-big_vision_tpu/input_pipeline.py.
+"""Input pipelines: port of `training` and `make_for_inference` in
+big_vision_tpu/input_pipeline.py. The training pipeline:
 
   raw example stream (DataSource, reshuffled each epoch)
     -> shuffle buffer over raw records
@@ -15,6 +15,8 @@ The numpy rng keys are the JAX package's: the shuffle buffer draws from
 `default_rng((seed, i))`, so for one seed and pp string the host batches
 equal the JAX pipeline's bit for bit. On the GPU the copies and the device
 phase run on a side stream; the consumer's stream waits on an event.
+`make_for_inference` feeds the evaluators the same way, in order and
+padded (see its docstring).
 """
 
 from __future__ import annotations
@@ -104,6 +106,11 @@ def _pp_threaded(stream, pfn, num_threads, seed, chunk_size=16,
     pool.shutdown(wait=False, cancel_futures=True)
 
 
+def _default_threads():
+  """Host pp threads where the config names none: 4 a core, 4 to 16."""
+  return min(16, max(4, (os.cpu_count() or 1) * 4))
+
+
 def _collate(examples):
   """Stacks a list of example dicts into numpy arrays."""
   return {k: np.stack([np.asarray(e[k]) for e in examples])
@@ -180,21 +187,24 @@ def _to_device(batch, device, stream):
             for k, v in batch.items()}
 
 
-def _device_feed(batches, pfn, device, seed, n_prefetch, step_offset=0):
+def _device_feed(batches, pfn, device, seed, n_prefetch, step_offset=0,
+                 preserve=()):
   """Local numpy batches -> device batches after the device pp phase, batch
-  i with the generator of step `step_offset + i`."""
+  i with the generator of step `step_offset + i`. Keys in `preserve` skip
+  the device pp phase."""
   stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
   def produce():
     try:
       for step, batch in enumerate(batches):
         batch = _to_device(batch, device, stream)
+        kept = {k: batch.pop(k) for k in preserve if k in batch}
         gen = step_generator(seed, step_offset + step, device)
         if stream is None:
-          yield pfn.device(batch, gen), None
+          yield {**pfn.device(batch, gen), **kept}, None
           continue
         with torch.cuda.stream(stream):
-          batch = pfn.device(batch, gen)
+          batch = {**pfn.device(batch, gen), **kept}
           ready = torch.cuda.Event()
           ready.record(stream)
         yield batch, ready
@@ -238,7 +248,7 @@ def training(input_config, *, device="cuda", seed=0, skip_examples=0):
   pfn = pp_builder.get_preprocess_fn(cfg.get("pp"))
   num_threads = cfg.get("num_threads")
   if num_threads is None:  # explicit 0 = inline single-threaded path
-    num_threads = min(16, max(4, (os.cpu_count() or 1) * 4))
+    num_threads = _default_threads()
   shuffle_buffer = cfg.get("shuffle_buffer_size")
   if not shuffle_buffer:
     warnings.warn(
@@ -279,3 +289,63 @@ def element_spec(input_config, *, seed=0):
   batch = _to_device(_collate([ex]), torch.device("cpu"), None)
   batch = pfn.device(batch, step_generator(seed, 0, "cpu"))
   return {k: (tuple(v.shape[1:]), v.dtype) for k, v in batch.items()}
+
+
+def make_for_inference(data_cfg, pp, batch_size, *, device="cuda",
+                       cache_raw=False):
+  """The evaluation pipeline: every example once, in order, then padding.
+
+  Port of `make_for_inference` in big_vision_tpu/input_pipeline.py on one
+  process and one device, where its per-process splits and its rounding of
+  the batch to the local device count have nothing to do. The host pp
+  phase runs on the training pipeline's default threads; each example
+  gets `_mask` = 1, and after the last one the stream is padded with
+  examples of zeros with `_mask` = 0 and `_id` = -1 up to ceil(n /
+  batch_size) batches. `_mask` and `_id` skip the device pp phase (whose
+  `keep` would drop them). `cache_raw` keeps the raw (pre-pp) examples in
+  host memory on first use, so that later evaluations skip the source's
+  IO but run the pp again. Returns (a function that makes a new iterator
+  of device batches, the number of batches).
+  """
+  device = torch.device(device)
+  source = ds_core.get(**data_cfg)
+  pfn = pp_builder.get_preprocess_fn(pp)
+  num_batches = -(-source.total_examples // batch_size)  # ceil
+
+  raw_cache = []
+
+  def raw_examples():
+    if not cache_raw:
+      return source.get_examples(ordered=True)
+    if not raw_cache:
+      raw_cache.extend(source.get_examples(ordered=True))
+    return iter(raw_cache)
+
+  def example_stream():
+    capacity = num_batches * batch_size
+    count, proto = 0, None
+    stream = _pp_threaded(raw_examples(), pfn, _default_threads(), seed=0)
+    try:
+      for ex in stream:
+        if count >= capacity:
+          break
+        ex = dict(ex, _mask=np.int32(1))
+        proto = proto or {k: np.zeros_like(np.asarray(v))
+                          for k, v in ex.items()}
+        count += 1
+        yield ex
+    finally:
+      stream.close()
+    if proto is None:
+      raise ValueError("the evaluation's data source is empty")
+    pad = dict(proto, _mask=np.int32(0), _id=np.int64(-1))
+    while count < capacity:
+      count += 1
+      yield dict(pad)
+
+  def make_iter():
+    batches = _batched(example_stream(), batch_size)
+    return _device_feed(batches, pfn, device, 0, n_prefetch=1,
+                        preserve=("_mask", "_id"))
+
+  return make_iter, num_batches

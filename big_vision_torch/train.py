@@ -21,17 +21,32 @@ else `model_init` loads params through the model's `load` (with
 `ckpt_steps` (or `ckpt_{examples,epochs,percent}`) and at the last step,
 kept for good every `keep_ckpt_steps`.
 
-Keys whose feature is not ported yet are refused, not ignored: `mixup`
-with p > 0, `evals`, and models other than "vit". The FlexiViT trainers
+With `mixup.p` > 0 each step first mixes the batch's images and labels
+with themselves rolled by one (`schedules.mixup`, as JAX `train.py:194-200`
+does), with a ~ Beta(p, p) drawn from a CPU generator seeded from the
+seed and the optimizer step.
+
+Evaluators (`config["evals"]`, JAX `train.py:277-323`) are built by
+`evaluators.common.from_config` over the predict fns "predict" (logits)
+and "represent" (`pre_logits`), and run every `log_steps` (or
+`log_{epochs,examples,percent}`) of their spec; a fresh run evaluates at
+step 0 (except evals with `skip_first`), and the last step is evaluated
+unless `stop_after_steps` ended the run early. Each eval's time is written
+as `z/secs/eval/<name>` and kept out of `img/sec`, `step_ms` and
+`input_stall_pct`.
+
+Keys whose feature is not ported yet are refused, not ignored: evals of
+a type the port lacks, and models other than "vit". The FlexiViT trainers
 (`trainers/proj/flexi/train.py`, `distill.py`) reuse this loop and
 `Trainer` through its hooks: `check_config`, `build_model`,
-`load_weights`, `state`/`restore_state`, `step_kwargs` and
-`update(batch, **kw)`.
+`load_weights`, `state`/`restore_state`, `step_kwargs`, `predict_fns`
+and `update(batch, **kw)`.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import math
 import os
@@ -41,6 +56,7 @@ import torch
 
 from big_vision_torch import input_pipeline
 from big_vision_torch import optim
+from big_vision_torch.evaluators import common as eval_common
 from big_vision_torch.models import vit
 from big_vision_torch.utils import checkpoints
 from big_vision_torch.utils import convert
@@ -48,17 +64,20 @@ from big_vision_torch.utils import losses
 from big_vision_torch.utils import schedules
 from big_vision_torch.utils import writers
 
-_UNPORTED = ("evals",)
-
-
-def check_ported(config, *, model_name="vit", mixup=False):
+def check_ported(config, *, model_name="vit",
+                 predict_fns=("predict", "represent")):
   """Raises ValueError naming the first config key that is not ported by a
-  trainer of `model_name` (that takes `mixup` with p > 0 if `mixup`)."""
-  for key in _UNPORTED:
-    if config.get(key):
-      raise ValueError(f"config key {key!r} is not ported yet")
-  if not mixup and dict(config.get("mixup") or {}).get("p"):
-    raise ValueError("config key 'mixup' (p > 0) is not ported yet")
+  trainer of `model_name` with `predict_fns` (their names)."""
+  for name, spec in (config.get("evals") or {}).items():
+    spec = dict(spec)
+    try:
+      eval_common.evaluator_module(spec.get("type", name))
+    except ValueError as e:
+      raise ValueError(f"config key 'evals': {name}: {e}") from None
+    if spec.get("pred", "predict") not in predict_fns:
+      raise ValueError(f"config key 'evals': {name}: predict fn "
+                       f"{spec.get('pred', 'predict')!r} is not ported by "
+                       f"this trainer (it has {list(predict_fns)})")
   if not dict(config.get("input") or {}).get("resume_seek", True):
     raise ValueError("config key 'input.resume_seek'=False is not ported; "
                      "a resumed run always seeks the input stream")
@@ -104,7 +123,6 @@ class Trainer:
   """
   MODEL_NAME = "vit"  # the config's model_name that `build_model` builds
   MODEL_MODULE = vit  # the module whose `load` reads `model_init`
-  MIXUP = False  # whether `update` ports the config's mixup
 
   def __init__(self, config, *, device="cuda", workdir=None):
     config = dict(config)
@@ -144,7 +162,8 @@ class Trainer:
 
   def check_config(self, config):
     """Raises on a config key this trainer does not port."""
-    check_ported(config, model_name=self.MODEL_NAME, mixup=self.MIXUP)
+    check_ported(config, model_name=self.MODEL_NAME,
+                 predict_fns=self.predict_fns())
 
   def load_weights(self, resumed):
     """Loads `model_init` into the model unless the run resumes."""
@@ -183,18 +202,44 @@ class Trainer:
     return input_pipeline.training_from_step(
         self.config["input"], first_step, device=self.device, seed=self.seed)
 
+  def mixup_generator(self):
+    """The CPU generator of this step's mixup draw, seeded from (seed + 2,
+    optimizer step)."""
+    return input_pipeline.step_generator(
+        self.seed + 2, optim.get_count(self.opt_state), "cpu")
+
   def loss_and_grads(self, batch):
-    """(loss, {JAX name: gradient}) of the config's loss on `batch`."""
+    """(loss, {JAX name: gradient}) of the config's loss on `batch`, mixed
+    up first where the config's mixup.p > 0."""
+    images, labels = batch["image"], batch["labels"]
+    mixup_p = dict(self.config.get("mixup") or {}).get("p")
+    if mixup_p:
+      (images, labels), _ = schedules.mixup(self.mixup_generator(), images,
+                                            labels, p=mixup_p)
     rng = None
     if self.model.dropout:  # one generator per step, from (seed, count)
       rng = input_pipeline.step_generator(
           self.seed + 1, optim.get_count(self.opt_state), self.device)
     for p in self.params.values():
       p.grad = None
-    logits, _ = self.model(batch["image"], train=True, rng=rng)
-    loss = self.loss_fn(logits=logits, labels=batch["labels"])
+    logits, _ = self.model(images, train=True, rng=rng)
+    loss = self.loss_fn(logits=logits, labels=labels)
     loss.backward()
     return loss.detach(), {n: p.grad for n, p in self.params.items()}
+
+  def predict_fns(self):
+    """{name: fn(train_state, batch) -> tuple} for the evaluators, as the
+    JAX trainer names them: "predict" gives (logits, {}), "represent"
+    (pre_logits,)."""
+    def predict(train_state, batch):
+      del train_state  # the model holds the params
+      return self.model(batch["image"])[0], {}
+
+    def represent(train_state, batch):
+      del train_state
+      return (self.model(batch["image"])[1]["pre_logits"],)
+
+    return {"predict": predict, "represent": represent}
 
   def update(self, batch):
     """One training step; returns its measurements (device scalars)."""
@@ -216,7 +261,6 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
   writers.write_note(f"Model has {n_params:,} parameters; training for "
                      f"{trainer.total_steps} steps on {trainer.device}")
   mw.measure("num_params", n_params)
-  mw.step_end()
   total = trainer.total_steps
   log_steps = schedules.steps("log_training", config, default=50)
   stop = config.get("stop_after_steps")
@@ -230,8 +274,47 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
   it = trainer.input_iter(trainer.first_step)
   sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
           else lambda: None)
+
+  @functools.cache
+  def evaluators():
+    return eval_common.from_config(
+        config, trainer.predict_fns(), write_note=writers.write_note,
+        get_steps=lambda key, cfg: schedules.steps(
+            key, cfg, ntrain, trainer.batch_size, total, default=None),
+        device=trainer.device)
+
+  last_eval_step = {}
+
+  def run_evals(step, final=False, initial=False):
+    """Runs the evaluators due at `step`; returns the seconds they took."""
+    spent = 0.0
+    for name, evaluator, every, prefix in evaluators():
+      if initial and dict(config["evals"][name]).get("skip_first"):
+        continue
+      due = final or (every and step % every == 0)
+      if not due or last_eval_step.get(name) == step:
+        continue
+      last_eval_step[name] = step
+      sync()  # the steps before it are the training window's
+      t0 = time.perf_counter()
+      for key, value in evaluator.run(trainer.state()):
+        mw.measure(f"{prefix}{key}", value)
+      sync()
+      dt = time.perf_counter() - t0
+      mw.measure(f"z/secs/eval/{name}", dt)
+      spent += dt
+    return spent
+
   t_window, stall, n_window = time.perf_counter(), 0.0, 0
   try:
+    if trainer.first_step in (total, 0):
+      # A fresh run evaluates at step 0 (but for `skip_first` evals); a
+      # resumed run that had finished its steps runs the final evals.
+      run_evals(trainer.first_step, final=True,
+                initial=trainer.first_step != total)
+    mw.step_end()
+    t_window = time.perf_counter()
+    step = trainer.first_step
     for step in range(trainer.first_step + 1, total + 1):
       mw.step_start(step)
       t0 = time.perf_counter()
@@ -257,10 +340,15 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
       if ckpt_mgr and (step % ckpt_steps == 0 or step == total):
         ckpt_mgr.save(trainer.state(), trainer.ckpt_prefix, step,
                       keep=bool(keep_steps and step % keep_steps == 0))
+      t_window += run_evals(step)  # eval time stays out of the window
       mw.step_end()
       if stop and step >= stop:
         writers.write_note(f"stop_after_steps={stop}: stopping early.")
         break
+    if total > 0 and not (stop and step < total):  # a `stop` skips them
+      mw.step_start(step)
+      run_evals(step, final=True)
+      mw.step_end()
   finally:
     it.close()
     mw.close()

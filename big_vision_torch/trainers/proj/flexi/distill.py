@@ -25,15 +25,14 @@ in every case (the published `prof_init` is the path of a local `.npz`;
 nothing is fetched). Checkpoints hold {"params": {"student": {...},
 teacher: {...}}, "opt": ...} as the JAX train state does. The loop, its
 metric rows and its checkpoints are `big_vision_torch/train.py`'s.
-Evaluators are not ported yet and are refused.
+Its evaluators (the distance `Evaluator`, `predict_seqhw`) are not
+ported yet and are refused.
 """
 
 from __future__ import annotations
 
 import torch
 
-from big_vision_torch import input_pipeline
-from big_vision_torch import optim
 from big_vision_torch import train
 from big_vision_torch.evaluators.proj.distill import distance
 from big_vision_torch.models import vit
@@ -58,7 +57,7 @@ class Trainer(flexi_train.Trainer):
   """The FlexiViT trainer with frozen teachers and a distillation loss."""
 
   def check_config(self, config):
-    train.check_ported(config, mixup=True)
+    train.check_ported(config, predict_fns=self.predict_fns())
     for name in ("student", *config["teachers"]):
       if config[f"{name}_name"] not in MODELS:
         raise ValueError(f"config key '{name}_name'="
@@ -121,11 +120,10 @@ class Trainer(flexi_train.Trainer):
     data = dict(batch)
     mixup = dict(self.config.get("mixup") or {})
     if mixup.get("p"):
-      gen = input_pipeline.step_generator(
-          self.seed + 2, optim.get_count(self.opt_state), "cpu")
       names = [n for n in ("image", "labels", "student", *self.teachers)
                if n in data]
-      _, mixed = schedules.mixup(gen, **mixup, **{n: data[n] for n in names})
+      _, mixed = schedules.mixup(self.mixup_generator(), **mixup,
+                                 **{n: data[n] for n in names})
       data.update({n: mixed[n] for n in names})
     for p in self.params.values():
       p.grad = None

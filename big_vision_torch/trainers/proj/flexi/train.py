@@ -24,8 +24,6 @@ not ported yet and are refused.
 
 from __future__ import annotations
 
-from big_vision_torch import input_pipeline
-from big_vision_torch import optim
 from big_vision_torch import train
 from big_vision_torch.models.proj.flexi import vit as flexi_vit
 from big_vision_torch.trainers.proj.flexi import common as flexi
@@ -36,13 +34,16 @@ class Trainer(train.Trainer):
   """`train.Trainer` with the FlexiViT model, flexi args and mixup."""
   MODEL_NAME = "proj.flexi.vit"
   MODEL_MODULE = flexi_vit
-  MIXUP = True
 
   def build_model(self, res, channels):
     del res  # the token grid, not the image size, sets the sequence
     return flexi_vit.Model(num_classes=self.config["num_classes"],
                            channels=channels, device=self.device,
                            **self.config.get("model", {}))
+
+  def predict_fns(self):
+    """None: the JAX trainer's `predict_seqhw` fns are not ported."""
+    return {}
 
   def step_kwargs(self, step):
     """The flexi args of `step`, drawn as the JAX trainer draws them."""
@@ -58,9 +59,8 @@ class Trainer(train.Trainer):
     images, labels = batch["image"], batch["labels"]
     mixup = dict(self.config.get("mixup") or {})
     if mixup.get("p"):
-      gen = input_pipeline.step_generator(
-          self.seed + 2, optim.get_count(self.opt_state), "cpu")
-      (images, labels), _ = schedules.mixup(gen, images, labels, **mixup)
+      (images, labels), _ = schedules.mixup(self.mixup_generator(), images,
+                                            labels, **mixup)
     for p in self.params.values():
       p.grad = None
     logits, _ = self.model(images, train=True, **flexi_kw)

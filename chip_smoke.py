@@ -6,11 +6,13 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --checks` stops after phase 2: a quick check of
-every kernel after a change to one.)
+every kernel and of the JPEG decoder after a change to one.)
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. builds every CUDA kernel from big_vision_torch/csrc (one nvcc each, in
-     parallel);
+     parallel), and the JPEG decoder big_vision_torch/native/dataio.cc with
+     g++, linking the libjpeg that `big_vision_torch.native` finds (on the
+     card, Pillow's bundled copy), whose path it prints;
   2. holds each kernel against its plain PyTorch version in bf16 (K1 and K2
      also in f32), at the shapes of the serving and training paths and at
      the edge cases (masks, Tq != Tkv, int8 cache, softcap, fully masked
@@ -42,6 +44,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      S=1120 in bf16, int8 and f32 and at S=1121, and B=32 at H=72 in
      int8 with softcap: each launch repeated and asserted
      bit-equal, every example with no visible slot exact zeros;
+     and the JPEG decoder: its full decode of 9 JPEGs of 256x320 bit-equal
+     to PIL's, and the YUV path (planes cropped on the host, RGB made by
+     `yuv420_to_rgb` on the card) against the RGB decode of the smooth
+     image of the JAX package's tests/test_native.py, mean |diff| under
+     3.0 and 99th percentile under 12.0, the JAX package's bar;
   3. serves PaliGemma-3B (So400m/14 at 224px + gemma_2b, random bf16
      weights from SEED) to a batch of 8 requests through predict_fns,
      checks that the image tower launched K1's tensor-core kernel once per
@@ -52,10 +59,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
      of tests/test_decode_attention.py; then the same with the int8 KV
      cache (the same weights, INT8_DECODE tokens, K6 on the int8 store
      with its per-slot scales) against the int8 plain path;
-  4. trains ViT-B/16 at 224px, batch 256, through `big_vision_torch.train`
-     and configs/vit_b16_synthetic.py (random init from the config's seed,
-     the real input pipeline) for TRAIN_STEPS steps: every loss finite, K1's
-     and K2's tensor-core kernels launched 12 times per step; then 10 more
+  4. measures the host decode rate: images per second of the ViT config's
+     host pp phase, decode_jpeg_and_inception_crop_yuv(224), over its
+     synthetic JPEGs on the input pipeline's thread map, on the config's
+     threads and on one (with os.cpu_count()); then trains ViT-B/16 at
+     224px, batch 256, through `big_vision_torch.train` and
+     configs/vit_b16_synthetic.py (random init from the config's seed, the
+     real input pipeline on bench.py's input: synthetic JPEGs decoded on
+     the host into YUV 4:2:0 planes with an inception crop, made RGB on the
+     card) for TRAIN_STEPS steps, after the config's classification eval
+     at step 0 (1024 JPEGs: decode, resize_small(256), central_crop(224) on
+     the host; 4 batches; val/prec@1, val/loss and z/secs/eval/val in the
+     metrics file, eval img/s printed): every loss finite, K1's
+     tensor-core kernel launched 12 times per step and per eval batch,
+     K2's 12 times per step, no other kernel; whether the step is bound by
+     the host (more than HOST_BOUND_SHARE slower than the step on a fixed
+     batch below, and how much of that is input stall); then 10 more
      steps on one fixed
      batch, whose loss must fall (timed with CUDA events: the step without
      the input pipeline), a profile of one step (device busy time), and
@@ -124,7 +143,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      on the same inputs; K6 also at B=64, S=1120 in bf16 and int8.
 The line before the last is {"kernels": [...]}: K1's and K2's bf16
 tensor-core kernels are reported at the ViT training shape (B=256, T=196,
-H=12, D=64; launches per step), K1's and K2's f32 kernels at FlexiViT-B's
+H=12, D=64; launches per training step, the step-0 eval's 12 K1 launches
+per batch left out), K1's and K2's f32 kernels at FlexiViT-B's
 seqhw 15 (B=32, T=226, H=12, D=64, f32; launches per step of the FlexiViT
 phase), K3,
 K4a, K4b and K5 at the FlexiViT-B shape of seqhw 40 (B=32, T=1601, H=12,
@@ -144,6 +164,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -191,12 +212,22 @@ F32_BAR = 1e-4
 # as the bf16 plain path's is; an error below the floor (K2_BAR,
 # BF16_GRAD_FLOOR) passes either way (see kernel_vs_plain_training).
 K2_INPLACE_FACTOR, BF16_GRAD_FACTOR, BF16_GRAD_FLOOR = 1.25, 1.5, E2E_BAR
+# The YUV path against the RGB decode (JAX tests/test_native.py's bar).
+YUV_MEAN_BAR, YUV_P99_BAR = 3.0, 12.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAIN_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs",
                             "vit_b16_synthetic.py")
 TRAIN_STEPS, TRAIN_LOG, FIXED_STEPS = 20, 5, 10
 TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D = 256, 196, 12, 64  # B/16 at 224px
 TRAIN_DEPTH = 12
+# An end-to-end training step more than this share slower than the step on
+# a fixed batch, without the input pipeline, is reported as bound by the
+# host: by waiting for batches (the input stall) or by the input threads
+# slowing the thread that dispatches the step.
+HOST_BOUND_SHARE = 0.10
+# Examples timed for the host decode rate, after as many to warm up (which
+# encode the config's 512 unique JPEGs).
+DECODE_RATE_N = 2048
 FLEXI_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                             "flexivit", "i21k_sup.py")
 FLEXI_B, FLEXI_T = 32, (1601, 901)  # FlexiViT-B at 240px, seqhw 40 and 30
@@ -619,6 +650,91 @@ def check_k6(da):
   return errs["gemma_2b B=8"], errs["int8"]
 
 
+def smooth_jpeg():
+  """The smooth 256x320 image of the JAX package's YUV test
+  (tests/test_native.py), as JPEG bytes of quality 95."""
+  import numpy as np
+  from PIL import Image
+  base = np.random.RandomState(0).randint(0, 255, (8, 10, 3), np.uint8)
+  img = Image.fromarray(base).resize((320, 256), Image.BILINEAR)
+  buf = io.BytesIO()
+  img.save(buf, format="JPEG", quality=95)
+  return buf.getvalue()
+
+
+def check_native(gpu):
+  """The JPEG decoder built from big_vision_torch/native: its full decode
+  bit-equal to PIL's (which decodes with the same bundled libjpeg), and the
+  YUV path (planes cropped on the host, RGB made on the card) against the
+  RGB decode of a smooth image within the JAX package's bar: mean |diff|
+  under YUV_MEAN_BAR, 99th percentile under YUV_P99_BAR."""
+  import numpy as np
+  from PIL import Image
+  from big_vision_torch import input_pipeline
+  from big_vision_torch import native
+  from big_vision_torch.datasets import synthetic
+  from big_vision_torch.pp import builder
+  print(f"JPEG decoder: {native.linked_library()}")
+  source = synthetic.DataSource(n=8, h=256, w=320, unique_images=8)
+  images = [ex["image"] for ex in source.get_examples(ordered=True)]
+  images.append(smooth_jpeg())
+  for raw in images:
+    want = np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"))
+    got = native.decode_crop_resize(raw)
+    assert got.shape == want.shape and (got == want).all(), "decode != PIL"
+  print(f"full decode bit-equal to PIL {Image.__version__} on "
+        f"{len(images)} JPEGs of 256x320")
+  box = "area_min=100, area_max=100, ratio_min=1.0, ratio_max=1.0"
+  yuv = builder.get_preprocess_fn(
+      f"decode_jpeg_and_inception_crop_yuv(128, {box})|yuv420_to_rgb")
+  ex = yuv.host({"image": images[-1]}, np.random.default_rng(3))
+  batch = {k: torch.from_numpy(v[None]).cuda() for k, v in ex.items()}
+  got = yuv.device(batch, input_pipeline.step_generator(0, 0, "cuda"))
+  got = got["image"][0].cpu().numpy()
+  want = builder.get_preprocess_fn(
+      f"decode_jpeg_and_inception_crop(128, {box})").host(
+          {"image": images[-1]}, np.random.default_rng(3))["image"]
+  diff = np.abs(got - want.astype(np.float32))
+  mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+  print(f"[{gpu}] YUV path (yuv420_to_rgb on the card) vs RGB decode, "
+        f"smooth 256x320 JPEG at 128px: mean |diff| {mean:.4f} (bar "
+        f"{YUV_MEAN_BAR}), 99th percentile {p99:.4f} (bar {YUV_P99_BAR})")
+  assert got.shape == want.shape == (128, 128, 3)
+  assert mean < YUV_MEAN_BAR and p99 < YUV_P99_BAR, (mean, p99)
+
+
+def host_decode_rate(gpu):
+  """Images per second of the ViT config's host pp phase
+  (decode_jpeg_and_inception_crop_yuv(224)) over its synthetic source, on
+  the input pipeline's thread map with the config's threads, and on one
+  thread."""
+  from big_vision_torch import input_pipeline
+  from big_vision_torch import train
+  from big_vision_torch.datasets import core
+  from big_vision_torch.pp import builder
+  cfg = train.load_config(TRAIN_CONFIG)["input"]
+  pfn = builder.get_preprocess_fn(cfg["pp"])
+  assert [op.name for op in pfn.host_ops] == [
+      "decode_jpeg_and_inception_crop_yuv(224)"], pfn.host_ops
+  source = core.get(**cfg["data"])
+  pp_threaded = input_pipeline._pp_threaded  # pylint: disable=protected-access
+  rates = {}
+  for threads in (cfg["num_threads"], 1):
+    n = DECODE_RATE_N if threads > 1 else DECODE_RATE_N // 8
+    for _ in range(2):  # the first pass warms up, the second is timed
+      examples = (ex for _, ex in zip(range(n), source.get_examples(
+          ordered=True)))
+      t0 = time.perf_counter()
+      count = sum(1 for _ in pp_threaded(examples, pfn, threads, seed=0))
+      rates[threads] = count / (time.perf_counter() - t0)
+  print(f"[{gpu}] host decode rate of {pfn.specs[0]} over the config's "
+        f"synthetic JPEGs (256x320, quality 90): "
+        f"{rates[cfg['num_threads']]:.1f} img/s on {cfg['num_threads']} "
+        f"threads, {rates[1]:.1f} img/s on 1; os.cpu_count() = "
+        f"{os.cpu_count()}")
+  return rates
+
+
 # ----------------------------------------------------------------------------
 # Phase 3: serving.
 # ----------------------------------------------------------------------------
@@ -684,25 +800,42 @@ def serve(model, plain, batch, fa, da, decode=DECODE):
 # ----------------------------------------------------------------------------
 
 
-def train_main_path(fa, workdir):
-  """Trains through the entry point; returns (trainer, launches per step,
-  end-to-end numbers from the metric rows)."""
+def train_main_path(fa, workdir, gpu):
+  """Trains through the entry point, with the config's step-0 eval;
+  returns (trainer, launches per step, end-to-end numbers from the metric
+  rows, eval img/s among them)."""
   from big_vision_torch import train
   shutil.rmtree(workdir, ignore_errors=True)
+  n_eval = train.load_config(TRAIN_CONFIG)["evals"]["val"]["data"]["n"]
+  eval_batches = -(-n_eval // TRAIN_B)
   reset_launches(fa)
   trainer = train.main(["--config", f"{TRAIN_CONFIG}:stop={TRAIN_STEPS},"
                         f"log={TRAIN_LOG}", "--workdir", workdir])
   torch.cuda.synchronize()
   counts = launches(fa)
   depth = len(trainer.model.encoder.blocks)
-  print(f"training: {TRAIN_STEPS} steps of batch {trainer.batch_size}; "
-        f"launches {counts} (want K1 and K2, the tensor-core kernels, "
-        f"{depth} x {TRAIN_STEPS} each, no other)")
-  assert counts == {**dict.fromkeys(COUNTERS, 0), "K1": depth * TRAIN_STEPS,
+  print(f"training: {TRAIN_STEPS} steps of batch {trainer.batch_size} and "
+        f"an eval of {eval_batches} batches at step 0; launches {counts} "
+        f"(want K1, the tensor-core forward, {depth} x ({TRAIN_STEPS} + "
+        f"{eval_batches}), K2, the tensor-core backward, {depth} x "
+        f"{TRAIN_STEPS}, no other)")
+  assert counts == {**dict.fromkeys(COUNTERS, 0),
+                    "K1": depth * (TRAIN_STEPS + eval_batches),
                     "K2": depth * TRAIN_STEPS}, counts
   assert trainer.batch_size == TRAIN_B and depth == TRAIN_DEPTH
   with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
-    rows = [r for r in map(json.loads, f) if "training_loss" in r]
+    all_rows = list(map(json.loads, f))
+  evals = [r for r in all_rows if "val/prec@1" in r]
+  assert [r["step"] for r in evals] == [0], evals  # stop= skips the final
+  ev = evals[0]
+  assert 0 <= ev["val/prec@1"] <= 1 and math.isfinite(ev["val/loss"]), ev
+  eval_ips = n_eval / ev["z/secs/eval/val"]
+  print(f"[{gpu}] eval at step 0 (decode, resize_small(256) and "
+        f"central_crop(224) on the host; {n_eval} JPEGs of 256x320 in "
+        f"{eval_batches} batches of {TRAIN_B}): val/prec@1 "
+        f"{ev['val/prec@1']:.6f}, val/loss {ev['val/loss']:.6f}, "
+        f"{ev['z/secs/eval/val']:.3f} s, {eval_ips:.1f} img/s")
+  rows = [r for r in all_rows if "training_loss" in r]
   assert [r["step"] for r in rows] == list(
       range(TRAIN_LOG, TRAIN_STEPS + 1, TRAIN_LOG)), rows
   for r in rows:
@@ -713,7 +846,11 @@ def train_main_path(fa, workdir):
   windows = rows[1:]  # the first window holds the start-up
   e2e = {k: statistics.median(r[k] for r in windows)
          for k in ("img/sec", "step_ms", "input_stall_pct")}
-  return trainer, {k: counts[k] // TRAIN_STEPS for k in ("K1", "K2")}, e2e
+  e2e["eval img/s"] = eval_ips
+  # Per training step (the eval's K1 launches left out).
+  per_step = {"K1": (counts["K1"] - depth * eval_batches) // TRAIN_STEPS,
+              "K2": counts["K2"] // TRAIN_STEPS}
+  return trainer, per_step, e2e
 
 
 def fixed_batch_steps(trainer):
@@ -1452,17 +1589,27 @@ def training_phase(fa, gpu):
   """Phase 4 and the training times; returns K1 and K2 launches per step."""
   from big_vision_torch.tools import bench_decode
   workdir = os.path.join(ROOT, "build", "chip_smoke_train")
-  trainer, per_step, e2e = train_main_path(fa, workdir)
+  trainer, per_step, e2e = train_main_path(fa, workdir, gpu)
   batch, unseen, _, fixed_ms = fixed_batch_steps(trainer)
   peak = matmul_peak_tflops()
   mfu = e2e["img/sec"] * FLOPS_PER_IMG_TRAIN / (peak * 1e12)
-  print(f"[{gpu}] training ViT-B/16 224px batch {TRAIN_B}: end to end "
+  print(f"[{gpu}] training ViT-B/16 224px batch {TRAIN_B} on JPEGs decoded "
+        f"on the host: end to end "
         f"{e2e['step_ms']:.3f} ms/step, {e2e['img/sec']:.1f} img/s, input "
         f"stall {e2e['input_stall_pct']:.3f}% (median of "
         f"{(TRAIN_STEPS - TRAIN_LOG) // TRAIN_LOG} windows of {TRAIN_LOG} "
         f"steps); step on a fixed batch without the input pipeline "
         f"{fixed_ms:.3f} ms; "
-        f"bf16 8192^3 matmul {peak:.1f} TFLOP/s; MFU {100 * mfu:.2f}%")
+        f"bf16 8192^3 matmul {peak:.1f} TFLOP/s; MFU {100 * mfu:.2f}%; "
+        f"eval {e2e['eval img/s']:.1f} img/s")
+  extra = e2e["step_ms"] - fixed_ms
+  waiting = e2e["step_ms"] * e2e["input_stall_pct"] / 100
+  host_bound = extra > HOST_BOUND_SHARE * fixed_ms
+  print(f"[{gpu}] the end-to-end step is {e2e['step_ms'] / fixed_ms:.3f} x "
+        f"the fixed-batch step ({extra:.3f} ms more, {waiting:.3f} ms of it "
+        f"waiting for batches): the step is "
+        f"{'' if host_bound else 'not '}bound by the host (more than "
+        f"{100 * HOST_BOUND_SHARE:.0f}% slower)")
   bench_decode.print_profile(kernel_timing.device_profile(
       {"training step": lambda: trainer.update(batch)}, top=14),
       prefix=f"[{gpu}] ")
@@ -1725,6 +1872,9 @@ def main(argv):
                            "flash_blocked_bwd", "flash_blocked_bwd_fused",
                            "decode_attention"])
   print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+  from big_vision_torch import native
+  print(f"built the JPEG decoder (big_vision_torch/native/dataio.cc with "
+        f"g++), linking {native.linked_library()}")
   for name, log in logs.items():
     for line in log.splitlines():
       if "Compiling entry function" in line:  # the mangled kernel name
@@ -1740,8 +1890,11 @@ def main(argv):
   counts["K5 err"] = check_fused(fa)
   torch.cuda.empty_cache()
   t0 = phase_end("kernels vs plain versions", t0)
+  check_native(gpu)
+  t0 = phase_end("JPEG decoder vs PIL and the RGB path", t0)
   if argv:  # --checks: the build and the checks alone
-    print(f"{nvidia_smi()}: every kernel built and within its bar")
+    print(f"{nvidia_smi()}: every kernel and the JPEG decoder built and "
+          f"within their bars")
     return 0
 
   # 3. Serving PaliGemma-3B; 4. training ViT-B/16; 5. training FlexiViT-B;
@@ -1749,6 +1902,8 @@ def main(argv):
   counts.update(serving_phase(fa, da, gpu))
   torch.cuda.empty_cache()
   t0 = phase_end("serving", t0)
+  host_decode_rate(gpu)
+  t0 = phase_end("host decode rate", t0)
   counts.update(training_phase(fa, gpu))
   t0 = phase_end("ViT-B/16 training", t0)
   counts.update(flexi_phase(fa, gpu))

@@ -1,10 +1,12 @@
 """The port imports nothing of the JAX package, JAX or its libraries.
 
-Every module of `big_vision_torch` is imported in a fresh interpreter in
-which `jax`, `flax`, `optax`, `ml_collections` and `big_vision_tpu` are
-blocked (set to None in `sys.modules`, so importing them raises).
+Every module of `big_vision_torch`, and `chip_smoke.py`, is imported in a
+fresh interpreter in which `jax`, `flax`, `optax`, `ml_collections` and
+`big_vision_tpu` are blocked (set to None in `sys.modules`, so importing
+them raises); and no import statement of theirs, at any depth, names one.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -35,3 +37,43 @@ def test_port_imports_without_jax():
                "trainers.proj.flexi.distill",
                "configs.proj.flexivit.i21k_distill"):
     assert f"big_vision_torch.{name}" in names, name
+
+
+_BLOCKED = ("jax", "flax", "optax", "ml_collections", "big_vision_tpu")
+
+
+def _imported_modules(path):
+  """Every module that an import statement of the file names, at any
+  depth (function-level imports included)."""
+  tree = ast.parse(open(path).read(), filename=path)
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      yield from (alias.name for alias in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+      yield node.module
+
+
+def test_no_jax_import_statement_in_the_port_or_chip_smoke():
+  root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  paths = [os.path.join(root, "chip_smoke.py")]
+  for base, _, files in os.walk(os.path.join(root, "big_vision_torch")):
+    paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+  assert len(paths) > 30
+  for path in paths:
+    for name in _imported_modules(path):
+      assert name.split(".")[0] not in _BLOCKED, (path, name)
+
+
+def test_chip_smoke_imports_without_jax():
+  root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+  env["PYTHONPATH"] = root
+  script = ("import sys\n"
+            f"for name in {_BLOCKED!r}:\n"
+            "  sys.modules[name] = None\n"
+            "import chip_smoke\n"
+            "print(chip_smoke.TRAIN_CONFIG)\n")
+  out = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode == 0, out.stderr[-3000:]
+  assert out.stdout.strip().endswith("vit_b16_synthetic.py")

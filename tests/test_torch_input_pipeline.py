@@ -15,7 +15,6 @@ import time
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from big_vision_torch import input_pipeline as t_ip
@@ -77,8 +76,17 @@ def test_synthetic_source_equals_jax():
                   jsrc.get_examples(ordered=False, seed=1, epoch=2)):
     for k in w:
       np.testing.assert_array_equal(g[k], w[k])
-  with pytest.raises(ValueError, match="encoded=False"):
-    t_core.get(**{**DATA, "encoded": True})
+  # encoded=True (the default): the same JPEG bytes.
+  src = t_core.get(**{**DATA, "encoded": True})
+  jsrc = j_synthetic.DataSource(**{k: v for k, v in DATA.items()
+                                   if k not in ("name", "encoded")})
+  n = 0
+  for g, w in zip(src.get_examples(ordered=True), jsrc.get_examples(
+      ordered=True), strict=True):
+    assert isinstance(g["image"], bytes) and g["image"] == w["image"]
+    assert g["label"] == w["label"] and g["_id"] == w["_id"]
+    n += 1
+  assert n == DATA["n"]
 
 
 def test_pp_splits_like_jax():

@@ -12,10 +12,17 @@ seeded head kernel so the trunk gets gradients from the first step) and
 take the same three batches from the port's input pipeline. The loss of
 each step agrees within 1e-5 relative; the total update the params took
 agrees within 1e-4 of its l2 norm.
+
+End to end on the CPU: the `runlocal` config's command line (an eval at
+step 0 and at the last step), and the port of the JAX package's
+configs/smoke.py (JPEG decode and inception crop, mixup, gradient clip,
+checkpoints and a classification eval every 10 steps). With mixup the
+trainer's loss is the model's on the batch mixed with the trainer's draw.
 """
 
 import json
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +32,9 @@ import pytest
 import torch
 
 from big_vision_torch import train as t_train
+from big_vision_torch.configs import smoke
 from big_vision_torch.configs import vit_b16_synthetic
+from big_vision_torch.utils import schedules as t_sched
 from big_vision_torch.utils import convert
 from big_vision_tpu import optim as j_optim
 from big_vision_tpu.models import vit as j_vit
@@ -91,24 +100,83 @@ def test_three_updates_match_the_jax_update():
   assert moved > 0 and (diff / moved) ** 0.5 <= 1e-4, (diff / moved) ** 0.5
 
 
+def _rows(workdir):
+  return [json.loads(line) for line in
+          (workdir / "big_vision_metrics.txt").read_text().splitlines()]
+
+
+_EVAL_KEYS = ["val/loss", "val/prec@1", "z/secs/eval/val"]
+
+
 def test_command_line_runs_three_steps(tmp_path):
   spec = "big_vision_torch/configs/vit_b16_synthetic.py:runlocal"
   trainer = t_train.main(["--config", spec, "--workdir", str(tmp_path),
                           "--device", "cpu"])
   assert trainer.device.type == "cpu"
-  rows = [json.loads(line) for line in
-          (tmp_path / "big_vision_metrics.txt").read_text().splitlines()]
-  assert rows[0] == {"step": 0, "num_params": rows[0]["num_params"]}
-  assert [r["step"] for r in rows[1:]] == [1, 2, 3]
-  for r in rows[1:]:
+  rows = _rows(tmp_path)
+  assert sorted(rows[0]) == sorted(["step", "num_params", *_EVAL_KEYS])
+  assert rows[0]["step"] == 0
+  assert [r["step"] for r in rows[1:]] == [1, 2, 3, 3]
+  for r in rows[1:4]:
     assert math.isfinite(r["training_loss"])
     for key in ("l2_grads", "l2_params", "l2_updates", "global_schedule",
                 "img/sec", "input_stall_pct"):
       assert key in r
+  assert sorted(rows[4]) == sorted(["step", *_EVAL_KEYS])  # the final eval
+  for r in (rows[0], rows[4]):
+    assert 0 <= r["val/prec@1"] <= 1 and math.isfinite(r["val/loss"])
+
+
+def test_smoke_config_trains_end_to_end(tmp_path):
+  """configs/smoke.py through `train.main`: 20 steps with mixup, eval rows
+  at steps 0, 10 and 20, checkpoints at 10 and 20."""
+  trainer = t_train.main(["--config", "big_vision_torch/configs/smoke.py",
+                          "--workdir", str(tmp_path), "--device", "cpu"])
+  assert trainer.config["mixup"] == {"p": 0.2}
+  rows = _rows(tmp_path)
+  evals = [r for r in rows if "val/prec@1" in r]
+  assert [r["step"] for r in evals] == [0, 10, 20]
+  for r in evals:
+    assert 0 <= r["val/prec@1"] <= 1 and math.isfinite(r["val/loss"])
+    assert r["z/secs/eval/val"] > 0
+  train_rows = [r for r in rows if "training_loss" in r]
+  assert [r["step"] for r in train_rows] == [5, 10, 15, 20]
+  assert all(math.isfinite(r["training_loss"]) for r in train_rows)
+  assert os.path.exists(tmp_path / "ckpt.bv-LAST")
+
+
+def test_stop_after_steps_skips_the_final_eval(tmp_path):
+  config = smoke.get_config("stop=3,total_steps=6,log=1")
+  config["evals"]["late"] = dict(config["evals"]["val"], skip_first=True,
+                                 log_steps=2)
+  t_train.train(config, str(tmp_path), device="cpu")
+  rows = _rows(tmp_path)
+  assert [r["step"] for r in rows if "val/loss" in r] == [0]
+  assert [r["step"] for r in rows if "late/loss" in r] == [2]
+  assert max(r["step"] for r in rows) == 3
+
+
+def test_mixup_mixes_the_batch():
+  config = _config()
+  config["mixup"] = dict(p=0.2)
+  trainer = t_train.Trainer(config, device="cpu")
+  it = trainer.input_iter()
+  batch = next(it)
+  it.close()
+  loss, _ = trainer.loss_and_grads(batch)
+  (images, labels), _ = t_sched.mixup(trainer.mixup_generator(),
+                                      batch["image"], batch["labels"], p=0.2)
+  assert not torch.equal(images, batch["image"])
+  with torch.no_grad():
+    logits, _ = trainer.model(images, train=True)
+    want = trainer.loss_fn(logits=logits, labels=labels)
+  np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("key,value", [
-    ("mixup", dict(p=0.2)), ("evals", dict(val={})), ("model_name", "bit"),
+    ("evals", dict(val={})),
+    ("evals", dict(val=dict(type="classification", pred="predict_seqhw=15"))),
+    ("model_name", "bit"),
 ])
 def test_unported_keys_are_refused(key, value):
   with pytest.raises(ValueError, match=key):
@@ -117,7 +185,8 @@ def test_unported_keys_are_refused(key, value):
 
 @pytest.mark.parametrize("key,value", [
     ("ckpt_steps", 10), ("resume", "/some/ckpt"),
-    ("model_init", "i1k-s16-300ep"),
+    ("model_init", "i1k-s16-300ep"), ("mixup", dict(p=0.2)),
+    ("evals", dict(val=dict(type="classification", pred="represent"))),
 ])
 def test_checkpoint_keys_are_ported(key, value):
   t_train.check_ported({**_config(), key: value})
