@@ -13,7 +13,12 @@ readout, f32 matmuls: the JAX config sets no dtype_mm), 21843 classes,
 `init_head_bias` -10, `sigmoid_xent`, scale_by_adam with a bf16 first
 moment, gradient clip 1.0, lr 1e-3, wd 1e-4, 10,000 warmup steps then
 cosine, 90 epochs, mixup p=0.2, and the token grids seqhw (5, 6, 8, 10,
-12, 15, 20, 24, 30, 40) with weights 34/43 for 15 and 1/43 for each other.
+12, 15, 20, 24, 30, 40) with weights 34/43 for 15 and 1/43 for each other,
+a checkpoint every 1000 steps, and the evals: classification (`prec@1`,
+`loss`) at seqhw 5, 10, 15 and 30 (`test_05` ... `test_30`, pp
+`decode|resize_small(274)|central_crop(240)|...`) every 5000 steps, and the
+few-shot linear probe of `configs/common_fewshot.py` at seqhw 15 every
+25,000 steps.
 
 Cut, for one card and no dataset:
   * data: the port's synthetic source (16,384 raw 256x320 images, 512
@@ -21,16 +26,21 @@ Cut, for one card and no dataset:
     ImageNet-21k's `decode_jpeg_and_inception_crop(240)` (the port has the
     JPEG decode now; this config keeps raw images); an epoch is the source's 16,384 examples, so 90 epochs are
     46,080 steps;
+  * the evals' data: ImageNet-21k's `full[:25_600]` is the same
+    synthetic source as JPEGs (25,600 examples), and each few-shot dataset
+    the synthetic JPEG source with its class count
+    (`configs/common_fewshot.py`);
   * `randaug(2,10)` is left out: RandAugment is not ported;
   * batch 32 per step, one card's share of the JAX run's 4096 over 128
     chips: at seqhw 40 in f32 a step holds about 1.2 GB of activations
-    per image;
-  * evaluators (`predict_seqhw=...` classification and few-shot) and
-    checkpoints wait.
+    per image; the evals take the same batch.
 
 Args (`:name=value,...`): `runlocal` (the tiny version for CPU tests:
-ViT-mu, batch 8, 3 steps), `stop` (stop after that many steps, the
-schedule unchanged), `log` (steps between metric rows), `attn` (the
+ViT-mu, batch 8, 3 steps, 16 images an eval split, few-shot on the pets
+stand-in alone, as the JAX config's `runlocal`, with 74 images a split),
+`stop` (stop after that many steps, the schedule unchanged), `log` (steps
+between metric rows), `neval` (examples in every eval split), `fewshot`
+(the few-shot datasets kept, joined by "+", e.g. "pets"), `attn` (the
 attention impl: "auto", the JAX package's gate, which at batch 32 takes the
 one-shot kernels K1/K2 at seqhw <= 24 and the plain path at seqhw 30 and 40;
 "flash", the fused kernels at every seqhw, the blocked K3-K5 at 30 and 40;
@@ -38,10 +48,12 @@ or "xla", the plain path everywhere).
 """
 
 from big_vision_torch.configs import common
+from big_vision_torch.configs import common_fewshot
 
 
 def get_config(arg=None):
-  arg = common.parse_arg(arg, runlocal=False, stop=0, log=50, attn="auto")
+  arg = common.parse_arg(arg, runlocal=False, stop=0, log=50, attn="auto",
+                         neval=0, fewshot="")
   config = {}
   config["seed"] = 0
   config["total_epochs"] = 90
@@ -77,6 +89,8 @@ def get_config(arg=None):
   config["schedule"] = dict(warmup_steps=10_000, decay_type="cosine")
   config["mixup"] = dict(p=0.2, fold_in=None)
 
+  config["ckpt_steps"] = 1000
+
   if arg.runlocal:
     config["total_epochs"] = None
     config["total_steps"] = 3
@@ -88,6 +102,24 @@ def get_config(arg=None):
     config["input"]["prefetch"] = 1
     config["model"]["variant"] = "mu"
     config["log_training_steps"] = 1
+  # The eval splits' example counts: the JAX config's, or runlocal's.
+  neval = arg.neval or (16 if arg.runlocal else 25_600)
+  nfewshot = arg.neval or (74 if arg.runlocal else None)
+  pp_eval = ("decode|resize_small(274)|central_crop(240)|value_range(-1, 1)"
+             "|onehot(21843, key='label', key_result='labels')"
+             "|keep('image', 'labels')")
+  eval_data = dict(config["input"]["data"], n=neval, encoded=True)
+  config["evals"] = {
+      f"test_{s:02d}": dict(type="classification", pred=f"predict_seqhw={s}",
+                            data=eval_data, pp_fn=pp_eval,
+                            loss_name=config["loss"], log_steps=5000)
+      for s in (5, 10, 15, 30)}
+  config["evals"]["fewshot"] = common_fewshot.get_fewshot_lsr(
+      runlocal=arg.runlocal, examples=nfewshot,
+      only=tuple(arg.fewshot.split("+")) if arg.fewshot else None)
+  config["evals"]["fewshot"]["pred"] = "predict_seqhw=15"
+  config["evals"]["fewshot"]["log_steps"] = 25_000
+
   if arg.stop:
     config["stop_after_steps"] = arg.stop
   return config

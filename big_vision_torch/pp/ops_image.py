@@ -2,7 +2,7 @@
 
 Host ops (per example, numpy, in loader threads): `decode`,
 `decode_jpeg_and_inception_crop`, `decode_jpeg_and_inception_crop_yuv`,
-`resize_small`, `random_crop` and `central_crop`. JPEGs are decoded by the
+`resize_small`, `resize`, `random_crop` and `central_crop`. JPEGs are decoded by the
 port's native decoder (`big_vision_torch/native`, GIL-free, bit-equal to
 PIL's full decode); PIL decodes only what the JAX package never sends to
 its native code: other formats, and `decode` with `channels != 3`. Crop
@@ -10,8 +10,10 @@ boxes and corners are drawn from the example's numpy rng exactly as the
 JAX host implementations draw them.
 
 Device ops (batched torch on the batch's device): `yuv420_to_rgb`,
-`flip_lr`, and `central_crop` where an earlier op already made shapes
-static.
+`flip_lr`, and `resize` and `central_crop` where an earlier op already made
+shapes static. The device `resize` computes `jax.image.resize` (or, for
+"area", the JAX package's exact area resize) as two products with per-axis
+weight matrices built in numpy.
 """
 
 from __future__ import annotations
@@ -72,21 +74,106 @@ def _clip_cast(img_f32, ref_dtype):
   return img_f32.astype(ref_dtype)
 
 
+# jax.image.resize's kernels, of the distance |x| in input pixels.
+def _triangle(x):
+  return np.maximum(0.0, 1.0 - np.abs(x))
+
+
+def _keys_cubic(x):
+  out = ((1.5 * x - 2.5) * x) * x + 1.0
+  out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+  return np.where(x >= 2.0, 0.0, out)
+
+
+def _lanczos(radius):
+  def kernel(x):
+    y = radius * np.sin(np.pi * x) * np.sin(np.pi * x / radius)
+    safe = np.where(x != 0, np.pi ** 2 * x ** 2, 1.0)
+    out = np.where(x > 1e-3, y / safe, 1.0)
+    return np.where(x > radius, 0.0, out)
+  return kernel
+
+
+_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic,
+            "lanczos3": _lanczos(3.0), "lanczos5": _lanczos(5.0)}
+
+
+def _resize_matrix(isize, osize, method, antialias):
+  """[osize, isize] f32: one axis of a resize, out = matrix @ in. "area" is
+  the exact windowed mean (`_area_window`); the other methods weigh as
+  `jax.image.resize` does (its `compute_weight_mat`, with the kernel widened
+  by the scale when `antialias` and downsampling, and the weights of each
+  output normalized)."""
+  if method == "area":
+    idx, w = _area_window(isize, osize)
+    mat = np.zeros((osize, isize), np.float32)
+    np.add.at(mat, (np.arange(osize)[:, None], idx), w)
+    return mat
+  inv_scale = isize / osize
+  kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
+  sample = ((np.arange(osize, dtype=np.float32) + 0.5) * np.float32(inv_scale)
+            - 0.5)
+  dist = np.abs(sample[:, None] - np.arange(isize, dtype=np.float32)[None])
+  weights = _KERNELS[method](dist / np.float32(kernel_scale)).astype(
+      np.float32)
+  total = weights.sum(axis=1, keepdims=True)
+  weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                     weights / np.where(total != 0, total, 1.0), 0.0)
+  inside = (sample >= -0.5) & (sample <= isize - 0.5)
+  return np.where(inside[:, None], weights, 0.0).astype(np.float32)
+
+
+def _nearest_index(isize, osize):
+  """The input row of each output row in jax.image.resize("nearest"), in
+  f32 with the ratio folded into one factor, as XLA computes it."""
+  ratio = np.float32(isize) * np.float32(1 / osize)
+  offsets = (np.arange(osize, dtype=np.float32) + np.float32(0.5)) * ratio
+  return np.floor(offsets).astype(np.int64)
+
+
+def _clip_cast_torch(img_f32, dtype):
+  """`_clip_cast` of a tensor."""
+  if not dtype.is_floating_point:
+    info = torch.iinfo(dtype)
+    img_f32 = img_f32.clamp(info.min, info.max)
+  return img_f32.to(dtype)
+
+
+def resize_batch(images, size, method="bilinear", antialias=False):
+  """images [N, H, W, C] resized to `size` (h, w) on their device, as the
+  JAX package's device `resize` computes each image: in f32, then clipped
+  to the range of an integer dtype and cast back."""
+  dtype = images.dtype
+  if method == "nearest":
+    for axis, osize in zip((1, 2), size):
+      index = torch.from_numpy(_nearest_index(images.shape[axis], osize))
+      images = images.index_select(axis, index.to(images.device))
+    return images
+  out = images.to(torch.float32)
+  for axis, osize in zip((1, 2), size):
+    if out.shape[axis] == osize:
+      continue  # the identity, which jax.image.resize skips
+    mat = torch.from_numpy(_resize_matrix(out.shape[axis], osize, method,
+                                          antialias)).to(out.device)
+    out = torch.movedim(torch.tensordot(mat, out, dims=([1], [axis])), 0,
+                        axis)
+  return _clip_cast_torch(out, dtype)
+
+
 def _pil_resize(image, size, method, antialias):
-  """Host resize of an HWC image: "area" by the exact windowed sum, the
-  other methods through PIL, on uint8 images of any channel count (PIL's
-  filters antialias where they downscale, whatever `antialias` says, as in
-  the JAX package). The JAX package resizes other dtypes with
-  `jax.image.resize`, which the port has not ported: they raise."""
-  del antialias
+  """Host resize of an HWC image, as the JAX package's: "area" by the exact
+  windowed sum, uint8 images of the other methods through PIL, of any
+  channel count (PIL's filters antialias where they downscale, whatever
+  `antialias` says), and other dtypes as `jax.image.resize` computes
+  them."""
   from PIL import Image
   image = np.asarray(image)
   dtype = image.dtype
   if method == "area":
     return _clip_cast(_area_resize(image, size), dtype)
   if dtype != np.uint8:
-    raise ValueError(f"resizing a {dtype} image with {method!r} is not "
-                     "ported (only uint8 images, or method='area')")
+    return resize_batch(torch.from_numpy(image[None]), size, method,
+                        antialias)[0].numpy()
   pil_filter = getattr(Image.Resampling, _PIL_FILTERS[method])
   h, w = size
   if image.shape[-1] == 3:  # one RGB resize
@@ -127,6 +214,28 @@ def get_decode(channels=3, precise=False, key="image", inkey=None,
     return data
 
   return PPOp(host_fn=_decode, phase="host", name="decode")
+
+
+@Registry.register("preprocess_ops.resize")
+def get_resize(size, method="bilinear", antialias=False, key="image",
+               inkey=None, outkey=None):
+  """Resizes to `size` ([h, w], or one number for both): on the host as the
+  JAX package's host form (`_pil_resize`), or batched on the device as its
+  device form (`resize_batch`); a staticizer."""
+  size = tuple(maybe_repeat(size, 2))
+  ik, ok = inkey or key, outkey or key
+
+  def _dev(batch):
+    batch = dict(batch)
+    batch[ok] = resize_batch(batch[ik], size, method, antialias)
+    return batch
+
+  def _host(data):
+    data = dict(data)
+    data[ok] = _pil_resize(data[ik], size, method, antialias)
+    return data
+
+  return PPOp(fn=_dev, host_fn=_host, staticizer=True, name="resize")
 
 
 def _host_resize_factor(image, factor, method, antialias):

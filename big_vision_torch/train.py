@@ -31,13 +31,20 @@ Evaluators (`config["evals"]`, JAX `train.py:277-323`) are built by
 and "represent" (`pre_logits`), and run every `log_steps` (or
 `log_{epochs,examples,percent}`) of their spec; a fresh run evaluates at
 step 0 (except evals with `skip_first`), and the last step is evaluated
-unless `stop_after_steps` ended the run early. Each eval's time is written
-as `z/secs/eval/<name>` and kept out of `img/sec`, `step_ms` and
-`input_stall_pct`.
+unless `stop_after_steps` ended the run early.
+
+Time is kept by a `utils.chrono.Chrono`, as in the JAX trainers: at each
+log step it writes `uptime`, `examples_seen`, `epoch`, `img/sec/core` and
+`core_hours[_<device kind>]`; evals and checkpoints pause it, and their
+times are written as `z/secs/eval/<name>` and `z/secs/ckpt`; its totals are
+saved in every checkpoint under "chrono" and restored on resume. The
+window measures `img/sec`, `step_ms` and `input_stall_pct` cover the steps
+since the last log row, without those pauses.
 
 Keys whose feature is not ported yet are refused, not ignored: evals of
 a type the port lacks, and models other than "vit". The FlexiViT trainers
-(`trainers/proj/flexi/train.py`, `distill.py`) reuse this loop and
+(`trainers/proj/flexi/train.py`, `distill.py`) and the generic distill
+trainer (`trainers/proj/distill/distill.py`) reuse this loop and
 `Trainer` through its hooks: `check_config`, `build_model`,
 `load_weights`, `state`/`restore_state`, `step_kwargs`, `predict_fns`
 and `update(batch, **kw)`.
@@ -59,6 +66,7 @@ from big_vision_torch import optim
 from big_vision_torch.evaluators import common as eval_common
 from big_vision_torch.models import vit
 from big_vision_torch.utils import checkpoints
+from big_vision_torch.utils import chrono as chrono_lib
 from big_vision_torch.utils import convert
 from big_vision_torch.utils import losses
 from big_vision_torch.utils import schedules
@@ -125,13 +133,12 @@ class Trainer:
   MODEL_MODULE = vit  # the module whose `load` reads `model_init`
 
   def __init__(self, config, *, device="cuda", workdir=None):
-    config = dict(config)
+    self.config = config = dict(config)
     self.check_config(config)
     self.device = torch.device(device)
     if self.device.type == "cuda" and not torch.cuda.is_available():
       raise RuntimeError("no CUDA device; pass --device cpu to train on the "
                          "CPU")
-    self.config = config
     self.seed = config.get("seed", 0)
     self.batch_size = config["input"]["batch_size"]
     ntrain = input_pipeline.total_training_examples(config["input"])
@@ -154,9 +161,12 @@ class Trainer:
             data_size=ntrain))
     self.opt_state = self.tx.init(self.params)
     self.first_step = 0
+    self.chrono_state = None  # Chrono's totals from the checkpoint
     if resume:
       writers.write_note(f"Resuming from {resume}...")
-      self.restore_state(checkpoints.load_checkpoint(resume))
+      loaded = checkpoints.load_checkpoint(resume)
+      self.chrono_state = loaded.pop("chrono", None)
+      self.restore_state(loaded)
       self.first_step = optim.get_count(self.opt_state)
     self.loss_fn = getattr(losses, config.get("loss", "sigmoid_xent"))
 
@@ -271,6 +281,13 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
                                trainer.batch_size, total, default=None)
   ckpt_mgr = (checkpoints.CheckpointManager()
               if trainer.ckpt_prefix and ckpt_steps else None)
+  chrono = chrono_lib.Chrono(trainer.device)
+  chrono.inform(first_step=trainer.first_step, total_steps=total,
+                global_bs=trainer.batch_size,
+                steps_per_epoch=ntrain / trainer.batch_size,
+                measure=mw.measure, write_note=writers.write_note)
+  if trainer.chrono_state is not None:
+    chrono.load(trainer.chrono_state.numpy())
   it = trainer.input_iter(trainer.first_step)
   sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
           else lambda: None)
@@ -286,8 +303,7 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
   last_eval_step = {}
 
   def run_evals(step, final=False, initial=False):
-    """Runs the evaluators due at `step`; returns the seconds they took."""
-    spent = 0.0
+    """Runs the evaluators due at `step`, with the clock paused."""
     for name, evaluator, every, prefix in evaluators():
       if initial and dict(config["evals"][name]).get("skip_first"):
         continue
@@ -295,17 +311,18 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
       if not due or last_eval_step.get(name) == step:
         continue
       last_eval_step[name] = step
-      sync()  # the steps before it are the training window's
-      t0 = time.perf_counter()
-      for key, value in evaluator.run(trainer.state()):
-        mw.measure(f"{prefix}{key}", value)
-      sync()
-      dt = time.perf_counter() - t0
-      mw.measure(f"z/secs/eval/{name}", dt)
-      spent += dt
-    return spent
+      chrono.pause(wait_for=trainer.params.values())
+      with chrono.log_timing(f"z/secs/eval/{name}"):
+        for key, value in evaluator.run(trainer.state()):
+          mw.measure(f"{prefix}{key}", value)
+        sync()
+      chrono.resume()
 
-  t_window, stall, n_window = time.perf_counter(), 0.0, 0
+  def window_start():
+    """(wall clock, paused seconds so far, input stall, steps): a new
+    window of the throughput measures."""
+    return time.perf_counter(), chrono.paused_time, 0.0, 0
+
   try:
     if trainer.first_step in (total, 0):
       # A fresh run evaluates at step 0 (but for `skip_first` evals); a
@@ -313,7 +330,7 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
       run_evals(trainer.first_step, final=True,
                 initial=trainer.first_step != total)
     mw.step_end()
-    t_window = time.perf_counter()
+    t_window, paused, stall, n_window = window_start()
     step = trainer.first_step
     for step in range(trainer.first_step + 1, total + 1):
       mw.step_start(step)
@@ -332,15 +349,22 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
         for i, fn in enumerate(trainer.sched_fns):
           mw.measure(f"global_schedule{i if i else ''}", fn(step - 1))
         sync()
-        dt = time.perf_counter() - t_window
+        # Evals and checkpoints since the window began stay out of it.
+        dt = time.perf_counter() - t_window - (chrono.paused_time - paused)
         mw.measure("img/sec", trainer.batch_size * n_window / dt)
         mw.measure("step_ms", 1e3 * dt / n_window)
         mw.measure("input_stall_pct", 100.0 * stall / dt)
-        t_window, stall, n_window = time.perf_counter(), 0.0, 0
+        chrono.tick(step)
+        t_window, paused, stall, n_window = window_start()
       if ckpt_mgr and (step % ckpt_steps == 0 or step == total):
-        ckpt_mgr.save(trainer.state(), trainer.ckpt_prefix, step,
-                      keep=bool(keep_steps and step % keep_steps == 0))
-      t_window += run_evals(step)  # eval time stays out of the window
+        chrono.pause(wait_for=trainer.params.values())
+        with chrono.log_timing("z/secs/ckpt"):
+          ckpt_mgr.save(
+              {**trainer.state(), "chrono": torch.from_numpy(chrono.save())},
+              trainer.ckpt_prefix, step,
+              keep=bool(keep_steps and step % keep_steps == 0))
+        chrono.resume()
+      run_evals(step)
       mw.step_end()
       if stop and step >= stop:
         writers.write_note(f"stop_after_steps={stop}: stopping early.")

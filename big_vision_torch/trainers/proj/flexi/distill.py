@@ -25,8 +25,8 @@ in every case (the published `prof_init` is the path of a local `.npz`;
 nothing is fetched). Checkpoints hold {"params": {"student": {...},
 teacher: {...}}, "opt": ...} as the JAX train state does. The loop, its
 metric rows and its checkpoints are `big_vision_torch/train.py`'s.
-Its evaluators (the distance `Evaluator`, `predict_seqhw`) are not
-ported yet and are refused.
+Evaluators take the student at each combination of the flexi args' values,
+"student_seqhw=15" and so on, as the JAX trainer names them.
 """
 
 from __future__ import annotations
@@ -34,55 +34,29 @@ from __future__ import annotations
 import torch
 
 from big_vision_torch import train
-from big_vision_torch.evaluators.proj.distill import distance
-from big_vision_torch.models import vit
-from big_vision_torch.models.proj.flexi import vit as flexi_vit
+from big_vision_torch.models import vit  # pylint: disable=unused-import
+from big_vision_torch.trainers.proj.distill import distill
+from big_vision_torch.trainers.proj.distill.distill import getfirst
+from big_vision_torch.trainers.proj.distill.distill import MODELS
 from big_vision_torch.trainers.proj.flexi import train as flexi_train
-from big_vision_torch.utils import losses
 from big_vision_torch.utils import schedules
 from big_vision_torch.utils import writers
-
-# The models this trainer builds, by the config's `{name}_name`.
-MODELS = {"vit": vit, "proj.flexi.vit": flexi_vit}
-
-
-def getfirst(d, *keys):
-  for k in keys:
-    if k in d:
-      return d[k]
-  raise KeyError(f"None of {keys} in {list(d)}")
 
 
 class Trainer(flexi_train.Trainer):
   """The FlexiViT trainer with frozen teachers and a distillation loss."""
+  PREDICT_TEMPLATE = "student_{x}"
 
   def check_config(self, config):
     train.check_ported(config, predict_fns=self.predict_fns())
-    for name in ("student", *config["teachers"]):
-      if config[f"{name}_name"] not in MODELS:
-        raise ValueError(f"config key '{name}_name'="
-                         f"{config[f'{name}_name']!r} is not ported yet; "
-                         f"only {sorted(MODELS)} are")
-
-  def _make(self, name, res, channels):
-    kw = dict(self.config.get(name, {}))
-    if "num_classes" in self.config:
-      kw.setdefault("num_classes", self.config["num_classes"])
-    module = MODELS[self.config[f"{name}_name"]]
-    if module is vit:  # its learned posemb needs the image size
-      kw.setdefault("image_size", res)
-    return module.Model(channels=channels, device=self.device, **kw)
+    distill.check_models(config)
 
   def build_model(self, res, channels):
-    """The student; the teachers go to `self.teachers`, each drawn from a
-    generator seeded from (seed, its index), frozen and in eval mode."""
-    self.teachers = {}
-    for i, name in enumerate(self.config["teachers"]):
-      teacher = self._make(name, res, channels)
-      teacher.initialize(torch.Generator(device=self.device).manual_seed(
-          self.seed + 1 + i))
-      self.teachers[name] = teacher.eval().requires_grad_(False)
-    return self._make("student", res, channels)
+    """The student; the teachers go to `self.teachers`."""
+    self.teachers = distill.make_teachers(self.config, res, channels,
+                                          self.device, self.seed)
+    return distill.make_model(self.config, "student", res, channels,
+                              self.device)
 
   def load_weights(self, resumed):
     cfg = self.config
@@ -133,22 +107,10 @@ class Trainer(flexi_train.Trainer):
     logits["student"], _ = self.model(getfirst(data, "student", "image"),
                                       train=True, **flexi_kw)
 
-    measurements = {}
-    if "labels" in data:
-      for name in ("student", *self.teachers):
-        measurements[f"task_loss_{name}"] = losses.softmax_xent(
-            logits=logits[name], labels=data["labels"], reduction=False)
-    total = 0.0
-    for name in self.teachers:
-      d = distance.dist(logits["student"], logits[name],
-                        self.config.get("distance", "kl"),
-                        **self.config.get("distance_kw", {}))
-      measurements[f"distill_loss_{name}"] = d
-      total = total + d
-    loss = total.mean()
+    loss, measurements = distill.distill_loss(self.config, logits,
+                                              data.get("labels"))
     loss.backward()
     measurements = {k: v.detach().mean() for k, v in measurements.items()}
-    measurements["distill_loss"] = loss.detach()
     return (loss.detach(), {n: p.grad for n, p in self.params.items()},
             measurements)
 

@@ -14,12 +14,15 @@ and `l2_grads`. The loop, the metric writer and the refusal of unported
 config keys are `big_vision_torch/train.py`'s. `update(batch, seqhw=...)`
 takes the flexi args explicitly, so that a caller can choose them.
 
+Evaluators take the JAX trainer's predict fns: one per combination of
+the flexi args' values, "predict_seqhw=15" and so on (`mkpredictfns`), each
+giving the model's (logits, {..., "pre_logits": ...}) at that grid.
+
 Checkpoints, `resume` and `model_init` (through the FlexiViT `load`, which
 resizes the posemb and the patch kernel) are the classification trainer's.
 Unlike the JAX flexi trainer, which builds its params with `model.init`
 alone, the port fills the head's bias with the config's `init_head_bias`,
-as the classification trainer does. Evaluators (`predict_seqhw=...`) are
-not ported yet and are refused.
+as the classification trainer does.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ class Trainer(train.Trainer):
   """`train.Trainer` with the FlexiViT model, flexi args and mixup."""
   MODEL_NAME = "proj.flexi.vit"
   MODEL_MODULE = flexi_vit
+  PREDICT_TEMPLATE = "predict_{x}"  # the names of the predict fns
 
   def build_model(self, res, channels):
     del res  # the token grid, not the image size, sets the sequence
@@ -42,8 +46,14 @@ class Trainer(train.Trainer):
                            **self.config.get("model", {}))
 
   def predict_fns(self):
-    """None: the JAX trainer's `predict_seqhw` fns are not ported."""
-    return {}
+    """{name: fn(train_state, batch) -> (logits, out)}: the model at each
+    combination of the flexi args' values, named from PREDICT_TEMPLATE
+    ("predict_seqhw=15", ...) as the JAX trainer names them."""
+    def predict_fn(train_state, batch, **flexi_kw):
+      del train_state  # the model holds the params
+      return self.model(batch["image"], **flexi_kw)
+    return flexi.mkpredictfns(predict_fn, self.config["flexi"],
+                              self.PREDICT_TEMPLATE)
 
   def step_kwargs(self, step):
     """The flexi args of `step`, drawn as the JAX trainer draws them."""

@@ -90,7 +90,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      through `big_vision_torch.trainers.proj.flexi.train` and
      configs/proj/flexivit/i21k_sup.py with attn=flash (the config's
      default "auto" follows the JAX package's gate, which takes the plain
-     path at seqhw 30 and 40): FLEXI_STEPS steps of its own loop
+     path at seqhw 30 and 40): the config's evals at step 0 on FLEXI_NEVAL
+     synthetic JPEGs a split (classification at seqhw 5, 10, 15 and 30;
+     the few-shot linear probe at 15 on the 37-class pets stand-in, 224px),
+     every eval batch launching 12 K1 (f32) at seqhw 5, 10 and 15 and 12
+     K3 at 30 (eval img/s and the few-shot seconds printed), then
+     FLEXI_STEPS steps of its own loop
      and seqhw draws (15, 15, 15, 40, 30), then steps at seqhw 40, 30, 15,
      twice, through `update(batch, seqhw=...)`, each timed with CUDA
      events, with its peak memory, and with 12 launches of K3, K4a and K4b
@@ -105,9 +110,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      its plain version); each K1 and K2 launch (their f32 kernels) of a
      forward and backward at seqhw 15 on 32 unseen images, on its own
      inputs, within 1e-4 of its plain version (K1: o and the LSE of a
-     repeat launch); then the same state under attn=auto: two steps
-     each at seqhw 40 and 30 (CUDA events, peak memory) with no kernel
-     launched;
+     repeat launch); each eval's `pre_logits` on one of its batches against
+     the plain path (attn=xla) within 1e-4; then the same state under
+     attn=auto: two steps each at seqhw 40 and 30 (CUDA events, peak
+     memory) with no kernel launched, and an eval batch at each seqhw (K1
+     at 5, 10, 15; the plain path, no kernel, at 30);
   6. distils FlexiViT-B from a ViT-B/8 teacher (f32, batch 32) through
      `big_vision_torch.trainers.proj.flexi.distill` and
      configs/proj/flexivit/i21k_distill.py with attn=flash and
@@ -129,7 +136,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
      images (loss, student encoder output and attention-projection
      gradients within 2e-2; each K5 launch of the backward, on its own
      inputs, within 1e-4 of its plain version);
-  7. times prefill, the AR step, the training step (end to end: median of
+  7. distils FlexiViT-B/16 from DeiT-III B/16 through the same trainer and
+     configs/proj/flexivit/i1k_deit3_distill.py with attn=flash: a random
+     ViT-B/16 at 384px from SEED, in the DeiT-III checkpoint's layout, is
+     written as an `.npz` and loaded into the student (posemb 24x24 to
+     7x7) and the teacher (to 15x15 at 240px); its minival evals at step 0
+     (DEIT3_NEVAL images a split: 12 K1 at seqhw 5, 10, 15, 12 K3 at 30 a
+     batch), DEIT3_STEPS loop steps, then steps at seqhw 40, 30, 15, twice
+     (CUDA events; 12 K1 for the teacher, 12 K3, K4a, K4b at 30 and 40, 12
+     K1, K2 at 15), finite losses; each eval's `pre_logits` against the
+     plain path within 1e-4;
+  8. runs configs/proj/distill/smoke.py through the generic distill
+     trainer (`trainers/proj/distill/distill.py`) at its own size
+     (ViT-mu/16 at 32px, 10 steps, a random teacher from SEED): finite
+     distill losses and the `val` and `distance` rows at steps 0 and 10;
+     at T = 4 the JAX package's gate takes the plain path: no launch;
+  9. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
@@ -236,6 +258,17 @@ FLEXI_STEPS, FLEXI_CYCLE, FLEXI_CHECK_B = 5, (40, 30, 15) * 2, 8
 # Fixed-batch steps at seqhw 40 of the FlexiViT phase (the distillation
 # phase runs FIXED_STEPS): each is 1.3 s, and the loss falls at every one.
 FLEXI_FIXED_STEPS = 4
+# Examples in each eval split of the FlexiViT phase (test_05 ... test_30,
+# and the few-shot probe's training and test splits on the 37-class pets
+# stand-in: at least 25 images of every class), in batches of FLEXI_B.
+FLEXI_NEVAL, FLEXI_FEWSHOT = 960, "pets"
+DEIT3_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                            "flexivit", "i1k_deit3_distill.py")
+# Steps of the DeiT-III distillation's own loop (its draws: seqhw 15, 15,
+# 15), and examples in each of its minival splits.
+DEIT3_STEPS, DEIT3_NEVAL = 3, 256
+SMOKE_DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs",
+                                    "proj", "distill", "smoke.py")
 BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: F32_BAR}
 K2_BARS = {torch.bfloat16: K2_BAR, torch.float32: F32_BAR}
 DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
@@ -1046,27 +1079,106 @@ def flexi_want(depth, seqhw):
   return {**dict.fromkeys(COUNTERS, 0), **dict.fromkeys(kernels, depth)}
 
 
-def flexi_main_path(fa, workdir):
+@contextlib.contextmanager
+def counted_predict_fns(fa, calls):
+  """While open, every predict fn that the trainers give their evaluators
+  appends the launches of each of its calls (one eval batch) to
+  calls[its name]."""
+  from big_vision_torch.evaluators import common as eval_common
+  original = eval_common.from_config
+
+  def counted(name, fn):
+    def call(*args, **kw):
+      before = launches(fa)
+      out = fn(*args, **kw)
+      after = launches(fa)
+      calls.setdefault(name, []).append(
+          {k: n - before[k] for k, n in after.items()})
+      return out
+    return call
+
+  def from_config(config, predict_fns, **kw):
+    return original(config, {name: counted(name, fn)
+                             for name, fn in predict_fns.items()}, **kw)
+
+  eval_common.from_config = from_config
+  try:
+    yield calls
+  finally:
+    eval_common.from_config = original
+
+
+def eval_want(depth, name):
+  """The launches of one eval batch of FlexiViT-B with attn=flash through
+  the predict fn `name` (`<prefix>_seqhw=<s>`): a forward at T = s^2 + 1
+  (at 240px; 257 at the few-shot eval's 224px and seqhw 15), K3 at seqhw
+  30, K1's f32 kernel below."""
+  seqhw = int(name.rsplit("=", 1)[1])
+  return {**dict.fromkeys(COUNTERS, 0), ("K3" if seqhw == 30 else "K1f"):
+          depth}
+
+
+def check_eval_launches(calls, depth, gpu, rows, n_images, what):
+  """Every eval batch launched `eval_want` of its predict fn; prints the
+  launches per batch and each eval's img/s from the metric row `rows`
+  (`z/secs/eval/<name>` over `n_images[name]`)."""
+  for name, per_call in sorted(calls.items()):
+    want = eval_want(depth, name)
+    assert all(c == want for c in per_call), (name, per_call[:2], want)
+    print(f"  {what} predict fn {name}: {len(per_call)} eval batches, "
+          f"launches per batch {({k: n for k, n in want.items() if n})}")
+  for name, n in n_images.items():
+    secs = rows[f"z/secs/eval/{name}"]
+    print(f"[{gpu}] {what} eval {name} at step 0: {n} images in "
+          f"{secs:.3f} s, {n / secs:.1f} img/s")
+
+
+def flexi_main_path(fa, workdir, gpu):
   """FLEXI_STEPS steps of the FlexiViT trainer's own loop, with its seqhw
-  draws; returns the trainer."""
+  draws, after the config's evals at step 0 (FLEXI_NEVAL images a split,
+  few-shot on FLEXI_FEWSHOT); returns the trainer."""
   from big_vision_torch.trainers.proj.flexi import train as flexi_train
   shutil.rmtree(workdir, ignore_errors=True)
+  calls = {}
   reset_launches(fa)
-  trainer = flexi_train.main(["--config", f"{FLEXI_CONFIG}:stop="
-                              f"{FLEXI_STEPS},log=1,attn=flash",
-                              "--workdir", workdir])
+  with counted_predict_fns(fa, calls):
+    trainer = flexi_train.main([
+        "--config", f"{FLEXI_CONFIG}:stop={FLEXI_STEPS},log=1,attn=flash,"
+        f"neval={FLEXI_NEVAL},fewshot={FLEXI_FEWSHOT}", "--workdir",
+        workdir])
   torch.cuda.synchronize()
   counts = launches(fa)
   depth = len(trainer.model.encoder.blocks)
   draws = [trainer.step_kwargs(s)["seqhw"] for s in range(1, FLEXI_STEPS + 1)]
-  want = {k: sum(flexi_want(depth, s)[k] for s in draws) for k in COUNTERS}
+  want = {k: sum(flexi_want(depth, s)[k] for s in draws)
+          + sum(c[k] for per_call in calls.values() for c in per_call)
+          for k in COUNTERS}
   print(f"FlexiViT-B training: {FLEXI_STEPS} steps of batch "
-        f"{trainer.batch_size}, seqhw drawn {draws}; launches {counts} (want "
-        f"{want})")
+        f"{trainer.batch_size}, seqhw drawn {draws}, after the evals at "
+        f"step 0; launches {counts} (want {want})")
   assert counts == want and {30, 40} <= set(draws), (counts, want, draws)
   assert trainer.batch_size == FLEXI_B and depth == TRAIN_DEPTH
+  batches = -(-FLEXI_NEVAL // FLEXI_B)
+  assert sorted(calls) == [f"predict_seqhw={s}" for s in (10, 15, 30, 5)]
+  assert [len(calls[f"predict_seqhw={s}"]) for s in (5, 10, 15, 30)] == [
+      batches, batches, 3 * batches, batches]  # 15: test_15 and few-shot
   with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
-    rows = [r for r in map(json.loads, f) if "training_loss" in r]
+    all_rows = list(map(json.loads, f))
+  [ev] = [r for r in all_rows if "test_05/prec@1" in r]
+  assert ev["step"] == 0
+  for s in ("05", "10", "15", "30"):
+    assert 0 <= ev[f"test_{s}/prec@1"] <= 1, ev
+    assert math.isfinite(ev[f"test_{s}/loss"]), ev
+  shots = {k: v for k, v in ev.items() if k.startswith("fewshot/")}
+  assert len(shots) == 4 and all(0 <= v <= 1 for v in shots.values()), ev
+  print("  step 0: " + ", ".join(
+      f"test_{s}/prec@1 {ev[f'test_{s}/prec@1']:.6f} loss "
+      f"{ev[f'test_{s}/loss']:.6f}" for s in ("05", "10", "15", "30"))
+        + "; " + ", ".join(f"{k} {v:.6f}" for k, v in shots.items()))
+  n_images = {f"test_{s}": FLEXI_NEVAL for s in ("05", "10", "15", "30")}
+  n_images["fewshot"] = 2 * FLEXI_NEVAL
+  check_eval_launches(calls, depth, gpu, ev, n_images, "FlexiViT-B")
+  rows = [r for r in all_rows if "training_loss" in r]
   assert [r["step"] for r in rows] == list(range(1, FLEXI_STEPS + 1)), rows
   for r, seqhw in zip(rows, draws):
     print(f"  step {r['step']} (seqhw {seqhw}): loss "
@@ -1074,6 +1186,51 @@ def flexi_main_path(fa, workdir):
           f"{r['step_ms']:.3f} ms")
     assert math.isfinite(r["training_loss"]), r
   return trainer
+
+
+def eval_batches(config):
+  """{eval name: (its predict fn's name, its first batch)} for each eval of
+  `config` (the few-shot eval's training split), on the card."""
+  from big_vision_torch.evaluators import common as eval_common
+  batches = {}
+  for eval_name, spec in config["evals"].items():
+    spec = dict(spec)
+    if spec["type"] == "fewshot_lsr":
+      [ds] = spec["datasets"].values()
+      spec["data"], spec["pp_fn"] = ds["data_train"], ds["pp"]
+    get_iter, _ = eval_common.eval_input_pipeline(
+        spec["data"], spec["pp_fn"], config["input"]["batch_size"], "cuda",
+        cache="none")
+    it = get_iter()
+    batch, _ = eval_common.split_batch(next(it))
+    it.close()
+    batches[eval_name] = (spec["pred"], {"image": batch["image"]})
+  return batches
+
+
+def eval_pre_logits_vs_plain(fa, trainer, plain, batches, what):
+  """Each eval's batch of `batches` through its predict fn on the kernel
+  path (`trainer`) and on the plain path (`plain`, attn=xla, the same
+  weights): the kernel path's launches as `eval_want` says, none on the
+  plain path, and the `pre_logits` within F32_BAR of the plain path's."""
+  depth = len(trainer.model.encoder.blocks)
+  kernel_fns, plain_fns = trainer.predict_fns(), plain.predict_fns()
+  for eval_name, (name, batch) in batches.items():
+    with torch.no_grad():
+      reset_launches(fa)
+      _, out = kernel_fns[name](None, batch)
+      torch.cuda.synchronize()
+      counts = launches(fa)
+      _, want = plain_fns[name](None, batch)
+      assert launches(fa) == counts, name
+    assert counts == eval_want(depth, name), (name, counts)
+    got, want = out["pre_logits"], want["pre_logits"]
+    err = rel_err(got, want)
+    print(f"{what} {eval_name} ({name}) on {tuple(batch['image'].shape)}: "
+          f"pre_logits "
+          f"{tuple(got.shape)} kernel vs plain path rel err {err:.3e} (bar "
+          f"{F32_BAR}), max|plain| {want.abs().max().item():.4f}")
+    assert err <= F32_BAR and want.abs().max().item() > 0, (name, err)
 
 
 def flexi_steps(fa, trainer, gpu):
@@ -1274,25 +1431,54 @@ def flexi_auto_steps(fa, auto, batch, flash, gpu):
           f"{', '.join(f'{x:.3f}' for x in f_ms)} ms, {f_mem / 2**30:.2f} GiB")
 
 
+def flexi_auto_eval_launches(fa, auto, batches):
+  """One eval batch through each predict fn of the trainer `auto` (attn=
+  auto, the JAX package's gate): at batch 32 K1's f32 kernel at seqhw 5, 10
+  and 15, and the plain path at 30 (its scores are under
+  XLA_SCORES_BYTES_LIMIT), no kernel."""
+  depth = len(auto.model.encoder.blocks)
+  fns = auto.predict_fns()
+  for eval_name, (name, batch) in batches.items():
+    reset_launches(fa)
+    with torch.no_grad():
+      fns[name](None, batch)
+    counts = launches(fa)
+    want = eval_want(depth, name)
+    if want["K3"]:
+      want["K3"] = 0
+    print(f"FlexiViT-B attn=auto {eval_name} ({name}), batch "
+          f"{batch['image'].shape[0]}: launches "
+          f"{({k: n for k, n in counts.items() if n})}")
+    assert counts == want, (name, counts, want)
+
+
 def flexi_phase(fa, gpu):
   """Phase 5 and the FlexiViT-B step times; returns the launches of the
   last step at seqhw 40 (K3, K4a, K4b) and at 15 (K1's and K2's f32
   kernels), as the counters read them."""
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.flexi import train as flexi_train
   workdir = os.path.join(ROOT, "build", "chip_smoke_flexi")
-  trainer = flexi_main_path(fa, workdir)
+  trainer = flexi_main_path(fa, workdir, gpu)
   unseen, per_step, flash = flexi_steps(fa, trainer, gpu)
   flexi_kernel_vs_plain(fa, trainer, unseen)
   flexi_k2_in_place(fa, trainer, unseen)
+  args = f"neval={FLEXI_NEVAL},fewshot={FLEXI_FEWSHOT}"
+  batches = eval_batches(train.load_config(f"{FLEXI_CONFIG}:{args}"))
+  plain = flexi_train.Trainer(train.load_config(
+      f"{FLEXI_CONFIG}:attn=xla,{args}"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  eval_pre_logits_vs_plain(fa, trainer, plain, batches, "FlexiViT-B eval")
+  del plain
   # The same state under the config's default attn=auto, alone on the card.
-  from big_vision_torch import train
-  from big_vision_torch.trainers.proj.flexi import train as flexi_train
   t0 = time.perf_counter()
   auto = flexi_train.Trainer(train.load_config(FLEXI_CONFIG))
   auto.model.load_state_dict(trainer.model.state_dict())
   del trainer
   flexi_auto_steps(fa, auto, unseen, flash, gpu)
+  flexi_auto_eval_launches(fa, auto, batches)
   print(f"FlexiViT-B attn=auto steps: {time.perf_counter() - t0:.1f} s wall")
-  del auto, unseen
+  del auto, unseen, batches
   torch.cuda.empty_cache()
   return {**{k: n for k, n in per_step[40].items() if n},
           "K1f": per_step[15]["K1f"], "K2f": per_step[15]["K2f"]}
@@ -1542,6 +1728,181 @@ def distill_phase(fa, gpu):
   del trainer, unseen
   torch.cuda.empty_cache()
   return {"K5": counts["K5"]}
+
+
+# ----------------------------------------------------------------------------
+# Phase 7: FlexiViT-B distilled from DeiT-III B/16, with its evals.
+# ----------------------------------------------------------------------------
+
+
+def write_deit3(path):
+  """Writes a random ViT-B/16 from SEED in the layout of the DeiT-III B/16
+  384px checkpoint: a 24x24 posemb, [cls], a 1000-class head with seeded
+  nonzero weights (so that the student's logits differ between images)."""
+  from big_vision_torch.models import vit
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  model = vit.Model(1000, variant="B/16", pool_type="tok", image_size=384,
+                    device="cuda")
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+  model.initialize(gen)
+  with torch.no_grad():
+    model.head.weight.normal_(0.0, TEACHER_HEAD_STD, generator=gen)
+  checkpoints.npz_save(convert.vit_params(model), path)
+
+
+def deit3_want(depth, seqhw):
+  """The launches of one DeiT-III distillation step at `seqhw` with attn=
+  flash: the ViT-B/16 teacher's forward at 240px (T = 226, K1's f32
+  kernel), and the student's forward and backward: at seqhw 30 and 40 K3,
+  K4a and K4b, below K1's and K2's f32 kernels."""
+  want = dict.fromkeys(COUNTERS, 0)
+  want["K1f"] = depth
+  for k in (("K3", "K4a", "K4b") if seqhw in (30, 40) else ("K1f", "K2f")):
+    want[k] += depth
+  return want
+
+
+def deit3_phase(fa, gpu):
+  """Phase 7: DEIT3_STEPS steps of the distill trainer's loop on
+  i1k_deit3_distill.py (attn=flash), after its minival evals at step 0,
+  then steps at seqhw 40, 30 and 15, twice (CUDA events, launches); the
+  student's eval `pre_logits` against the plain path."""
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.flexi import distill
+  workdir = os.path.join(ROOT, "build", "chip_smoke_deit3")
+  shutil.rmtree(workdir, ignore_errors=True)
+  os.makedirs(workdir)
+  npz = os.path.join(workdir, "deit3_B_384_1k_random.npz")
+  t0 = time.perf_counter()
+  write_deit3(npz)
+  print(f"DeiT-III: random ViT-B/16 at 384px written to "
+        f"{os.path.basename(npz)} ({os.path.getsize(npz) / 2**20:.1f} MiB) "
+        f"in {time.perf_counter() - t0:.1f} s")
+  args = f"init={npz},neval={DEIT3_NEVAL}"
+  calls = {}
+  reset_launches(fa)
+  with counted_predict_fns(fa, calls):
+    trainer = distill.main([
+        "--config", f"{DEIT3_CONFIG}:{args},stop={DEIT3_STEPS},log=1,"
+        "attn=flash", "--workdir", workdir])
+  torch.cuda.synchronize()
+  counts = launches(fa)
+  depth = len(trainer.model.encoder.blocks)
+  assert depth == len(trainer.teachers["prof"].encoder.blocks) == TRAIN_DEPTH
+  assert tuple(trainer.model.pos_embedding.shape) == (1, 49, 768)
+  assert tuple(trainer.teachers["prof"].pos_embedding.shape) == (1, 225, 768)
+  draws = [trainer.step_kwargs(s)["seqhw"] for s in range(1, DEIT3_STEPS + 1)]
+  want = {k: sum(deit3_want(depth, s)[k] for s in draws)
+          + sum(c[k] for per_call in calls.values() for c in per_call)
+          for k in COUNTERS}
+  print(f"DeiT-III distillation: {DEIT3_STEPS} steps of batch "
+        f"{trainer.batch_size}, seqhw drawn {draws}, after the minival evals "
+        f"at step 0; launches {counts} (want {want})")
+  assert counts == want, (counts, want)
+  batches = -(-DEIT3_NEVAL // FLEXI_B)
+  assert sorted(calls) == [f"student_seqhw={s}" for s in (10, 15, 30, 5)]
+  assert all(len(c) == batches for c in calls.values()), calls.keys()
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    all_rows = list(map(json.loads, f))
+  [ev] = [r for r in all_rows if "minival_05/prec@1" in r]
+  assert ev["step"] == 0
+  for s in ("05", "10", "15", "30"):
+    assert 0 <= ev[f"minival_{s}/prec@1"] <= 1, ev
+    assert math.isfinite(ev[f"minival_{s}/loss"]), ev
+  print("  step 0: " + ", ".join(
+      f"minival_{s}/prec@1 {ev[f'minival_{s}/prec@1']:.6f} loss "
+      f"{ev[f'minival_{s}/loss']:.6f}" for s in ("05", "10", "15", "30")))
+  check_eval_launches(calls, depth, gpu, ev, {
+      f"minival_{s}": DEIT3_NEVAL for s in ("05", "10", "15", "30")},
+                      "DeiT-III student")
+  rows = [r for r in all_rows if "training_loss" in r]
+  assert [r["step"] for r in rows] == list(range(1, DEIT3_STEPS + 1)), rows
+  for r in rows:
+    print(f"  step {r['step']}: distill_loss {r['distill_loss']:.6f}, task "
+          f"loss student {r['task_loss_student']:.6f} teacher "
+          f"{r['task_loss_prof']:.6f}, {r['step_ms']:.3f} ms")
+    assert math.isfinite(r["distill_loss"]) and r["distill_loss"] > 0, r
+
+  it = trainer.input_iter()
+  batch = next(it)
+  it.close()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  times = {}
+  for seqhw in FLEXI_CYCLE:
+    reset_launches(fa)
+    start.record()
+    loss = trainer.update(batch, seqhw=seqhw)["training_loss"]
+    end.record()
+    end.synchronize()
+    assert math.isfinite(loss.item()) and loss.item() > 0, (seqhw, loss)
+    assert launches(fa) == deit3_want(depth, seqhw), (seqhw, launches(fa))
+    times.setdefault(seqhw, []).append(start.elapsed_time(end))
+  for seqhw, ms in times.items():
+    used = {k: n for k, n in deit3_want(depth, seqhw).items() if n}
+    print(f"[{gpu}] DeiT-III distillation, FlexiViT-B/16 student at seqhw "
+          f"{seqhw} (T={seqhw * seqhw + 1}) from ViT-B/16 (T=226), batch "
+          f"{FLEXI_B}: step {', '.join(f'{x:.3f}' for x in ms)} ms; "
+          f"launches per step {used}")
+  evals = eval_batches(train.load_config(f"{DEIT3_CONFIG}:{args}"))
+  plain = distill.Trainer(train.load_config(f"{DEIT3_CONFIG}:{args},"
+                                            "attn=xla"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  eval_pre_logits_vs_plain(fa, trainer, plain, evals, "DeiT-III student")
+  del trainer, plain, batch, evals
+  torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# Phase 8: the generic distill trainer on its smoke config.
+# ----------------------------------------------------------------------------
+
+
+def distill_smoke_phase(fa):
+  """Phase 8: configs/proj/distill/smoke.py through the generic distill
+  trainer at its own size (ViT-mu/16 at 32px, batch 16, 10 steps), from a
+  random teacher written with its seed: finite distill losses, and the
+  `val` and `distance` rows at steps 0 and 10."""
+  from big_vision_torch.models import vit
+  from big_vision_torch.trainers.proj.distill import distill
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  workdir = os.path.join(ROOT, "build", "chip_smoke_distill_smoke")
+  shutil.rmtree(workdir, ignore_errors=True)
+  os.makedirs(workdir)
+  teacher = vit.Model(10, variant="mu/16", posemb="sincos2d",
+                      head_zeroinit=False, image_size=32, device="cuda")
+  teacher.initialize(torch.Generator(device="cuda").manual_seed(SEED + 13))
+  npz = os.path.join(workdir, "teacher.npz")
+  checkpoints.npz_save(convert.vit_params(teacher), npz)
+  reset_launches(fa)
+  trainer = distill.main(["--config",
+                          f"{SMOKE_DISTILL_CONFIG}:teacher_init={npz}",
+                          "--workdir", workdir])
+  torch.cuda.synchronize()
+  counts = {k: n for k, n in launches(fa).items() if n}
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    all_rows = list(map(json.loads, f))
+  steps = [r for r in all_rows if "training_loss" in r]
+  assert [r["step"] for r in steps] == [5, 10], steps
+  for r in steps:
+    assert math.isfinite(r["distill_loss"]) and r["distill_loss"] > 0, r
+  evals = [r for r in all_rows if "val/prec@1" in r]
+  assert [r["step"] for r in evals] == [0, 10], evals
+  for r in evals:
+    dist = {k: v for k, v in r.items() if k.startswith("distance/")}
+    assert len(dist) == 9 and all(map(math.isfinite, dist.values())), r
+    print(f"  step {r['step']}: val/prec@1 {r['val/prec@1']:.6f}, "
+          + ", ".join(f"{k} {v:.6f}" for k, v in dist.items()
+                      if k.endswith("/avg")))
+  # T = 4 tokens: the JAX package's gate (`flash_attention.supports`, T >=
+  # 16) takes the plain path, so no kernel runs on this path.
+  print(f"generic distillation smoke: ViT-mu/16 at 32px, "
+        f"{trainer.total_steps} steps of batch {trainer.batch_size}, "
+        f"distill_loss {steps[0]['distill_loss']:.6f} -> "
+        f"{steps[-1]['distill_loss']:.6f}; launches {counts} (T = 4: the "
+        f"plain path, as the JAX package's gate decides)")
+  assert not counts, counts
 
 
 def matmul_peak_tflops(n=8192, iters=20):
@@ -1898,7 +2259,8 @@ def main(argv):
     return 0
 
   # 3. Serving PaliGemma-3B; 4. training ViT-B/16; 5. training FlexiViT-B;
-  # 6. distilling FlexiViT-B (launches per step).
+  # 6. distilling FlexiViT-B (launches per step); 7. distilling DeiT-III
+  # into FlexiViT-B; 8. the generic distill trainer.
   counts.update(serving_phase(fa, da, gpu))
   torch.cuda.empty_cache()
   t0 = phase_end("serving", t0)
@@ -1910,8 +2272,12 @@ def main(argv):
   t0 = phase_end("FlexiViT-B training", t0)
   counts.update(distill_phase(fa, gpu))
   t0 = phase_end("FlexiViT-B distillation", t0)
+  deit3_phase(fa, gpu)
+  t0 = phase_end("DeiT-III distillation", t0)
+  distill_smoke_phase(fa)
+  t0 = phase_end("generic distillation smoke", t0)
 
-  # 7. Kernel times.
+  # 9. Kernel times.
   kernels = kernel_entries(fa, da, counts, gpu)
   phase_end("kernel times", t0)
   for kern in kernels:

@@ -171,10 +171,23 @@ def test_command_line_runs_three_steps(tmp_path):
   assert trainer.device.type == "cpu"
   rows = [json.loads(line) for line in
           (tmp_path / "big_vision_metrics.txt").read_text().splitlines()]
-  assert [r["step"] for r in rows[1:]] == [1, 2, 3]
-  for r in rows[1:]:
+  steps = [r for r in rows if "training_loss" in r]
+  assert [r["step"] for r in steps] == [1, 2, 3]
+  for r in steps:
     assert math.isfinite(r["training_loss"]) and r["l2_grads"] > 0
-    assert "global_schedule" in r and "img/sec" in r
+    assert "global_schedule" in r and "img/sec" in r and "uptime" in r
+  assert "core_hours_cpu" in steps[-1] and steps[-1]["examples_seen"] == 24
+  # Every eval of the config at step 0 and after the last step.
+  evals = [r for r in rows if "test_05/prec@1" in r]
+  assert [r["step"] for r in evals] == [0, 3]
+  for r in evals:
+    for s in ("05", "10", "15", "30"):
+      assert math.isfinite(r[f"test_{s}/loss"]), r
+      assert 0 <= r[f"test_{s}/prec@1"] <= 1 and r[f"z/secs/eval/test_{s}"] > 0
+    assert {k for k in r if k.startswith("fewshot/")} == {
+        f"fewshot/{'a' if n == 10 else 'z'}/pets_{n}shot"
+        for n in (1, 5, 10, 25)}
+    assert r["z/secs/eval/fewshot"] > 0
 
 
 def test_refuses_to_start_without_a_card(tmp_path):

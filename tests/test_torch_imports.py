@@ -35,7 +35,10 @@ def test_port_imports_without_jax():
   assert len(names) >= 30
   for name in ("utils.checkpoints", "evaluators.proj.distill.distance",
                "trainers.proj.flexi.distill",
-               "configs.proj.flexivit.i21k_distill"):
+               "configs.proj.flexivit.i21k_distill", "utils.chrono",
+               "evaluators.fewshot_lsr", "configs.common_fewshot",
+               "configs.proj.flexivit.i1k_deit3_distill",
+               "trainers.proj.distill.distill", "configs.proj.distill.smoke"):
     assert f"big_vision_torch.{name}" in names, name
 
 

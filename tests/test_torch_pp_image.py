@@ -12,7 +12,13 @@ held within 1e-4: `yuv420_to_rgb` (the port's batched op against the JAX
 op vmapped over the batch), its chroma upsample alone against
 `jax.image.resize(uv, (2, s, s), "linear")`, edge pixels included, and
 `resize_small(area)` of a float image. The YUV path against the RGB path
-meets the JAX package's own bar (tests/test_native.py).
+meets the JAX package's own bar (tests/test_native.py). `resize`: its host
+form bit for bit on uint8 (PIL, as in JAX) and within 1e-3 on floats
+(`jax.image.resize`), and its device form (after a staticizer, batched)
+against the JAX op vmapped over the batch, for every method, with and
+without `antialias`, up and down: floats within 1e-3 (of values up to
+255), uint8 within 1 (f32 sums in another order may cross an integer
+before the cast truncates).
 """
 
 import io
@@ -198,3 +204,46 @@ def test_yuv_path_is_close_to_the_rgb_path():
   diff = np.abs(got - want.astype(np.float32))
   assert got.shape == want.shape == (128, 128, 3)
   assert diff.mean() < 3.0 and np.percentile(diff, 99) < 12.0
+
+
+RESIZE_METHODS = ["bilinear", "bicubic", "nearest", "lanczos3", "lanczos5",
+                  "area"]
+
+
+@pytest.mark.parametrize("method", RESIZE_METHODS)
+def test_resize_on_the_host_equals_jax(method):
+  for size in ("(20, 27)", "(61, 50)"):
+    spec = f"decode|resize({size}, method='{method}')"
+    assert_equal(*host_both(spec, JPEG))
+    assert_equal(*host_both(spec, PNG))
+  img = np.random.default_rng(7).uniform(0, 255, (23, 31, 2)).astype(
+      np.float32)
+  for size in (9, 40):
+    spec = f"resize({size}, method='{method}', antialias=True)"
+    got = t_builder.get_preprocess_fn(spec).host({"image": img}, None)
+    want = j_builder.get_preprocess_fn(spec).host({"image": img}, None)
+    assert got["image"].shape == (size, size, 2)
+    np.testing.assert_allclose(got["image"], np.asarray(want["image"]),
+                               atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("method", RESIZE_METHODS)
+def test_resize_on_the_device_equals_jax(method, antialias):
+  rng = np.random.default_rng(8)
+  for dtype, tol in ((np.float32, 1e-3), (np.uint8, 1)):
+    imgs = (rng.uniform(0, 255, (2, 26, 30, 3))).astype(dtype)
+    for size in ((17, 21), (40, 33)):
+      pp = f"random_crop(24)|resize({size}, '{method}', {antialias})"
+      t_pfn = t_builder.get_preprocess_fn(pp)
+      j_pfn = j_builder.get_preprocess_fn(pp)
+      assert [op.name for op in t_pfn.device_ops] == [pp.split("|")[1]]
+      assert len(j_pfn.device_ops) == 1
+      crop = imgs[:, 1:25, 3:27]
+      got = t_pfn.device({"image": torch.from_numpy(crop)}, None)["image"]
+      want = j_pfn.device({"image": jnp.asarray(crop)},
+                          jax.random.PRNGKey(0))["image"]
+      assert got.shape == (2, *size, 3) and got.numpy().dtype == dtype
+      np.testing.assert_allclose(got.numpy().astype(np.float64),
+                                 np.asarray(want).astype(np.float64),
+                                 atol=tol, rtol=0)
