@@ -21,8 +21,17 @@ the probabilities, never into the [B, K, S, H] operands: K6 takes them as
 they are; the einsum path multiplies the f32 logits by the k-scale before
 the softcap and the probabilities by the v-scale after the softmax.
 
-Left for later: int8 weights (`quant=True`), the fused flash path for
-training (`attn_impl="flash"`), dropout.
+`quant=True` serves int8 weights: every matmul weight is an int8 tensor
+[out, in] with an f32 scale per output row [out, 1] (`<name>_scale`), the
+JAX model's `_QUANT_LEAVES` carried to the port's layout by
+utils/convert.py. `_dequant` converts to the activations' dtype and then
+multiplies by the scale, as the JAX `_dequant` does; the embedder
+dequantizes the rows it gathers and applies its row scales after the
+vocab product. `quantize_params` makes that layout from a float tree in
+the JAX layout, and `load` reads the JAX package's `.npz` checkpoints.
+
+Left for later: the fused flash path for training (`attn_impl="flash"`
+with `seg`), dropout.
 """
 
 from __future__ import annotations
@@ -30,11 +39,13 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from big_vision_torch.models import common
 from big_vision_torch.ops import decode_attention as da
+from big_vision_torch.utils import checkpoints
 
 
 def get_config(variant) -> dict:
@@ -79,6 +90,38 @@ def _quant_kv(x):
   x = x.float()
   scale = x.abs().amax(-1, keepdim=True).clamp_min(1e-30) / 127.0
   return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def _dequant(w_q, scale, dtype):
+  """int8 weight and its f32 scale -> `dtype`: the int8 values converted to
+  `dtype` times the scale converted to `dtype` (the JAX `_dequant`), in one
+  elementwise kernel."""
+  return torch.mul(w_q, scale.to(dtype))
+
+
+def _add_weights(module, quant, device, param_dtype, **shapes):
+  """Registers each [out, in] matmul weight: float in `param_dtype`, or
+  (quant) int8 with an f32 per-output-row scale [out, 1] named
+  `<name>_scale`; neither of the two is trained."""
+  for name, shape in shapes.items():
+    if not quant:
+      setattr(module, name, nn.Parameter(torch.empty(
+          shape, device=device, dtype=param_dtype)))
+      continue
+    setattr(module, name, nn.Parameter(torch.empty(
+        shape, device=device, dtype=torch.int8), requires_grad=False))
+    setattr(module, f"{name}_scale", nn.Parameter(torch.empty(
+        (shape[0], 1), device=device, dtype=torch.float32),
+        requires_grad=False))
+
+
+def _matmul(module, name, x):
+  """x @ weight.T for the weight `name` of `module`, dequantized to x's
+  dtype when it is int8."""
+  w = getattr(module, name)
+  if w.dtype == torch.int8:
+    w = _dequant(w, getattr(module, f"{name}_scale"), x.dtype)
+  return common.linear(x, w)
 
 
 @dataclasses.dataclass
@@ -140,21 +183,29 @@ class RMSNorm(nn.Module):
 
 
 class Embedder(nn.Module):
-  """Tied input/output embedding [vocab, width]."""
+  """Tied input/output embedding [vocab, width]; int8 with a scale per
+  vocab row [vocab, 1] under `quant`."""
 
-  def __init__(self, vocab_size, embed_dim, *, device="cuda",
+  def __init__(self, vocab_size, embed_dim, quant=False, *, device="cuda",
                param_dtype=torch.float32):
     super().__init__()
     self.embed_dim = embed_dim
-    self.input_embedding = nn.Parameter(torch.empty(
-        vocab_size, embed_dim, device=device, dtype=param_dtype))
+    self.quant = quant
+    _add_weights(self, quant, device, param_dtype,
+                 input_embedding=(vocab_size, embed_dim))
 
   def encode(self, tokens):
     x = self.input_embedding[tokens]
+    if self.quant:  # the gathered rows, dequantized
+      x = x.float() * self.input_embedding_scale[tokens]
     return x * torch.tensor(math.sqrt(self.embed_dim)).to(x.dtype)
 
   def decode(self, x):
-    return common.linear(x, self.input_embedding)
+    if not self.quant:
+      return common.linear(x, self.input_embedding)
+    # The int8 table converted, then the row scales after the product.
+    logits = common.linear(x, self.input_embedding.to(x.dtype))
+    return logits * self.input_embedding_scale[:, 0].to(x.dtype)
 
 
 class Attention(nn.Module):
@@ -166,8 +217,8 @@ class Attention(nn.Module):
 
   def __init__(self, num_heads, num_kv_heads, features, head_dim,
                query_pre_attn_norm="rsqrt_head_dim", attn_logits_softcap=None,
-               cache_dtype=None, decode_impl="xla", *, device="cuda",
-               param_dtype=torch.float32):
+               cache_dtype=None, decode_impl="xla", quant=False, *,
+               device="cuda", param_dtype=torch.float32):
     super().__init__()
     if decode_impl not in ("xla", "flash"):
       raise ValueError(f"Unknown decode_impl {decode_impl!r}")
@@ -191,26 +242,25 @@ class Attention(nn.Module):
                 "rsqrt_emb_per_head": features // num_heads}
     if query_pre_attn_norm not in q_scales:
       raise ValueError(query_pre_attn_norm)
-    self.q_scale = q_scales[query_pre_attn_norm] ** -0.5
-    w = lambda *s: nn.Parameter(torch.empty(*s, device=device,
-                                            dtype=param_dtype))
+    self.query_scale = q_scales[query_pre_attn_norm] ** -0.5
     if num_heads == num_kv_heads:
-      self.qkv = w(3 * num_heads * head_dim, features)
+      shapes = dict(qkv=(3 * num_heads * head_dim, features))
     else:
-      self.q = w(num_heads * head_dim, features)
-      self.kv = w(2 * num_kv_heads * head_dim, features)
-    self.o = w(features, num_heads * head_dim)
+      shapes = dict(q=(num_heads * head_dim, features),
+                    kv=(2 * num_kv_heads * head_dim, features))
+    _add_weights(self, quant, device, param_dtype, **shapes,
+                 o=(features, num_heads * head_dim))
 
   def forward(self, x, positions, attn_mask, cache=None, layer=0):
     b, t, _ = x.shape
     n, kh, h = self.num_heads, self.num_kv_heads, self.head_dim
     if n != kh:
-      q = common.linear(x, self.q).reshape(b, t, n, h)
-      k, v = common.linear(x, self.kv).reshape(b, t, 2, kh, h).unbind(2)
+      q = _matmul(self, "q", x).reshape(b, t, n, h)
+      k, v = _matmul(self, "kv", x).reshape(b, t, 2, kh, h).unbind(2)
     else:
-      q, k, v = common.linear(x, self.qkv).reshape(b, t, 3, n, h).unbind(2)
+      q, k, v = _matmul(self, "qkv", x).reshape(b, t, 3, n, h).unbind(2)
 
-    q = apply_rope(q, positions=positions) * self.q_scale
+    q = apply_rope(q, positions=positions) * self.query_scale
     k = apply_rope(k, positions=positions)
     decode = cache is not None
     scales = None
@@ -232,7 +282,7 @@ class Attention(nn.Module):
             grouped, k_store, v_store, attn_mask[:, 0, 0, :].contiguous(),
             k_scale=ks, v_scale=vs,
             logits_softcap=self.attn_logits_softcap or 0.0)
-        return common.linear(mixed.reshape(b, 1, n * h), self.o)
+        return _matmul(self, "o", mixed.reshape(b, 1, n * h))
       # The einsum path computes on the cache cast to the compute dtype
       # (an int8 cache as its raw values; the scales fold in below).
       k, v = k_store.to(k.dtype), v_store.to(v.dtype)
@@ -260,23 +310,23 @@ class Attention(nn.Module):
       probs = probs * fold(scales[1])
     probs = probs.to(k.dtype)
     mixed = torch.einsum(f"bkgts,{kv}->btkgh", probs, v)
-    return common.linear(mixed.reshape(b, t, n * h), self.o)
+    return _matmul(self, "o", mixed.reshape(b, t, n * h))
 
 
 class FeedForward(nn.Module):
   """Gated tanh-GELU MLP; `gating` [2*F, D] stacks the gate and the up
   projection, `linear` is [D, F]."""
 
-  def __init__(self, features, hidden_dim, *, device="cuda",
+  def __init__(self, features, hidden_dim, quant=False, *, device="cuda",
                param_dtype=torch.float32):
     super().__init__()
-    kw = dict(device=device, dtype=param_dtype)
-    self.gating = nn.Parameter(torch.empty(2 * hidden_dim, features, **kw))
-    self.linear = nn.Parameter(torch.empty(features, hidden_dim, **kw))
+    _add_weights(self, quant, device, param_dtype,
+                 gating=(2 * hidden_dim, features),
+                 linear=(features, hidden_dim))
 
   def forward(self, x):
-    gate, up = common.linear(x, self.gating).chunk(2, dim=-1)
-    return common.linear(common.gelu(gate) * up, self.linear)
+    gate, up = _matmul(self, "gating", x).chunk(2, dim=-1)
+    return _matmul(self, "linear", common.gelu(gate) * up)
 
 
 class Block(nn.Module):
@@ -284,8 +334,8 @@ class Block(nn.Module):
 
   def __init__(self, num_heads, num_kv_heads, embed_dim, head_dim,
                hidden_dim, query_pre_attn_norm, attn_logits_softcap,
-               post_norms, cache_dtype=None, decode_impl="xla", *,
-               device="cuda", param_dtype=torch.float32):
+               post_norms, cache_dtype=None, decode_impl="xla",
+               quant=False, *, device="cuda", param_dtype=torch.float32):
     super().__init__()
     kw = dict(device=device, param_dtype=param_dtype)
     self.pre_attention_norm = RMSNorm(embed_dim, **kw)
@@ -296,8 +346,8 @@ class Block(nn.Module):
       self.post_ffw_norm = RMSNorm(embed_dim, **kw)
     self.attn = Attention(num_heads, num_kv_heads, embed_dim, head_dim,
                           query_pre_attn_norm, attn_logits_softcap,
-                          cache_dtype, decode_impl, **kw)
-    self.mlp = FeedForward(embed_dim, hidden_dim, **kw)
+                          cache_dtype, decode_impl, quant, **kw)
+    self.mlp = FeedForward(embed_dim, hidden_dim, quant, **kw)
 
   def forward(self, x, positions, attn_mask, cache=None, layer=0):
     y = self.attn(self.pre_attention_norm(x), positions, attn_mask, cache,
@@ -342,8 +392,8 @@ class Model(nn.Module):
                query_pre_attn_norm="rsqrt_head_dim",
                final_logits_softcap=0.0, attn_logits_softcap=0.0,
                post_norms=False, cache_dtype=None, embed_dtype="float32",
-               attn_impl="xla", decode_impl="xla", *, device="cuda",
-               param_dtype=torch.float32):
+               attn_impl="xla", decode_impl="xla", quant=False, *,
+               device="cuda", param_dtype=torch.float32):
     super().__init__()
     if attn_impl != "xla":
       raise NotImplementedError("the LLM's fused training attention "
@@ -352,11 +402,11 @@ class Model(nn.Module):
     kw = dict(device=device, param_dtype=param_dtype)
     self.embed_dtype = common.resolve_dtype(embed_dtype)
     self.final_logits_softcap = final_logits_softcap
-    self.embedder = Embedder(vocab_size, width, **kw)
+    self.embedder = Embedder(vocab_size, width, quant, **kw)
     self.layers = nn.ModuleList([
         Block(num_heads, num_kv_heads, width, head_dim, mlp_dim,
               query_pre_attn_norm, attn_logits_softcap, post_norms,
-              cache_dtype, decode_impl, **kw) for _ in range(depth)])
+              cache_dtype, decode_impl, quant, **kw) for _ in range(depth)])
     self.final_norm = RMSNorm(width, **kw)
 
   def embed(self, tokens=None, embedded_prefix=None):
@@ -404,3 +454,178 @@ class Model(nn.Module):
                      positions=positions, mask=mask, cache=cache)
     out["logits"] = self.logits(out["pre_logits"])
     return out["logits"], out
+
+
+# (parent module, leaf) of the JAX layout -> (the einsum's contracted axes,
+# the scale's leaf name): the JAX package's `_QUANT_LEAVES`. The axes are
+# negative, so one rule covers the pyloop and the scan layout.
+_QUANT_LEAVES = {
+    ("qkv_einsum", "w"): ((-2,), "w_scale"),
+    ("q_einsum", "w"): ((-2,), "w_scale"),
+    ("kv_einsum", "w"): ((-2,), "w_scale"),
+    ("attn_vec_einsum", "w"): ((-3, -2), "w_scale"),
+    ("mlp", "gating_einsum"): ((-2,), "gating_einsum_scale"),
+    ("mlp", "linear"): ((-2,), "linear_scale"),
+    ("embedder", "input_embedding"): ((-1,), "input_embedding_scale"),
+}
+
+
+def _flatten_in_order(tree, prefix=()):
+  """[(path, leaf)] in the dicts' insertion order, as flax's flatten_dict."""
+  out = []
+  for k, v in tree.items():
+    if isinstance(v, dict):
+      out += _flatten_in_order(v, prefix + (k,))
+    else:
+      out.append((prefix + (k,), v))
+  return out
+
+
+def _unflatten(items):
+  out = {}
+  for path, v in items:
+    node = out
+    for k in path[:-1]:
+      node = node.setdefault(k, {})
+    node[path[-1]] = v
+  return out
+
+
+def _quantize(w, axes):
+  """Symmetric absmax int8 over `axes`: (int8 values, f32 scales with the
+  axes kept as 1), for a numpy array or a tensor, with the JAX recipe."""
+  if isinstance(w, torch.Tensor):
+    w = w.float()
+    scale = w.abs().amax(dim=axes, keepdim=True).clamp_min(1e-30) / 127.0
+    return torch.round(w / scale).clamp(-127, 127).to(torch.int8), scale
+  w = np.asarray(w, np.float32)
+  scale = np.maximum(np.abs(w).max(axis=axes, keepdims=True),
+                     np.float32(1e-30)) / np.float32(127.0)
+  return np.clip(np.round(w / scale), -127, 127).astype(np.int8), scale
+
+
+def quantize_params(params):
+  """Float Gemma params (the JAX layout, either layer layout; numpy arrays
+  or tensors) -> the int8 + per-output-channel-scale layout of
+  `Model(quant=True)`, bit for bit the JAX package's `quantize_params`.
+
+  Absmax over the contracted axes, scale max(absmax, 1e-30) / 127, values
+  rounded half to even and clipped to +-127. Leaves are visited in the
+  tree's insertion order, as JAX visits them, so an already-quantized tree
+  is treated as it is there.
+  """
+  out, n_quant = [], 0
+  for path, w in _flatten_in_order(params):
+    rule = _QUANT_LEAVES.get((path[-2] if len(path) > 1 else "", path[-1]))
+    if rule is None:
+      out.append((path, w))
+      continue
+    contract, scale_name = rule
+    axes = tuple(a % w.ndim for a in contract)
+    q, scale = _quantize(w, axes)
+    out += [(path, q), (path[:-1] + (scale_name,), scale)]
+    n_quant += 1
+  if not n_quant:
+    raise ValueError("quantize_params: no quantizable gemma weights found")
+  # A later entry of a path overwrites an earlier one, as in a dict.
+  return _unflatten(out)
+
+
+def _is_pyloop(p):
+  return isinstance(p.get("layers"), dict) and "0" in p["layers"]
+
+
+def _map(fn, tree):
+  return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+          for k, v in tree.items()}
+
+
+def _stack(xs):
+  return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else np.stack(xs)
+
+
+def scan_to_pyloop(params):
+  """Stacked scan layout (`layers/...` with a leading depth axis) ->
+  per-layer `layers/{i}/...`."""
+  params = dict(params)
+  stacked = params.pop("layers")
+  depth = len(next(iter(_flatten_in_order(stacked)))[1])
+  params["layers"] = {str(i): _map(lambda x, i=i: x[i], stacked)
+                      for i in range(depth)}
+  return params
+
+
+def pyloop_to_scan(params):
+  """Inverse of `scan_to_pyloop`."""
+  params = dict(params)
+  per_layer = params.pop("layers")
+  depth = 1 + max(int(k) for k in per_layer)
+  layers = [_flatten_in_order(per_layer[str(i)]) for i in range(depth)]
+  params["layers"] = _unflatten(
+      (path, _stack([layer[j][1] for layer in layers]))
+      for j, (path, _) in enumerate(layers[0]))
+  return params
+
+
+def _any_int8(tree):
+  return any(str(x.dtype) in ("int8", "torch.int8")
+             for _, x in _flatten_in_order(tree))
+
+
+def load(init_params, init_file, model_cfg=None, dont_load=()):
+  """Loads a Gemma `.npz` checkpoint (`file.npz` or `file.npz:subtree`) in
+  the JAX layout, as the JAX package's `load` does.
+
+  The vocab is extended to `model_cfg["vocab_size"]` with new rows drawn
+  from numpy's global RNG (refused for int8 rows); the layer layout is
+  converted to the target's (per-layer unless `init_params` has the
+  stacked form, or `model_cfg["scan"]` without `init_params`); a float
+  checkpoint is quantized into an int8 target (`init_params` with int8
+  leaves, e.g. `utils.convert.gemma_params` of a `quant=True` model), and
+  an int8 checkpoint is refused for a float target. Orbax directories
+  (the published Gemma releases) are refused: the port reads `.npz` only.
+  """
+  model_cfg = dict(model_cfg or {})
+  if not (isinstance(init_file, str)
+          and (init_file.endswith(".npz") or ".npz:" in init_file)):
+    raise ValueError(
+        f"{init_file!r} is not an .npz file: the port reads Gemma "
+        "checkpoints in the JAX package's .npz layout only (orbax "
+        "directories are not supported).")
+  params = checkpoints.load_params(init_file)
+
+  def extend_rows(emb, target_rows):
+    missing = target_rows - emb.shape[0]
+    if missing == 0:
+      return emb
+    if missing < 0:
+      raise ValueError("Can't shrink the vocab")
+    if not np.issubdtype(np.asarray(emb).dtype, np.floating):
+      raise ValueError(
+          "vocab_size extension needs a float checkpoint; extend rows "
+          "BEFORE quantization (tools/quantize_ckpt.py), not after.")
+    new = (np.random.randn(missing, emb.shape[1]) * 0.02).astype(emb.dtype)
+    return np.concatenate([np.asarray(emb), new])
+
+  if "vocab_size" in model_cfg:
+    params["embedder"]["input_embedding"] = extend_rows(
+        params["embedder"]["input_embedding"], model_cfg["vocab_size"])
+
+  if init_params is not None and "layers" in init_params:
+    target_pyloop = _is_pyloop(init_params)
+  else:
+    target_pyloop = not model_cfg.get("scan", False)
+  if _is_pyloop(params) != target_pyloop:
+    params = (scan_to_pyloop(params) if target_pyloop
+              else pyloop_to_scan(params))
+
+  if init_params is not None and _any_int8(init_params) \
+      and not _any_int8(params):
+    params = quantize_params(params)
+  if init_params is not None and _any_int8(params) \
+      and not _any_int8(init_params):
+    raise ValueError(
+        "Loading an int8-quantized checkpoint into a float (quant=False) "
+        "model; build the model with quant=True, or re-export the "
+        "checkpoint in float.")
+  return common.merge_params(params, init_params, dont_load)

@@ -4,7 +4,8 @@ Port of big_vision_tpu/models/proj/paligemma/gemma_bv.py. Prompts are
 right-aligned so that every example ends at the same cache slot; extending
 the cache then writes one shared slot per step. The decode state is a
 `DecodeCache` that `prefill_cache` returns and `extend_cache` takes and
-returns, in place of Flax's mutable "cache" collection.
+returns, in place of Flax's mutable "cache" collection. `quant=True` serves
+int8 weights (models/ppp/gemma.py); `load` is the LLM's loader.
 """
 
 from __future__ import annotations
@@ -49,8 +50,8 @@ class Model(nn.Module):
   def __init__(self, variant="gemma_2b", *, vocab_size=None,
                final_logits_softcap=None, attn_logits_softcap=None,
                cache_dtype: Optional[str] = "bfloat16", attn_impl="xla",
-               decode_impl="xla", scan=None, remat_policy=None, dropout=0.0,
-               device="cuda", param_dtype=torch.float32):
+               decode_impl="xla", quant=False, scan=None, remat_policy=None,
+               dropout=0.0, device="cuda", param_dtype=torch.float32):
     """`scan` and `remat_policy` only shape the JAX param layout and
     compile, and are accepted with no effect; dropout waits for training."""
     super().__init__()
@@ -66,7 +67,8 @@ class Model(nn.Module):
     self.embdim = cfg["width"]
     self.model = gemma.Model(**cfg, cache_dtype=cache_dtype,
                              attn_impl=attn_impl, decode_impl=decode_impl,
-                             device=device, param_dtype=param_dtype)
+                             quant=quant, device=device,
+                             param_dtype=param_dtype)
 
   def embed_tokens(self, tokens):
     """int[B, T] -> float[B, T, D] vocab embeddings."""
@@ -120,3 +122,8 @@ class Model(nn.Module):
                            positions=positions[:, None], cache=cache.kv)
     return logits, dataclasses.replace(cache, seq_len=positions + 1,
                                        cache_end=hi)
+
+
+def load(init_params, init_file, model_cfg=None, dont_load=()):
+  """Checkpoint loading is the LLM's (`gemma.load`, with its int8 paths)."""
+  return gemma.load(init_params, init_file, model_cfg, dont_load)

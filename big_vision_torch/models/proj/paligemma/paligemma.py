@@ -1,14 +1,17 @@
 """PaliGemma: image tower + Gemma LLM with prefix-LM attention.
 
 Port of big_vision_tpu/models/proj/paligemma/paligemma.py: the attention
-mask, image/text embedding, the training forward and the prefill/extend
-delegation. Left for later: video input and the slow full-recompute decode
-oracle.
+mask, image/text embedding (a video [B, F, H, W, C] goes through the tower
+as B*F images, its tokens joined along the sequence), the training forward,
+the prefill/extend delegation with the slow full-recompute decode oracle
+where the LLM has no `prefill_cache`, and the two-part `load`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
+import os
 from typing import Optional
 
 import torch
@@ -48,9 +51,12 @@ class Model(nn.Module):
     self.img = _tower(img_model, img, num_classes=self.llm.embdim, **kw)
 
   def embed_image(self, image):
-    if image.dim() != 4:
-      raise NotImplementedError("video input is not ported yet")
+    frames = image.shape[1] if image.dim() == 5 else None
+    if frames:  # video: each frame goes through the tower on its own...
+      image = image.reshape(-1, *image.shape[2:])
     zimg, aux = self.img(image)
+    if frames:  # ...and the frames' tokens join along the sequence.
+      zimg = zimg.reshape(-1, frames * zimg.shape[1], zimg.shape[2])
     return zimg, {"img/zimg": zimg, **{f"img/{k}": v for k, v in aux.items()}}
 
   def embed_text(self, tokens):
@@ -95,9 +101,99 @@ class Model(nn.Module):
     return text_logits, out
 
   def prefill_cache(self, x, input_mask, mask_ar, *, cache_size):
-    attn_mask = make_attn_mask(input_mask, mask_ar)
-    return self.llm.prefill_cache(x, input_mask, attn_mask,
-                                  cache_size=cache_size)
+    """(last live token's logits [B, 1, V], decode cache)."""
+    if hasattr(self.llm, "prefill_cache"):
+      attn_mask = make_attn_mask(input_mask, mask_ar)
+      return self.llm.prefill_cache(x, input_mask, attn_mask,
+                                    cache_size=cache_size)
+    return self._fallback_prefill_cache(x, input_mask, mask_ar, cache_size)
 
   def extend_cache(self, x, cache):
-    return self.llm.extend_cache(x, cache)
+    if hasattr(self.llm, "prefill_cache"):
+      return self.llm.extend_cache(x, cache)
+    return self._fallback_extend_cache(x, cache)
+
+  # The decode oracle, for an LLM without a KV cache, and for tests: the
+  # logits of a new token are those of a full prefix-LM forward over the
+  # growing sequence, read at the last live position. Its cache holds the
+  # embedded sequence, mask_ar and the live length per example; each step
+  # writes one slot and recomputes everything (O(T^2) per token).
+  def _last_live_logits(self, cache):
+    live = (torch.arange(cache.x.shape[1], device=cache.x.device)[None, :]
+            < cache.length[:, None])
+    logits, _ = self.llm(cache.x, mask=make_attn_mask(live, cache.mask_ar))
+    idx = (cache.length - 1)[:, None, None].expand(-1, 1, logits.shape[-1])
+    return torch.gather(logits, 1, idx)
+
+  def _fallback_prefill_cache(self, x, input_mask, mask_ar, cache_size):
+    grow = cache_size - x.shape[1]
+    cache = OracleCache(
+        x=nn.functional.pad(torch.where(input_mask[..., None], x, 0),
+                            (0, 0, 0, grow)),
+        mask_ar=nn.functional.pad(torch.where(input_mask, mask_ar, 0),
+                                  (0, grow)),
+        length=input_mask.sum(dim=1))
+    return self._last_live_logits(cache), cache
+
+  def _fallback_extend_cache(self, x, cache):
+    if x.shape[1] != 1:
+      raise ValueError("extend_cache is one token at a time")
+    # The token goes in at each example's length; generated tokens are
+    # causal (mask_ar 1).
+    rows = torch.arange(x.shape[0], device=x.device)
+    cx, car = cache.x.clone(), cache.mask_ar.clone()
+    cx[rows, cache.length] = x[:, 0].to(cx.dtype)
+    car[rows, cache.length] = 1
+    cache = OracleCache(x=cx, mask_ar=car, length=cache.length + 1)
+    return self._last_live_logits(cache), cache
+
+
+@dataclasses.dataclass
+class OracleCache:
+  """The decode oracle's state: the embedded sequence [B, S, D], its
+  mask_ar [B, S] and the live length per example [B]."""
+  x: torch.Tensor
+  mask_ar: torch.Tensor
+  length: torch.Tensor
+
+
+GEMMA_DIR = os.environ.get("BV_GEMMA_DIR", "PLEASE_SET_BV_GEMMA_DIR")
+VANITY_NAMES = {
+    name: os.path.join(GEMMA_DIR, fname) for name, fname in {
+        "pt_224": "pt_224.npz", "pt_224.bf16": "pt_224.bf16.npz",
+        "pt_448": "pt_448.npz", "pt_448.bf16": "pt_448.bf16.npz",
+        "pt_896": "pt_896.npz", "pt_896.bf16": "pt_896.bf16.npz",
+        "pt_3b_224": "pt_3b_224.bf16.npz",
+        "pt_3b_448": "pt_3b_448.bf16.npz",
+        "pt_10b_224": "pt_10b_224.bf16.npz",
+    }.items()
+}
+
+
+def load(init_params, init_files, model_cfg, img_load_kw=None,
+         llm_load_kw=None):
+  """Two-part loader: {"img": ckpt, "llm": ckpt}, or one combined `.npz`
+  (its `img` and `llm` subtrees), or a name of `VANITY_NAMES` (files under
+  $BV_GEMMA_DIR). Returns {"img": tree, "llm": tree} in the JAX layout
+  (numpy), for `utils.convert.paligemma`; `init_params`, where given, is
+  the target's tree in the same layout (`{"img": ..., "llm": ...}`)."""
+  if isinstance(init_files, str):
+    base = VANITY_NAMES.get(init_files, init_files)
+    init_files = {part: f"{base}:{part}" for part in ("img", "llm")}
+  init_files = {**init_files}
+  cfg = dict(model_cfg)
+  restored = {**(init_params or {"img": None, "llm": None})}
+
+  parts = [("img", "vit", img_load_kw),
+           ("llm", "proj.paligemma.gemma_bv", llm_load_kw)]
+  for part, default_family, load_kw in parts:
+    ckpt = init_files.pop(part, None)
+    if ckpt is None:
+      continue
+    family = cfg.get(f"{part}_model", default_family)
+    tower_mod = importlib.import_module(f"big_vision_torch.models.{family}")
+    restored[part] = tower_mod.load(
+        restored[part], ckpt, cfg.get(part, {}), **(load_kw or {}))
+  if init_files:
+    raise ValueError(f"Unused model_init entries: {init_files}")
+  return restored

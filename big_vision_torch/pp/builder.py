@@ -6,6 +6,7 @@ two-phase `PreprocessFn`:
   pfn = get_preprocess_fn(spec)
   example = pfn.host(raw_example, np_rng)      # loader threads, per example
   batch   = pfn.device(batch, generator)       # batched torch ops, on device
+  example = pfn(raw_example)                   # one example, every op
 
 The host/device boundary is placed exactly as the JAX builder places it, so
 one pp string splits the same way in both packages. Op names are looked up
@@ -13,6 +14,9 @@ as ``preprocess_ops.<name>`` in the port's own registry.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from big_vision_torch.registry import Registry
 from big_vision_torch.pp.utils import PPOp
@@ -59,6 +63,27 @@ class PreprocessFn:
     for op in self.device_ops:
       batch = op.run_device(batch, generator)
     return batch
+
+  def __call__(self, data, np_rng=None, generator=None):
+    """Runs every op on one example, as the JAX builder's `__call__`: the
+    host form of the host-only ops, the device form of the others (on the
+    CPU, on a batch of one). Numbers come back as numpy arrays."""
+    np_rng = np_rng or np.random.default_rng(0)
+    for op in self.ops:
+      if op.fn is None or op.phase == "host":
+        data = op.run_host(data, np_rng)
+        continue
+      batch = {k: torch.from_numpy(np.asarray(v)[None])
+               if _numeric(v) else v for k, v in data.items()}
+      batch = op.run_device(batch, generator)
+      data = {k: v[0].numpy() if isinstance(v, torch.Tensor) else v
+              for k, v in batch.items()}
+    return {k: np.asarray(v) if _numeric(v) else v for k, v in data.items()}
+
+
+def _numeric(v):
+  return (not isinstance(v, (str, bytes))
+          and np.asarray(v).dtype.kind in "biuf")
 
 
 def get_preprocess_fn(pp_pipeline):

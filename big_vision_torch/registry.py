@@ -53,6 +53,11 @@ class Registry:
     return deco
 
   @classmethod
+  def knows(cls, spec: str) -> bool:
+    """Whether the name of `spec` (without its arguments) is registered."""
+    return parse_name(spec)[0] in cls._items
+
+  @classmethod
   def lookup(cls, spec: str, kwargs_extra: dict | None = None) -> Callable:
     """Returns the registered factory partially applied with spec's args."""
     name, args, kwargs = parse_name(spec)

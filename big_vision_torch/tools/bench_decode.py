@@ -18,7 +18,11 @@ Usage:
   python -m big_vision_torch.tools.bench_decode                # tiny models
   python -m big_vision_torch.tools.bench_decode --variant gemma_2b \
       --img_variant So400m/14 --res 224 --batch 8 --decode_len 64 \
-      [--cache_dtype int8] [--profile]
+      [--cache_dtype int8] [--quant int8] [--profile]
+
+`--quant int8` serves the LLM with int8 weights: the random weights are
+quantized with `gemma.quantize_params`, as the JAX bench does. The JAX
+bench's `--scan` is not ported: the port's model has one layer layout.
 """
 
 from __future__ import annotations
@@ -30,31 +34,48 @@ import time
 import torch
 
 from big_vision_torch.models import common
+from big_vision_torch.models.ppp import gemma
 from big_vision_torch.models.proj.paligemma import paligemma
 from big_vision_torch.models.proj.paligemma import predict_fns
 from big_vision_torch.tools import kernel_timing
+from big_vision_torch.utils import convert
 
 
 def build_model(variant, img_variant, res, *, cache_dtype="bfloat16",
-                kernels=True, device="cuda", seed=0, like=None):
+                quant=None, kernels=True, device="cuda", seed=0,
+                like=None):
   """PaliGemma with random bf16 weights from `seed`, or with the weights of
   the model `like` (shared, not copied).
 
   kernels=True is the serving path: the tower's attention "auto" (K1) and
   the LLM's decode_impl="flash" (K6). kernels=False is the plain path
-  (math attention, einsum decode).
+  (math attention, einsum decode). quant="int8" quantizes the LLM's random
+  weights (`gemma.quantize_params`) into a `quant=True` LLM; with `like`,
+  `like` sets it.
   """
-  model = paligemma.Model(
-      img=dict(variant=img_variant, pool_type="none", dtype_mm="bfloat16",
-               image_size=res, attn_impl="auto" if kernels else "xla"),
-      llm=dict(variant=variant, cache_dtype=cache_dtype,
-               decode_impl="flash" if kernels else "xla"),
-      device="meta" if like is not None else device,
-      param_dtype=torch.bfloat16)
+  def make(quant_llm, on):
+    return paligemma.Model(
+        img=dict(variant=img_variant, pool_type="none", dtype_mm="bfloat16",
+                 image_size=res, attn_impl="auto" if kernels else "xla"),
+        llm=dict(variant=variant, cache_dtype=cache_dtype, quant=quant_llm,
+                 decode_impl="flash" if kernels else "xla"),
+        device=on, param_dtype=torch.bfloat16)
+
   if like is not None:
+    quant_llm = like.llm.model.embedder.quant
+    model = make(quant_llm, "meta")
     model.load_state_dict(like.state_dict(), assign=True)
-  else:
-    common.init_random_(model, seed)
+    return model.eval()
+  model = common.init_random_(make(False, device), seed)
+  if quant == "int8":
+    state = convert.gemma(gemma.quantize_params(
+        convert.gemma_params(model.llm.model)))
+    qmodel = make(True, "meta")
+    qmodel.img.load_state_dict(model.img.state_dict(), assign=True)
+    convert.load(qmodel.llm.model, state, device=device)
+    model = qmodel
+  elif quant is not None:
+    raise ValueError(f"Unknown quant {quant!r}")
   return model.eval()
 
 
@@ -154,6 +175,8 @@ def main(argv=None):
                  help="prompt tokens after the image prefix")
   p.add_argument("--decode_len", type=int, default=64)
   p.add_argument("--iters", type=int, default=5)
+  p.add_argument("--quant", choices=["int8"], default=None,
+                 help="int8 weights (+ per-channel scales) for the LLM")
   p.add_argument("--cache_dtype", default="bfloat16",
                  choices=["bfloat16", "float32", "int8"])
   p.add_argument("--profile", action="store_true",
@@ -167,8 +190,8 @@ def main(argv=None):
 
   t0 = time.perf_counter()
   model = build_model(args.variant, args.img_variant, args.res,
-                      cache_dtype=args.cache_dtype, device=args.device,
-                      seed=args.seed)
+                      cache_dtype=args.cache_dtype, quant=args.quant,
+                      device=args.device, seed=args.seed)
   vocab = model.llm.model.embedder.input_embedding.shape[0]
   batch = make_batch(args.batch, args.res, args.prefill_len, vocab,
                      args.device, args.seed)
@@ -194,6 +217,7 @@ def main(argv=None):
       "e2e_ms_per_batch": r["t_full"] * 1e3,
       "llm_variant": args.variant,
       "cache_dtype": args.cache_dtype,
+      "quant": args.quant,
       "img_variant": args.img_variant,
       "res": args.res,
       "batch": args.batch,

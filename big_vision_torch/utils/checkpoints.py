@@ -147,12 +147,18 @@ def npz_save(tree, fname):
     np.savez(f, **flat)
 
 
-def npz_load(fname, tree=None):
-  """Loads a flat npz into a nested dict of numpy arrays. With `tree`,
+def npz_load(fname, tree=None, subtree=None):
+  """Loads a flat npz into a nested dict of numpy arrays; with `subtree`,
+  only the arrays under it (or under params/<subtree>). With `tree`,
   raises if the file lacks any of its leaves."""
   with open(fname, "rb") as f:
     data = np.load(f, allow_pickle=False)
-    flat = {k: _recover_dtype(v) for k, v in data.items()}
+    names = data.files
+    if subtree is not None:
+      names = [k for k in names
+               if k in (subtree, f"params/{subtree}")
+               or k.startswith((f"{subtree}/", f"params/{subtree}/"))]
+    flat = {k: _recover_dtype(data[k]) for k in names}
   out = trees.unflatten(flat)
   if tree is not None:
     missing = sorted(set(trees.flatten(tree)) - set(flat))
@@ -171,7 +177,7 @@ def load_params(ckpt, **kw):
 
   if isinstance(ckpt, str) and ".npz:" in ckpt:
     fname, subtree = ckpt.rsplit(":", 1)
-    return trees.get(unwrap(npz_load(fname, **kw)), subtree)
+    return trees.get(unwrap(npz_load(fname, subtree=subtree, **kw)), subtree)
   if isinstance(ckpt, str) and ckpt.endswith(".npz"):
     return unwrap(npz_load(ckpt, **kw))
   if isinstance(ckpt, str) and os.path.isdir(ckpt):

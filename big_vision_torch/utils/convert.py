@@ -11,6 +11,11 @@ into the port's [out, in] matrices. Both layer layouts are read: scan
 
 Every leaf must be consumed exactly once: a leaf no rule maps raises, and
 `load` raises when the module expects an entry the tree lacks.
+
+`gemma` and its inverse `gemma_params` also carry the int8 weights of
+`quant=True` and their scales, and take numpy arrays or tensors alike
+(tensors stay on their device), so that a model on the card can be
+quantized there.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ class _Leaves:
   def take(self, name):
     if name not in self._flat:
       raise KeyError(f"param {name!r} missing from the tree")
-    return np.asarray(self._flat.pop(name))
+    x = self._flat.pop(name)
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
 
   def done(self):
     if self._flat:
@@ -45,7 +51,8 @@ class _Leaves:
 def _flat(params):
   flat = params if all(isinstance(v, np.ndarray) or hasattr(v, "shape")
                        for v in params.values()) else trees.flatten(params)
-  return {k: np.asarray(v) for k, v in flat.items()}
+  return {k: v if isinstance(v, torch.Tensor) else np.asarray(v)
+          for k, v in flat.items()}
 
 
 def _unstack(flat, stacked, per_layer):
@@ -192,17 +199,57 @@ def vit_params(module: torch.nn.Module) -> dict:
 
 
 def _heads_last(w):
-  """[..., D, hd] einsum weight -> [(..., hd), D] matrix."""
-  return np.swapaxes(w, -1, -2).reshape(-1, w.shape[-2])
+  """[..., D, hd] einsum weight -> [(..., hd), D] matrix (an int8 weight's
+  scale [..., 1, hd] -> [(..., hd), 1] alike)."""
+  return w.swapaxes(-1, -2).reshape(-1, w.shape[-2])
 
 
-def gemma(params) -> dict[str, np.ndarray]:
-  """Gemma param tree -> the port's `models.ppp.gemma` state dict (numpy)."""
+def _heads_first(w, lead):
+  """Inverse of `_heads_last`: [(lead..., hd), D] -> [lead..., D, hd]."""
+  return w.reshape(*lead, -1, w.shape[-1]).swapaxes(-1, -2)
+
+
+# The JAX einsum weights of a Gemma layer and the port's [out, in] matrix
+# of each; `_heads_last` maps the rest, `attn_vec_einsum` [H, hd, D] and
+# `linear` [F, D] are transposed.
+_GEMMA_LAYER = {"attn/qkv_einsum/w": "attn.qkv", "attn/q_einsum/w": "attn.q",
+                "attn/kv_einsum/w": "attn.kv",
+                "attn/attn_vec_einsum/w": "attn.o",
+                "mlp/gating_einsum": "mlp.gating", "mlp/linear": "mlp.linear"}
+# A weight's JAX leaf -> its int8 scale's leaf (models/ppp/gemma.py's
+# `_QUANT_LEAVES`); the port names it `<weight>_scale`.
+_SCALE_LEAF = {"w": "w_scale", "gating_einsum": "gating_einsum_scale",
+               "linear": "linear_scale",
+               "input_embedding": "input_embedding_scale"}
+
+
+def _to_port(src, w):
+  """One JAX Gemma weight (or its scale, the contracted axes kept as 1) ->
+  the port's [out, in] matrix (or [out, 1] scale)."""
+  if src == "attn/attn_vec_einsum/w":  # [H, hd, D]; scale [1, 1, D]
+    return w.reshape(-1, w.shape[-1]).T
+  if src == "mlp/linear":  # [F, D]; scale [1, D]
+    return w.T
+  return _heads_last(w)  # [..., D, hd] -> [(..., hd), D]
+
+
+def _scale_name(src):
+  parent, leaf = src.rsplit("/", 1)
+  return f"{parent}/{_SCALE_LEAF[leaf]}"
+
+
+def gemma(params) -> dict:
+  """Gemma param tree -> the port's `models.ppp.gemma` state dict (numpy
+  arrays, or tensors for a tree of tensors). An int8 weight's scale goes
+  through the same transposes and reshapes as its weight, to [out, 1]."""
   flat = _flat(params)
   if not any(re.match(r"layers/\d+/", n) for n in flat):
     flat = _unstack(flat, "layers", "layers/{}")
   leaves, out = _Leaves(flat), {}
   out["embedder.input_embedding"] = leaves.take("embedder/input_embedding")
+  if "embedder/input_embedding_scale" in leaves.names():  # [V, 1]
+    out["embedder.input_embedding_scale"] = leaves.take(
+        "embedder/input_embedding_scale")
   out["final_norm.scale"] = leaves.take("final_norm/scale")
   layers = sorted({int(m.group(1)) for n in leaves.names()
                    if (m := re.match(r"layers/(\d+)/", n))})
@@ -212,24 +259,53 @@ def gemma(params) -> dict[str, np.ndarray]:
                  "post_ffw_norm"):
       if f"{src}/{norm}/scale" in leaves.names():
         out[f"{dst}.{norm}.scale"] = leaves.take(f"{src}/{norm}/scale")
-    if f"{src}/attn/qkv_einsum/w" in leaves.names():  # [3, H, D, hd]
-      out[f"{dst}.attn.qkv"] = _heads_last(
-          leaves.take(f"{src}/attn/qkv_einsum/w"))
-    else:  # q [H, D, hd]; kv [2, K, D, hd]
-      out[f"{dst}.attn.q"] = _heads_last(
-          leaves.take(f"{src}/attn/q_einsum/w"))
-      out[f"{dst}.attn.kv"] = _heads_last(
-          leaves.take(f"{src}/attn/kv_einsum/w"))
-    w = leaves.take(f"{src}/attn/attn_vec_einsum/w")  # [H, hd, D]
-    out[f"{dst}.attn.o"] = w.reshape(-1, w.shape[-1]).T
-    out[f"{dst}.mlp.gating"] = _heads_last(  # [2, D, F] -> [2F, D]
-        leaves.take(f"{src}/mlp/gating_einsum"))
-    out[f"{dst}.mlp.linear"] = leaves.take(f"{src}/mlp/linear").T  # [F, D]
+    for name, port in _GEMMA_LAYER.items():
+      if f"{src}/{name}" not in leaves.names():
+        continue  # qkv (MHA) or q and kv (MQA, GQA)
+      out[f"{dst}.{port}"] = _to_port(name, leaves.take(f"{src}/{name}"))
+      scale = f"{src}/{_scale_name(name)}"
+      if scale in leaves.names():
+        out[f"{dst}.{port}_scale"] = _to_port(name, leaves.take(scale))
   leaves.done()
   return out
 
 
-def paligemma(params) -> dict[str, np.ndarray]:
+def gemma_params(module: torch.nn.Module) -> dict:
+  """The inverse of `gemma`: a `models.ppp.gemma.Model`'s parameters as the
+  JAX model's param tree (pyloop layout), tensors on the module's device
+  in their own dtype (int8 weights with their f32 scales for `quant`)."""
+  out = {}
+  for name, p in module.named_parameters():
+    x = p.detach()
+    layer, leaf = name.rsplit(".", 1)
+    scale = leaf.endswith("_scale") and leaf != "scale"
+    port = f"{layer}.{leaf.removesuffix('_scale')}" if scale else name
+    if port in ("embedder.input_embedding", "final_norm.scale"):
+      jax_name = port.replace(".", "/")
+    elif m := re.fullmatch(r"layers\.(\d+)\.(\w+_norm)\.scale", port):
+      jax_name = f"layers/{m[1]}/{m[2]}/scale"
+    else:
+      m = re.fullmatch(r"layers\.(\d+)\.(.*)", port)
+      src = {v: k for k, v in _GEMMA_LAYER.items()}[m[2]]
+      jax_name = f"layers/{m[1]}/{src}"
+      attn = module.layers[int(m[1])].attn
+      h, hd = attn.num_heads, attn.head_dim
+      kh = attn.num_kv_heads
+      if src == "attn/attn_vec_einsum/w":  # [D, H*hd] -> [H, hd, D]
+        x = x.T.reshape(h, hd, -1) if not scale else x.T.reshape(1, 1, -1)
+      elif src == "mlp/linear":  # [D, F] -> [F, D]
+        x = x.T
+      else:
+        lead = {"attn/qkv_einsum/w": (3, h), "attn/q_einsum/w": (h,),
+                "attn/kv_einsum/w": (2, kh), "mlp/gating_einsum": (2,)}[src]
+        x = _heads_first(x, lead)
+    if scale:
+      jax_name = _scale_name(jax_name)
+    out[jax_name] = x
+  return trees.unflatten(out)
+
+
+def paligemma(params) -> dict:
   """{"img": vit tree, "llm": gemma tree} -> the port's PaliGemma."""
   out = {f"img.{k}": v for k, v in vit(params["img"]).items()}
   out.update({f"llm.model.{k}": v for k, v in gemma(params["llm"]).items()})
@@ -240,11 +316,15 @@ def paligemma(params) -> dict[str, np.ndarray]:
 
 
 def load(module: torch.nn.Module, state: dict, device=None, dtype=None):
-  """Loads a converted state (numpy) into `module`, in place.
+  """Loads a converted state (numpy arrays or tensors) into `module`, in
+  place.
 
   The tensors replace the module's parameters on the module's own device
   unless `device` is given, keeping the arrays' dtype unless `dtype` is
-  given. Raises on a missing or unexpected entry.
+  given. `dtype` casts only the entries of the module's trained float
+  parameters: one the module made untrained (`requires_grad=False`, as the
+  int8 weights and their f32 scales) keeps its dtype. Raises on a missing
+  or unexpected entry.
   """
   if device is None:
     device = next(module.parameters()).device
@@ -253,11 +333,17 @@ def load(module: torch.nn.Module, state: dict, device=None, dtype=None):
   if missing or unexpected:
     raise ValueError(f"missing {sorted(missing)}; unexpected "
                      f"{sorted(unexpected)}")
+  trained = {k for k, p in module.named_parameters()
+             if p.requires_grad and p.is_floating_point()}
   tensors = {}
   for k, v in state.items():
-    v = np.ascontiguousarray(v)
-    t = (torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
-         if v.dtype.name == "bfloat16" else torch.from_numpy(v))
-    tensors[k] = t.to(device=device, dtype=dtype or t.dtype)
+    if isinstance(v, torch.Tensor):
+      t = v.contiguous()
+    else:
+      v = np.ascontiguousarray(v)
+      t = (torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+           if v.dtype.name == "bfloat16" else torch.from_numpy(v))
+    cast = dtype and k in trained
+    tensors[k] = t.to(device=device, dtype=dtype if cast else t.dtype)
   module.load_state_dict(tensors, strict=True, assign=True)
   return module

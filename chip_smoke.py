@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --checks` stops after phase 2: a quick check of
-every kernel and of the JPEG decoder after a change to one.)
+every kernel and of the JPEG decoder after a change to one;
+`python3 chip_smoke.py --serving` builds and runs phase 3 alone.)
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. builds every CUDA kernel from big_vision_torch/csrc (one nvcc each, in
@@ -58,7 +59,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
      einsum decode) on the same card within 2e-2 of max|logit|, the bar
      of tests/test_decode_attention.py; then the same with the int8 KV
      cache (the same weights, INT8_DECODE tokens, K6 on the int8 store
-     with its per-slot scales) against the int8 plain path;
+     with its per-slot scales) against the int8 plain path; then
+     (3b) int8 LLM weights: the model's weights written as one `.npz` in
+     the JAX layout (tower bf16, LLM quantized on the card by
+     `gemma.quantize_params`), loaded through `paligemma.load` into a
+     `quant=True` model and served as above with the bf16 and the int8 KV
+     cache, against its plain path; its prefill logits beside the
+     bf16-weight model's (a report), its times, the weight conversions of
+     one AR step timed alone, and a profiled decode with the share of the
+     kernels that read int8; (3c) beam search (beam 2) and best-of-n
+     (n 2, greedy) on the serving batch, BEAM_DECODE tokens: every K6
+     launch on 2 x BATCH cache rows, one per layer per AR step, tokens
+     equal to the plain path's, beam 1 equal to greedy, and the beam rows
+     teacher-forced after random parent reorders of the cache against the
+     plain path recomputing each step from scratch; (3d) video:
+     VIDEO_B clips of VIDEO_FRAMES frames at 224px through the tower in
+     one forward (27 K1 launches), VIDEO_DECODE greedy tokens over the
+     2064-slot prefix, K6 at every step where `decode_attention.fits`
+     holds, kernel vs plain path as above; (3e) the interactive runner
+     `trainers/proj/paligemma/run.py` through `main`, on the `.npz` of 3b
+     (LLM int8), a synthetic JPEG, a hand-written unigram vocab of 256000
+     pieces and two prompts on stdin: two answers, K1 and K6 launched,
+     the answers equal to a plain-path decode of the same pp output; the
+     `.npz` is deleted at the end;
   4. measures the host decode rate: images per second of the ViT config's
      host pp phase, decode_jpeg_and_inception_crop_yuv(224), over its
      synthetic JPEGs on the input pipeline's thread map, on the config's
@@ -220,8 +243,15 @@ from big_vision_torch.tools.kernel_timing import time_ms
 SEED = 0
 BATCH, RES, PROMPT, DECODE = 8, 224, 32, 64
 INT8_DECODE = 16  # greedy tokens of the int8 KV cache's pass
+BEAM_DECODE = 16  # tokens of the beam-search and best-of-n passes
+BEAM_CHECK_STEPS = 4  # teacher-forced AR steps of the beam reorder check
+# Video: clips of 8 frames (the JAX package's msrvtt_cap transfer config),
+# 16 greedy tokens.
+VIDEO_B, VIDEO_FRAMES, VIDEO_DECODE = 2, 8, 16
+RUNNER_DECODE = 16  # the runner's --max_decode_len
 IMG_TOKENS = (RES // 14) ** 2  # So400m/14 at 224px: 256
 CACHE = IMG_TOKENS + PROMPT + DECODE  # KV cache slots of the serving run
+BEAM_CACHE = IMG_TOKENS + PROMPT + BEAM_DECODE  # ... of beam and best-of-n
 K1_BAR, K2_BAR, K6_BAR, E2E_BAR = 1e-2, 1e-2, 1e-2, 2e-2
 # Kernels with f32 semantics (K2's f32 kernel, K3-K5 in f32), where only the
 # order of sums may differ from the plain version.
@@ -652,6 +682,9 @@ def check_k6(da):
       ("masked row", dict(b=3, kh=1, g=8, s=96, h=256, masked_row=True), {}),
       ("2 tiles a split", dict(b=2, kh=1, g=8, s=5000, h=64,
                                spans=[(100, 4321), (4200, 4262)]), {}),
+      ("B=16 S=304", dict(serving, b=16, s=BEAM_CACHE), {}),
+      ("B=16 S=304 int8", dict(serving, b=16, s=BEAM_CACHE, cache="int8"),
+       {}),
       ("B=64 S=352", dict(serving, b=64), {}),
       ("B=64 S=1120", dict(serving, b=64, s=1120), {}),
       ("B=64 S=1120 int8", dict(serving, b=64, s=1120, cache="int8"), {}),
@@ -773,7 +806,7 @@ def host_decode_rate(gpu):
 # ----------------------------------------------------------------------------
 
 
-def serve(model, plain, batch, fa, da, decode=DECODE):
+def serve(model, plain, batch, fa, da, decode=DECODE, what="serving"):
   """The main path with its launch counts, then kernel vs plain path."""
   from big_vision_torch.models.proj.paligemma import predict_fns
   fns = predict_fns.make_predict_fns(model, max_decode_len=decode,
@@ -786,14 +819,23 @@ def serve(model, plain, batch, fa, da, decode=DECODE):
   counts = {"K1": k1["K1"], "K6": da.decode_attention.launches}
   depth_img = len(model.img.encoder.blocks)
   depth_llm = len(model.llm.model.layers)
-  cache = model.llm.model.layers[0].attn.cache_dtype
-  print(f"serving, {cache} KV cache: {BATCH} requests, {decode} greedy "
-        f"tokens; launches K1 {counts['K1']} in bf16 (want {depth_img}), "
-        f"f32 K1 {k1['K1f']} (want 0), K6 {counts['K6']} "
-        f"(want {depth_llm} x {decode})")
+  attn = model.llm.model.layers[0].attn
+  b = batch["text"].shape[0]
+  # K6 where the JAX package's gate holds at the cache the decode fills,
+  # the einsum path past it.
+  frames = batch["image"].shape[1] if batch["image"].dim() == 5 else 1
+  slots = IMG_TOKENS * frames + batch["text"].shape[1] + decode
+  itemsize = 1 if attn.cache_dtype == torch.int8 else 4
+  fits = da.fits(slots, attn.head_dim, itemsize)
+  print(f"{what}, {attn.cache_dtype} KV cache: {b} requests, {decode} "
+        f"greedy tokens, {slots} cache slots (every AR step takes "
+        f"{'K6' if fits else 'the einsum path: past fits'}); launches K1 "
+        f"{counts['K1']} in bf16 (want {depth_img}), f32 K1 {k1['K1f']} "
+        f"(want 0), K6 {counts['K6']} (want "
+        f"{depth_llm if fits else 0} x {decode})")
   assert counts["K1"] == depth_img and k1["K1f"] == 0, k1
-  assert counts["K6"] == depth_llm * decode, counts
-  assert tokens.shape == (BATCH, decode) and torch.isfinite(logp).all()
+  assert counts["K6"] == (depth_llm if fits else 0) * decode, counts
+  assert tokens.shape == (b, decode) and torch.isfinite(logp).all()
 
   # Kernel path vs plain path on the same card: prefill logits, then 4 AR
   # steps teacher-forced with the kernel path's tokens.
@@ -817,15 +859,385 @@ def serve(model, plain, batch, fa, da, decode=DECODE):
       states = [m.extend_cache(m.embed_text(tok)[0], c)
                 for m, c in ((model, ck), (plain, cp))]
   for i, (e, a) in enumerate(zip(errs, agree)):
-    what = "prefill" if i == 0 else f"AR step {i}"
-    print(f"kernel vs plain path, {what}: logits rel err {e:.3e} "
+    step = "prefill" if i == 0 else f"AR step {i}"
+    print(f"kernel vs plain path, {step}: logits rel err {e:.3e} "
           f"(bar {E2E_BAR}), greedy agreement {a:.3f}")
-    assert math.isfinite(e) and e <= E2E_BAR, (what, e)
+    assert math.isfinite(e) and e <= E2E_BAR, (what, step, e)
   plain_tokens = predict_fns.make_predict_fns(
       plain, max_decode_len=decode, eos_token=-1)["decode"](batch)
   print(f"greedy tokens equal to the plain path's: "
         f"{(plain_tokens == tokens).float().mean().item():.3f}")
   return counts
+
+
+def write_serving_ckpt(model, path):
+  """PaliGemma-3B's weights as one `.npz` in the JAX layout, as the runner
+  reads them: the image tower in bf16, the LLM in int8 with its scales
+  (`gemma.quantize_params` on the card; the layout that
+  `tools/quantize_ckpt.py --subtree llm` writes). Returns its GB."""
+  from big_vision_torch.models.ppp import gemma
+  from big_vision_torch.utils import checkpoints, convert, trees
+  img = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in
+         trees.flatten(convert.vit_params(model.img)).items()}
+  llm = {k: v.cpu() for k, v in trees.flatten(gemma.quantize_params(
+      convert.gemma_params(model.llm.model))).items()}
+  checkpoints.npz_save({"img": img, "llm": llm}, path)
+  return os.path.getsize(path) / 1e9
+
+
+def load_int8_model(path, cache_dtype="bfloat16"):
+  """PaliGemma-3B with int8 LLM weights from the `.npz` at `path`, through
+  `paligemma.load` (the serving path's kernels on)."""
+  from big_vision_torch.models.proj.paligemma import paligemma
+  from big_vision_torch.utils import convert
+  img = dict(variant="So400m/14", pool_type="none")
+  llm = dict(variant="gemma_2b", quant=True)
+  params = paligemma.load(None, path, dict(img=img, llm=llm))
+  model = paligemma.Model(
+      img=dict(img, dtype_mm="bfloat16", image_size=RES, attn_impl="auto"),
+      llm=dict(llm, cache_dtype=cache_dtype, decode_impl="flash"),
+      device="meta", param_dtype=torch.bfloat16)
+  convert.load(model, convert.paligemma(params), device="cuda",
+               dtype=torch.bfloat16)
+  return model.eval()
+
+
+def weight_conversions(model):
+  """A fn doing one AR step's weight conversions alone: each LLM matmul
+  weight made f32 as the step makes it (`_dequant` of an int8 weight, the
+  cast of a bf16 one; the embedding table is cast, its int8 row scales
+  applied after the product)."""
+  from big_vision_torch.models.ppp import gemma
+  llm = model.llm.model
+  casts = [llm.embedder.input_embedding]
+  dequants = []
+  for mod in llm.layers.modules():
+    for name in ("qkv", "q", "kv", "o", "gating", "linear"):
+      w = getattr(mod, name, None)
+      if not isinstance(w, torch.Tensor):
+        continue
+      scale = getattr(mod, f"{name}_scale", None)
+      if scale is None:
+        casts.append(w)
+      else:
+        dequants.append((w, scale))
+
+  def convert_all():
+    for w in casts:
+      w.float()
+    for w, scale in dequants:
+      gemma._dequant(w, scale, torch.float32)  # pylint: disable=protected-access
+
+  def copy_then_scale():  # a yardstick: the same values in two kernels
+    for w in casts:
+      w.float()
+    for w, scale in dequants:
+      w.float().mul_(scale)
+  return convert_all, copy_then_scale
+
+
+def int8_weights_phase(model, batch, fa, da, gpu, path):
+  """Phase 3b: PaliGemma-3B with int8 LLM weights, loaded from the `.npz`
+  written from `model`, served with the bf16 and then the int8 KV cache,
+  each against its plain path; its logits beside the bf16-weight model's,
+  its times, and the weight conversions' share of its AR step."""
+  from big_vision_torch.tools import bench_decode
+  t0 = time.perf_counter()
+  gb = write_serving_ckpt(model, path)
+  t1 = time.perf_counter()
+  int8w = load_int8_model(path)
+  print(f"wrote PaliGemma-3B (LLM int8, tower bf16) as {gb:.3f} GB in "
+        f"{t1 - t0:.1f} s; loaded it through paligemma.load in "
+        f"{time.perf_counter() - t1:.1f} s")
+  plain = bench_decode.build_model("gemma_2b", "So400m/14", RES,
+                                   kernels=False, like=int8w)
+  counts = {"K6 int8 weights": serve(int8w, plain, batch, fa, da,
+                                     what="int8 weights")["K6"]}
+  int8c = bench_decode.build_model("gemma_2b", "So400m/14", RES,
+                                   cache_dtype="int8", like=int8w)
+  int8c_plain = bench_decode.build_model(
+      "gemma_2b", "So400m/14", RES, cache_dtype="int8", kernels=False,
+      like=int8w)
+  counts["K6 int8 weights, int8 cache"] = serve(
+      int8c, int8c_plain, batch, fa, da, decode=INT8_DECODE,
+      what="int8 weights")["K6"]
+  del plain, int8c, int8c_plain
+  # A report, not a kernel check: what int8 weights change in the logits.
+  with torch.inference_mode():
+    logits = [bench_decode._prefill_fn(m, batch, 8)()[0]  # pylint: disable=protected-access
+              for m in (model, int8w)]
+  print(f"int8-weight vs bf16-weight prefill logits: rel err "
+        f"{rel_err(logits[1], logits[0]):.3e}, greedy agreement "
+        f"{(logits[0].argmax(-1) == logits[1].argmax(-1)).float().mean():.3f}")
+  # Times in turns: bf16 weights, int8, int8, bf16.
+  for name, m in (("bf16 weights", model), ("int8 weights", int8w),
+                  ("int8 weights", int8w), ("bf16 weights", model)):
+    x = bench_decode.measure(m, batch, DECODE, 1, "cuda")
+    print(f"[{gpu}] serving, {name}, B={BATCH} prompt {PROMPT} decode "
+          f"{DECODE}: prefill {x['prefill_s'] * 1e3:.3f} ms, AR step "
+          f"{x['step_s'] * 1e3:.3f} ms, {BATCH / x['step_s']:.1f} tok/s")
+  convert = {}
+  for name, m in (("bf16 weights", model), ("int8 weights", int8w)):
+    convert[name], two_kernels = weight_conversions(m)
+    print(f"[{gpu}] {name}: one AR step's weight conversions to f32 alone "
+          f"{time_ms(convert[name], [()], iters=3):.3f} ms")
+  print(f"[{gpu}] int8 weights, the same conversions as a copy to f32 then "
+        f"an in-place scale (a yardstick, not the port's path): "
+        f"{time_ms(two_kernels, [()], iters=3):.3f} ms")
+  # One profiled decode: every kernel's device time, the top ten printed,
+  # and the share of the kernels that the weight conversions alone launch.
+  names = {k for k, _, _ in kernel_timing.device_profile(
+      {"c": convert["int8 weights"]}, top=10 ** 6)["c"][0]}
+  rows, busy, wall = kernel_timing.device_profile(
+      {"decode": bench_decode._decode_fn(int8w, batch, DECODE)},  # pylint: disable=protected-access
+      top=10 ** 6)["decode"]
+  bench_decode.print_profile({"decode": (rows[:10], busy, wall)},
+                             prefix=f"[{gpu}] int8 weights, ")
+  dequant = [r for r in rows if r[0] in names]
+  ms = sum(r[1] for r in dequant)
+  print(f"[{gpu}] int8 weights, profiled decode of {DECODE} tokens: the "
+        f"weight conversions' kernels ({len(dequant)} names, "
+        f"{sum(r[2] for r in dequant)} launches) {ms:.3f} of {busy:.3f} ms "
+        f"busy ({100 * ms / busy:.1f}%):")
+  for k, kms, n in dequant[:4]:
+    print(f"  {kms:10.3f} ms {n:6d}x  {k[:160]}")
+  return counts
+
+
+def counted_k6_rows(da):
+  """Wraps K6's launch (`_launch`, behind the wrapper's checks) to record
+  the cache rows (q.shape[0]) of every launch; returns (rows, undo)."""
+  rows, launch = [], da._launch  # pylint: disable=protected-access
+
+  def spy(q, *args):
+    rows.append(q.shape[0])
+    return launch(q, *args)
+  da._launch = spy  # pylint: disable=protected-access
+  return rows, lambda: setattr(da, "_launch", launch)
+
+
+def beam_phase(model, plain, batch, fa, da, gpu):
+  """Phase 3c: beam search (beam 2) and best-of-n (n 2, greedy) on the
+  serving batch: B*2 cache rows at every K6 launch, one launch per layer
+  per step, tokens beside the plain path's; beam 1 equal to greedy."""
+  from big_vision_torch.models.proj.paligemma import predict_fns
+  from big_vision_torch.tools import bench_decode
+  depth_img = len(model.img.encoder.blocks)
+  depth = len(model.llm.model.layers)
+  fns = {m: predict_fns.make_predict_fns(m, max_decode_len=BEAM_DECODE,
+                                         eos_token=-1)
+         for m in (model, plain)}
+  runs = (("beam 2", "beam_decode", dict(beam_size=2), BEAM_DECODE - 1),
+          ("best-of-2", "decode", dict(best_of_n=2), BEAM_DECODE))
+  counts = {}
+  for name, fn, kw, steps in runs:
+    fns[model][fn](batch, **kw)  # warm
+    reset_launches(fa)
+    wrapper = da.decode_attention
+    wrapper.launches = 0
+    rows, undo = counted_k6_rows(da)
+    try:
+      start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+      start.record()
+      tokens = fns[model][fn](batch, **kw)
+      end.record()
+      end.synchronize()
+    finally:
+      undo()
+    ms = start.elapsed_time(end)
+    k1, k6 = launches(fa)["K1"], wrapper.launches
+    rep = {k: v.repeat_interleave(kw.get("best_of_n", 1), 0)
+           for k, v in batch.items()}
+    prefill_ms = bench_decode.Timer("cuda")(
+        bench_decode._prefill_fn(model, rep, BEAM_DECODE), 2) * 1e3  # pylint: disable=protected-access
+    print(f"{name}: {BATCH} requests, {BEAM_DECODE} tokens, {steps} AR "
+          f"steps on {set(rows)} cache rows; launches K1 {k1} (want "
+          f"{depth_img}), K6 {k6} (want {depth} x {steps})")
+    assert k1 == depth_img, k1
+    assert k6 == depth * steps == len(rows), k6
+    assert set(rows) == {2 * BATCH}, set(rows)
+    plain_tokens = fns[plain][fn](batch, **kw)
+    print(f"[{gpu}] {name}: {ms:.3f} ms for the request batch, of which "
+          f"prefill {prefill_ms:.3f} ms ({len(rep['text'])} rows), "
+          f"{(ms - prefill_ms) / steps:.3f} ms per AR step of {2 * BATCH} "
+          f"rows; tokens equal to the plain path's: "
+          f"{(plain_tokens == tokens).float().mean().item():.3f}")
+    assert torch.equal(plain_tokens, tokens), name
+    counts[f"K6 {name}"] = k6
+  beam1 = fns[model]["beam_decode"](batch, beam_size=1)
+  greedy = fns[model]["decode"](batch)
+  print(f"beam 1 equal to greedy: {bool((beam1 == greedy).all())}")
+  assert torch.equal(beam1, greedy)
+  beam_reorder_vs_plain(model, plain, batch)
+  return counts
+
+
+def beam_reorder_vs_plain(model, plain, batch, k=2):
+  """The kernel path on k rows an example as beam search runs it: prefill,
+  the expansion, then BEAM_CHECK_STEPS teacher-forced AR steps, each after
+  a parent reorder of the whole cache (`_gather_beams`, every row taking a
+  random beam of its example). Held within E2E_BAR against the plain path
+  recomputing each step's logits from scratch over the sequence each row
+  holds by then: no cache and no reorder."""
+  from big_vision_torch.models.proj.paligemma import predict_fns
+  gather = predict_fns._gather_beams  # pylint: disable=protected-access
+  b, dev = batch["text"].shape[0], batch["text"].device
+  gen = torch.Generator(device="cpu").manual_seed(SEED)
+  with torch.inference_mode():
+    prefix = [m.embed_image_and_text(
+        batch["image"], batch["text"], input_mask=batch["mask_input"],
+        mask_ar=batch["mask_ar"])[0] for m in (model, plain)]
+    x, mask, ar = prefix[0]
+    _, cache = model.prefill_cache(x, mask, ar,
+                                   cache_size=x.shape[1] + BEAM_DECODE)
+    src = torch.arange(b, device=dev).repeat_interleave(k)  # prefix rows
+    cache = gather(cache, src)
+    hist = torch.zeros((b * k, 0), dtype=torch.long, device=dev)
+    vocab = model.llm.model.embedder.input_embedding.shape[0]
+    for step in range(BEAM_CHECK_STEPS):
+      parent = (torch.arange(b).repeat_interleave(k) * k
+                + torch.randint(k, (b * k,), generator=gen)).to(dev)
+      cache, src, hist = gather(cache, parent), src[parent], hist[parent]
+      tok = torch.randint(2, vocab, (b * k, 1), generator=gen).to(dev)
+      hist = torch.cat([hist, tok], dim=1)
+      got, cache = model.extend_cache(model.embed_text(tok)[0], cache)
+      # Each row's live prefix, then its tokens, then padding: a prefill
+      # reads the logits of its last live slot.
+      px, pmask, par = (torch.cat([t[src], torch.zeros_like(
+          t[src][:, :hist.shape[1]])], dim=1) for t in prefix[1])
+      rows = torch.arange(b * k, device=dev)[:, None]
+      slots = (prefix[1][1][src].sum(1, keepdim=True)
+               + torch.arange(hist.shape[1], device=dev))
+      px[rows, slots] = plain.embed_text(hist)[0]
+      pmask[rows, slots], par[rows, slots] = True, 1
+      want, _ = plain.prefill_cache(px, pmask, par, cache_size=px.shape[1])
+      err = rel_err(got, want)
+      moved = (parent != torch.arange(b * k, device=dev)).sum().item()
+      print(f"beam rows vs plain recompute, AR step {step + 1} after a "
+            f"reorder moving {moved} of {b * k} rows: logits rel err "
+            f"{err:.3e} (bar {E2E_BAR}), greedy agreement "
+            f"{(got.argmax(-1) == want.argmax(-1)).float().mean():.3f}")
+      assert math.isfinite(err) and err <= E2E_BAR, (step, err)
+
+
+def video_phase(model, plain, fa, da, gpu):
+  """Phase 3d: VIDEO_B clips of VIDEO_FRAMES frames at 224px: one tower
+  forward over all frames (27 K1 launches), their tokens joined along the
+  sequence, VIDEO_DECODE greedy tokens; kernel vs plain path."""
+  from big_vision_torch.tools import bench_decode
+  batch = bench_decode.make_batch(VIDEO_B, RES, PROMPT, 256_000, "cuda",
+                                  SEED)
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  batch["image"] = torch.rand((VIDEO_B, VIDEO_FRAMES, RES, RES, 3),
+                              generator=gen, device="cuda") * 2 - 1
+  counts = serve(model, plain, batch, fa, da, decode=VIDEO_DECODE,
+                 what=f"video, {VIDEO_FRAMES} frames a clip")
+  x = bench_decode.measure(model, batch, VIDEO_DECODE, 2, "cuda")
+  print(f"[{gpu}] video B={VIDEO_B} x {VIDEO_FRAMES} frames, prompt "
+        f"{PROMPT}, decode {VIDEO_DECODE}: prefill "
+        f"{x['prefill_s'] * 1e3:.3f} ms, AR step {x['step_s'] * 1e3:.3f} ms")
+  return {"K1 video": counts["K1"], "K6 video": counts["K6"]}
+
+
+class _Lines(io.StringIO):
+  """stdout that notes when its first line was written."""
+  first = None
+
+  def write(self, text):
+    if self.first is None and "\n" in text:
+      self.first = time.perf_counter()
+    return super().write(text)
+
+
+def runner_phase(fa, da, gpu, path):
+  """Phase 3e: the interactive runner (`trainers/proj/paligemma/run.py`)
+  on the int8-weight checkpoint at `path`, a synthetic JPEG and two
+  prompts on stdin, with a hand-written unigram vocab of 256000 pieces.
+  Its answers must equal `to_str` of a plain-path greedy decode (kernels
+  off, the runner's weights) of the same pp output."""
+  import numpy as np
+  from big_vision_torch.models.proj.paligemma import paligemma
+  from big_vision_torch.pp import sentencepiece_native as spn
+  from big_vision_torch.trainers.proj.paligemma import predict_fns
+  from big_vision_torch.trainers.proj.paligemma import run
+  workdir = os.path.dirname(path)
+  vocab = os.path.join(workdir, "vocab.model")
+  # Only "\u2581w<i>" pieces besides the specials: "w7 w8 w9" has ids,
+  # "caption en" is all <unk>. Which ids the separator "\n" gets depends on
+  # the SentencePiece backend (the native reader drops it); it is printed.
+  pieces = [("<pad>", 0.0, spn.CONTROL), ("</s>", 0.0, spn.CONTROL),
+            ("<s>", 0.0, spn.CONTROL), ("<unk>", 0.0, spn.UNKNOWN)]
+  pieces += [(f"\u2581w{i}", -5.0, spn.NORMAL)
+             for i in range(256_000 - len(pieces))]
+  with open(vocab, "wb") as f:
+    f.write(spn.serialize_model_proto(pieces, unk_id=3, bos_id=2, eos_id=1,
+                                      pad_id=0))
+  image = os.path.join(workdir, "image.jpg")
+  with open(image, "wb") as f:
+    f.write(smooth_jpeg())
+  prompts = ["caption en", "w7 w8 w9"]
+  run.TOKENIZER = f"gemma(tokensets=['loc', 'seg'], model={vocab!r})"
+  run.MODEL_CFG = dict(
+      img=dict(variant="So400m/14", pool_type="none", scan=True),
+      llm=dict(variant="gemma_2b", vocab_size=256_000, decode_impl="flash",
+               quant=True))
+  sessions, session_cls = [], run.Session
+
+  class Session(session_cls):  # keeps the runner's session for the check
+    def __init__(self, *args, **kw):
+      super().__init__(*args, **kw)
+      sessions.append(self)
+
+  reset_launches(fa)
+  da.decode_attention.launches = 0
+  out, stdin = _Lines(), sys.stdin
+  sys.stdin = io.StringIO("\n".join(prompts) + "\n")
+  run.Session = Session
+  t0 = time.perf_counter()
+  try:
+    with contextlib.redirect_stdout(out):
+      run.main(["--ckpt", path, "--image", image, "--res", str(RES),
+                "--max_decode_len", str(RUNNER_DECODE)])
+  finally:
+    sys.stdin, run.Session = stdin, session_cls
+  total = time.perf_counter() - t0
+  answers = out.getvalue().splitlines()
+  k1 = launches(fa)
+  k6 = da.decode_attention.launches
+  print(f"runner: {len(answers)} answers to {prompts}: {answers}; launches "
+        f"K1 {k1['K1'] + k1['K1f']} (f32 tower: {k1['K1f']}), K6 {k6}")
+  assert len(answers) == len(prompts) and all(answers), answers
+  assert k1["K1"] + k1["K1f"] > 0 and k6 > 0
+  print(f"[{gpu}] runner: first answer {out.first - t0:.1f} s after main "
+        f"started (loading, the warm-up prompt), all {total:.1f} s")
+
+  # The same pp output through the plain path, on the runner's weights.
+  session = sessions[0]
+  cfg = run.MODEL_CFG
+  plain = paligemma.Model(
+      img=dict(cfg["img"], image_size=RES, attn_impl="xla"),
+      llm=dict(cfg["llm"], decode_impl="xla"), device="meta").eval()
+  plain.load_state_dict(session.model.state_dict(), assign=True)
+  decode = predict_fns.get_all(plain, max_decode_len=RUNNER_DECODE,
+                               sampler="greedy")["decode"]
+  with open(image, "rb") as f:
+    image_bytes = f.read()
+  print(f"runner's SentencePiece backend: "
+        f"{type(session.tokzr.sp).__module__}")
+  want = []
+  for prompt in prompts:
+    ex = session.pp_fn({"image": image_bytes, "prefix": np.array(prompt)})
+    tokens = decode({k: torch.from_numpy(v[None]).cuda()
+                     for k, v in ex.items()})[0].cpu().numpy()
+    want.append(session.tokzr.to_str(tokens))
+    print(f"  {prompt!r}: prompt ids {ex['text'][ex['mask_input'] > 0]}, "
+          f"plain-path answer ids {tokens}")
+  same = out.getvalue() == "".join(w + "\n" for w in want)
+  print(f"runner's answers equal to the plain path's: {same}")
+  assert same, want
+  os.remove(vocab)
+  os.remove(image)
+  return {"K6 runner": k6}
 
 
 # ----------------------------------------------------------------------------
@@ -1914,7 +2326,8 @@ def matmul_peak_tflops(n=8192, iters=20):
 
 def serving_phase(fa, da, gpu):
   """Phase 3 and the serving times: the bf16 KV cache, then the int8 one
-  with the same weights; returns the launch counts."""
+  with the same weights; then int8 weights, beam search and best-of-n,
+  video and the runner. Returns the launch counts."""
   from big_vision_torch.tools import bench_decode
   t0 = time.perf_counter()
   build = functools.partial(bench_decode.build_model, "gemma_2b",
@@ -1943,6 +2356,25 @@ def serving_phase(fa, da, gpu):
                   ("kernel path, int8 KV cache", int8)):
     bench_decode.print_profile(bench_decode.profile(m, batch, DECODE),
                                prefix=f"[{gpu}] {name}, ")
+  del int8, int8_plain
+  t0 = phase_end("serving, bf16 weights", t0)
+
+  # The checkpoint of phases 3b and 3e, written once and deleted after.
+  path = os.path.join(ROOT, "build", "chip_smoke_serving", "pg3b-int8.npz")
+  try:
+    counts.update(int8_weights_phase(model, batch, fa, da, gpu, path))
+    torch.cuda.empty_cache()
+    t0 = phase_end("serving, int8 weights", t0)
+    counts.update(beam_phase(model, plain, batch, fa, da, gpu))
+    t0 = phase_end("beam search and best-of-n", t0)
+    counts.update(video_phase(model, plain, fa, da, gpu))
+    t0 = phase_end("video", t0)
+    del model, plain
+    torch.cuda.empty_cache()
+    counts.update(runner_phase(fa, da, gpu, path))
+    phase_end("the runner", t0)
+  finally:
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
   return counts
 
 
@@ -2210,8 +2642,9 @@ def phase_end(name, t0):
 
 
 def main(argv):
-  if argv not in ([], ["--checks"]):
-    print(f"usage: chip_smoke.py [--checks]; got {argv}", file=sys.stderr)
+  if argv not in ([], ["--checks"], ["--serving"]):
+    print(f"usage: chip_smoke.py [--checks | --serving]; got {argv}",
+          file=sys.stderr)
     return 2
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2243,8 +2676,13 @@ def main(argv):
       elif "Used" in line or "spill" in line:
         print(f"  {name}: {line.strip()}")
 
-  # 2. Kernels vs plain versions.
   t0 = phase_end("build", t0)
+  if argv == ["--serving"]:  # the build and phase 3 alone
+    serving_phase(fa, da, gpu)
+    print(f"{nvidia_smi()}: the serving phases passed")
+    return 0
+
+  # 2. Kernels vs plain versions.
   counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa)}
   counts["K6 bf16 err"], counts["K6 int8 err"] = check_k6(da)
   counts.update({f"{k} err": e for k, e in check_blocked(fa).items()})

@@ -38,7 +38,11 @@ def test_port_imports_without_jax():
                "configs.proj.flexivit.i21k_distill", "utils.chrono",
                "evaluators.fewshot_lsr", "configs.common_fewshot",
                "configs.proj.flexivit.i1k_deit3_distill",
-               "trainers.proj.distill.distill", "configs.proj.distill.smoke"):
+               "trainers.proj.distill.distill", "configs.proj.distill.smoke",
+               "tools.quantize_ckpt", "pp.tokenizer",
+               "pp.sentencepiece_native", "pp.proj.paligemma.ops",
+               "trainers.proj.paligemma.predict_fns",
+               "trainers.proj.paligemma.run"):
     assert f"big_vision_torch.{name}" in names, name
 
 
