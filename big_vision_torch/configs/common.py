@@ -3,10 +3,12 @@
 The port's configs are plain-Python `get_config(arg)` factories that return
 plain dicts (ml_collections is not a dependency of the port); `parse_arg`
 reads the same ":res=128,runlocal" argument language as the JAX package.
+`stand_in` gives the source that takes the place of a TFDS split.
 """
 
 from __future__ import annotations
 
+import os
 import types
 
 
@@ -73,3 +75,38 @@ def parse_arg(arg, lazy=False, **spec):
     raise ValueError(f"Unhandled config args remain: {kv}")
   out.update({extra: autotype(v) for extra, v in kv.items()})
   return types.SimpleNamespace(**out)
+
+
+# The TFDS splits that the ported configs name: (examples, classes). The
+# port has no TFDS; `stand_in` gives each a source of the same size.
+SPLITS = {
+    ("imagenet2012", "train[:99%]"): (1_268_355, 1000),
+    ("imagenet2012", "train[99%:]"): (12_812, 1000),
+    ("imagenet2012", "train[:2%]"): (25_623, 1000),
+    ("imagenet2012", "validation"): (50_000, 1000),
+    ("imagenet_v2", "test"): (10_000, 1000),
+    ("imagenet2012_real", "validation"): (50_000, 1000),
+    **{(c, s): (n, k) for c, k in (("cifar10", 10), ("cifar100", 100))
+       for s, n in (("train[:98%]", 49_000), ("train[98%:]", 1_000),
+                    ("test", 10_000))},
+    ("oxford_iiit_pet", "train[:90%]"): (3_312, 37),
+    ("oxford_iiit_pet", "train[90%:]"): (368, 37),
+    ("oxford_iiit_pet", "test"): (3_669, 37),
+    ("oxford_flowers102", "train[:90%]"): (918, 102),
+    ("oxford_flowers102", "train[90%:]"): (102, 102),
+    ("oxford_flowers102", "test"): (6_149, 102),
+}
+
+
+def stand_in(name, split, *, root="", n=0):
+  """The port's source for the TFDS split `name`/`split`: with `root`, the
+  image folder root/train (a "train" split, whole) or root/val (any
+  other); else synthetic JPEGs (32x32 for CIFAR, 256x320 otherwise, 512
+  unique) with the split's class count and its example count, or `n`."""
+  if root:
+    sub = "train" if split.startswith("train") else "val"
+    return dict(name="imagefolder", root=os.path.join(root, sub))
+  examples, classes = SPLITS[name, split]
+  h, w = (32, 32) if name.startswith("cifar") else (256, 320)
+  return dict(name="synthetic", n=n or examples, num_classes=classes, h=h,
+              w=w, unique_images=512)

@@ -15,9 +15,18 @@ split's example count (oxford_iiit_pet 3680/3669, oxford_flowers102
 validation 50000); `examples`, where given, sets every split's count
 instead (at least 25 times the class count for 25 shots of every class),
 and `only`, where given, names the datasets kept.
+
+`CUTS` names the keys of the spec that differ from the JAX function's:
+datasets.*.data_train, datasets.*.data_test.
 """
 
 from __future__ import annotations
+
+CUTS = {
+    "datasets.*.data_train": "no TFDS: the synthetic JPEG source with the "
+                             "dataset's class count and the split's size",
+    "datasets.*.data_test": "(as data_train)",
+}
 
 # name: (source, class count, training examples, test examples).
 DATASETS = {

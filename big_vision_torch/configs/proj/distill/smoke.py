@@ -18,11 +18,15 @@ top-1 agreement of the student's and the teacher's logits), with pp
 Nothing is cut. Its teacher is a checkpoint (`teacher_init`, the path of
 an `.npz`): a test or a smoke run writes one with random weights.
 
+`CUTS` is empty: no key differs from the JAX config.
+
 Args (`:name=value,...`): `res` (32), `total_steps` (10), `batch_size`
 (16), `teacher_init` (""), as in the JAX config.
 """
 
 from big_vision_torch.configs import common
+
+CUTS = {}  # nothing is cut
 
 
 def get_config(arg=None):

@@ -37,6 +37,14 @@ Cut, for one card and no dataset:
   * batch 32 per step, one card's share of the JAX run's 1024; the evals
     take the same batch.
 
+`CUTS` names the keys that differ from the JAX config (`RUNLOCAL_CUTS`
+those of `runlocal` alone): arg, variant, input.data, input.pp,
+input.batch_size, input.shuffle_buffer_size, input.prefetch,
+student.attn_impl, prof.attn_impl, prof_init, student_init, evals.*.data,
+evals.*.pp_fn; with `runlocal`: total_epochs, total_steps,
+schedule.warmup_steps, log_training_steps, input.num_threads,
+student.variant, prof.variant.
+
 Args (`:name=value,...`): `runlocal` (the tiny version for CPU tests:
 ViT-mu student and mu/16 teacher, batch 8, 3 steps, 16 images an eval
 split), `init` (the DeiT-III `.npz`), `variant` ("B"), `stop` (stop after
@@ -47,6 +55,32 @@ at every seqhw; or "xla", the plain path everywhere).
 """
 
 from big_vision_torch.configs import common
+
+CUTS = {
+    "arg": "the JAX config keeps its parsed args in the config; no "
+           "trainer reads them",
+    "variant": "(the JAX config's parsed `variant` arg, as arg)",
+    "input.data": "synthetic JPEGs in place of imagenet2012 train[:99%]",
+    "input.pp": "onehot of the source's 'label'",
+    "input.batch_size": "32, one card's share of 1024",
+    "input.shuffle_buffer_size": "1024 raw examples",
+    "input.prefetch": "4 batches",
+    "student.attn_impl": "the `attn` arg (default 'auto', the JAX default)",
+    "prof.attn_impl": "(as student.attn_impl)",
+    "prof_init": "the `init` arg, a local .npz, in place of deit3_B_384_1k",
+    "student_init": "(as prof_init)",
+    "evals.*.data": "synthetic JPEGs in place of imagenet2012 train[99%:]",
+    "evals.*.pp_fn": "onehot of the source's 'label'",
+}
+RUNLOCAL_CUTS = {
+    "total_epochs": "3 steps (total_steps) on the CPU",
+    "total_steps": "(as total_epochs)",
+    "schedule.warmup_steps": "1, within the 3 steps",
+    "log_training_steps": "a row every step",
+    "input.num_threads": "2 host threads",
+    "student.variant": "ViT-mu",
+    "prof.variant": "mu/16",
+}
 
 
 def get_config(arg=None):

@@ -33,6 +33,13 @@ Cut, for one card and no dataset:
     that name; empty by default, which leaves the teacher at its random
     init.
 
+`CUTS` names the keys that differ from the JAX config (`RUNLOCAL_CUTS`
+those of `runlocal` alone): arg, input.data, input.pp, input.batch_size,
+input.shuffle_buffer_size, input.prefetch, student.attn_impl,
+prof.attn_impl, prof_init; with `runlocal`: total_epochs, total_steps,
+schedule.warmup_steps, log_training_steps, input.num_threads,
+student.variant, prof.variant.
+
 Args (`:name=value,...`): `runlocal` (the tiny version for CPU tests:
 ViT-mu student and mu/8 teacher, batch 8, 3 steps), `prof_init` (the
 teacher's `.npz`), `stop` (stop after that many steps, the schedule
@@ -44,6 +51,29 @@ the plain path everywhere).
 """
 
 from big_vision_torch.configs import common
+
+CUTS = {
+    "arg": "the JAX config keeps its parsed args in the config; no "
+           "trainer reads them",
+    "input.data": "synthetic raw images in place of imagenet21k",
+    "input.pp": "random_crop(240) of raw images in place of the JPEG "
+                "decode and inception crop; onehot of the source's 'label'",
+    "input.batch_size": "32, one card's share of 4096",
+    "input.shuffle_buffer_size": "1024 raw examples",
+    "input.prefetch": "4 batches",
+    "student.attn_impl": "the `attn` arg (default 'auto', the JAX default)",
+    "prof.attn_impl": "(as student.attn_impl)",
+    "prof_init": "a local .npz in place of howto-i21k-B/8",
+}
+RUNLOCAL_CUTS = {
+    "total_epochs": "3 steps (total_steps) on the CPU",
+    "total_steps": "(as total_epochs)",
+    "schedule.warmup_steps": "1, within the 3 steps",
+    "log_training_steps": "a row every step",
+    "input.num_threads": "2 host threads",
+    "student.variant": "ViT-mu",
+    "prof.variant": "mu/8",
+}
 
 
 def get_config(arg=None):

@@ -12,7 +12,8 @@ heads, MLP 3072; stored 32x32 patch kernel, learned 7x7 posemb, [cls]
 readout, f32 matmuls: the JAX config sets no dtype_mm), 21843 classes,
 `init_head_bias` -10, `sigmoid_xent`, scale_by_adam with a bf16 first
 moment, gradient clip 1.0, lr 1e-3, wd 1e-4, 10,000 warmup steps then
-cosine, 90 epochs, mixup p=0.2, and the token grids seqhw (5, 6, 8, 10,
+cosine, 90 epochs, mixup p=0.2, RandAugment `randaug(2,10)` on the
+card after the crop and flip, and the token grids seqhw (5, 6, 8, 10,
 12, 15, 20, 24, 30, 40) with weights 34/43 for 15 and 1/43 for each other,
 a checkpoint every 1000 steps, and the evals: classification (`prec@1`,
 `loss`) at seqhw 5, 10, 15 and 30 (`test_05` ... `test_30`, pp
@@ -30,10 +31,17 @@ Cut, for one card and no dataset:
     synthetic source as JPEGs (25,600 examples), and each few-shot dataset
     the synthetic JPEG source with its class count
     (`configs/common_fewshot.py`);
-  * `randaug(2,10)` is left out: RandAugment is not ported;
   * batch 32 per step, one card's share of the JAX run's 4096 over 128
     chips: at seqhw 40 in f32 a step holds about 1.2 GB of activations
     per image; the evals take the same batch.
+
+`CUTS` names the keys that differ from the JAX config (`RUNLOCAL_CUTS`
+those of `runlocal` alone): arg, pp_modules, init_shapes, input.data,
+input.pp, input.batch_size, input.shuffle_buffer_size, input.prefetch,
+model.attn_impl, evals.*.data, evals.*.pp_fn,
+evals.fewshot.datasets.*.data_train, evals.fewshot.datasets.*.data_test;
+with `runlocal`: total_epochs, total_steps, schedule.warmup_steps,
+log_training_steps, input.num_threads, model.variant.
 
 Args (`:name=value,...`): `runlocal` (the tiny version for CPU tests:
 ViT-mu, batch 8, 3 steps, 16 images an eval split, few-shot on the pets
@@ -49,6 +57,32 @@ or "xla", the plain path everywhere).
 
 from big_vision_torch.configs import common
 from big_vision_torch.configs import common_fewshot
+
+CUTS = {
+    "arg": "the JAX config keeps its parsed args in the config; no "
+           "trainer reads them",
+    "pp_modules": "the port's pp modules are all registered on import",
+    "init_shapes": "the trainer takes the input shape from the data",
+    "input.data": "synthetic raw images in place of imagenet21k",
+    "input.pp": "random_crop(240) of raw images in place of the JPEG "
+                "decode and inception crop; onehot of the source's 'label'",
+    "input.batch_size": "32, one card's share of 4096",
+    "input.shuffle_buffer_size": "1024 raw examples",
+    "input.prefetch": "4 batches",
+    "model.attn_impl": "the `attn` arg (default 'auto', the JAX default)",
+    "evals.*.data": "synthetic JPEGs in place of imagenet21k's full[:25_600]",
+    "evals.*.pp_fn": "onehot of the source's 'label'",
+    "evals.fewshot.datasets.*.data_train": "configs/common_fewshot.py",
+    "evals.fewshot.datasets.*.data_test": "configs/common_fewshot.py",
+}
+RUNLOCAL_CUTS = {
+    "total_epochs": "3 steps (total_steps) on the CPU",
+    "total_steps": "(as total_epochs)",
+    "schedule.warmup_steps": "1, within the 3 steps",
+    "log_training_steps": "a row every step",
+    "input.num_threads": "2 host threads",
+    "model.variant": "ViT-mu",
+}
 
 
 def get_config(arg=None):
@@ -66,7 +100,7 @@ def get_config(arg=None):
       batch_size=32,
       shuffle_buffer_size=1024,
       prefetch=4,
-      pp=("random_crop(240)|flip_lr|value_range(-1, 1)"
+      pp=("random_crop(240)|flip_lr|randaug(2,10)|value_range(-1, 1)"
           "|onehot(21843, key='label', key_result='labels')"
           "|keep('image', 'labels')"),
   )

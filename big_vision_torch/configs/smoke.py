@@ -15,12 +15,16 @@ runs one device), and `init_shapes` (the port's trainer takes the model's
 input shape from the data, as the JAX trainer does where a config has no
 `init_shapes`; here both give (1, res, res, 3)).
 
+`CUTS` names the keys that differ from the JAX config: init_shapes.
+
 Args (`:name=value,...`): `res` (32), `total_steps` (20), `batch_size`
 (16), `mixup` (True: p=0.2), `attn` ("auto"), `log` (5), `stop` (0: none),
 `ckpt` (10), as in the JAX config.
 """
 
 from big_vision_torch.configs import common
+
+CUTS = {"init_shapes": "the trainer takes the input shape from the data"}
 
 
 def get_config(arg=None):

@@ -34,6 +34,7 @@ import torch
 from big_vision_torch.datasets import core as ds_core
 from big_vision_torch.pp import builder as pp_builder
 # Registry side effects: the pp ops the configs name.
+from big_vision_torch.pp import autoaugment  # noqa: F401
 from big_vision_torch.pp import ops_general  # noqa: F401
 from big_vision_torch.pp import ops_image  # noqa: F401
 

@@ -37,6 +37,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from big_vision_torch.models import common
 from big_vision_torch.ops import attention as attn_ops
@@ -63,14 +64,17 @@ def posemb_sincos_2d(h, w, width, temperature=10_000., dtype=torch.float32,
 
 
 class PatchEmbed(nn.Module):
-  """Non-overlapping patchify as a reshape + matmul (VALID: remainder rows
-  and columns are cropped). The weight is the JAX kernel [p, p, c, width]
-  flattened in (ph, pw, c) order and stored [width, p*p*c]."""
+  """Non-overlapping patchify as a reshape + matmul (`padding` "VALID":
+  remainder rows and columns are cropped; "SAME": zero-padded up to the
+  next patch multiple, as the Mixer's stem). The weight is the JAX kernel
+  [p, p, c, width] flattened in (ph, pw, c) order and stored
+  [width, p*p*c]."""
 
   def __init__(self, width, patch_size, channels=3, *, dtype_mm="float32",
-               device="cuda", param_dtype=torch.float32):
+               padding="VALID", device="cuda", param_dtype=torch.float32):
     super().__init__()
     self.patch_size = tuple(patch_size)
+    self.padding = padding
     ph, pw = self.patch_size
     kw = dict(device=device, dtype=param_dtype)
     self.weight = nn.Parameter(torch.empty(width, ph * pw * channels, **kw))
@@ -85,14 +89,21 @@ class PatchEmbed(nn.Module):
 
   def forward(self, image):
     return patchify(image, self.weight, self.bias, self.patch_size,
-                    self.dtype_mm)
+                    self.dtype_mm, self.padding)
 
 
-def patchify(image, weight, bias, patch_size, dtype=None):
-  """[N, H, W, C] -> [N, H // ph, W // pw, width]: the VALID stride-p conv
-  of a [p, p, c, width] kernel (stored [width, p*p*c] in (ph, pw, c) order)
-  as a reshape + matmul in `dtype` (None: the promoted type)."""
+def patchify(image, weight, bias, patch_size, dtype=None, padding="VALID"):
+  """[N, H, W, C] -> [N, gh, gw, width]: the stride-p conv of a [p, p, c,
+  width] kernel (stored [width, p*p*c] in (ph, pw, c) order) as a reshape +
+  matmul in `dtype` (None: the promoted type). VALID crops the remainder
+  rows and columns (gh = H // ph); SAME pads them with zeros at the bottom
+  and right (gh = ceil(H / ph))."""
   ph, pw = patch_size
+  if padding == "SAME":
+    image = F.pad(image, (0, 0, 0, -image.shape[2] % pw,
+                          0, -image.shape[1] % ph))
+  elif padding != "VALID":
+    raise ValueError(f"Unknown padding {padding!r}")
   n, h, w, c = image.shape
   image = image[:, :h - h % ph, :w - w % pw]
   gh, gw = h // ph, w // pw
@@ -407,7 +418,7 @@ def _natural_sort(names):
   return sorted(names, key=key)
 
 
-def _convert_pre_linen(params):
+def convert_pre_linen(params):
   """flax's `convert_pre_linen` on a nested dict: pre-Linen checkpoints
   numbered submodules across classes (Conv_0, Dense_1); Linen numbers each
   class on its own (Conv_0, Dense_0). A tree in Linen naming is unchanged."""
@@ -420,13 +431,13 @@ def _convert_pre_linen(params):
       num = counts.get(m.group(1), 0)
       counts[m.group(1)] = num + 1
       name = f"{m.group(1)}_{num}"
-    renamed[name] = _convert_pre_linen(value)
+    renamed[name] = convert_pre_linen(value)
   return renamed
 
 
 def fix_old_checkpoints(params):
   """Upgrades historical ViT checkpoint layouts to the current tree."""
-  params = _convert_pre_linen(params)
+  params = convert_pre_linen(params)
 
   # The posemb has lived in two places inside the encoder over the years:
   # its own "posembed_input" module (very old) or directly in "Transformer"

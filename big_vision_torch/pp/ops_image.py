@@ -348,6 +348,30 @@ def get_decode_jpeg_and_inception_crop(
               staticizer=bool(size), name="decode_jpeg_and_inception_crop")
 
 
+@Registry.register("preprocess_ops.inception_crop")
+def get_inception_crop(size=None, area_min=5, area_max=100, method="bilinear",
+                       antialias=False, key="image", inkey=None, outkey=None):
+  """Random area and aspect crop of a decoded image (host), then an
+  optional resize: the box of `decode_jpeg_and_inception_crop` with the
+  aspect in [3/4, 4/3]."""
+  ik, ok = inkey or key, outkey or key
+
+  def _op(data, np_rng):
+    img = np.asarray(data[ik])
+    y0, x0, ch, cw = _sample_inception_box(
+        np_rng, img.shape[0], img.shape[1], area_min / 100, area_max / 100,
+        3. / 4, 4. / 3)
+    crop = img[y0:y0 + ch, x0:x0 + cw]
+    if size:
+      crop = _pil_resize(crop, maybe_repeat(size, 2), method, antialias)
+    data = dict(data)
+    data[ok] = crop
+    return data
+
+  return PPOp(host_fn=_op, phase="host", random=True,
+              staticizer=bool(size), name="inception_crop")
+
+
 def _rgb_to_yuv420(rgb):
   """(y [S, S], uv [2, S/2, S/2]) uint8 from an RGB crop, with the JAX
   op's arithmetic: BT.601 luma, chroma from every second pixel."""

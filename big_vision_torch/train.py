@@ -41,8 +41,11 @@ saved in every checkpoint under "chrono" and restored on resume. The
 window measures `img/sec`, `step_ms` and `input_stall_pct` cover the steps
 since the last log row, without those pauses.
 
+The model is the config's `model_name`, as in the JAX trainer: "vit" or
+"mlp_mixer" (`MODELS`); its params go by their JAX names
+(`utils/convert.names`), and `model_init` is read by that model's `load`.
 Keys whose feature is not ported yet are refused, not ignored: evals of
-a type the port lacks, and models other than "vit". The FlexiViT trainers
+a type the port lacks, and other models. The FlexiViT trainers
 (`trainers/proj/flexi/train.py`, `distill.py`) and the generic distill
 trainer (`trainers/proj/distill/distill.py`) reuse this loop and
 `Trainer` through its hooks: `check_config`, `build_model`,
@@ -64,6 +67,7 @@ import torch
 from big_vision_torch import input_pipeline
 from big_vision_torch import optim
 from big_vision_torch.evaluators import common as eval_common
+from big_vision_torch.models import mlp_mixer
 from big_vision_torch.models import vit
 from big_vision_torch.utils import checkpoints
 from big_vision_torch.utils import chrono as chrono_lib
@@ -72,10 +76,16 @@ from big_vision_torch.utils import losses
 from big_vision_torch.utils import schedules
 from big_vision_torch.utils import writers
 
-def check_ported(config, *, model_name="vit",
+# config["model_name"] -> the port's model module, as the JAX trainer
+# imports big_vision_tpu.models.<model_name>.
+MODELS = {"vit": vit, "mlp_mixer": mlp_mixer}
+
+
+def check_ported(config, *, model_name=tuple(MODELS),
                  predict_fns=("predict", "represent")):
   """Raises ValueError naming the first config key that is not ported by a
-  trainer of `model_name` with `predict_fns` (their names)."""
+  trainer of `model_name` (a name, or the names it builds; the first is
+  the default) with `predict_fns` (their names)."""
   for name, spec in (config.get("evals") or {}).items():
     spec = dict(spec)
     try:
@@ -89,16 +99,17 @@ def check_ported(config, *, model_name="vit",
   if not dict(config.get("input") or {}).get("resume_seek", True):
     raise ValueError("config key 'input.resume_seek'=False is not ported; "
                      "a resumed run always seeks the input stream")
-  if config.get("model_name", model_name) != model_name:
+  names = (model_name,) if isinstance(model_name, str) else model_name
+  if config.get("model_name", names[0]) not in names:
     raise ValueError(f"config key 'model_name'={config['model_name']!r} is "
-                     f"not ported yet by this trainer; only {model_name!r} "
-                     "is")
+                     f"not ported yet by this trainer; it builds "
+                     f"{list(names)}")
 
 
 def jax_name_params(model):
   """{JAX param name: parameter} (what the config's regexes match)."""
   named = dict(model.named_parameters())
-  return {jax: named[port] for port, jax in convert.vit_names(model).items()}
+  return {jax: named[port] for port, jax in convert.names(model).items()}
 
 
 def l2(tensors):
@@ -111,9 +122,16 @@ def load_into(model, model_mod, init_file, model_cfg, load_kw=None):
   """Loads `init_file` into `model` through `model_mod.load` (the JAX
   package's `load` of that model, on the model's own params as the init
   tree), replacing its parameters."""
-  loaded = model_mod.load(convert.vit_params(model), init_file,
+  loaded = model_mod.load(convert.params(model), init_file,
                           dict(model_cfg or {}), **dict(load_kw or {}))
-  convert.load(model, convert.vit(loaded))
+  convert.load(model, convert.state(model, loaded))
+
+
+def _draws_in_training(model):
+  """Whether the model draws random masks in training (dropout, or the
+  Mixer's stochastic depth)."""
+  return bool(getattr(model, "dropout", 0) or getattr(model, "stoch_depth",
+                                                       0))
 
 
 def _to_device(tree, device):
@@ -129,8 +147,11 @@ class Trainer:
   constructor resumes from the workdir's last one, else from the config's
   `resume`, and sets `first_step`.
   """
-  MODEL_NAME = "vit"  # the config's model_name that `build_model` builds
-  MODEL_MODULE = vit  # the module whose `load` reads `model_init`
+  # The config model_names that `build_model` builds, and the module of
+  # each (its `Model`, and the `load` that reads `model_init`); a trainer
+  # of one model names it and sets MODEL_MODULE.
+  MODEL_NAME = tuple(MODELS)
+  MODEL_MODULE = None
 
   def __init__(self, config, *, device="cuda", workdir=None):
     self.config = config = dict(config)
@@ -158,7 +179,7 @@ class Trainer:
     self.tx, self.sched_fns = optim.make(
         config, self.params, sched_kw=dict(
             total_steps=self.total_steps, batch_size=self.batch_size,
-            data_size=ntrain))
+            data_size=ntrain), jax_shapes=convert.jax_shapes(self.model))
     self.opt_state = self.tx.init(self.params)
     self.first_step = 0
     self.chrono_state = None  # Chrono's totals from the checkpoint
@@ -175,11 +196,16 @@ class Trainer:
     check_ported(config, model_name=self.MODEL_NAME,
                  predict_fns=self.predict_fns())
 
+  def model_module(self):
+    """The module of the model this trainer builds for its config."""
+    return self.MODEL_MODULE or MODELS[self.config.get("model_name",
+                                                       self.MODEL_NAME[0])]
+
   def load_weights(self, resumed):
     """Loads `model_init` into the model unless the run resumes."""
     if not resumed and self.config.get("model_init"):
       writers.write_note(f"Initializing from {self.config['model_init']}...")
-      load_into(self.model, self.MODEL_MODULE, self.config["model_init"],
+      load_into(self.model, self.model_module(), self.config["model_init"],
                 self.config.get("model"), self.config.get("model_load"))
 
   def state(self):
@@ -197,9 +223,10 @@ class Trainer:
 
   def build_model(self, res, channels):
     """The config's model, for images of res x res x channels."""
-    return vit.Model(num_classes=self.config["num_classes"], image_size=res,
-                     channels=channels, device=self.device,
-                     **self.config.get("model", {}))
+    return self.model_module().Model(
+        num_classes=self.config["num_classes"], image_size=res,
+        channels=channels, device=self.device,
+        **self.config.get("model", {}))
 
   def step_kwargs(self, step):
     """Keyword arguments of `update` at `step` (none for this trainer)."""
@@ -227,7 +254,7 @@ class Trainer:
       (images, labels), _ = schedules.mixup(self.mixup_generator(), images,
                                             labels, p=mixup_p)
     rng = None
-    if self.model.dropout:  # one generator per step, from (seed, count)
+    if _draws_in_training(self.model):  # a generator per step
       rng = input_pipeline.step_generator(
           self.seed + 1, optim.get_count(self.opt_state), self.device)
     for p in self.params.values():

@@ -172,30 +172,130 @@ def vit_names(module: torch.nn.Module) -> dict[str, str]:
   return out
 
 
+def _vit_layout(module, name, jax_name, x):
+  """Parameter `name` of a `models.vit` (or FlexiViT) module, or a tensor
+  of its shape, in the JAX layout of `jax_name` (a view)."""
+  layer = name.rsplit(".", 1)[0]
+  if jax_name == "embedding/kernel":  # [width, ph*pw*c] -> [ph, pw, c, w]
+    ph, pw = module.embedding.patch_size
+    return x.T.reshape(ph, pw, -1, x.shape[0])
+  if re.search(r"/(query|key|value|out)/(kernel|bias)$", jax_name):
+    heads = module.get_submodule(layer.rsplit(".", 1)[0]).num_heads
+    width = x.shape[0]
+    if jax_name.endswith("out/kernel"):  # [D, H*hd] -> [H, hd, D]
+      return x.T.reshape(heads, -1, width)
+    if jax_name.endswith("kernel"):  # [H*hd, D] -> [D, H, hd]
+      return x.T.reshape(x.shape[1], heads, -1)
+    if not jax_name.endswith("out/bias"):  # [H*hd] -> [H, hd]
+      return x.reshape(heads, -1)
+    return x
+  if jax_name.endswith("/kernel"):  # [out, in] -> [in, out]
+    return x.T
+  return x
+
+
 def vit_params(module: torch.nn.Module) -> dict:
   """The inverse of `vit`: a `models.vit` or `models.proj.flexi.vit`
   module's parameters as the JAX model's param tree (nested dicts of f32
   numpy arrays, pyloop layout, flax's kernel shapes)."""
+  return _params(module, vit_names(module), _vit_layout)
+
+
+def _params(module, names_, layout):
+  """{JAX name: f32 numpy array in the JAX layout}, as a nested tree."""
   out = {}
-  for name, jax_name in vit_names(module).items():
-    x = module.get_parameter(name).detach().float().cpu().numpy()
-    layer = name.rsplit(".", 1)[0]
-    if jax_name == "embedding/kernel":  # [width, ph*pw*c] -> [ph, pw, c, w]
-      ph, pw = module.embedding.patch_size
-      x = x.T.reshape(ph, pw, -1, x.shape[0])
-    elif re.search(r"/(query|key|value|out)/(kernel|bias)$", jax_name):
-      heads = module.get_submodule(layer.rsplit(".", 1)[0]).num_heads
-      width = x.shape[0]
-      if jax_name.endswith("out/kernel"):  # [D, H*hd] -> [H, hd, D]
-        x = x.T.reshape(heads, -1, width)
-      elif jax_name.endswith("kernel"):  # [H*hd, D] -> [D, H, hd]
-        x = x.T.reshape(x.shape[1], heads, -1)
-      elif not jax_name.endswith("out/bias"):  # [H*hd] -> [H, hd]
-        x = x.reshape(heads, -1)
-    elif jax_name.endswith("/kernel"):  # [out, in] -> [in, out]
-      x = x.T
-    out[jax_name] = np.ascontiguousarray(x)
+  for name, jax_name in names_.items():
+    x = module.get_parameter(name).detach().float().cpu()
+    out[jax_name] = np.ascontiguousarray(
+        layout(module, name, jax_name, x).numpy())
   return trees.unflatten(out)
+
+
+def mixer(params) -> dict[str, np.ndarray]:
+  """MLP-Mixer param tree -> the port's `models.mlp_mixer` state dict
+  (numpy)."""
+  leaves, out = _Leaves(_flat(params)), {}
+  k = leaves.take("stem/kernel")  # [p, p, c, width]
+  out["stem.weight"] = k.reshape(-1, k.shape[-1]).T
+  out["stem.bias"] = leaves.take("stem/bias")
+  blocks = sorted({int(m.group(1)) for n in leaves.names()
+                   if (m := re.match(r"MixerBlock_(\d+)/", n))})
+  for i in blocks:
+    src, dst = f"MixerBlock_{i}", f"blocks.{i}"
+    _layernorm(leaves, f"{src}/LayerNorm_0", f"{dst}.ln0", out)
+    _layernorm(leaves, f"{src}/LayerNorm_1", f"{dst}.ln1", out)
+    for mix in ("token_mixing", "channel_mixing"):
+      _mlp(leaves, f"{src}/{mix}", f"{dst}.{mix}", out)
+  _layernorm(leaves, "pre_head_layer_norm", "pre_head_layer_norm", out)
+  if "head/kernel" in leaves.names():
+    _dense(leaves, "head", "head", out)
+  leaves.done()
+  return out
+
+
+def mixer_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} for a `models.mlp_mixer`
+  module ("MixerBlock_0/token_mixing/Dense_0/kernel", "stem/kernel",
+  "pre_head_layer_norm/scale", "head/bias", ...)."""
+  out = {}
+  for name, _ in module.named_parameters():
+    layer, leaf = name.rsplit(".", 1)
+    m = re.fullmatch(r"blocks\.(\d+)\.(ln0|ln1|token_mixing|channel_mixing)"
+                     r"(?:\.(fc1|fc2))?", layer)
+    if m:
+      part = {"ln0": "LayerNorm_0", "ln1": "LayerNorm_1"}.get(m[2], m[2])
+      if m[3]:
+        part += "/Dense_0" if m[3] == "fc1" else "/Dense_1"
+      layer = f"MixerBlock_{m[1]}/{part}"
+    norm = "LayerNorm" in layer or layer == "pre_head_layer_norm"
+    kind = "bias" if leaf == "bias" else "scale" if norm else "kernel"
+    out[name] = f"{layer}/{kind}"
+  return out
+
+
+def _mixer_layout(module, name, jax_name, x):
+  """Parameter `name` of a `models.mlp_mixer` module in its JAX layout."""
+  del name
+  if jax_name == "stem/kernel":  # [width, ph*pw*c] -> [ph, pw, c, w]
+    ph, pw = module.stem.patch_size
+    return x.T.reshape(ph, pw, -1, x.shape[0])
+  return x.T if jax_name.endswith("/kernel") else x
+
+
+def mixer_params(module: torch.nn.Module) -> dict:
+  """The inverse of `mixer`: the module's parameters as the JAX model's
+  param tree (nested dicts of f32 numpy arrays, flax's kernel shapes)."""
+  return _params(module, mixer_names(module), _mixer_layout)
+
+
+def _is_mixer(module):
+  from big_vision_torch.models import mlp_mixer  # pylint: disable=g-import-not-at-top
+  return isinstance(module, mlp_mixer.MlpMixer)
+
+
+def names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a ViT, FlexiViT or Mixer."""
+  return (mixer_names if _is_mixer(module) else vit_names)(module)
+
+
+def params(module: torch.nn.Module) -> dict:
+  """The JAX param tree of a ViT, FlexiViT or Mixer (numpy)."""
+  return (mixer_params if _is_mixer(module) else vit_params)(module)
+
+
+def state(module: torch.nn.Module, tree) -> dict:
+  """A JAX param tree -> the state dict of `module`, a ViT, FlexiViT or
+  Mixer of that tree's model."""
+  return (mixer if _is_mixer(module) else vit)(tree)
+
+
+def jax_shapes(module: torch.nn.Module) -> dict[str, tuple]:
+  """{JAX param name: its shape in the JAX layout} of a ViT, FlexiViT or
+  Mixer (computed on views: nothing is copied)."""
+  layout = _mixer_layout if _is_mixer(module) else _vit_layout
+  return {jax: tuple(layout(module, name, jax,
+                            module.get_parameter(name).detach()).shape)
+          for name, jax in names(module).items()}
 
 
 def _heads_last(w):

@@ -7,7 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 (`python3 chip_smoke.py --checks` stops after phase 2: a quick check of
 every kernel and of the JPEG decoder after a change to one;
-`python3 chip_smoke.py --serving` builds and runs phase 3 alone.)
+`python3 chip_smoke.py --serving` builds and runs phase 3 alone;
+`python3 chip_smoke.py --recipes` builds and runs phase 9 alone.)
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. builds every CUDA kernel from big_vision_torch/csrc (one nvcc each, in
@@ -174,7 +175,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (ViT-mu/16 at 32px, 10 steps, a random teacher from SEED): finite
      distill losses and the `val` and `distance` rows at steps 0 and 10;
      at T = 4 the JAX package's gate takes the plain path: no launch;
-  9. times prefill, the AR step, the training step (end to end: median of
+  9. trains the ImageNet recipes through `big_vision_torch.train` at full
+     width, each at its config's per-card batch with the randaug of its pp
+     (RECIPES): configs/vit_s16_i1k.py (ViT-S/16, batch 1024, its five
+     evals at step 0 on 256 JPEGs a split), configs/vit_i1k.py (AugReg
+     ViT-B/16, `medium2`, batch 256), configs/mlp_mixer_i1k.py (Mixer-B/16,
+     batch 512) and configs/transfer.py (vit-s16 at 384px, batch 256, from
+     a random ViT-S/16 `.npz` loaded through `model_init`), RECIPE_STEPS
+     steps each after their evals at step 0: launches exact (per step 12
+     of K1's and 12 of K2's f32 kernels for a ViT, 12 of K1's per eval
+     batch, none for the Mixer), losses finite, step ms, img/s, input
+     stall and peak memory printed; the loss on a fixed batch falling over
+     RECIPE_FIXED_STEPS steps; for a ViT the kernel path against the plain
+     path (attn=xla) on RECIPE_CHECK_B unseen images (loss, encoder output,
+     attention-projection gradients within F32_BAR), and for ViT-S/16
+     every in-place K1 and K2 launch of a full-batch step (B*H = 6144)
+     against its plain version within F32_BAR; the ms of each randaug per
+     batch and its share of the step; first the 16 RandAugment ops on the
+     card against the CPU (uint8-equal, but for RANDAUG_OP_SHARE of the
+     pixels of sharpness and rotate), and last RECIPE_OPT_STEPS steps of
+     ViT-S/16 under `big_vision.scale_by_adafactor` and under
+     `big_vision.momentum_hp` (finite states, bf16 where the JAX package
+     keeps them in bf16);
+ 10. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
@@ -209,6 +232,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import io
 import json
 import math
@@ -299,6 +323,31 @@ DEIT3_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
 DEIT3_STEPS, DEIT3_NEVAL = 3, 256
 SMOKE_DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs",
                                     "proj", "distill", "smoke.py")
+# Phase 9, the ImageNet recipes: each config through `train.main` at its
+# full width and its own (per-card) batch, with the args given.
+RECIPE_DIR = os.path.join(ROOT, "big_vision_torch", "configs")
+RECIPES = [
+    dict(name="vit_s16_i1k", what="ViT-S/16, 224px, randaug(2,10)",
+         config=os.path.join(RECIPE_DIR, "vit_s16_i1k.py"), args="neval=256,",
+         model="vit", batch=1024, randaug=True),
+    dict(name="vit_i1k", what="AugReg ViT-B/16 medium2, randaug(2,15)",
+         config=os.path.join(RECIPE_DIR, "vit_i1k.py"), args="neval=64,",
+         model="vit", batch=256, randaug=True),
+    dict(name="mlp_mixer_i1k", what="Mixer-B/16, randaug(2,15)",
+         config=os.path.join(RECIPE_DIR, "mlp_mixer_i1k.py"),
+         args="neval=64,", model="mlp_mixer", batch=512, randaug=True),
+    dict(name="transfer", what="ViT-S/16 at 384px from an .npz, cifar10",
+         config=os.path.join(RECIPE_DIR, "transfer.py"),
+         args="model=vit-s16,init={init},neval=64,", model="vit", batch=256,
+         randaug=False),
+]
+# Loop steps, fixed-batch steps, unseen images of the kernel-vs-plain
+# check, steps of each other optimizer, images of the RandAugment op check.
+RECIPE_STEPS, RECIPE_FIXED_STEPS, RECIPE_CHECK_B = 4, 3, 64
+RECIPE_OPT_STEPS, RECIPE_OP_N = 3, 32
+# The share of pixels that may differ between the card and the CPU for
+# the two ops whose arithmetic could round differently there.
+RANDAUG_OP_SHARE = 1e-3
 BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: F32_BAR}
 K2_BARS = {torch.bfloat16: K2_BAR, torch.float32: F32_BAR}
 DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
@@ -2317,6 +2366,385 @@ def distill_smoke_phase(fa):
   assert not counts, counts
 
 
+# ----------------------------------------------------------------------------
+# Phase 9: the ImageNet recipes, RandAugment, the other optimizers.
+# ----------------------------------------------------------------------------
+
+
+def randaug_ops_vs_cpu(gpu):
+  """Each of the 16 RandAugment ops (`pp.autoaugment.apply_op`, the drawn
+  signs and centres given) on RECIPE_OP_N images of 224x224 on the card
+  against the same op on the CPU, at magnitudes 10 and 15: uint8-equal,
+  but for `sharpness` and `rotate`, where at most RANDAUG_OP_SHARE of the
+  pixels may differ (by one level of the smoothing, times |1 - factor|
+  after the blend, for sharpness)."""
+  from big_vision_torch.pp import autoaugment as aa
+  gen = torch.Generator().manual_seed(SEED)
+  n = RECIPE_OP_N
+  lo = torch.randint(0, 128, (n, 1, 1, 1), generator=gen)
+  span = torch.randint(1, 129, (n, 1, 1, 1), generator=gen)
+  images = (lo + torch.rand((n, 224, 224, 3), generator=gen) * span).to(
+      torch.uint8)
+  images[0, ..., 1] = 77  # a flat channel
+  worst = {}
+  for magnitude in (10, 15):
+    negate = torch.randint(2, (n,), generator=gen).bool()
+    cy, cx = (torch.randint(224, (n,), generator=gen) for _ in range(2))
+    for op in aa.OP_NAMES:
+      kw = dict(negate=negate, cy=cy, cx=cx)
+      want = aa.apply_op(images, op, magnitude, **kw)
+      got = aa.apply_op(images.cuda(), op, magnitude, **kw).cpu()
+      diff = (got.int() - want.int()).abs()
+      share = (diff > 0).float().mean().item()
+      worst[op] = max(worst.get(op, 0.0), share)
+      if op in ("Sharpness", "Rotate"):
+        levels = max(1, math.ceil(abs(1 - aa.levels(magnitude)["enhance"])))
+        assert share <= RANDAUG_OP_SHARE, (op, magnitude, share)
+        assert op == "Rotate" or diff.max().item() <= levels, (op, diff.max())
+      else:
+        assert share == 0.0, (op, magnitude, share)
+  print(f"[{gpu}] RandAugment: the 16 ops on {n} images of 224x224 on the "
+        f"card vs the CPU at magnitudes 10 and 15: uint8-equal but for "
+        f"Sharpness and Rotate (at most {RANDAUG_OP_SHARE} of the pixels): "
+        f"share of pixels that differ, Sharpness {worst['Sharpness']:.3e}, "
+        f"Rotate {worst['Rotate']:.3e}; the other 14 ops 0")
+
+
+def write_vit_s16(path):
+  """Writes a random ViT-S/16 (224px, GAP, sincos2d posemb, the tanh
+  pre-logits layer, 1000 classes) from SEED as an `.npz` in the JAX layout:
+  the stand-in for the JAX config's "i1k-s16-300ep"."""
+  from big_vision_torch.models import vit
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  model = vit.Model(1000, variant="S/16", pool_type="gap", posemb="sincos2d",
+                    rep_size=True, device="cuda")
+  model.initialize(torch.Generator(device="cuda").manual_seed(SEED + 17))
+  checkpoints.npz_save(convert.vit_params(model), path)
+  return path
+
+
+def recipe_main_path(fa, recipe, workdir, gpu):
+  """RECIPE_STEPS steps of `train.main` on the recipe's config after its
+  evals at step 0; asserts the launches of every step and eval batch.
+  Returns (trainer, {"step_ms", "img/sec", "input_stall_pct": medians of
+  the rows after the first; "peak": max memory allocated})."""
+  from big_vision_torch import train
+  shutil.rmtree(workdir, ignore_errors=True)
+  calls = {}
+  reset_launches(fa)
+  torch.cuda.reset_peak_memory_stats()
+  with counted_predict_fns(fa, calls):
+    trainer = train.main(["--config", f"{recipe['config']}:"
+                          f"{recipe['args']}stop={RECIPE_STEPS},log=1",
+                          "--workdir", workdir])
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  counts = launches(fa)
+  vit = recipe["model"] == "vit"
+  depth = len(trainer.model.encoder.blocks) if vit else 0
+  n_eval = sum(len(c) for c in calls.values())
+  want = {**dict.fromkeys(COUNTERS, 0),
+          "K1f": depth * (RECIPE_STEPS + n_eval), "K2f": depth * RECIPE_STEPS}
+  per_batch = {**dict.fromkeys(COUNTERS, 0), "K1f": depth}
+  assert all(c == per_batch for cs in calls.values() for c in cs), calls
+  print(f"{recipe['name']}: {RECIPE_STEPS} steps of batch "
+        f"{trainer.batch_size}, {trainer.config['input']['pp']!r}, after "
+        f"{n_eval} eval batches at step 0 ({sorted(trainer.config['evals'])}"
+        f"); launches {({k: n for k, n in counts.items() if n})} (want "
+        f"{({k: n for k, n in want.items() if n})}: per step "
+        f"{depth} K1f and {depth} K2f, per eval batch {depth} K1f)")
+  assert counts == want, (counts, want)
+  assert trainer.batch_size == recipe["batch"], trainer.batch_size
+  assert "randaug" in trainer.config["input"]["pp"] or not recipe["randaug"]
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    all_rows = list(map(json.loads, f))
+  [ev] = [r for r in all_rows if any(k.endswith("/prec@1") for k in r)]
+  assert ev["step"] == 0, ev
+  for name in trainer.config["evals"]:
+    assert 0 <= ev[f"{name}/prec@1"] <= 1, ev
+    assert math.isfinite(ev[f"{name}/loss"]), ev
+  rows = [r for r in all_rows if "training_loss" in r]
+  assert [r["step"] for r in rows] == list(range(1, RECIPE_STEPS + 1)), rows
+  for r in rows:
+    assert math.isfinite(r["training_loss"]), r
+  e2e = {k: statistics.median(r[k] for r in rows[1:])
+         for k in ("step_ms", "img/sec", "input_stall_pct")}
+  e2e["peak"] = peak
+  print(f"  step 0 evals: " + ", ".join(
+      f"{n}/prec@1 {ev[f'{n}/prec@1']:.6f}" for n in trainer.config["evals"])
+        + "; losses " + " ".join(f"{r['training_loss']:.6f}" for r in rows))
+  return trainer, e2e
+
+
+def recipe_fixed_steps(trainer, gpu, what):
+  """RECIPE_FIXED_STEPS updates on one batch, timed with CUDA events (the
+  step without the input pipeline); the loss on that batch (no mixup, no
+  stochastic depth) must fall. Returns (the batch, the next batch, which
+  no update saw, ms per step)."""
+  it = trainer.input_iter()
+  batch, unseen = next(it), next(it)
+  it.close()
+
+  def loss():
+    with torch.no_grad():
+      logits, _ = trainer.model(batch["image"])
+      return trainer.loss_fn(logits=logits, labels=batch["labels"]).item()
+
+  before = loss()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  for _ in range(RECIPE_FIXED_STEPS):
+    trainer.update(batch)
+  end.record()
+  end.synchronize()
+  after = loss()
+  ms = start.elapsed_time(end) / RECIPE_FIXED_STEPS
+  print(f"[{gpu}] {what}: fixed batch, {RECIPE_FIXED_STEPS} steps of "
+        f"{ms:.3f} ms (CUDA events); its loss {before:.6f} -> {after:.6f}")
+  assert math.isfinite(after) and after < before, (before, after)
+  return batch, unseen, ms
+
+
+@contextlib.contextmanager
+def attention_checked_in_place(fa, k1_rows, k2_rows):
+  """While open, each attention call of a model (on the one-shot f32
+  kernels) is held against the plain versions on its own inputs, one layer
+  at a time so that no layer's tensors are kept: K1's o (a repeat launch,
+  equal to the one the model took) and LSE, and once the backward has
+  given the layer its do, K2's dq, dk and dv."""
+  from big_vision_torch.ops import attention
+  orig = attention.dot_product_attention
+
+  def checked(q, k, v, **kw):
+    layer = len(k1_rows) // 2
+    out = orig(q, k, v, **kw)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o, lse = fa.flash_attention_forward(qd, kd, vd)
+    assert torch.equal(o, out.detach()), layer
+    k1_rows.append((rel_err(o, fa.flash_attention_reference(qd, kd, vd)),
+                    f"layer {layer} o"))
+    k1_rows.append((rel_err(lse, fa.flash_attention_lse_reference(
+        qd, kd, vd)), f"layer {layer} lse"))
+    del o, lse
+    grads = {}
+
+    def keep(name, g):
+      grads[name] = g
+      if len(grads) == 4:  # do, dq, dk, dv
+        want = fa.flash_attention_bwd_reference(qd, kd, vd, grads["do"])
+        for n, w in zip(("dq", "dk", "dv"), want):
+          assert w.abs().max().item() > 0, (layer, n)
+          k2_rows.append((rel_err(grads[n], w), f"layer {layer} {n}"))
+        grads.clear()
+
+    out.register_hook(functools.partial(keep, "do"))
+    for name, x in (("dq", q), ("dk", k), ("dv", v)):
+      x.register_hook(functools.partial(keep, name))
+    return out
+
+  attention.dot_product_attention = checked
+  try:
+    yield
+  finally:
+    attention.dot_product_attention = orig
+
+
+def recipe_in_place(fa, trainer, batch, what):
+  """Every K1 and K2 launch (their f32 kernels) of one forward and
+  backward on `batch`, at the config's full batch, against the plain
+  versions on its own inputs within F32_BAR."""
+  k1_rows, k2_rows = [], []
+  for p in trainer.params.values():
+    p.grad = None
+  with attention_checked_in_place(fa, k1_rows, k2_rows):
+    logits, _ = trainer.model(batch["image"])
+    trainer.loss_fn(logits=logits, labels=batch["labels"]).backward()
+  torch.cuda.synchronize()
+  for p in trainer.params.values():
+    p.grad = None
+  depth = len(trainer.model.encoder.blocks)
+  heads = trainer.model.encoder.blocks[0].attn.num_heads
+  b = batch["image"].shape[0]
+  for what_k, rows, n in (("K1 (f32) forward", k1_rows, 2 * depth),
+                          ("K2 (f32) backward", k2_rows, 3 * depth)):
+    assert len(rows) == n, (what_k, len(rows))
+    rows.sort(reverse=True)
+    print(f"{what}: {what_k} in place, batch {b} x {heads} heads "
+          f"(B*H = {b * heads}): {len(rows)} outputs of {depth} "
+          f"launches against the plain version, the 3 worst (bar "
+          f"{F32_BAR}): " + ", ".join(f"{nm} {e:.3e}" for e, nm in rows[:3]))
+    assert all(e <= F32_BAR for e, _ in rows), rows[:3]
+
+
+def recipe_kernel_vs_plain(fa, trainer, recipe, batch, what):
+  """The kernel path against the plain path (the config's attn=xla, the
+  same weights) on RECIPE_CHECK_B images no update saw: the loss, the
+  encoder output and every attention-projection gradient (key/bias left
+  out: zero in exact arithmetic) within F32_BAR of the plain path's."""
+  from big_vision_torch import train
+  batch = {k: v[:RECIPE_CHECK_B] for k, v in batch.items()}
+
+  def run(t):
+    for p in t.params.values():
+      p.grad = None
+    tokens = []
+    hook = t.model.encoder.register_forward_hook(
+        lambda mod, args, out: tokens.append(out.detach().clone()))
+    logits, _ = t.model(batch["image"])
+    loss = t.loss_fn(logits=logits, labels=batch["labels"])
+    loss.backward()
+    hook.remove()
+    return loss.item(), tokens[0], {n: p.grad.clone() for n, p in
+                                    t.params.items() if _attn_projection(n)}
+
+  reset_launches(fa)
+  lk, xk, gk = run(trainer)
+  torch.cuda.synchronize()
+  depth = len(trainer.model.encoder.blocks)
+  assert launches(fa) == {**dict.fromkeys(COUNTERS, 0), "K1f": depth,
+                          "K2f": depth}, launches(fa)
+  plain = train.Trainer(train.load_config(
+      f"{recipe['config']}:{recipe['args']}attn=xla"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  reset_launches(fa)
+  lp, xp, gp = run(plain)
+  assert launches(fa) == dict.fromkeys(COUNTERS, 0), launches(fa)
+  del plain
+  loss_err, tok_err = abs(lk - lp) / abs(lp), rel_err(xk, xp)
+  worst = max((rel_err(gk[n], gp[n]), n) for n in gp)
+  print(f"{what} kernel vs plain path (attn=xla), {RECIPE_CHECK_B} unseen "
+        f"images: loss {lk:.6f} vs {lp:.6f}, rel err {loss_err:.3e}; "
+        f"encoder output {tuple(xk.shape)} rel err {tok_err:.3e}; "
+        f"{len(gp)} attention-projection gradients, worst rel err "
+        f"{worst[0]:.3e} ({worst[1]}) (bar {F32_BAR})")
+  assert len(gp) == depth * 7
+  assert loss_err <= F32_BAR and tok_err <= F32_BAR and worst[0] <= F32_BAR
+
+
+def randaug_time(recipe, batch_size, step_ms, gpu):
+  """ms per batch of the recipe's `randaug` on batch_size uint8 images of
+  224x224 on the card (CUDA events around the device op, its one copy of
+  the draws to the host included), and its share of the end-to-end step."""
+  import re
+  from big_vision_torch.pp import builder as pp_builder
+  from big_vision_torch import input_pipeline
+  spec = re.search(r"randaug\([^)]*\)", recipe["pp"]).group(0)
+  pfn = pp_builder.get_preprocess_fn(spec)
+  images = torch.randint(0, 256, (batch_size, 224, 224, 3),
+                         dtype=torch.uint8, device="cuda")
+  pfn.device({"image": images}, input_pipeline.step_generator(0, 0, "cuda"))
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  times = []
+  for step in range(1, 4):
+    gen = input_pipeline.step_generator(0, step, "cuda")
+    start.record()
+    pfn.device({"image": images}, gen)
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  ms = statistics.median(times)
+  print(f"[{gpu}] {recipe['name']}: {spec} on {batch_size} images of "
+        f"224x224: {', '.join(f'{x:.3f}' for x in times)} ms per batch "
+        f"(median {ms:.3f}), {100 * ms / step_ms:.2f}% of the end-to-end "
+        f"step ({step_ms:.3f} ms)")
+  return ms
+
+
+def optimizer_states(batch, gpu):
+  """RECIPE_OPT_STEPS steps of ViT-S/16 (vit_s16_i1k.py) under
+  `big_vision.scale_by_adafactor` and under `big_vision.momentum_hp` on
+  one batch: finite losses and states, the states in bf16 where the JAX
+  package keeps them in bf16 (the momentum_hp trace, Adafactor's ema) and
+  in f32 elsewhere (Adafactor's factored second moments)."""
+  from big_vision_torch import train
+  config_file = RECIPES[0]["config"]
+  want = {"big_vision.scale_by_adafactor": {
+              "v_row": torch.float32, "v_col": torch.float32,
+              "v": torch.float32, "ema": torch.bfloat16},
+          "big_vision.momentum_hp": {"trace": torch.bfloat16}}
+  for name, dtypes in want.items():
+    config = train.load_config(config_file)
+    config.update(optax_name=name, optax={})
+    trainer = train.Trainer(config)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses = [trainer.update(batch)["training_loss"]
+              for _ in range(RECIPE_OPT_STEPS)]
+    end.record()
+    end.synchronize()
+    losses = [x.item() for x in losses]
+    state = trainer.opt_state
+    assert all(math.isfinite(x) for x in losses), (name, losses)
+    assert sorted(k for k in state if k != "count") == sorted(dtypes), state
+    sizes = {}
+    for key, dtype in dtypes.items():
+      tensors = list(state[key].values())
+      assert tensors and all(x.dtype == dtype for x in tensors), (name, key)
+      assert all(torch.isfinite(x).all() for x in tensors), (name, key)
+      sizes[key] = (len(tensors), sum(x.numel() * x.element_size()
+                                      for x in tensors))
+    assert state["count"] == RECIPE_OPT_STEPS
+    print(f"[{gpu}] ViT-S/16 under {name}, batch {batch['image'].shape[0]}: "
+          f"{RECIPE_OPT_STEPS} steps of "
+          f"{start.elapsed_time(end) / RECIPE_OPT_STEPS:.3f} ms, losses "
+          + " ".join(f"{x:.6f}" for x in losses) + "; state "
+          + ", ".join(f"{k} {dtypes[k]} ({n} tensors, {b / 2**20:.1f} MiB)"
+                      for k, (n, b) in sizes.items()) + ", all finite")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def recipes_phase(fa, gpu):
+  """Phase 9: the 16 RandAugment ops on the card, then each recipe of
+  RECIPES through `train.main` at full width with its randaug (launches
+  exact, step ms, img/s, input stall, peak memory, randaug ms), the loss
+  falling on a fixed batch, the kernel path against attn=xla, K1's and
+  K2's f32 kernels in place at ViT-S/16's B*H = 6144; then the other
+  optimizers on ViT-S/16."""
+  t0 = time.perf_counter()
+  # ViT-S/16 at its JAX batch of 1024 peaks at about 76 of the card's 79
+  # GiB: nothing of the earlier phases may stay on the card.
+  gc.collect()
+  torch.cuda.empty_cache()
+  randaug_ops_vs_cpu(gpu)
+  os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+  init = write_vit_s16(os.path.join(ROOT, "build", "chip_smoke_vit_s16.npz"))
+  opt_batch = None
+  for recipe in RECIPES:
+    t1 = time.perf_counter()
+    recipe = dict(recipe, args=recipe["args"].format(init=init))
+    workdir = os.path.join(ROOT, "build", f"chip_smoke_{recipe['name']}")
+    trainer, e2e = recipe_main_path(fa, recipe, workdir, gpu)
+    what = f"{recipe['name']} ({recipe['what']})"
+    batch, unseen, fixed_ms = recipe_fixed_steps(trainer, gpu, what)
+    from big_vision_torch.tools import bench_decode
+    bench_decode.print_profile(kernel_timing.device_profile(
+        {f"{recipe['name']} step": lambda: trainer.update(batch)}, top=8),
+        prefix=f"[{gpu}] ")
+    print(f"[{gpu}] {what}, batch {trainer.batch_size}: end to end "
+          f"{e2e['step_ms']:.3f} ms/step, {e2e['img/sec']:.1f} img/s, input "
+          f"stall {e2e['input_stall_pct']:.3f}% (median of steps 2-"
+          f"{RECIPE_STEPS}); fixed batch {fixed_ms:.3f} ms/step; max memory "
+          f"allocated {e2e['peak'] / 2**30:.2f} GiB (of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f})")
+    if recipe["randaug"]:
+      recipe["pp"] = trainer.config["input"]["pp"]
+      randaug_time(recipe, trainer.batch_size, e2e["step_ms"], gpu)
+    if recipe["model"] == "vit":
+      recipe_kernel_vs_plain(fa, trainer, recipe, unseen, what)
+      if recipe["name"] == "vit_s16_i1k":
+        recipe_in_place(fa, trainer, unseen, what)
+        opt_batch = batch
+    del trainer, batch, unseen
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{recipe['name']}: {time.perf_counter() - t1:.1f} s wall")
+  optimizer_states(opt_batch, gpu)
+  os.remove(init)
+  print(f"ImageNet recipes phase: {time.perf_counter() - t0:.1f} s wall")
+
+
 def matmul_peak_tflops(n=8192, iters=20):
   """bf16 [n, n] x [n, n] TFLOP/s between CUDA events (the MFU yardstick)."""
   a = torch.randn((n, n), device="cuda").to(torch.bfloat16)
@@ -2642,8 +3070,9 @@ def phase_end(name, t0):
 
 
 def main(argv):
-  if argv not in ([], ["--checks"], ["--serving"]):
-    print(f"usage: chip_smoke.py [--checks | --serving]; got {argv}",
+  if argv not in ([], ["--checks"], ["--serving"], ["--recipes"]):
+    print(f"usage: chip_smoke.py [--checks | --serving | --recipes]; got "
+          f"{argv}",
           file=sys.stderr)
     return 2
   if not torch.cuda.is_available():
@@ -2681,6 +3110,10 @@ def main(argv):
     serving_phase(fa, da, gpu)
     print(f"{nvidia_smi()}: the serving phases passed")
     return 0
+  if argv == ["--recipes"]:  # the build and phase 9 alone
+    recipes_phase(fa, gpu)
+    print(f"{nvidia_smi()}: the ImageNet recipes phase passed")
+    return 0
 
   # 2. Kernels vs plain versions.
   counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa)}
@@ -2698,7 +3131,8 @@ def main(argv):
 
   # 3. Serving PaliGemma-3B; 4. training ViT-B/16; 5. training FlexiViT-B;
   # 6. distilling FlexiViT-B (launches per step); 7. distilling DeiT-III
-  # into FlexiViT-B; 8. the generic distill trainer.
+  # into FlexiViT-B; 8. the generic distill trainer; 9. the ImageNet
+  # recipes.
   counts.update(serving_phase(fa, da, gpu))
   torch.cuda.empty_cache()
   t0 = phase_end("serving", t0)
@@ -2714,8 +3148,10 @@ def main(argv):
   t0 = phase_end("DeiT-III distillation", t0)
   distill_smoke_phase(fa)
   t0 = phase_end("generic distillation smoke", t0)
+  recipes_phase(fa, gpu)
+  t0 = phase_end("ImageNet recipes", t0)
 
-  # 9. Kernel times.
+  # 10. Kernel times.
   kernels = kernel_entries(fa, da, counts, gpu)
   phase_end("kernel times", t0)
   for kern in kernels:

@@ -42,7 +42,9 @@ def test_port_imports_without_jax():
                "tools.quantize_ckpt", "pp.tokenizer",
                "pp.sentencepiece_native", "pp.proj.paligemma.ops",
                "trainers.proj.paligemma.predict_fns",
-               "trainers.proj.paligemma.run"):
+               "trainers.proj.paligemma.run", "pp.autoaugment",
+               "models.mlp_mixer", "configs.vit_s16_i1k", "configs.vit_i1k",
+               "configs.mlp_mixer_i1k", "configs.transfer"):
     assert f"big_vision_torch.{name}" in names, name
 
 

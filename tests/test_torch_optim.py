@@ -7,6 +7,19 @@ frozen (None) schedule entry. Params and the Adam moments agree within
 1e-6 relative to their scale (f32 arithmetic in the same order; pow and
 sqrt may differ in the last bit); the bf16 first moment within one bf16
 rounding step.
+
+The other rules the JAX configs name (`big_vision.momentum_hp`,
+`big_vision.scale_by_adafactor`, `big_vision.sgd`) take the same 5 steps
+on params whose kernels are large enough for Adafactor to factor, with a
+frozen param, an lr_mults rule and weight decay: params within 1e-6
+relative, f32 states within 1e-6, bf16 states within one bf16 ulp.
+The block-RMS clip is held with an f32 momentum: its mean over a whole
+kernel sums in another order than XLA's, and with a bf16 momentum that
+last-bit difference now and then rounds one entry of the state to its
+neighbouring bf16 value, which moves that param by 2^-8 of an update.
+Adafactor runs on the JAX layout, and also on the port's (kernels stored
+[out, in]) through `jax_shapes`. `grad_clip_per_example` clips along the
+leading axis that every gradient shares, as JAX's does.
 """
 
 import jax.numpy as jnp
@@ -85,12 +98,20 @@ def test_adam_chain_matches_optax():
 
 
 def test_make_rejects_what_is_not_ported():
-  params = {"a/kernel": torch.zeros(2, 2)}
-  for bad in (dict(CONFIG, optax_name="big_vision.scale_by_adafactor"),
-              dict(CONFIG, grad_clip_per_example=True),
-              dict(CONFIG, schedule=[("b/.*", {})])):
-    with pytest.raises(ValueError):
-      t_optim.make(bad, params, sched_kw=dict(total_steps=10))
+  params = {"a/kernel": torch.zeros(2, 2), "b/bias": torch.zeros(3)}
+  sched_kw = dict(total_steps=10)
+  with pytest.raises(ValueError, match="adamw"):
+    t_optim.make(dict(CONFIG, optax_name="adamw"), params,
+                 sched_kw=sched_kw)
+  with pytest.raises(ValueError):
+    t_optim.make(dict(CONFIG, schedule=[("b/.*", {})]), params,
+                 sched_kw=sched_kw)
+  # Per-example clipping needs a batch axis shared by every gradient.
+  tx, _ = t_optim.make(dict(CONFIG, grad_clip_per_example=True,
+                            schedule={}), params, sched_kw=sched_kw)
+  with pytest.raises(ValueError, match="batch dimension"):
+    tx.update({n: torch.ones_like(p) for n, p in params.items()},
+              tx.init(params), params)
 
 
 @pytest.mark.parametrize("kw", [
@@ -155,3 +176,122 @@ def test_mask_trees_match_jax():
   assert got["embedding/kernel"] == 2
   with pytest.raises(ValueError):
     t_trees.make_mask_trees({}, ["/a"])
+
+
+# Kernels of two axes of at least 32 (Adafactor's default
+# min_dim_size_to_factor), one of them a DenseGeneral [D, H, hd] kernel.
+BIG = {"embedding/kernel": (4, 4, 3, 8), "embedding/bias": (8,),
+       "Transformer/encoderblock_0/MlpBlock_0/Dense_0/kernel": (32, 48),
+       "Transformer/encoderblock_0/MlpBlock_0/Dense_0/bias": (48,),
+       "Transformer/encoderblock_0/Attn/query/kernel": (40, 2, 32),
+       "Transformer/encoder_norm/scale": (40,),
+       "head/kernel": (48, 5), "head/bias": (5,)}
+STATES = {"big_vision.momentum_hp": {optax.TraceState: ("trace",)},
+          "big_vision.scale_by_adafactor": {
+              optax.FactoredState: ("v_row", "v_col", "v"),
+              optax.EmaState: ("ema",)},
+          "big_vision.sgd": {}}
+
+
+def _port_layout(name, x):
+  """A JAX-layout array as the port stores it: a kernel [out, in]."""
+  if not name.endswith("/kernel"):
+    return x
+  if name.startswith("embedding"):  # [p, p, c, width]
+    return x.reshape(-1, x.shape[-1]).T
+  return x.reshape(x.shape[0], -1).T  # [in, out] or [D, H, hd]
+
+
+def _steps(config, shapes, port_layout=False):
+  """5 steps of both optimizers; (JAX params, JAX state, port params in
+  the JAX layout, port state)."""
+  rs = np.random.RandomState(0)
+  params = {n: rs.randn(*s).astype(np.float32) for n, s in shapes.items()}
+  grads = [{n: rs.randn(*s).astype(np.float32) for n, s in shapes.items()}
+           for _ in range(5)]
+  sched_kw = dict(total_steps=10, batch_size=8, data_size=100)
+  jparams = j_trees.tree_unflatten(params.items())
+  tx, _ = j_optim.make(config, jparams, sched_kw=sched_kw)
+  jstate = tx.init(jparams)
+  lay = _port_layout if port_layout else (lambda n, x: x)
+  tparams = {n: torch.from_numpy(np.ascontiguousarray(lay(n, x)))
+             for n, x in params.items()}
+  ttx, _ = t_optim.make(config, tparams, sched_kw=sched_kw,
+                        jax_shapes=shapes if port_layout else None)
+  tstate = ttx.init(tparams)
+  for g in grads:
+    updates, jstate = tx.update(j_trees.tree_unflatten(g.items()), jstate,
+                                jparams)
+    jparams = optax.apply_updates(jparams, updates)
+    _, tstate = ttx.apply_(tparams, {n: torch.from_numpy(
+        np.ascontiguousarray(lay(n, x))) for n, x in g.items()}, tstate)
+  back = {n: t.numpy() for n, t in tparams.items()}
+  if port_layout:  # the port's [out, in] kernels back to the JAX layout
+    back = {n: x.T.reshape(shapes[n]) if n.endswith("/kernel") else x
+            for n, x in back.items()}
+  return jparams, jstate, back, tstate
+
+
+def _bf16_ulp_close(got, want):
+  """Within one bf16 ulp of the JAX value."""
+  want = np.asarray(want, np.float32)
+  ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+  assert np.all(np.abs(got.float().numpy() - want) <= ulp)
+
+
+@pytest.mark.parametrize("name,kw,port_layout", [
+    ("big_vision.momentum_hp", {}, False),
+    ("big_vision.momentum_hp", {"nesterov": True}, False),
+    ("big_vision.scale_by_adafactor", {}, False),
+    ("big_vision.scale_by_adafactor", {"beta2_cap": 0.95}, False),
+    ("big_vision.scale_by_adafactor",
+     {"clipping_threshold": 1.0, "dtype_momentum": "float32"}, False),
+    ("big_vision.scale_by_adafactor", {}, True),
+    ("big_vision.sgd", {}, False),
+])
+def test_other_rules_match_optax(name, kw, port_layout):
+  config = dict(CONFIG, optax_name=name, optax=kw)
+  jparams, jstate, tparams, tstate = _steps(config, BIG, port_layout)
+  want = dict(j_trees.tree_flatten_with_names(jparams)[0])
+  for n in BIG:
+    _close(torch.from_numpy(tparams[n]), want[n], 1e-6)
+  assert t_optim.get_count(tstate) == j_optim.get_count(jstate) == 5
+  live = sorted(n for n in BIG if not n.startswith("embedding/"))
+  for cls, keys in STATES[name].items():
+    (jaxs,) = j_optim.find_states(jstate, cls)
+    for key in keys:
+      jleaves = dict(j_trees.tree_flatten_with_names(getattr(jaxs, key))[0])
+      for n in live:
+        if n not in tstate[key]:  # optax's placeholder of shape (1,)
+          assert jleaves[n].shape == (1,), (key, n)
+          continue
+        got = tstate[key][n]
+        if port_layout and key in ("ema", "trace"):
+          got = torch.from_numpy(np.ascontiguousarray(
+              got.float().numpy().T.reshape(BIG[n]))).to(got.dtype) \
+              if n.endswith("/kernel") else got
+        if got.dtype == torch.bfloat16:
+          _bf16_ulp_close(got, jleaves[n])
+        else:
+          _close(got, jleaves[n], 1e-6)
+  if name == "big_vision.scale_by_adafactor":  # both kinds were taken
+    assert tstate["v_row"] and tstate["v"]
+    want_dtype = getattr(torch, kw.get("dtype_momentum", "bfloat16"))
+    assert tstate["ema"][live[0]].dtype == want_dtype
+  if name == "big_vision.momentum_hp":
+    assert all(t.dtype == torch.bfloat16 for t in tstate["trace"].values())
+
+
+def test_per_example_clip_matches_optax():
+  """Every gradient has the same leading axis (4 examples); the clipped
+  mean then broadcasts over each param's leading axis, in both."""
+  shapes = {"a/kernel": (4, 3), "b/kernel": (4, 2, 5), "c/bias": (4,),
+            "d/bias": (4, 6)}
+  config = dict(CONFIG, optax_name="scale_by_adam", optax={},
+                grad_clip_per_example=True, grad_clip_norm=1.5,
+                lr_mults=[("a/.*", 2.0)],
+                schedule=[("d/.*", None), (".*", dict(warmup_steps=1))])
+  jparams, _, tparams, _ = _steps(config, shapes)
+  want = dict(j_trees.tree_flatten_with_names(jparams)[0])
+  for n in shapes:
+    _close(torch.from_numpy(tparams[n]), want[n], 1e-6)

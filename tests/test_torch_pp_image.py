@@ -6,7 +6,8 @@ PNG, one channel), `decode_jpeg_and_inception_crop` (the native fused
 resize, the PIL resize of other methods and of `antialias`, a PNG through
 PIL, no size), `decode_jpeg_and_inception_crop_yuv` (4:2:0 and 4:4:4
 planes, and the host conversion of a 4:2:2 JPEG), `resize_small` (area and
-bilinear on uint8) and `central_crop` (sized and largest square); the
+bilinear on uint8), `central_crop` (sized and largest square) and
+`inception_crop` (the transfer config's crop of a decoded image); the
 inception box draws alone over many shapes and seeds. Float outputs are
 held within 1e-4: `yuv420_to_rgb` (the port's batched op against the JAX
 op vmapped over the batch), its chroma upsample alone against
@@ -131,6 +132,15 @@ def test_inception_box_draws_equal_jax():
 def test_eval_host_ops_equal_jax(spec):
   for data in (JPEG, JPEG_444, PNG):
     assert_equal(*host_both(spec, data))
+
+
+@pytest.mark.parametrize("spec", [
+    "decode|inception_crop(24)", "decode|inception_crop",
+    "decode|inception_crop(20, area_min=50, method='nearest')",
+])
+def test_inception_crop_equals_jax(spec):
+  for seed, data in enumerate((JPEG, JPEG_444, PNG)):
+    assert_equal(*host_both(spec, data, seed))
 
 
 def test_resize_small_area_of_floats_equals_jax():

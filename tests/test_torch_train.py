@@ -18,6 +18,13 @@ step 0 and at the last step), and the port of the JAX package's
 configs/smoke.py (JPEG decode and inception crop, mixup, gradient clip,
 checkpoints and a classification eval every 10 steps). With mixup the
 trainer's loss is the model's on the batch mixed with the trainer's draw.
+
+The ImageNet recipes (vit_s16_i1k, AugReg vit_i1k, mlp_mixer_i1k with
+`model_name` "mlp_mixer", and transfer from a local `.npz`) each take one
+step of their `runlocal` through `train.main`, RandAugment included, after
+their evals at step 0. A run stopped after a checkpoint at step 1 and
+resumed to step 2 ends with the params and optimizer state (Adam,
+momentum_hp, Adafactor) of a run that was never stopped.
 """
 
 import json
@@ -34,6 +41,10 @@ import torch
 from big_vision_torch import train as t_train
 from big_vision_torch.configs import smoke
 from big_vision_torch.configs import vit_b16_synthetic
+from big_vision_torch.configs import vit_s16_i1k
+from big_vision_torch.models import vit as t_vit
+from big_vision_torch.utils import checkpoints
+from big_vision_torch.utils import trees as t_trees
 from big_vision_torch.utils import schedules as t_sched
 from big_vision_torch.utils import convert
 from big_vision_tpu import optim as j_optim
@@ -208,3 +219,65 @@ def test_cuda_is_not_silently_replaced_by_the_cpu():
     pytest.skip("this machine has a CUDA device")
   with pytest.raises(RuntimeError, match="--device cpu"):
     t_train.Trainer(_config(), device="cuda")
+
+
+def _transfer_init(path):
+  """A random ViT-mu/16 (the runlocal cut of vit-s16) as an `.npz` in the
+  JAX layout, with a 1000-class head that the transfer does not load."""
+  model = t_vit.Model(num_classes=1000, variant="mu/16", pool_type="gap",
+                      posemb="sincos2d", rep_size=True, device="cpu")
+  model.initialize(torch.Generator().manual_seed(7))
+  checkpoints.npz_save(convert.vit_params(model), path)
+  return path
+
+
+@pytest.mark.parametrize("spec,evals,model_name", [
+    ("vit_s16_i1k.py:runlocal", ["val"], "vit"),
+    ("vit_i1k.py:runlocal", ["val"], "vit"),
+    ("mlp_mixer_i1k.py:runlocal", ["minival", "train", "v2", "val"],
+     "mlp_mixer"),
+    ("transfer.py:runlocal,model=vit-s16,init={init}", ["test", "val"],
+     "vit"),
+])
+def test_recipe_takes_a_step(tmp_path, spec, evals, model_name):
+  spec = spec.format(init=_transfer_init(str(tmp_path / "init.npz")))
+  trainer = t_train.main(["--config", f"big_vision_torch/configs/{spec},"
+                          "stop=1,log=1", "--workdir", str(tmp_path / "wd"),
+                          "--device", "cpu"])
+  assert trainer.config["model_name"] == model_name
+  assert "randaug" in trainer.config["input"]["pp"] or "transfer" in spec
+  rows = _rows(tmp_path / "wd")
+  assert sorted(k.split("/")[0] for k in rows[0]
+                if k.endswith("/prec@1")) == evals
+  (step,) = [r for r in rows if "training_loss" in r]
+  assert step["step"] == 1 and math.isfinite(step["training_loss"])
+
+
+@pytest.mark.parametrize("optax_name", [
+    "scale_by_adam", "big_vision.momentum_hp",
+    "big_vision.scale_by_adafactor"])
+def test_resume_restores_the_optimizer_state(tmp_path, optax_name):
+  config = vit_s16_i1k.get_config("runlocal")
+  config.update(optax_name=optax_name, optax={}, ckpt_steps=1, evals={},
+                log_training_steps=1, stop_after_steps=1)
+  t_train.train(config, str(tmp_path / "a"), device="cpu")
+  resumed = t_train.train(dict(config, stop_after_steps=2),
+                          str(tmp_path / "a"), device="cpu")
+  assert resumed.first_step == 1
+  whole = t_train.train(dict(config, stop_after_steps=2),
+                        str(tmp_path / "b"), device="cpu")
+  for name, p in whole.params.items():
+    torch.testing.assert_close(resumed.params[name], p, rtol=0, atol=0)
+  want = t_trees.flatten(whole.opt_state)
+  got = t_trees.flatten(resumed.opt_state)
+  assert sorted(got) == sorted(want) and len(want) > 1
+  for key, value in want.items():
+    if isinstance(value, torch.Tensor):
+      assert got[key].dtype == value.dtype, key
+      torch.testing.assert_close(got[key], value, rtol=0, atol=0)
+    else:
+      assert got[key] == value, key
+
+
+def test_mixer_is_ported():
+  t_train.check_ported({**_config(), "model_name": "mlp_mixer"})
