@@ -95,6 +95,12 @@ SPLITS = {
     ("oxford_flowers102", "train[:90%]"): (918, 102),
     ("oxford_flowers102", "train[90%:]"): (102, 102),
     ("oxford_flowers102", "test"): (6_149, 102),
+    # imagenet21k's `full` split taken as 13,151,276 examples (TFDS's
+    # catalog figure; no copy of TFDS here can confirm it).
+    ("imagenet21k", "full[51200:]"): (13_151_276 - 51_200, 21_843),
+    **{("imagenet21k", s): (25_600, 21_843)
+       for s in ("full[:25_600]", "full[25_600:51_200]",
+                 "full[51_200:76_800]")},
 }
 
 

@@ -5,9 +5,9 @@ A DataSource owns a dataset; the input pipeline pulls raw example dicts
 yields every example (the JAX package's per-process splits wait for the
 multi-device slice).
 
-`get(name, **kw)` knows "synthetic" (datasets/synthetic.py) and
-"imagefolder" (datasets/imagefolder.py); the other sources of the JAX
-package are not ported yet and raise.
+`get(name, **kw)` knows "synthetic" (datasets/synthetic.py),
+"imagefolder" (datasets/imagefolder.py) and "arrays" (datasets/arrays.py);
+the other sources of the JAX package are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ class DataSource:
 
 
 _BUILTIN = {"synthetic": "big_vision_torch.datasets.synthetic",
-            "imagefolder": "big_vision_torch.datasets.imagefolder"}
+            "imagefolder": "big_vision_torch.datasets.imagefolder",
+            "arrays": "big_vision_torch.datasets.arrays"}
 
 
 def get(name, **kw):

@@ -56,10 +56,17 @@ def get_count(opt_state) -> int:
   return int(opt_state["count"])
 
 
-def _weak(value, like):
-  """`value` as jnp's weak typing makes it beside `like`: a tensor of
-  like's dtype."""
-  return torch.tensor(value, dtype=like.dtype, device=like.device)
+class _Weak(dict):
+  """`weak(value, like)`: `value` as jnp's weak typing makes it beside
+  `like`, a 0-d tensor of like's dtype on like's device. Each is made once
+  and kept: making one on the card copies from the host and waits for the
+  stream, which a step must not do for every param."""
+
+  def __call__(self, value, like):
+    key = (value, like.dtype, like.device)
+    if key not in self:
+      self[key] = torch.tensor(value, dtype=like.dtype, device=like.device)
+    return self[key]
 
 
 def _scale_groups(tensors, factors):
@@ -95,6 +102,7 @@ class ScaleByAdam:
       raise ValueError("scale_by_adam(nesterov=True) is not ported")
     self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
     self.mu_dtype = common.resolve_dtype(mu_dtype)
+    self.weak = _Weak()
 
   def init(self, live):
     return {"mu": {n: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
@@ -106,9 +114,9 @@ class ScaleByAdam:
     # The moments from the stored mu (in its dtype), the bias correction
     # in f32 before mu is rounded to mu_dtype.
     mu_old = [state["mu"][n] for n in names]
+    b1 = [self.weak(self.b1, m) for m in mu_old]
     mu = torch._foreach_add(torch._foreach_mul(g, 1 - self.b1),
-                            torch._foreach_mul(mu_old, [_weak(self.b1, m)
-                                                        for m in mu_old]))
+                            torch._foreach_mul(mu_old, b1))
     nu = torch._foreach_add(
         torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.b2),
         torch._foreach_mul([state["nu"][n] for n in names], self.b2))
@@ -128,6 +136,7 @@ class Trace:
   def __init__(self, momentum=0.9, dtype="bfloat16", nesterov=False):
     self.decay, self.nesterov = momentum, nesterov
     self.dtype = common.resolve_dtype(dtype)
+    self.weak = _Weak()
 
   def init(self, live):
     return {"trace": {n: torch.zeros_like(p, dtype=self.dtype or p.dtype)
@@ -137,7 +146,7 @@ class Trace:
     del params, count
     old = [state["trace"][n] for n in names]
     new = torch._foreach_add(g, torch._foreach_mul(
-        old, [_weak(self.decay, t) for t in old]))
+        old, [self.weak(self.decay, t) for t in old]))
     u = (torch._foreach_add(g, torch._foreach_mul(new, self.decay))
          if self.nesterov else new)
     return u, {"trace": {n: t.to(o.dtype)
@@ -170,6 +179,7 @@ class ScaleByAdafactor:
     self.dtype = common.resolve_dtype(dtype_momentum)
     self.eps = eps
     self.jax_shapes = jax_shapes or {}
+    self.weak = _Weak()
 
   def _jax(self, name, x):
     """x in the JAX layout of param `name` (a view)."""
@@ -237,9 +247,9 @@ class ScaleByAdafactor:
       u.append(self._port(n, upd, params[n]))
     if self.momentum:  # optax.ema(debias=False)
       old = [state["ema"][n] for n in names]
+      decay = [self.weak(self.momentum, e) for e in old]
       u = torch._foreach_add(torch._foreach_mul(u, 1 - self.momentum),
-                             torch._foreach_mul(old, [_weak(self.momentum, e)
-                                                      for e in old]))
+                             torch._foreach_mul(old, decay))
       new["ema"] = {n: e.to(o.dtype) for n, e, o in zip(names, u, old)}
     return u, new
 
@@ -304,9 +314,11 @@ class Chain:
     if self.clip_norm and self.clip_per_example:
       g = _clip_per_example(g, self.clip_norm)
     elif self.clip_norm:  # optax.clip_by_global_norm, masked to live params
-      norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
-      g = [torch.where(norm < self.clip_norm, x,
-                       (x / norm.to(x.dtype)) * self.clip_norm) for x in g]
+      norm = torch.sqrt(sum(torch.sum(x) for x in torch._foreach_mul(g, g)))
+      small = norm < self.clip_norm
+      norms = {x.dtype: norm.to(x.dtype) for x in g}
+      g = [torch.where(small, x, (x / norms[x.dtype]) * self.clip_norm)
+           for x in g]
     count = state["count"]
     u, rule_state = self.rule.update(live, g, state, params, count)
     u = torch._foreach_mul(u, self.lr)

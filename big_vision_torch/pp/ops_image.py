@@ -216,6 +216,10 @@ def get_decode(channels=3, precise=False, key="image", inkey=None,
   return PPOp(host_fn=_decode, phase="host", name="decode")
 
 
+# Host resizes of images up to this size are kept (`_SmallResizes`).
+SMALL_IMAGE_BYTES, SMALL_CACHE_BYTES = 16 * 1024, 64 * 2**20
+
+
 @Registry.register("preprocess_ops.resize")
 def get_resize(size, method="bilinear", antialias=False, key="image",
                inkey=None, outkey=None):
@@ -224,6 +228,7 @@ def get_resize(size, method="bilinear", antialias=False, key="image",
   device form (`resize_batch`); a staticizer."""
   size = tuple(maybe_repeat(size, 2))
   ik, ok = inkey or key, outkey or key
+  small = _SmallResizes()
 
   def _dev(batch):
     batch = dict(batch)
@@ -232,10 +237,43 @@ def get_resize(size, method="bilinear", antialias=False, key="image",
 
   def _host(data):
     data = dict(data)
-    data[ok] = _pil_resize(data[ik], size, method, antialias)
+    image = np.asarray(data[ik])
+    data[ok] = small.get(image)
+    if data[ok] is None:
+      data[ok] = small.keep(image, _pil_resize(image, size, method,
+                                               antialias))
     return data
 
   return PPOp(fn=_dev, host_fn=_host, staticizer=True, name="resize")
+
+
+class _SmallResizes:
+  """The host resizes of small images (SMALL_IMAGE_BYTES at most in and
+  out), each computed once: a dataset of small images, such as 8x8 digit
+  scans, repeats them every epoch, and the PIL call costs a loader thread
+  some 100 us of the interpreter lock for each. At most SMALL_CACHE_BYTES
+  of results are kept, read-only."""
+
+  def __init__(self):
+    self.cache, self.bytes = {}, 0
+
+  @staticmethod
+  def _key(image):
+    return image.shape, image.dtype.str, image.tobytes()
+
+  def get(self, image):
+    if image.nbytes > SMALL_IMAGE_BYTES:
+      return None
+    return self.cache.get(self._key(image))
+
+  def keep(self, image, out):
+    if (image.nbytes <= SMALL_IMAGE_BYTES and out.nbytes <= SMALL_IMAGE_BYTES
+        and self.bytes + out.nbytes <= SMALL_CACHE_BYTES):
+      out = np.array(out)
+      out.flags.writeable = False
+      self.cache[self._key(image)] = out
+      self.bytes += out.nbytes
+    return out
 
 
 def _host_resize_factor(image, factor, method, antialias):

@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 (`python3 chip_smoke.py --checks` stops after phase 2: a quick check of
 every kernel and of the JPEG decoder after a change to one;
 `python3 chip_smoke.py --serving` builds and runs phase 3 alone;
-`python3 chip_smoke.py --recipes` builds and runs phase 9 alone.)
+`python3 chip_smoke.py --recipes` builds and runs phase 9 alone;
+`python3 chip_smoke.py --quality` builds and runs phase 10 alone.)
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. builds every CUDA kernel from big_vision_torch/csrc (one nvcc each, in
@@ -24,8 +25,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      bf16 (bf16 inputs run K1's and K2's bf16 tensor-core kernels); f32
      inputs run K1's and K2's 3xTF32 kernels, held to F32_BAR = 1e-4
      (their semantics are f32, only the order of sums differs) at
-     FlexiViT-B's seqhw 5, 15 and 24, causal, seg (padding rows: o exact
-     zeros, LSE exactly -1e30), Tq != Tkv and D = 18, 72, 128, 256; for K1
+     FlexiViT-B's seqhw 5, 15 and 24, the quality phase's D = 16 (B=256,
+     H=6) and D = 32 (B=64, H=4) at T=64, causal, seg (padding rows: o
+     exact zeros, LSE exactly -1e30), Tq != Tkv and D = 18, 72, 128, 256;
+     for K1
      o and the row LSE, for K2 each of dq, dk and dv is held to the bar;
      the blocked kernels K3, K4a
      and K4b (o, LSE, dq, dk, dv; K4a and K4b on K3's o and LSE) at the
@@ -180,11 +183,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (RECIPES): configs/vit_s16_i1k.py (ViT-S/16, batch 1024, its five
      evals at step 0 on 256 JPEGs a split), configs/vit_i1k.py (AugReg
      ViT-B/16, `medium2`, batch 256), configs/mlp_mixer_i1k.py (Mixer-B/16,
-     batch 512) and configs/transfer.py (vit-s16 at 384px, batch 256, from
-     a random ViT-S/16 `.npz` loaded through `model_init`), RECIPE_STEPS
+     batch 512), configs/transfer.py (vit-s16 at 384px, batch 256, from
+     a random ViT-S/16 `.npz` loaded through `model_init`),
+     configs/vit_i21k.py (AugReg ViT-B/16 `light2`, 21,843 classes, batch
+     256) and configs/proj/gsam/vit_i1k_gsam_no_aug.py (ViT-B/32 through
+     the GSAM trainer, batch 1024), RECIPE_STEPS
      steps each after their evals at step 0: launches exact (per step 12
-     of K1's and 12 of K2's f32 kernels for a ViT, 12 of K1's per eval
-     batch, none for the Mixer), losses finite, step ms, img/s, input
+     of K1's and 12 of K2's f32 kernels for a ViT, 24 of each under GSAM,
+     12 of K1's per eval batch, none for the Mixer), losses finite, step
+     ms, img/s, input
      stall and peak memory printed; the loss on a fixed batch falling over
      RECIPE_FIXED_STEPS steps; for a ViT the kernel path against the plain
      path (attn=xla) on RECIPE_CHECK_B unseen images (loss, encoder output,
@@ -193,11 +200,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
      against its plain version within F32_BAR; the ms of each randaug per
      batch and its share of the step; first the 16 RandAugment ops on the
      card against the CPU (uint8-equal, but for RANDAUG_OP_SHARE of the
-     pixels of sharpness and rotate), and last RECIPE_OPT_STEPS steps of
+     pixels of sharpness and rotate); for GSAM the GSAM gradient of the
+     kernel path against the plain path's (both passes, within GSAM_BAR);
+     for vit_i21k and GSAM an update tried at twice the batch (out of
+     memory: the batch is the largest power of two that fits); and last
+     RECIPE_OPT_STEPS steps of
      ViT-S/16 under `big_vision.scale_by_adafactor` and under
      `big_vision.momentum_hp` (finite states, bf16 where the JAX package
      keeps them in bf16);
- 10. times prefill, the AR step, the training step (end to end: median of
+ 10. trains configs/quality_digits.py through `train.main` at its own
+     size (ViT width 96, depth 6, 6 heads: T=64, D=16; batch 256, 2000
+     steps on the 1437 training digits written from
+     big_vision_torch/datasets/digits.npz, its eval of the 360 test digits
+     every 200 steps): launches exact (6 of K1's and 6 of K2's f32
+     kernels a step, 6 of K1's an eval batch), val/prec@1 at step 2000 at
+     least the config's EXPECTED (0.96), the step on a fixed batch, a
+     profile of one step and the input pipeline alone timed; then
+     configs/twin_dynamics.py at its full size (width 128, depth 2, 4
+     heads: D=32; batch 64, 200 steps on the data of the JAX package's
+     tools/dynamics_twin.py, drawn here in numpy) from one random init,
+     under attn "auto" (2 K1 and 2 K2 f32 launches a step) and attn=xla
+     (none): every step's training_loss within TWIN_BAR (1e-3) relative;
+ 11. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
@@ -242,6 +266,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 from big_vision_torch.tools import kernel_timing
@@ -340,16 +365,46 @@ RECIPES = [
          config=os.path.join(RECIPE_DIR, "transfer.py"),
          args="model=vit-s16,init={init},neval=64,", model="vit", batch=256,
          randaug=False),
+    # These two also try an update at twice their batch (`headroom`); GSAM
+    # takes two forwards and backwards a step (`passes`), through its own
+    # trainer's command line (`trainer`).
+    dict(name="vit_i21k", what="AugReg ViT-B/16 i21k light2, randaug(2,10)",
+         config=os.path.join(RECIPE_DIR, "vit_i21k.py"),
+         args="neval=64,fewshot=none,", model="vit", batch=256,
+         randaug=True, headroom=True),
+    dict(name="vit_i1k_gsam_no_aug", what="ViT-B/32 under GSAM",
+         config=os.path.join(RECIPE_DIR, "proj", "gsam",
+                             "vit_i1k_gsam_no_aug.py"),
+         args="neval=64,fewshot=none,", model="vit", batch=1024,
+         randaug=False, passes=2, headroom=True,
+         trainer="big_vision_torch.trainers.proj.gsam.gsam"),
 ]
 # Loop steps, fixed-batch steps, unseen images of the kernel-vs-plain
 # check, steps of each other optimizer, images of the RandAugment op check.
 RECIPE_STEPS, RECIPE_FIXED_STEPS, RECIPE_CHECK_B = 4, 3, 64
 RECIPE_OPT_STEPS, RECIPE_OP_N = 3, 32
+# The quality phase: configs/quality_digits.py at its own size, and the
+# dynamics twin at tools/dynamics_twin.py's defaults, held to its bar.
+QUALITY_CONFIG = os.path.join(RECIPE_DIR, "quality_digits.py")
+TWIN_CONFIG = os.path.join(RECIPE_DIR, "twin_dynamics.py")
+QUALITY_PARTS_STEPS = 20  # fixed-batch steps and input batches timed
+TWIN_STEPS, TWIN_BATCH, TWIN_WIDTH, TWIN_DEPTH = 200, 64, 128, 2
+TWIN_BAR = 1e-3
 # The share of pixels that may differ between the card and the CPU for
 # the two ops whose arithmetic could round differently there.
 RANDAUG_OP_SHARE = 1e-3
 BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: F32_BAR}
+# K1's and K2's f32 cases at the head dims of the quality phase's models:
+# quality_digits (B=256, 6 heads of D=16 at T=64) and the dynamics twin
+# (B=64, 4 heads of D=32 at T=64).
+SMALL_D = [("digits D=16 f32", dict(b=256, tq=64, h=6, d=16)),
+           ("twin D=32 f32", dict(b=64, tq=64, h=4, d=32))]
 K2_BARS = {torch.bfloat16: K2_BAR, torch.float32: F32_BAR}
+# GSAM's gradient on the kernel path against the plain path, its l2
+# distance over its l2 norm: the second pass starts from weights moved by
+# the first pass's gradient, so the f32 kernels' differences pass through
+# both (the dynamics twin's bar).
+GSAM_BAR = 1e-3
 DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                               "flexivit", "i21k_distill.py")
 # The distill trainer's loop draws the FlexiViT trainer's seqhw (15, 15, 15,
@@ -436,6 +491,7 @@ def check_k1(fa):
   cases += [(f"FlexiViT seqhw {s} f32", dict(b=FLEXI_B, tq=s * s + 1,
                                               h=TRAIN_H, d=TRAIN_D, dtype=f32),
              {}) for s in (5, 15, 24)]
+  cases += [(name, dict(shape, dtype=f32), {}) for name, shape in SMALL_D]
   cases += [
       ("causal f32", dict(b=2, tq=200, h=4, d=64, dtype=f32),
        dict(causal=True)),
@@ -513,6 +569,7 @@ def check_k2(fa):
   cases += [(f"FlexiViT seqhw {s} f32", dict(b=FLEXI_B, tq=s * s + 1,
                                               h=TRAIN_H, d=TRAIN_D, dtype=f32),
              {}) for s in (5, 15, 24)]
+  cases += [(name, dict(shape, dtype=f32), {}) for name, shape in SMALL_D]
   cases += [
       ("causal f32", dict(b=2, tq=200, h=4, d=64, dtype=f32),
        dict(causal=True)),
@@ -2424,28 +2481,38 @@ def write_vit_s16(path):
   return path
 
 
+def recipe_module(recipe):
+  """The module whose `main` and `Trainer` train the recipe: `train`, or
+  the recipe's own trainer."""
+  import importlib
+  return importlib.import_module(recipe.get("trainer",
+                                            "big_vision_torch.train"))
+
+
 def recipe_main_path(fa, recipe, workdir, gpu):
   """RECIPE_STEPS steps of `train.main` on the recipe's config after its
   evals at step 0; asserts the launches of every step and eval batch.
   Returns (trainer, {"step_ms", "img/sec", "input_stall_pct": medians of
   the rows after the first; "peak": max memory allocated})."""
-  from big_vision_torch import train
+  main = recipe_module(recipe).main
   shutil.rmtree(workdir, ignore_errors=True)
   calls = {}
   reset_launches(fa)
   torch.cuda.reset_peak_memory_stats()
   with counted_predict_fns(fa, calls):
-    trainer = train.main(["--config", f"{recipe['config']}:"
-                          f"{recipe['args']}stop={RECIPE_STEPS},log=1",
-                          "--workdir", workdir])
+    trainer = main(["--config", f"{recipe['config']}:"
+                    f"{recipe['args']}stop={RECIPE_STEPS},log=1",
+                    "--workdir", workdir])
   torch.cuda.synchronize()
   peak = torch.cuda.max_memory_allocated()
   counts = launches(fa)
   vit = recipe["model"] == "vit"
   depth = len(trainer.model.encoder.blocks) if vit else 0
   n_eval = sum(len(c) for c in calls.values())
+  per_step = depth * recipe.get("passes", 1)
   want = {**dict.fromkeys(COUNTERS, 0),
-          "K1f": depth * (RECIPE_STEPS + n_eval), "K2f": depth * RECIPE_STEPS}
+          "K1f": per_step * RECIPE_STEPS + depth * n_eval,
+          "K2f": per_step * RECIPE_STEPS}
   per_batch = {**dict.fromkeys(COUNTERS, 0), "K1f": depth}
   assert all(c == per_batch for cs in calls.values() for c in cs), calls
   print(f"{recipe['name']}: {RECIPE_STEPS} steps of batch "
@@ -2453,7 +2520,7 @@ def recipe_main_path(fa, recipe, workdir, gpu):
         f"{n_eval} eval batches at step 0 ({sorted(trainer.config['evals'])}"
         f"); launches {({k: n for k, n in counts.items() if n})} (want "
         f"{({k: n for k, n in want.items() if n})}: per step "
-        f"{depth} K1f and {depth} K2f, per eval batch {depth} K1f)")
+        f"{per_step} K1f and {per_step} K2f, per eval batch {depth} K1f)")
   assert counts == want, (counts, want)
   assert trainer.batch_size == recipe["batch"], trainer.batch_size
   assert "randaug" in trainer.config["input"]["pp"] or not recipe["randaug"]
@@ -2604,7 +2671,7 @@ def recipe_kernel_vs_plain(fa, trainer, recipe, batch, what):
   depth = len(trainer.model.encoder.blocks)
   assert launches(fa) == {**dict.fromkeys(COUNTERS, 0), "K1f": depth,
                           "K2f": depth}, launches(fa)
-  plain = train.Trainer(train.load_config(
+  plain = recipe_module(recipe).Trainer(train.load_config(
       f"{recipe['config']}:{recipe['args']}attn=xla"))
   plain.model.load_state_dict(trainer.model.state_dict())
   reset_launches(fa)
@@ -2620,6 +2687,77 @@ def recipe_kernel_vs_plain(fa, trainer, recipe, batch, what):
         f"{worst[0]:.3e} ({worst[1]}) (bar {F32_BAR})")
   assert len(gp) == depth * 7
   assert loss_err <= F32_BAR and tok_err <= F32_BAR and worst[0] <= F32_BAR
+
+
+def gsam_kernel_vs_plain(fa, trainer, recipe, batch, what):
+  """The GSAM gradient of the kernel path against the plain path's
+  (attn=xla, the same weights and step) on RECIPE_CHECK_B images no update
+  saw: its 2 x depth launches of K1's and K2's f32 kernels (both passes),
+  the clean loss within F32_BAR and the gradient (its l2 distance over its
+  l2 norm) within GSAM_BAR."""
+  from big_vision_torch import optim
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.gsam import gsam
+  x, y = batch["image"][:RECIPE_CHECK_B], batch["labels"][:RECIPE_CHECK_B]
+  step = optim.get_count(trainer.opt_state)
+  lr = trainer.learning_rate(step)
+
+  def run(t):
+    return gsam.gsam_gradient(lambda p, a, b: t.loss_at(p, a, b, step),
+                              t.params, x, y, lr=lr, **t.gsam_kw)
+
+  reset_launches(fa)
+  lk, gk = run(trainer)
+  torch.cuda.synchronize()
+  depth = len(trainer.model.encoder.blocks)
+  assert launches(fa) == {**dict.fromkeys(COUNTERS, 0), "K1f": 2 * depth,
+                          "K2f": 2 * depth}, launches(fa)
+  plain = gsam.Trainer(train.load_config(
+      f"{recipe['config']}:{recipe['args']}attn=xla"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  reset_launches(fa)
+  lp, gp = run(plain)
+  torch.cuda.synchronize()
+  assert launches(fa) == dict.fromkeys(COUNTERS, 0), launches(fa)
+  del plain
+  diff = sum(torch.sum((gk[n] - gp[n]) ** 2) for n in gp)
+  err = torch.sqrt(diff / sum(torch.sum(g ** 2) for g in gp.values())).item()
+  loss_err = abs(lk.item() - lp.item()) / abs(lp.item())
+  print(f"{what} GSAM gradient at step {step} (lr {lr:.3e}), kernel vs "
+        f"plain path (attn=xla), {RECIPE_CHECK_B} unseen images: clean "
+        f"loss {lk.item():.6f} vs {lp.item():.6f}, rel err {loss_err:.3e} "
+        f"(bar {F32_BAR}); gradient rel l2 err {err:.3e} (bar {GSAM_BAR}); "
+        f"{2 * depth} K1f and {2 * depth} K2f launches")
+  assert loss_err <= F32_BAR and err <= GSAM_BAR, (loss_err, err)
+
+
+def batch_headroom(trainer, gpu, what):
+  """One update at twice the trainer's batch, on random images: whether
+  the card holds it (its peak memory) or runs out of memory, which makes
+  the config's batch the largest power of two that fits."""
+  b = 2 * trainer.batch_size
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  n = trainer.config["num_classes"]
+  try:
+    batch = {"image": torch.randn((b, 224, 224, 3), device="cuda"),
+             "labels": torch.nn.functional.one_hot(
+                 torch.arange(b, device="cuda") % n, n).float()}
+    trainer.update(batch)
+    torch.cuda.synchronize()
+    print(f"[{gpu}] {what}: an update at batch {b} fits, max memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: "
+          f"the batch could double")
+  except torch.OutOfMemoryError:
+    print(f"[{gpu}] {what}: an update at batch {b} runs out of memory "
+          f"(max memory allocated before it failed "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): "
+          f"{trainer.batch_size} is the largest power of two that fits")
+  finally:
+    batch = None
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def randaug_time(recipe, batch_size, step_ms, gpu):
@@ -2736,13 +2874,198 @@ def recipes_phase(fa, gpu):
       if recipe["name"] == "vit_s16_i1k":
         recipe_in_place(fa, trainer, unseen, what)
         opt_batch = batch
-    del trainer, batch, unseen
+    if recipe.get("passes") == 2:
+      gsam_kernel_vs_plain(fa, trainer, recipe, unseen, what)
+    del batch, unseen
+    if recipe.get("headroom"):
+      batch_headroom(trainer, gpu, what)
+    del trainer
     gc.collect()
     torch.cuda.empty_cache()
     print(f"{recipe['name']}: {time.perf_counter() - t1:.1f} s wall")
   optimizer_states(opt_batch, gpu)
   os.remove(init)
   print(f"ImageNet recipes phase: {time.perf_counter() - t0:.1f} s wall")
+
+
+def twin_data(steps, batch, seed=7):
+  """The dynamics twin's data, as the JAX package's tools/dynamics_twin.py
+  (`make_data`) draws it: a learnable 10-class set, class prototype plus
+  noise, f32 images [steps * batch, 32, 32, 3] and one-hot labels."""
+  n = steps * batch
+  rng = np.random.default_rng(seed)
+  protos = rng.normal(0, 1, (10, 32, 32, 3)).astype(np.float32)
+  labels = rng.integers(0, 10, n)
+  images = (0.5 * protos[labels]
+            + rng.normal(0, 1, (n, 32, 32, 3))).astype(np.float32)
+  onehot = np.zeros((n, 10), np.float32)
+  onehot[np.arange(n), labels] = 1.0
+  return {"image": images, "labels": onehot}
+
+
+def metric_rows(workdir):
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    return list(map(json.loads, f))
+
+
+def quality_digits_run(fa, gpu):
+  """configs/quality_digits.py through `train.main` at its own size (2000
+  steps of batch 256 on the 1437 training scans, its eval of the 360 test
+  scans every 200 steps, checkpoints every 500): launches exact (6 of K1's
+  and 6 of K2's f32 kernels a step, 6 of K1's an eval batch), and
+  val/prec@1 at step 2000 at least the config's EXPECTED."""
+  from big_vision_torch import train
+  from big_vision_torch.configs import quality_digits
+  workdir = os.path.join(ROOT, "build", "chip_smoke_quality")
+  npz_dir = os.path.join(ROOT, "build", "chip_smoke_digits")
+  for d in (workdir, npz_dir):
+    shutil.rmtree(d, ignore_errors=True)
+  calls = {}
+  reset_launches(fa)
+  t0 = time.perf_counter()
+  with counted_predict_fns(fa, calls):
+    trainer = train.main(["--config", f"{QUALITY_CONFIG}:npz_dir={npz_dir}",
+                          "--workdir", workdir])
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  counts = launches(fa)
+  depth, steps = len(trainer.model.encoder.blocks), trainer.total_steps
+  n_eval = sum(len(c) for c in calls.values())
+  want = {**dict.fromkeys(COUNTERS, 0), "K1f": depth * (steps + n_eval),
+          "K2f": depth * steps}
+  per_batch = {**dict.fromkeys(COUNTERS, 0), "K1f": depth}
+  assert all(c == per_batch for cs in calls.values() for c in cs), calls
+  assert counts == want, (counts, want)
+  rows = metric_rows(workdir)
+  evals = [r for r in rows if "val/prec@1" in r]
+  final = evals[-1]
+  train_rows = [r for r in rows if "training_loss" in r]
+  step_ms = statistics.median(r["step_ms"] for r in train_rows[1:])
+  print(f"quality_digits: {steps} steps of batch {trainer.batch_size}, "
+        f"{n_eval} eval batches; launches "
+        f"{({k: n for k, n in counts.items() if n})} (want {depth} K1f and "
+        f"{depth} K2f a step, {depth} K1f an eval batch)")
+  print(f"  val/prec@1 at steps " + ", ".join(
+      f"{r['step']}: {r['val/prec@1']:.6f}" for r in evals))
+  print(f"[{gpu}] quality_digits at step {final['step']}: val/prec@1 "
+        f"{final['val/prec@1']:.6f} (EXPECTED >= "
+        f"{quality_digits.EXPECTED['val/prec@1']}), val/loss "
+        f"{final['val/loss']:.6f}, training_loss "
+        f"{train_rows[-1]['training_loss']:.6f}; step {step_ms:.3f} ms "
+        f"(median of the logged windows), img/s "
+        f"{statistics.median(r['img/sec'] for r in train_rows[1:]):.1f}, "
+        f"input stall "
+        f"{statistics.median(r['input_stall_pct'] for r in train_rows[1:]):.3f}"
+        f"%; {wall:.1f} s wall")
+  assert final["step"] == steps == 2000, final
+  for k, bar in quality_digits.EXPECTED.items():
+    assert final[k] >= bar, (k, final[k], bar)
+  digits_step_parts(trainer, gpu)
+
+
+def digits_step_parts(trainer, gpu):
+  """Where quality_digits' step goes: QUALITY_PARTS_STEPS updates on one
+  batch (CUDA events: the step without the input pipeline), as many
+  batches of the input pipeline alone (host clock, after its first), and
+  one update under the profiler (device busy)."""
+  from big_vision_torch.tools import bench_decode
+  it = trainer.input_iter()
+  batch = next(it)
+  it.close()  # its threads would compete with the step for the host
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  for _ in range(QUALITY_PARTS_STEPS):
+    trainer.update(batch)
+  end.record()
+  end.synchronize()
+  fixed_ms = start.elapsed_time(end) / QUALITY_PARTS_STEPS
+  it = trainer.input_iter()
+  next(it)
+  t0 = time.perf_counter()
+  for _ in range(QUALITY_PARTS_STEPS):
+    next(it)
+  torch.cuda.synchronize()
+  input_ms = 1e3 * (time.perf_counter() - t0) / QUALITY_PARTS_STEPS
+  it.close()
+  bench_decode.print_profile(kernel_timing.device_profile(
+      {"quality_digits step": lambda: trainer.update(batch)}, top=6),
+      prefix=f"[{gpu}] ")
+  print(f"[{gpu}] quality_digits: fixed batch {fixed_ms:.3f} ms/step (CUDA "
+        f"events, {QUALITY_PARTS_STEPS} steps); the input pipeline alone "
+        f"{input_ms:.3f} ms/batch ({QUALITY_PARTS_STEPS} batches, "
+        f"{trainer.config['input']['num_threads']} pp threads)")
+
+
+def twin_run(fa, gpu):
+  """configs/twin_dynamics.py at its full size (width 128, depth 2, batch
+  64, TWIN_STEPS steps) twice from one random init, under attn "auto" (K1's
+  and K2's f32 kernels at T=64, D=32: depth of each a step) and under
+  attn=xla (no kernel): every step's training_loss within TWIN_BAR
+  relative."""
+  from big_vision_torch import train
+  from big_vision_torch.models import vit
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  base = os.path.join(ROOT, "build", "chip_smoke_twin")
+  shutil.rmtree(base, ignore_errors=True)
+  os.makedirs(base)
+  npz, init = os.path.join(base, "data.npz"), os.path.join(base, "init.npz")
+  np.savez(npz, **twin_data(TWIN_STEPS, TWIN_BATCH))
+  model = vit.Model(10, width=TWIN_WIDTH, depth=TWIN_DEPTH,
+                    mlp_dim=4 * TWIN_WIDTH, num_heads=4, patch_size=(4, 4),
+                    posemb="learn", pool_type="gap", rep_size=False,
+                    image_size=32, device="cuda")
+  model.initialize(torch.Generator(device="cuda").manual_seed(SEED + 23))
+  checkpoints.npz_save(convert.vit_params(model), init)
+  del model
+  legs = {}
+  for attn, kernels in (("auto", ("K1f", "K2f")), ("xla", ())):
+    workdir = os.path.join(base, attn)
+    config = train.load_config(
+        f"{TWIN_CONFIG}:npz={npz},steps={TWIN_STEPS},batch={TWIN_BATCH},"
+        f"width={TWIN_WIDTH},depth={TWIN_DEPTH},attn={attn}")
+    config["model_init"] = init
+    reset_launches(fa)
+    t0 = time.perf_counter()
+    train.train(config, workdir)
+    torch.cuda.synchronize()
+    counts = launches(fa)
+    want = {**dict.fromkeys(COUNTERS, 0),
+            **dict.fromkeys(kernels, TWIN_DEPTH * TWIN_STEPS)}
+    assert counts == want, (attn, counts, want)
+    legs[attn] = [r for r in metric_rows(workdir) if "training_loss" in r]
+    print(f"[{gpu}] twin_dynamics attn={attn}: {TWIN_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s wall, launches "
+          f"{({k: n for k, n in counts.items() if n}) or 'none'}; loss "
+          f"{legs[attn][0]['training_loss']:.6f} -> "
+          f"{legs[attn][-1]['training_loss']:.6f}")
+  kernel, plain = legs["auto"], legs["xla"]
+  assert [r["step"] for r in kernel] == [r["step"] for r in plain] == list(
+      range(1, TWIN_STEPS + 1))
+  worst = {}
+  for m in ("training_loss", "l2_grads", "l2_params", "l2_updates",
+            "global_schedule"):
+    rel = [abs(k[m] - p[m]) / max(abs(p[m]), 1e-12)
+           for k, p in zip(kernel, plain)]
+    worst[m] = max(zip(rel, range(1, TWIN_STEPS + 1)))
+  print(f"twin_dynamics kernel path (auto) vs plain path (xla), worst "
+        f"relative difference over {TWIN_STEPS} steps (step): " + ", ".join(
+            f"{m} {e:.3e} ({s})" for m, (e, s) in worst.items())
+        + f"; training_loss held to {TWIN_BAR} at every step")
+  assert worst["training_loss"][0] <= TWIN_BAR, worst
+  assert plain[-1]["training_loss"] < plain[0]["training_loss"]
+  shutil.rmtree(base, ignore_errors=True)
+
+
+def quality_phase(fa, gpu):
+  """The quality phase: quality_digits trained to its pin on the card, then
+  the dynamics twin, kernel path against plain path."""
+  t0 = time.perf_counter()
+  gc.collect()
+  torch.cuda.empty_cache()
+  quality_digits_run(fa, gpu)
+  twin_run(fa, gpu)
+  print(f"quality phase: {time.perf_counter() - t0:.1f} s wall")
 
 
 def matmul_peak_tflops(n=8192, iters=20):
@@ -2771,6 +3094,7 @@ def serving_phase(fa, da, gpu):
   int8_plain = build(cache_dtype="int8", kernels=False, like=model)
   counts["K6 int8"] = serve(int8, int8_plain, batch, fa, da,
                             decode=INT8_DECODE)["K6"]
+  t1 = phase_end("serving, the main path and its checks", t0)
   paths = (("kernel path", model), ("plain path", plain),
            ("kernel path, int8 KV cache", int8),
            ("plain path, int8 KV cache", int8_plain))
@@ -2780,10 +3104,12 @@ def serving_phase(fa, da, gpu):
           f"{DECODE}: prefill {x['prefill_s'] * 1e3:.3f} ms, AR step "
           f"{x['step_s'] * 1e3:.3f} ms, {BATCH / x['step_s']:.1f} tok/s, "
           f"e2e {x['t_full'] * 1e3:.3f} ms")
+  t1 = phase_end("serving, the times", t1)
   for name, m in (("kernel path", model),
                   ("kernel path, int8 KV cache", int8)):
     bench_decode.print_profile(bench_decode.profile(m, batch, DECODE),
                                prefix=f"[{gpu}] {name}, ")
+  phase_end("serving, the profiles", t1)
   del int8, int8_plain
   t0 = phase_end("serving, bf16 weights", t0)
 
@@ -3070,9 +3396,10 @@ def phase_end(name, t0):
 
 
 def main(argv):
-  if argv not in ([], ["--checks"], ["--serving"], ["--recipes"]):
-    print(f"usage: chip_smoke.py [--checks | --serving | --recipes]; got "
-          f"{argv}",
+  if argv not in ([], ["--checks"], ["--serving"], ["--recipes"],
+                  ["--quality"]):
+    print(f"usage: chip_smoke.py [--checks | --serving | --recipes | "
+          f"--quality]; got {argv}",
           file=sys.stderr)
     return 2
   if not torch.cuda.is_available():
@@ -3114,6 +3441,10 @@ def main(argv):
     recipes_phase(fa, gpu)
     print(f"{nvidia_smi()}: the ImageNet recipes phase passed")
     return 0
+  if argv == ["--quality"]:  # the build and phase 10 alone
+    quality_phase(fa, gpu)
+    print(f"{nvidia_smi()}: the quality phase passed")
+    return 0
 
   # 2. Kernels vs plain versions.
   counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa)}
@@ -3150,8 +3481,10 @@ def main(argv):
   t0 = phase_end("generic distillation smoke", t0)
   recipes_phase(fa, gpu)
   t0 = phase_end("ImageNet recipes", t0)
+  quality_phase(fa, gpu)
+  t0 = phase_end("quality", t0)
 
-  # 10. Kernel times.
+  # 11. Kernel times.
   kernels = kernel_entries(fa, da, counts, gpu)
   phase_end("kernel times", t0)
   for kern in kernels:

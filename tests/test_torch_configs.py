@@ -30,6 +30,11 @@ CONFIGS = {
     "proj.flexivit.i21k_distill": (None, "runlocal"),
     "proj.flexivit.i1k_deit3_distill": (None, "runlocal"),
     "proj.distill.smoke": (None,),
+    "quality_digits": (None, "runlocal=True"),
+    "twin_dynamics": ("side=my,npz=x",),
+    "vit_i21k": (None, "runlocal"),
+    "proj.gsam.smoke": (None,),
+    "proj.gsam.vit_i1k_gsam_no_aug": (None, "runlocal"),
 }
 
 

@@ -44,7 +44,13 @@ def test_port_imports_without_jax():
                "trainers.proj.paligemma.predict_fns",
                "trainers.proj.paligemma.run", "pp.autoaugment",
                "models.mlp_mixer", "configs.vit_s16_i1k", "configs.vit_i1k",
-               "configs.mlp_mixer_i1k", "configs.transfer"):
+               "configs.mlp_mixer_i1k", "configs.transfer",
+               "datasets.arrays", "datasets.digits", "configs.quality_digits",
+               "configs.twin_dynamics", "configs.vit_i21k",
+               "configs.proj.gsam.smoke",
+               "configs.proj.gsam.vit_i1k_gsam_no_aug",
+               "trainers.proj.gsam.gsam", "trainers.proj.gsam.train",
+               "tools.step_timing"):
     assert f"big_vision_torch.{name}" in names, name
 
 

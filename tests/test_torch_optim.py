@@ -97,6 +97,30 @@ def test_adam_chain_matches_optax():
     np.testing.assert_array_equal(tparams[n].numpy(), params[n])
 
 
+@pytest.mark.parametrize("optax_name", [
+    "scale_by_adam", "big_vision.momentum_hp",
+    "big_vision.scale_by_adafactor"])
+def test_a_step_makes_no_tensor_from_a_host_value(monkeypatch, optax_name):
+  """On the card, each tensor made from a host value copies it and waits
+  for the stream; a step makes none once the rule's scalars exist."""
+  rs = np.random.RandomState(0)
+  params = {n: torch.from_numpy(rs.randn(*s).astype(np.float32))
+            for n, s in SHAPES.items()}
+  config = dict(CONFIG, optax_name=optax_name, optax={})
+  tx, _ = t_optim.make(config, params, sched_kw=dict(
+      total_steps=10, batch_size=8, data_size=100))
+  state = tx.init(params)
+  grads = {n: torch.ones_like(p) for n, p in params.items()}
+  _, state = tx.apply_(params, grads, state)
+  made = []
+  tensor = torch.tensor
+  monkeypatch.setattr(torch, "tensor",
+                      lambda *a, **kw: made.append(a) or tensor(*a, **kw))
+  for _ in range(2):
+    _, state = tx.apply_(params, grads, state)
+  assert not made, made
+
+
 def test_make_rejects_what_is_not_ported():
   params = {"a/kernel": torch.zeros(2, 2), "b/bias": torch.zeros(3)}
   sched_kw = dict(total_steps=10)

@@ -257,3 +257,19 @@ def test_resize_on_the_device_equals_jax(method, antialias):
       np.testing.assert_allclose(got.numpy().astype(np.float64),
                                  np.asarray(want).astype(np.float64),
                                  atol=tol, rtol=0)
+
+
+def test_small_host_resizes_are_computed_once():
+  """A small image's host resize is kept (read-only, the same values as
+  the PIL resize); a large one's is computed anew each time."""
+  pfn = t_builder.get_preprocess_fn("resize(36)")
+  rng = np.random.RandomState(0)
+  small = rng.randint(0, 255, (8, 8, 3)).astype(np.uint8)
+  large = rng.randint(0, 255, (80, 80, 3)).astype(np.uint8)
+  a, b = (pfn.host({"image": small.copy()}, None)["image"] for _ in "ab")
+  assert a is b and not a.flags.writeable
+  np.testing.assert_array_equal(
+      a, t_ops._pil_resize(small, (36, 36), "bilinear", False))
+  c, d = (pfn.host({"image": large}, None)["image"] for _ in "cd")
+  assert c is not d
+  np.testing.assert_array_equal(c, d)
