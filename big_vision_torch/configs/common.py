@@ -101,6 +101,10 @@ SPLITS = {
     **{("imagenet21k", s): (25_600, 21_843)
        for s in ("full[:25_600]", "full[25_600:51_200]",
                  "full[51_200:76_800]")},
+    # COCO captions, Karpathy's splits; the "classes" are COCO's 80
+    # categories, from which the stand-in draws five captions an image.
+    ("coco_captions", "train"): (82_783, 80),
+    ("coco_captions", "val"): (5_000, 80),
 }
 
 
@@ -108,11 +112,16 @@ def stand_in(name, split, *, root="", n=0):
   """The port's source for the TFDS split `name`/`split`: with `root`, the
   image folder root/train (a "train" split, whole) or root/val (any
   other); else synthetic JPEGs (32x32 for CIFAR, 256x320 otherwise, 512
-  unique) with the split's class count and its example count, or `n`."""
+  unique) with the split's class count and its example count, or `n`;
+  COCO captions' with "image/id" and five captions an image
+  (`datasets/synthetic.captions`)."""
   if root:
     sub = "train" if split.startswith("train") else "val"
     return dict(name="imagefolder", root=os.path.join(root, sub))
   examples, classes = SPLITS[name, split]
   h, w = (32, 32) if name.startswith("cifar") else (256, 320)
-  return dict(name="synthetic", n=n or examples, num_classes=classes, h=h,
-              w=w, unique_images=512)
+  out = dict(name="synthetic", n=n or examples, num_classes=classes, h=h,
+             w=w, unique_images=512)
+  if name == "coco_captions":
+    out["captions"] = 5
+  return out

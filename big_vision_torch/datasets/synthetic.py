@@ -35,21 +35,49 @@ def _jpeg_bytes(seed, h, w):
   return buf.getvalue()
 
 
+# The words of the captions of `captions=k` (COCO's stand-in).
+_ADJECTIVES = ("a small", "a large", "an old", "a red", "a white", "a black",
+               "two", "a wooden", "a striped", "a happy")
+_NOUNS = ("cat", "dog", "horse", "bus", "train", "pizza", "kite", "boat",
+          "clock", "giraffe", "elephant", "bicycle", "zebra", "surfer",
+          "skier", "sandwich")
+_PLACES = ("on a street", "in a field", "near the water", "in a kitchen",
+           "on a table", "at the beach", "in the snow", "under a tree")
+
+
+def captions(label, k):
+  """k captions of an image of class `label`: its noun in each, the other
+  words varying with the caption's index."""
+  noun = _NOUNS[label % len(_NOUNS)]
+  return [f"{_ADJECTIVES[(label + 3 * j) % len(_ADJECTIVES)]} {noun} "
+          f"{_PLACES[(label // len(_NOUNS) + j) % len(_PLACES)]}."
+          for j in range(k)]
+
+
 class DataSource(core.DataSource):
+  """With `captions` = k > 0, each example also holds COCO's keys: its
+  index as "image/id" and {"text": k captions from its label} as
+  "captions" (the nesting of `datasets/builders/coco_captions.py`)."""
 
   def __init__(self, *, n=1024, num_classes=1000, h=256, w=256,
-               encoded=True, unique_images=64, split=None):
+               encoded=True, unique_images=64, captions=0, split=None):
     del split
     self.total_examples = n
     self.num_classes = num_classes
     self.h, self.w = h, w
     self.encoded = encoded
     self.unique_images = unique_images
+    self.captions = captions
 
   def _example(self, i):
     make = _jpeg_bytes if self.encoded else _image
-    return {"image": make(int(i) % self.unique_images, self.h, self.w),
-            "label": np.int32(i % self.num_classes), "_id": np.int64(i)}
+    label = int(i % self.num_classes)
+    ex = {"image": make(int(i) % self.unique_images, self.h, self.w),
+          "label": np.int32(label), "_id": np.int64(i)}
+    if self.captions:
+      ex["image/id"] = np.int64(i)
+      ex["captions"] = {"text": np.asarray(captions(label, self.captions))}
+    return ex
 
   def get_examples(self, *, ordered, seed=0, epoch=0):
     idx = np.arange(self.total_examples)

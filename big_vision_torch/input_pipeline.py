@@ -37,6 +37,7 @@ from big_vision_torch.pp import builder as pp_builder
 from big_vision_torch.pp import autoaugment  # noqa: F401
 from big_vision_torch.pp import ops_general  # noqa: F401
 from big_vision_torch.pp import ops_image  # noqa: F401
+from big_vision_torch.pp import ops_text  # noqa: F401
 
 
 def _shuffled(stream, buffer_size, rng):

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from big_vision_torch import native
 from big_vision_torch.pp.utils import InKeyOutKey, PPOp, as_pp_op, maybe_repeat
+from big_vision_torch.pp.utils import host_uniform
 from big_vision_torch.registry import Registry
 
 # TF resize method name -> PIL filter name ("area" has its own exact
@@ -542,11 +543,22 @@ def flip_images(images, flips):
   return torch.where(flips[:, None, None, None], images.flip(2), images)
 
 
+@InKeyOutKey(random=True)
+def _host_flip_lr():
+  """The host form: the flip that the JAX package's eager host run of its
+  device op draws from the example's rng (`pp.utils.host_uniform`)."""
+  def _flip(image, np_rng):
+    image = np.asarray(image)
+    return image[:, ::-1] if host_uniform(np_rng) < 0.5 else image
+  return _flip
+
+
 @Registry.register("preprocess_ops.flip_lr")
-@as_pp_op(random=True)
+@as_pp_op(random=True, host_factory=_host_flip_lr)
 @InKeyOutKey(random=True)
 def get_random_flip_lr():
-  """Mirrors each image left-right with probability 1/2 (device)."""
+  """Mirrors each image left-right with probability 1/2 (device; on the
+  host where a later op is host-only, as in the JAX package)."""
   def _flip(images, generator):
     u = torch.rand(images.shape[0], generator=generator,
                    device=images.device)

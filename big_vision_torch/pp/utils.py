@@ -20,6 +20,8 @@ import dataclasses
 from collections import abc
 from typing import Callable
 
+import numpy as np
+
 
 def maybe_repeat(arg, n_reps):
   if not isinstance(arg, abc.Sequence) or isinstance(arg, str):
@@ -61,13 +63,16 @@ class PPOp:
     return self.fn(batch, generator) if self.random else self.fn(batch)
 
 
-def as_pp_op(phase="auto", staticizer=False, random=False):
+def as_pp_op(phase="auto", staticizer=False, random=False,
+             host_factory=None):
   """Wraps a factory of a batched device fn so that calling it yields a
-  PPOp."""
+  PPOp; `host_factory`, called with the same arguments, gives its per-example
+  host form."""
   def deco(factory):
     def make(*args, **kw):
-      return PPOp(fn=factory(*args, **kw), phase=phase,
-                  staticizer=staticizer, random=random,
+      return PPOp(fn=factory(*args, **kw),
+                  host_fn=host_factory(*args, **kw) if host_factory else None,
+                  phase=phase, staticizer=staticizer, random=random,
                   name=factory.__name__)
     make.__name__ = factory.__name__
     make.__doc__ = factory.__doc__
@@ -98,3 +103,40 @@ class InKeyOutKey:
     make.__name__ = factory.__name__
     make.__doc__ = factory.__doc__
     return make
+
+
+# Threefry-2x32 (20 rounds), JAX's default PRNG, in numpy: the JAX package
+# runs a device op that lands in the host phase eagerly, with the key
+# `PRNGKey(np_rng.integers(0, 2**31 - 1))`, so the port's host forms of
+# random device ops draw through it to make the same choices.
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(key, x0, x1):
+  """Threefry-2x32 of the counter words (x0, x1) under key (k0, k1); uint32
+  numpy arrays in and out."""
+  with np.errstate(over="ignore"):
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k0, k1, np.uint32(k0 ^ k1 ^ np.uint32(0x1BD11BDA)))
+    x0 = np.asarray(x0, np.uint32) + ks[0]
+    x1 = np.asarray(x1, np.uint32) + ks[1]
+    for r in range(5):
+      for rot in _ROTATIONS[r % 2]:
+        x0 = x0 + x1
+        x1 = (x1 << np.uint32(rot)) | (x1 >> np.uint32(32 - rot))
+        x1 = x1 ^ x0
+      x0 = x0 + ks[(r + 1) % 3]
+      x1 = x1 + ks[(r + 2) % 3] + np.uint32(r + 1)
+  return x0, x1
+
+
+def host_uniform(np_rng, shape=()):
+  """f32 U[0, 1) of `shape` as JAX's eager host run of a random device op
+  draws it: `jax.random.uniform(PRNGKey(np_rng.integers(0, 2**31 - 1)),
+  shape)` (partitionable threefry: counter i in the low word, the two
+  output words xor-ed; the top 23 bits as the mantissa of [1, 2))."""
+  seed = int(np_rng.integers(0, 2**31 - 1))
+  count = np.arange(int(np.prod(shape)), dtype=np.uint32).reshape(shape)
+  b0, b1 = threefry2x32((0, seed), np.zeros_like(count), count)
+  bits = (b0 ^ b1) >> np.uint32(9) | np.uint32(0x3F800000)
+  return bits.view(np.float32) - np.float32(1.0)

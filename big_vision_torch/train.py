@@ -39,7 +39,8 @@ log step it writes `uptime`, `examples_seen`, `epoch`, `img/sec/core` and
 times are written as `z/secs/eval/<name>` and `z/secs/ckpt`; its totals are
 saved in every checkpoint under "chrono" and restored on resume. The
 window measures `img/sec`, `step_ms` and `input_stall_pct` cover the steps
-since the last log row, without those pauses.
+since the last log row, without those pauses. Each log row also gets the
+host's and the card's memory (`utils/chrono.log_memory`), as in JAX.
 
 The model is the config's `model_name`, as in the JAX trainer: "vit" or
 "mlp_mixer" (`MODELS`); its params go by their JAX names
@@ -57,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib
 import importlib.util
 import math
 import os
@@ -121,7 +123,15 @@ def l2(tensors):
 def load_into(model, model_mod, init_file, model_cfg, load_kw=None):
   """Loads `init_file` into `model` through `model_mod.load` (the JAX
   package's `load` of that model, on the model's own params as the init
-  tree), replacing its parameters."""
+  tree), replacing its parameters. A checkpoint file of the port's
+  trainers (`{prefix}-{step}`) gives its params by name instead."""
+  if (isinstance(init_file, str) and os.path.isfile(init_file)
+      and not init_file.endswith(".npz")):
+    params = checkpoints.load_checkpoint(init_file)["params"]
+    with torch.no_grad():
+      for name, p in jax_name_params(model).items():
+        p.copy_(params[name])
+    return
   loaded = model_mod.load(convert.params(model), init_file,
                           dict(model_cfg or {}), **dict(load_kw or {}))
   convert.load(model, convert.state(model, loaded))
@@ -382,6 +392,7 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
         mw.measure("step_ms", 1e3 * dt / n_window)
         mw.measure("input_stall_pct", 100.0 * stall / dt)
         chrono.tick(step)
+        chrono_lib.log_memory(mw.measure, trainer.device)
         t_window, paused, stall, n_window = window_start()
       if ckpt_mgr and (step % ckpt_steps == 0 or step == total):
         chrono.pause(wait_for=trainer.params.values())
@@ -406,6 +417,13 @@ def train(config, workdir=None, *, device="cuda", trainer_cls=Trainer):
     if ckpt_mgr:
       ckpt_mgr.close()
   return trainer
+
+
+def import_pp_modules(config, default=("ops_general", "ops_image")):
+  """Imports `big_vision_torch.pp.<m>` for the config's `pp_modules` (the
+  registry's side effects), as the JAX trainers do."""
+  for m in config.get("pp_modules", default):
+    importlib.import_module(f"big_vision_torch.pp.{m}")
 
 
 def load_config(spec):

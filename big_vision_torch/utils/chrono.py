@@ -20,7 +20,32 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["Chrono"]
+__all__ = ["Chrono", "log_memory"]
+
+
+def log_memory(measure, device="cuda"):
+  """Measures host memory (with `psutil`, where it is installed) and the
+  card's, under the JAX package's names: `y/hostmem/total`,
+  `y/hostmem/available`, and `y/devmem/dev0/{bytes_in_use,
+  peak_bytes_in_use, bytes_limit}` from `torch.cuda.memory_stats` and the
+  card's total memory (nothing for a CPU device)."""
+  try:
+    import psutil  # pylint: disable=g-import-not-at-top
+    vmem = psutil.virtual_memory()
+    measure("y/hostmem/total", vmem.total)
+    measure("y/hostmem/available", vmem.available)
+  except ImportError:
+    pass
+  device = torch.device(device)
+  if device.type != "cuda":
+    return
+  stats = torch.cuda.memory_stats(device)
+  measure("y/devmem/dev0/bytes_in_use",
+          stats.get("allocated_bytes.all.current", 0))
+  measure("y/devmem/dev0/peak_bytes_in_use",
+          stats.get("allocated_bytes.all.peak", 0))
+  measure("y/devmem/dev0/bytes_limit",
+          torch.cuda.get_device_properties(device).total_memory)
 
 
 def _hms(s):

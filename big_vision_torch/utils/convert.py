@@ -154,6 +154,9 @@ def vit_names(module: torch.nn.Module) -> dict[str, str]:
     if name in ("pos_embedding", "cls"):
       out[name] = name
       continue
+    if name == "embedding":  # the text transformer's token table
+      out[name] = "Embed_0/embedding"
+      continue
     if name == "map_head.probe":
       out[name] = "MAPHead_0/probe"
       continue
@@ -268,31 +271,132 @@ def mixer_params(module: torch.nn.Module) -> dict:
   return _params(module, mixer_names(module), _mixer_layout)
 
 
-def _is_mixer(module):
-  from big_vision_torch.models import mlp_mixer  # pylint: disable=g-import-not-at-top
-  return isinstance(module, mlp_mixer.MlpMixer)
+def text_transformer_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a
+  `models.proj.image_text.text_transformer` module: the ViT's names with
+  the encoder under "Encoder_0/" ("Embed_0/embedding", "pos_embedding",
+  "Encoder_0/encoderblock_0/...", "MAPHead_0/...", "head/...")."""
+  return {k: v.replace("Transformer/", "Encoder_0/", 1)
+          for k, v in vit_names(module).items()}
+
+
+def bert_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a `models.proj.flaxformer.bert`
+  module ("BertEncoder_0/layer_0/attention/query/kernel",
+  "BertEncoder_0/word_embeddings/embedding", "head/bias", ...)."""
+  out = {}
+  for name, _ in module.named_parameters():
+    if name.endswith("_embeddings"):
+      out[name] = f"BertEncoder_0/{name}/embedding"
+      continue
+    layer, leaf = name.rsplit(".", 1)
+    kind = ("bias" if leaf == "bias" else
+            "scale" if layer.endswith("norm") else "kernel")
+    if layer != "head":
+      layer = "BertEncoder_0/" + re.sub(r"^layers\.(\d+)", r"layer_\1",
+                                        layer).replace(".", "/")
+    out[name] = f"{layer}/{kind}"
+  return out
+
+
+def two_towers_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a
+  `models.proj.image_text.two_towers` module: each tower's names under
+  "img/" and "txt/", and "t", "b"."""
+  out = {}
+  for tower in ("img", "txt"):
+    sub = module.get_submodule(tower)
+    out.update({f"{tower}.{k}": f"{tower}/{v}"
+                for k, v in names(sub).items()})
+  out.update({n: n for n in ("t", "b") if getattr(module, n) is not None})
+  return out
+
+
+def _two_towers_layout(module, name, jax_name, x):
+  """Parameter `name` of a two-tower module in its JAX layout."""
+  if "." not in name:  # t, b
+    return x
+  tower, rest = name.split(".", 1)
+  sub = module.get_submodule(tower)
+  return _LAYOUTS[_kind(sub)](sub, rest, jax_name.split("/", 1)[1], x)
+
+
+def _from_jax(module, names_, layout, tree):
+  """A JAX param tree -> `module`'s state dict (numpy), inverting
+  `layout`: each kernel's elements are placed through the layout of an
+  index tensor of the parameter's shape; other leaves are reshaped."""
+  leaves, out = _Leaves(_flat(tree)), {}
+  for name, jax_name in names_.items():
+    x = np.asarray(leaves.take(jax_name))
+    shape = tuple(module.get_parameter(name).shape)
+    if jax_name.endswith("/kernel"):
+      idx = torch.arange(int(np.prod(shape))).reshape(shape)
+      pos = layout(module, name, jax_name, idx).reshape(-1).numpy()
+      y = np.empty(x.size, x.dtype)
+      y[pos] = x.reshape(-1)
+      x = y
+    out[name] = x.reshape(shape)
+  leaves.done()
+  return out
+
+
+def two_towers(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
+  """Two-tower param tree {"img", "txt", "t"[, "b"]} -> the port module's
+  state dict (numpy); the image tower through `state`, so that a ViT of any
+  historical layout is read."""
+  out = {}
+  for tower in ("img", "txt"):
+    sub = module.get_submodule(tower)
+    out.update({f"{tower}.{k}": v for k, v in state(sub, tree[tower]).items()})
+  for n in ("t", "b"):
+    if getattr(module, n) is not None:
+      out[n] = np.asarray(tree[n]).reshape(1)
+  unused = set(tree) - {"img", "txt", "t", "b"}
+  if unused or ("b" in tree and module.b is None):
+    raise ValueError(f"unused params: {sorted(unused | ({'b'} & set(tree)))}")
+  return out
+
+
+def _kind(module):
+  """"mixer", "vit" (also FlexiViT), "text", "bert" or "two_towers"."""
+  return {"mlp_mixer": "mixer", "text_transformer": "text", "bert": "bert",
+          "two_towers": "two_towers"}.get(
+              type(module).__module__.rsplit(".", 1)[-1], "vit")
+
+
+_NAMES = {"mixer": mixer_names, "vit": vit_names,
+          "text": text_transformer_names, "bert": bert_names,
+          "two_towers": two_towers_names}
+_LAYOUTS = {"mixer": _mixer_layout, "vit": _vit_layout, "text": _vit_layout,
+            "bert": _vit_layout, "two_towers": _two_towers_layout}
 
 
 def names(module: torch.nn.Module) -> dict[str, str]:
-  """{port parameter name: JAX param name} of a ViT, FlexiViT or Mixer."""
-  return (mixer_names if _is_mixer(module) else vit_names)(module)
+  """{port parameter name: JAX param name} of a ViT, FlexiViT, Mixer, text
+  transformer, BERT or two-tower model."""
+  return _NAMES[_kind(module)](module)
 
 
 def params(module: torch.nn.Module) -> dict:
-  """The JAX param tree of a ViT, FlexiViT or Mixer (numpy)."""
-  return (mixer_params if _is_mixer(module) else vit_params)(module)
+  """The JAX param tree of any model of `names` (numpy)."""
+  return _params(module, names(module), _LAYOUTS[_kind(module)])
 
 
 def state(module: torch.nn.Module, tree) -> dict:
-  """A JAX param tree -> the state dict of `module`, a ViT, FlexiViT or
-  Mixer of that tree's model."""
-  return (mixer if _is_mixer(module) else vit)(tree)
+  """A JAX param tree -> the state dict of `module`, a model of `names` of
+  that tree's model."""
+  kind = _kind(module)
+  if kind in ("mixer", "vit"):
+    return (mixer if kind == "mixer" else vit)(tree)
+  if kind == "two_towers":
+    return two_towers(module, tree)
+  return _from_jax(module, names(module), _LAYOUTS[kind], tree)
 
 
 def jax_shapes(module: torch.nn.Module) -> dict[str, tuple]:
-  """{JAX param name: its shape in the JAX layout} of a ViT, FlexiViT or
-  Mixer (computed on views: nothing is copied)."""
-  layout = _mixer_layout if _is_mixer(module) else _vit_layout
+  """{JAX param name: its shape in the JAX layout} of a model of `names`
+  (computed on views: nothing is copied)."""
+  layout = _LAYOUTS[_kind(module)]
   return {jax: tuple(layout(module, name, jax,
                             module.get_parameter(name).detach()).shape)
           for name, jax in names(module).items()}

@@ -1,5 +1,6 @@
-"""Loss functions: port of `onehot`, `sigmoid_xent` and `softmax_xent` in
-big_vision_tpu/utils/losses.py, with the same keyword-only signatures."""
+"""Loss functions: port of `onehot`, `sigmoid_xent`, `softmax_xent` and
+`bidirectional_contrastive_loss` in big_vision_tpu/utils/losses.py, with
+the same signatures."""
 
 from __future__ import annotations
 
@@ -28,3 +29,31 @@ def softmax_xent(*, logits, labels, reduction=True, kl=False, axis=-1):
     nll = nll + torch.sum(labels * torch.log(labels.clamp_min(1e-8)),
                           dim=axis)
   return nll.mean() if reduction else nll
+
+
+def bidirectional_contrastive_loss(zimg, ztxt, t, mask=None,
+                                   reduction=False):
+  """InfoNCE in both directions over the full [B, B] logits `zimg @ ztxt.T
+  * t`; rows and columns of examples outside `mask` are -inf and their
+  losses 0. Returns (loss, {"ncorrect": image->text top-1 hits}), per
+  example or (with `reduction`) their (masked) mean."""
+  logits = (zimg @ ztxt.T) * t
+  if mask is not None:
+    exclude = ~mask.bool()
+    exclude = exclude[:, None] | exclude[None, :]
+    logits = torch.where(exclude, float("-inf"), logits)
+  l1 = -torch.diagonal(torch.log_softmax(logits, dim=1))  # image -> text
+  l2 = -torch.diagonal(torch.log_softmax(logits, dim=0))  # text -> image
+  loss = 0.5 * (l1 + l2)
+  if mask is not None:
+    loss = torch.where(mask.bool(), loss, 0.0)
+
+  def redux(x):
+    if not reduction:
+      return x
+    if mask is None:
+      return x.mean()
+    return torch.sum(x * mask) / (torch.sum(mask) + 1e-8)
+  hits = (logits.argmax(dim=1) == torch.arange(
+      len(logits), device=logits.device)).to(torch.float32)
+  return redux(loss), {"ncorrect": redux(hits)}

@@ -9,7 +9,8 @@ Run from the root of a checkout, with no arguments:
 every kernel and of the JPEG decoder after a change to one;
 `python3 chip_smoke.py --serving` builds and runs phase 3 alone;
 `python3 chip_smoke.py --recipes` builds and runs phase 9 alone;
-`python3 chip_smoke.py --quality` builds and runs phase 10 alone.)
+`python3 chip_smoke.py --quality` builds and runs phase 10 alone;
+`python3 chip_smoke.py --siglip` builds and runs phase 11 alone.)
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. builds every CUDA kernel from big_vision_torch/csrc (one nvcc each, in
@@ -26,7 +27,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      inputs run K1's and K2's 3xTF32 kernels, held to F32_BAR = 1e-4
      (their semantics are f32, only the order of sums differs) at
      FlexiViT-B's seqhw 5, 15 and 24, the quality phase's D = 16 (B=256,
-     H=6) and D = 32 (B=64, H=4) at T=64, causal, seg (padding rows: o
+     H=6) and D = 32 (B=64, H=4) at T=64, LiT's T = 197 (B=64, H=12,
+     D=64), causal, seg (padding rows: o
      exact zeros, LSE exactly -1e30), Tq != Tkv and D = 18, 72, 128, 256;
      for K1
      o and the row LSE, for K2 each of dq, dk and dv is held to the bar;
@@ -221,7 +223,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
      tools/dynamics_twin.py, drawn here in numpy) from one random init,
      under attn "auto" (2 K1 and 2 K2 f32 launches a step) and attn=xla
      (none): every step's training_loss within TWIN_BAR (1e-3) relative;
- 11. times prefill, the AR step, the training step (end to end: median of
+ 11. trains configs/proj/image_text/siglip_lit_coco.py (LiT: a frozen
+     ViT-B/16 at 224px with [cls], T = 197, and BERT-base at 16 tokens,
+     both from random `.npz` inits read through the config's `model_init`
+     and `model_load`; the stand-in `vocab.txt` of 30,522 rows) through
+     the SigLIP trainer's command line at batch 256 for SIGLIP_STEPS
+     steps, with a checkpoint and the retrieval eval (256 images, 1280
+     captions) at the last step and the eval at step 0: launches exact
+     (12 K1f and 12 K2f a step, the frozen tower's backward included; 12
+     K1f a batch of images, none a batch of captions), the frozen tower's
+     params equal to the init's, recalls in [0, 1], step ms, img/s, stall,
+     peak memory and the eval's img/s; SIGLIP_FIXED_STEPS steps on one
+     batch; the kernel path against attn=xla on an unseen batch (loss,
+     zimg, ztxt within E2E_BAR) and each K1f and K2f launch of its forward
+     and backward in place within F32_BAR; an update at twice the batch
+     (out of memory: 256 is the largest power of two that fits); then
+     `tools/eval_only` on `load_and_eval:name=proj.image_text.siglip_lit_coco`
+     from the trainer's checkpoint (recalls equal to the trainer's last
+     eval) and on `load_and_eval:name=vit_i1k` from a random AugReg
+     ViT-B/16 `.npz` (EVAL_ONLY_NEVAL images a split, 12 K1f a batch, eval
+     img/s);
+ 12. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
@@ -400,6 +422,17 @@ BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: F32_BAR}
 SMALL_D = [("digits D=16 f32", dict(b=256, tq=64, h=6, d=16)),
            ("twin D=32 f32", dict(b=64, tq=64, h=4, d=32))]
 K2_BARS = {torch.bfloat16: K2_BAR, torch.float32: F32_BAR}
+# Phase 11, LiT: siglip_lit_coco (a frozen ViT-B/16 at 224px with `tok`
+# pooling, T = 197, and BERT-base at 16 tokens) through the SigLIP trainer:
+# loop steps (a checkpoint and the retrieval eval at the last), fixed-batch
+# steps, images of the retrieval eval's val split (five captions each), the
+# config's batch, and the images of each eval split of eval_only on vit_i1k.
+SIGLIP_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                             "image_text", "siglip_lit_coco.py")
+LOAD_AND_EVAL = os.path.join(ROOT, "big_vision_torch", "configs",
+                             "load_and_eval.py")
+SIGLIP_STEPS, SIGLIP_FIXED_STEPS, SIGLIP_NEVAL, SIGLIP_B = 10, 3, 256, 256
+EVAL_ONLY_NEVAL = 512
 # GSAM's gradient on the kernel path against the plain path, its l2
 # distance over its l2 norm: the second pass starts from weights moved by
 # the first pass's gradient, so the f32 kernels' differences pass through
@@ -492,6 +525,8 @@ def check_k1(fa):
                                               h=TRAIN_H, d=TRAIN_D, dtype=f32),
              {}) for s in (5, 15, 24)]
   cases += [(name, dict(shape, dtype=f32), {}) for name, shape in SMALL_D]
+  cases += [("LiT B/16 tok T=197 f32", dict(b=64, tq=197, h=TRAIN_H,
+                                            d=TRAIN_D, dtype=f32), {})]
   cases += [
       ("causal f32", dict(b=2, tq=200, h=4, d=64, dtype=f32),
        dict(causal=True)),
@@ -570,6 +605,8 @@ def check_k2(fa):
                                               h=TRAIN_H, d=TRAIN_D, dtype=f32),
              {}) for s in (5, 15, 24)]
   cases += [(name, dict(shape, dtype=f32), {}) for name, shape in SMALL_D]
+  cases += [("LiT B/16 tok T=197 f32", dict(b=64, tq=197, h=TRAIN_H,
+                                            d=TRAIN_D, dtype=f32), {})]
   cases += [
       ("causal f32", dict(b=2, tq=200, h=4, d=64, dtype=f32),
        dict(causal=True)),
@@ -2467,16 +2504,16 @@ def randaug_ops_vs_cpu(gpu):
         f"Rotate {worst['Rotate']:.3e}; the other 14 ops 0")
 
 
-def write_vit_s16(path):
-  """Writes a random ViT-S/16 (224px, GAP, sincos2d posemb, the tanh
-  pre-logits layer, 1000 classes) from SEED as an `.npz` in the JAX layout:
-  the stand-in for the JAX config's "i1k-s16-300ep"."""
+def write_vit(path, variant, rep_size, seed):
+  """Writes a random ViT (224px, GAP, sincos2d posemb, 1000 classes, the
+  tanh pre-logits layer with `rep_size`) from `seed` as an `.npz` in the
+  JAX layout: the stand-in for a published checkpoint."""
   from big_vision_torch.models import vit
   from big_vision_torch.utils import checkpoints
   from big_vision_torch.utils import convert
-  model = vit.Model(1000, variant="S/16", pool_type="gap", posemb="sincos2d",
-                    rep_size=True, device="cuda")
-  model.initialize(torch.Generator(device="cuda").manual_seed(SEED + 17))
+  model = vit.Model(1000, variant=variant, pool_type="gap", posemb="sincos2d",
+                    rep_size=rep_size, device="cuda")
+  model.initialize(torch.Generator(device="cuda").manual_seed(seed))
   checkpoints.npz_save(convert.vit_params(model), path)
   return path
 
@@ -2731,19 +2768,25 @@ def gsam_kernel_vs_plain(fa, trainer, recipe, batch, what):
   assert loss_err <= F32_BAR and err <= GSAM_BAR, (loss_err, err)
 
 
-def batch_headroom(trainer, gpu, what):
-  """One update at twice the trainer's batch, on random images: whether
-  the card holds it (its peak memory) or runs out of memory, which makes
-  the config's batch the largest power of two that fits."""
+def batch_headroom(trainer, gpu, what, make_batch=None):
+  """One update at twice the trainer's batch, on random inputs
+  (`make_batch(b)`; by default images and one-hot labels of the config's
+  classes): whether the card holds it (its peak memory) or runs out of
+  memory, which makes the config's batch the largest power of two that
+  fits."""
   b = 2 * trainer.batch_size
   gc.collect()
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
-  n = trainer.config["num_classes"]
+
+  def classification_batch(b):
+    n = trainer.config["num_classes"]
+    return {"image": torch.randn((b, 224, 224, 3), device="cuda"),
+            "labels": torch.nn.functional.one_hot(
+                torch.arange(b, device="cuda") % n, n).float()}
+
   try:
-    batch = {"image": torch.randn((b, 224, 224, 3), device="cuda"),
-             "labels": torch.nn.functional.one_hot(
-                 torch.arange(b, device="cuda") % n, n).float()}
+    batch = (make_batch or classification_batch)(b)
     trainer.update(batch)
     torch.cuda.synchronize()
     print(f"[{gpu}] {what}: an update at batch {b} fits, max memory "
@@ -2847,7 +2890,9 @@ def recipes_phase(fa, gpu):
   torch.cuda.empty_cache()
   randaug_ops_vs_cpu(gpu)
   os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-  init = write_vit_s16(os.path.join(ROOT, "build", "chip_smoke_vit_s16.npz"))
+  # The stand-in for the JAX config's "i1k-s16-300ep".
+  init = write_vit(os.path.join(ROOT, "build", "chip_smoke_vit_s16.npz"),
+                   "S/16", rep_size=True, seed=SEED + 17)
   opt_batch = None
   for recipe in RECIPES:
     t1 = time.perf_counter()
@@ -3388,6 +3433,292 @@ def kernel_entries(fa, da, counts, gpu):
   return kernels
 
 
+# ----------------------------------------------------------------------------
+# Phase 11: SigLIP/LiT image-text training and the eval-only path.
+# ----------------------------------------------------------------------------
+
+
+def write_siglip_inits(directory):
+  """Random inits of the LiT towers from SEED, as `.npz` files in the JAX
+  layout: a ViT-B/16 at 224px with `tok` pooling and no head (the stand-in
+  for "howto-i21k-B/16") and a BERT-base without a head (for
+  "bert_base"). Returns (image path, text path)."""
+  from big_vision_torch.models import vit
+  from big_vision_torch.models.proj.flaxformer import bert
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  os.makedirs(directory, exist_ok=True)
+  paths = (os.path.join(directory, "img.npz"),
+           os.path.join(directory, "txt.npz"))
+  for path, model in zip(paths, (
+      vit.Model(0, variant="B/16", pool_type="tok", device="cuda"),
+      bert.Model(config="base", device="cuda"))):
+    model.initialize(torch.Generator(device="cuda").manual_seed(SEED + 23))
+    checkpoints.npz_save(convert.params(model), path)
+    del model
+  return paths
+
+
+def siglip_args(inits, vocab, extra=""):
+  img, txt = inits
+  return (f"img_init={img},txt_init={txt},vocab={vocab},"
+          f"neval={SIGLIP_NEVAL}{extra}")
+
+
+def siglip_main_path(fa, workdir, inits, vocab, gpu):
+  """SIGLIP_STEPS steps of the SigLIP trainer's command line on
+  siglip_lit_coco at full width from the random inits, its retrieval eval
+  at step 0 and at the last step (with a checkpoint there); asserts the
+  launches of every step (12 K1f, 12 K2f) and eval batch (12 K1f a batch
+  of images, none a batch of captions), the recalls finite and the frozen
+  image tower unchanged. Returns (trainer, {"step_ms", "img/sec",
+  "input_stall_pct": medians of the rows after the first; "peak"}, the
+  last eval's metrics, the checkpoint)."""
+  from big_vision_torch.trainers.proj.image_text import siglip
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import trees
+  shutil.rmtree(workdir, ignore_errors=True)
+  calls = {}
+  reset_launches(fa)
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  args = siglip_args(inits, vocab, f",stop={SIGLIP_STEPS},log=1,"
+                     f"ckpt={SIGLIP_STEPS},eval_every={SIGLIP_STEPS}")
+  with counted_predict_fns(fa, calls):
+    trainer = siglip.main(["--config", f"{SIGLIP_CONFIG}:{args}",
+                           "--workdir", workdir])
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  counts = launches(fa)
+  depth = len(trainer.model.img.encoder.blocks)
+  [per_call] = calls.values()
+  per_img = {**dict.fromkeys(COUNTERS, 0), "K1f": depth}
+  per_txt = dict.fromkeys(COUNTERS, 0)
+  n_img = sum(c == per_img for c in per_call)
+  assert all(c in (per_img, per_txt) for c in per_call), per_call[:4]
+  want = {**dict.fromkeys(COUNTERS, 0),
+          "K1f": depth * (SIGLIP_STEPS + n_img), "K2f": depth * SIGLIP_STEPS}
+  print(f"siglip_lit_coco: {SIGLIP_STEPS} steps of batch "
+        f"{trainer.batch_size}, {trainer.config['input']['pp']!r}, the "
+        f"retrieval eval at steps 0 and {SIGLIP_STEPS} ({n_img} image "
+        f"batches, {len(per_call) - n_img} caption batches); launches "
+        f"{({k: n for k, n in counts.items() if n})} (want "
+        f"{({k: n for k, n in want.items() if n})}: per step {depth} K1f "
+        f"and {depth} K2f, per image batch {depth} K1f, per caption batch "
+        f"none)")
+  assert counts == want, (counts, want)
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    all_rows = list(map(json.loads, f))
+  evals = {r["step"]: {k: v for k, v in r.items()
+                       if k.startswith("retrieval_coco/")}
+           for r in all_rows if "retrieval_coco/txt2img/recall@1" in r}
+  assert sorted(evals) == [0, SIGLIP_STEPS], sorted(evals)
+  for step, ev in evals.items():
+    assert len(ev) == 6 and all(0 <= v <= 1 for v in ev.values()), ev
+    print(f"  retrieval eval at step {step}: " + ", ".join(
+        f"{k.split('/', 1)[1]} {v:.6f}" for k, v in sorted(ev.items())))
+  rows = [r for r in all_rows if "training_loss" in r]
+  assert [r["step"] for r in rows] == list(range(1, SIGLIP_STEPS + 1)), rows
+  for r in rows:
+    for k in ("training_loss", "t", "b", "l2_grads", "l2_params"):
+      assert math.isfinite(r[k]), r
+  secs = [r["z/secs/eval/retrieval_coco"] for r in all_rows
+          if "z/secs/eval/retrieval_coco" in r]
+  e2e = {k: statistics.median(r[k] for r in rows[1:])
+         for k in ("step_ms", "img/sec", "input_stall_pct")}
+  e2e.update(peak=peak, eval_secs=secs[-1])
+  print("  losses " + " ".join(f"{r['training_loss']:.6f}" for r in rows)
+        + f"; t {rows[-1]['t']:.6f}, b {rows[-1]['b']:.6f}, l2_grads "
+        f"{rows[-1]['l2_grads']:.6f}")
+  print(f"[{gpu}] retrieval eval of {SIGLIP_NEVAL} images and "
+        f"{5 * SIGLIP_NEVAL} captions: {secs[-1]:.3f} s, "
+        f"{SIGLIP_NEVAL / secs[-1]:.1f} img/s")
+  # The frozen tower: its params are the init's, bit for bit.
+  from big_vision_torch.utils import convert
+  img = trees.flatten(checkpoints.load_params(inits[0]))
+  now = trees.flatten(convert.params(trainer.model.img))
+  assert sorted(now) == sorted(img), sorted(set(now) ^ set(img))
+  assert all(np.array_equal(now[n], x) for n, x in img.items()), (
+      "the frozen image tower moved")
+  print(f"  the frozen image tower: its {len(img)} params equal the init's "
+        f"after {SIGLIP_STEPS} steps")
+  ckpt = checkpoints.last_checkpoint_dir(os.path.join(workdir, "ckpt.bv"))
+  assert ckpt and ckpt.endswith(f"{SIGLIP_STEPS:09d}-tmp"), ckpt
+  return trainer, e2e, evals[SIGLIP_STEPS], ckpt
+
+
+def siglip_loss(trainer, batch, **kw):
+  """(loss, zimg, ztxt) of the SigLIP loss on `batch` (eval mode: no
+  dropout)."""
+  zimg, ztxt, out = trainer.model(batch["image"], batch["labels"], **kw)
+  loss = trainer.siglip_loss(zimg, ztxt, out["t"][0], out["b"][0])
+  return loss, zimg, ztxt
+
+
+def siglip_fixed_steps(trainer, gpu):
+  """SIGLIP_FIXED_STEPS updates on one batch, timed with CUDA events (the
+  step without the input pipeline); the loss on that batch before and
+  after (finite). Returns (the batch, the next batch, which no update saw,
+  ms per step)."""
+  it = trainer.input_iter()
+  batch, unseen = next(it), next(it)
+  it.close()
+  with torch.no_grad():
+    before = siglip_loss(trainer, batch)[0].item()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  for _ in range(SIGLIP_FIXED_STEPS):
+    trainer.update(batch)
+  end.record()
+  end.synchronize()
+  with torch.no_grad():
+    after = siglip_loss(trainer, batch)[0].item()
+  ms = start.elapsed_time(end) / SIGLIP_FIXED_STEPS
+  print(f"[{gpu}] siglip_lit_coco: fixed batch, {SIGLIP_FIXED_STEPS} steps "
+        f"of {ms:.3f} ms (CUDA events); its loss {before:.6f} -> "
+        f"{after:.6f}")
+  assert math.isfinite(after), after
+  return batch, unseen, ms
+
+
+def siglip_kernel_vs_plain(fa, trainer, inits, vocab, batch):
+  """The kernel path against the plain path (the image tower's attn=xla,
+  the same weights) on `batch`: the loss, zimg and ztxt within E2E_BAR of
+  max|plain|; then every K1f and K2f launch of one forward and backward of
+  the kernel path, in place, against its plain version within F32_BAR."""
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.image_text import siglip
+  reset_launches(fa)
+  with torch.no_grad():
+    lk, ik, tk = siglip_loss(trainer, batch)
+  torch.cuda.synchronize()
+  depth = len(trainer.model.img.encoder.blocks)
+  assert launches(fa) == {**dict.fromkeys(COUNTERS, 0), "K1f": depth}
+  plain = siglip.Trainer(train.load_config(
+      f"{SIGLIP_CONFIG}:{siglip_args(inits, vocab, ',attn=xla')}"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  reset_launches(fa)
+  with torch.no_grad():
+    lp, ip, tp = siglip_loss(plain, batch)
+  assert launches(fa) == dict.fromkeys(COUNTERS, 0), launches(fa)
+  del plain
+  errs = {"loss": abs(lk.item() - lp.item()) / abs(lp.item()),
+          "zimg": rel_err(ik, ip), "ztxt": rel_err(tk, tp)}
+  b = batch["image"].shape[0]
+  print(f"siglip_lit_coco kernel vs plain path (attn=xla), batch {b}: loss "
+        f"{lk.item():.6f} vs {lp.item():.6f}; rel err " + ", ".join(
+            f"{k} {e:.3e}" for k, e in errs.items()) + f" (bar {E2E_BAR})")
+  assert all(e <= E2E_BAR for e in errs.values()), errs
+  k1_rows, k2_rows = [], []
+  for p in trainer.params.values():
+    p.grad = None
+  with attention_checked_in_place(fa, k1_rows, k2_rows):
+    siglip_loss(trainer, batch)[0].backward()
+  torch.cuda.synchronize()
+  for p in trainer.params.values():
+    p.grad = None
+  heads = trainer.model.img.encoder.blocks[0].attn.num_heads
+  for what_k, rows, n in (("K1 (f32) forward", k1_rows, 2 * depth),
+                          ("K2 (f32) backward", k2_rows, 3 * depth)):
+    assert len(rows) == n, (what_k, len(rows))
+    rows.sort(reverse=True)
+    print(f"siglip_lit_coco image tower: {what_k} in place, batch {b} x "
+          f"{heads} heads (B*H = {b * heads}, T = 197): {len(rows)} outputs "
+          f"of {depth} launches against the plain version, the 3 worst "
+          f"(bar {F32_BAR}): " + ", ".join(f"{nm} {e:.3e}"
+                                           for e, nm in rows[:3]))
+    assert all(e <= F32_BAR for e, _ in rows), rows[:3]
+
+
+def eval_only_run(fa, arg, gpu, what):
+  """`tools.eval_only` on `load_and_eval.py:<arg>` through its command
+  line; returns (its metrics, [launches of each predict fn call])."""
+  from big_vision_torch.tools import eval_only
+  calls = {}
+  reset_launches(fa)
+  with counted_predict_fns(fa, calls):
+    metrics = eval_only.main(["--config", f"{LOAD_AND_EVAL}:{arg}"])
+  torch.cuda.synchronize()
+  per_call = [c for cs in calls.values() for c in cs]
+  print(f"{what}: eval_only, {len(per_call)} predict fn calls, launches "
+        f"{({k: n for k, n in launches(fa).items() if n})}")
+  return metrics, per_call
+
+
+def siglip_phase(fa, gpu):
+  """Phase 11: LiT (siglip_lit_coco) at full width through the SigLIP
+  trainer's command line (launches exact, step ms, img/s, input stall,
+  peak memory, the frozen tower unchanged, the retrieval eval's recalls
+  and img/s); its step on a fixed batch; the kernel path against
+  attn=xla and K1f/K2f in place at B*H = 3072, T = 197; an update at twice
+  the batch; then `tools.eval_only` on the trainer's checkpoint (recalls
+  equal to the trainer's last eval) and on a random AugReg ViT-B/16 through
+  `load_and_eval:name=vit_i1k` (12 K1f a batch, eval img/s)."""
+  t0 = time.perf_counter()
+  gc.collect()
+  torch.cuda.empty_cache()
+  from big_vision_torch.configs.proj.image_text import common
+  directory = os.path.join(ROOT, "build", "chip_smoke_siglip")
+  inits = write_siglip_inits(directory)
+  vocab = common.stand_in_vocab(os.path.join(directory, "vocab.txt"))
+  trainer, e2e, last_eval, ckpt = siglip_main_path(
+      fa, os.path.join(directory, "wd"), inits, vocab, gpu)
+  batch, unseen, fixed_ms = siglip_fixed_steps(trainer, gpu)
+  print(f"[{gpu}] siglip_lit_coco (ViT-B/16 frozen + BERT-base, 224px, 16 "
+        f"tokens), batch {trainer.batch_size}: end to end "
+        f"{e2e['step_ms']:.3f} ms/step, {e2e['img/sec']:.1f} img/s, input "
+        f"stall {e2e['input_stall_pct']:.3f}% (median of steps 2-"
+        f"{SIGLIP_STEPS}); fixed batch {fixed_ms:.3f} ms/step; max memory "
+        f"allocated {e2e['peak'] / 2**30:.2f} GiB (of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f})")
+  del batch
+  siglip_kernel_vs_plain(fa, trainer, inits, vocab, unseen)
+  del unseen
+  batch_headroom(trainer, gpu, "siglip_lit_coco", lambda b: {
+      "image": torch.randn((b, 224, 224, 3), device="cuda"),
+      "labels": torch.randint(1, 1000, (b, 16), device="cuda")})
+  del trainer
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  # eval_only on the trainer's checkpoint: the recalls of its last eval.
+  metrics, per_call = eval_only_run(
+      fa, f"name=proj.image_text.siglip_lit_coco,init={ckpt},"
+      f"batch_size={SIGLIP_B},vocab={vocab},neval={SIGLIP_NEVAL}", gpu,
+      "siglip_lit_coco")
+  secs = metrics.pop("z/secs/eval/retrieval_coco")
+  assert metrics == last_eval, (metrics, last_eval)
+  assert {tuple(sorted(c.items())) for c in per_call} == {
+      tuple(sorted({**dict.fromkeys(COUNTERS, 0), "K1f": k}.items()))
+      for k in (0, 12)}, per_call[:4]
+  print(f"[{gpu}] eval_only of the siglip_lit_coco checkpoint: its recalls "
+        f"equal the trainer's eval at step {SIGLIP_STEPS}; {SIGLIP_NEVAL} "
+        f"images in {secs:.3f} s, {SIGLIP_NEVAL / secs:.1f} img/s")
+
+  # eval_only of a random AugReg ViT-B/16 through load_and_eval:vit_i1k.
+  # A random AugReg ViT-B/16 (no pre-logits layer): what vit_i1k reads.
+  init = write_vit(os.path.join(directory, "vit_b16_i1k.npz"), "B/16",
+                   rep_size=False, seed=SEED + 29)
+  metrics, per_call = eval_only_run(
+      fa, f"name=vit_i1k,init={init},neval={EVAL_ONLY_NEVAL}", gpu,
+      "vit_i1k")
+  want = {**dict.fromkeys(COUNTERS, 0), "K1f": 12}
+  assert per_call and all(c == want for c in per_call), per_call[:2]
+  names = sorted(k.split("/")[0] for k in metrics if k.endswith("prec@1"))
+  assert names == ["minival", "train", "v2", "val"], names
+  for n in names:
+    assert 0 <= metrics[f"{n}/prec@1"] <= 1, metrics
+    assert math.isfinite(metrics[f"{n}/loss"]), metrics
+    secs = metrics[f"z/secs/eval/{n}"]
+    print(f"[{gpu}] eval_only vit_i1k eval {n}: {EVAL_ONLY_NEVAL} images in "
+          f"{secs:.3f} s, {EVAL_ONLY_NEVAL / secs:.1f} img/s, prec@1 "
+          f"{metrics[f'{n}/prec@1']:.6f}; {len(per_call) // len(names)} "
+          f"batches of 12 K1f launches")
+  shutil.rmtree(directory, ignore_errors=True)
+  phase_end("siglip", t0)
+
+
 def phase_end(name, t0):
   """Prints the wall time since `t0` of a phase; returns the time now."""
   now = time.perf_counter()
@@ -3397,9 +3728,9 @@ def phase_end(name, t0):
 
 def main(argv):
   if argv not in ([], ["--checks"], ["--serving"], ["--recipes"],
-                  ["--quality"]):
+                  ["--quality"], ["--siglip"]):
     print(f"usage: chip_smoke.py [--checks | --serving | --recipes | "
-          f"--quality]; got {argv}",
+          f"--quality | --siglip]; got {argv}",
           file=sys.stderr)
     return 2
   if not torch.cuda.is_available():
@@ -3445,6 +3776,10 @@ def main(argv):
     quality_phase(fa, gpu)
     print(f"{nvidia_smi()}: the quality phase passed")
     return 0
+  if argv == ["--siglip"]:  # the build and phase 11 alone
+    siglip_phase(fa, gpu)
+    print(f"{nvidia_smi()}: the SigLIP phase passed")
+    return 0
 
   # 2. Kernels vs plain versions.
   counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa)}
@@ -3483,8 +3818,10 @@ def main(argv):
   t0 = phase_end("ImageNet recipes", t0)
   quality_phase(fa, gpu)
   t0 = phase_end("quality", t0)
+  siglip_phase(fa, gpu)
+  t0 = time.perf_counter()
 
-  # 11. Kernel times.
+  # 12. Kernel times.
   kernels = kernel_entries(fa, da, counts, gpu)
   phase_end("kernel times", t0)
   for kern in kernels:

@@ -35,6 +35,11 @@ CONFIGS = {
     "vit_i21k": (None, "runlocal"),
     "proj.gsam.smoke": (None,),
     "proj.gsam.vit_i1k_gsam_no_aug": (None, "runlocal"),
+    "proj.image_text.siglip_smoke": (None, "loss_impl=global"),
+    "proj.image_text.siglip_lit_coco": (None, "runlocal", "img_head=True"),
+    "load_and_eval": ("name=proj.image_text.siglip_smoke",
+                      "name=proj.flexi.smoke,init=x.npz,batch_size=8"),
+    "proj.flexi.smoke": (None, "mode=distill"),
 }
 
 

@@ -3,7 +3,9 @@
 Every module of `big_vision_torch`, and `chip_smoke.py`, is imported in a
 fresh interpreter in which `jax`, `flax`, `optax`, `ml_collections` and
 `big_vision_tpu` are blocked (set to None in `sys.modules`, so importing
-them raises); and no import statement of theirs, at any depth, names one.
+them raises), and with them `transformers` and `tensorflow`, which the
+card's machine lacks (the port's WordPiece and BERT need neither); and no
+import statement of theirs, at any depth, names one.
 """
 
 import ast
@@ -13,7 +15,8 @@ import sys
 
 _SCRIPT = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "ml_collections", "big_vision_tpu"):
+for name in ("jax", "flax", "optax", "ml_collections", "big_vision_tpu",
+             "transformers", "tensorflow"):
   sys.modules[name] = None
 import big_vision_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
@@ -50,11 +53,22 @@ def test_port_imports_without_jax():
                "configs.proj.gsam.smoke",
                "configs.proj.gsam.vit_i1k_gsam_no_aug",
                "trainers.proj.gsam.gsam", "trainers.proj.gsam.train",
-               "tools.step_timing"):
+               "tools.step_timing", "pp.ops_text",
+               "pp.proj.flaxformer.bert_ops", "models.proj.flaxformer.bert",
+               "models.proj.image_text.two_towers",
+               "models.proj.image_text.text_transformer",
+               "parallel.contrastive", "trainers.proj.image_text.siglip",
+               "evaluators.proj.image_text.retrieval",
+               "evaluators.proj.image_text.contrastive", "evaluators.mean",
+               "evaluators.save", "evaluators.classification_with_labelmap",
+               "configs.proj.image_text.siglip_lit_coco",
+               "configs.load_and_eval", "configs.proj.flexi.smoke",
+               "tools.eval_only"):
     assert f"big_vision_torch.{name}" in names, name
 
 
-_BLOCKED = ("jax", "flax", "optax", "ml_collections", "big_vision_tpu")
+_BLOCKED = ("jax", "flax", "optax", "ml_collections", "big_vision_tpu",
+            "transformers", "tensorflow")
 
 
 def _imported_modules(path):
