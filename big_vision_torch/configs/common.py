@@ -105,6 +105,14 @@ SPLITS = {
     # categories, from which the stand-in draws five captions an image.
     ("coco_captions", "train"): (82_783, 80),
     ("coco_captions", "val"): (5_000, 80),
+    # The splits of the PaliGemma transfer config: TFDS's catalog sizes
+    # (train 82,783, restval 30,504, val 5,000) with TFDS's rounding of
+    # percent slices (2% of train: 1,656); no copy of TFDS here can confirm
+    # them.
+    ("coco_captions", "train[:98%]+restval"): (81_127 + 30_504, 80),
+    ("coco_captions", "train+restval"): (82_783 + 30_504, 80),
+    ("coco_captions", "train[:2%]"): (1_656, 80),
+    ("coco_captions", "train[-2%:]"): (1_656, 80),
 }
 
 

@@ -180,27 +180,37 @@ def step_generator(seed, step, device):
   return g
 
 
+def _on_host(x):
+  """Whether a batch array stays on the host (strings and bytes: the JAX
+  package's `keep_on_cpu` fields, such as an eval's captions)."""
+  return x.dtype.kind in "OSU"
+
+
 def _to_device(batch, device, stream):
-  """Numeric numpy arrays -> tensors on `device` (pinned, non-blocking)."""
+  """Numeric numpy arrays -> tensors on `device` (pinned, non-blocking);
+  string arrays stay numpy arrays on the host."""
   if device.type == "cpu":
-    return {k: torch.from_numpy(v) for k, v in batch.items()}
+    return {k: v if _on_host(v) else torch.from_numpy(v)
+            for k, v in batch.items()}
   with torch.cuda.stream(stream):
-    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+    return {k: v if _on_host(v) else
+            torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
             for k, v in batch.items()}
 
 
 def _device_feed(batches, pfn, device, seed, n_prefetch, step_offset=0,
                  preserve=()):
   """Local numpy batches -> device batches after the device pp phase, batch
-  i with the generator of step `step_offset + i`. Keys in `preserve` skip
-  the device pp phase."""
+  i with the generator of step `step_offset + i`. Keys in `preserve`, and
+  the string arrays that stay on the host, skip the device pp phase."""
   stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
   def produce():
     try:
       for step, batch in enumerate(batches):
         batch = _to_device(batch, device, stream)
-        kept = {k: batch.pop(k) for k in preserve if k in batch}
+        kept = {k: batch.pop(k) for k in list(batch)
+                if k in preserve or not isinstance(batch[k], torch.Tensor)}
         gen = step_generator(seed, step_offset + step, device)
         if stream is None:
           yield {**pfn.device(batch, gen), **kept}, None
@@ -220,7 +230,8 @@ def _device_feed(batches, pfn, device, seed, n_prefetch, step_offset=0,
         current = torch.cuda.current_stream(device)
         current.wait_event(ready)
         for v in batch.values():
-          v.record_stream(current)
+          if isinstance(v, torch.Tensor):
+            v.record_stream(current)
       yield batch
   finally:
     feed.close()

@@ -22,6 +22,7 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from big_vision_torch.utils import trees
 
@@ -103,6 +104,23 @@ def init(tensor, kind, generator, fan_in=1, fan_out=1):
     if name == "constant":
       return tensor.fill_(arg)
   raise ValueError(f"Unknown initializer {kind!r}")
+
+
+def checkpointed(fn, *args, rng=None):
+  """fn(*args, rng=rng) under a non-reentrant `torch.utils.checkpoint`:
+  only the inputs are kept, and the backward recomputes fn (a remat policy
+  that saves nothing). The recompute draws its dropout masks from `rng`'s
+  state as it was at the forward, so they are the forward's, and the
+  gradients are those of the plain call, bit for bit."""
+  if rng is None:
+    return checkpoint.checkpoint(fn, *args, use_reentrant=False)
+  state = rng.get_state()
+
+  def run(*a):
+    rng.set_state(state)  # a no-op in the forward; rewinds the recompute
+    return fn(*a, rng=rng)
+
+  return checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def dropout(x, rate, generator):

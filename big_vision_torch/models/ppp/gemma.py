@@ -30,8 +30,19 @@ dequantizes the rows it gathers and applies its row scales after the
 vocab product. `quantize_params` makes that layout from a float tree in
 the JAX layout, and `load` reads the JAX package's `.npz` checkpoints.
 
-Left for later: the fused flash path for training (`attn_impl="flash"`
-with `seg`), dropout.
+Training: `initialize(generator)` draws every parameter from scratch with
+the JAX model's initializers (the einsum weights' truncated normal over
+their fan-in, the embedding's normal, zero RMSNorm scales). With
+`attn_impl="flash"`, a forward that is given the prefix-LM segment ids
+`seg` (and no KV cache, and no logits softcap) takes the fused kernels of
+ops/flash_attention.py, as the JAX model's training path does: k and v
+repeated to the query heads, q multiplied by sqrt(head_dim) to cancel the
+kernels' own 1/sqrt(head_dim). A `remat_policy` other than "none" runs each
+block under a non-reentrant `torch.utils.checkpoint` while autograd
+records: the block keeps only its input and is recomputed in the backward
+(the JAX policy "nothing_saveable"; a policy that saves more in JAX
+computes the same function). Dropout and the context-parallel
+`attn_impl="ring"` are refused by name.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from torch import nn
 
 from big_vision_torch.models import common
 from big_vision_torch.ops import decode_attention as da
+from big_vision_torch.ops import flash_attention as fa
 from big_vision_torch.utils import checkpoints
 
 
@@ -217,14 +229,19 @@ class Attention(nn.Module):
 
   def __init__(self, num_heads, num_kv_heads, features, head_dim,
                query_pre_attn_norm="rsqrt_head_dim", attn_logits_softcap=None,
-               cache_dtype=None, decode_impl="xla", quant=False, *,
-               device="cuda", param_dtype=torch.float32):
+               cache_dtype=None, attn_impl="xla", decode_impl="xla",
+               quant=False, *, device="cuda", param_dtype=torch.float32):
     super().__init__()
     if decode_impl not in ("xla", "flash"):
       raise ValueError(f"Unknown decode_impl {decode_impl!r}")
+    if attn_impl == "ring":
+      raise NotImplementedError(
+          "attn_impl='ring' (context-parallel ring attention over a device "
+          "mesh) is not ported")
     self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
     self.head_dim = head_dim
     self.attn_logits_softcap = attn_logits_softcap
+    self.attn_impl = attn_impl
     self.decode_impl = decode_impl
     if cache_dtype == "int8":
       self.cache_dtype = torch.int8  # the quantized (scaled) layout
@@ -251,7 +268,7 @@ class Attention(nn.Module):
     _add_weights(self, quant, device, param_dtype, **shapes,
                  o=(features, num_heads * head_dim))
 
-  def forward(self, x, positions, attn_mask, cache=None, layer=0):
+  def forward(self, x, positions, attn_mask, cache=None, layer=0, seg=None):
     b, t, _ = x.shape
     n, kh, h = self.num_heads, self.num_kv_heads, self.head_dim
     if n != kh:
@@ -286,6 +303,19 @@ class Attention(nn.Module):
       # The einsum path computes on the cache cast to the compute dtype
       # (an int8 cache as its raw values; the scales fold in below).
       k, v = k_store.to(k.dtype), v_store.to(v.dtype)
+
+    if (self.attn_impl == "flash" and not decode and seg is not None
+        and not self.attn_logits_softcap):
+      # The fused training path: `seg` holds the prefix-LM mask that
+      # attn_mask holds. The kernels scale by 1/sqrt(head_dim); q is
+      # already scaled, so that is cancelled first.
+      if kh != n:
+        k = k.repeat_interleave(n // kh, dim=2)  # jnp.repeat on axis 2
+        v = v.repeat_interleave(n // kh, dim=2)
+      qf = (q * h ** 0.5).to(v.dtype)
+      mixed = fa.flash_attention(qf.contiguous(), k.contiguous(),
+                                 v.contiguous(), seg=seg)
+      return _matmul(self, "o", mixed.reshape(b, t, n * h))
 
     kv = "bksh" if decode else "bskh"
     grouped = q.reshape(b, t, kh, n // kh, h)
@@ -334,8 +364,9 @@ class Block(nn.Module):
 
   def __init__(self, num_heads, num_kv_heads, embed_dim, head_dim,
                hidden_dim, query_pre_attn_norm, attn_logits_softcap,
-               post_norms, cache_dtype=None, decode_impl="xla",
-               quant=False, *, device="cuda", param_dtype=torch.float32):
+               post_norms, cache_dtype=None, attn_impl="xla",
+               decode_impl="xla", quant=False, *, device="cuda",
+               param_dtype=torch.float32):
     super().__init__()
     kw = dict(device=device, param_dtype=param_dtype)
     self.pre_attention_norm = RMSNorm(embed_dim, **kw)
@@ -346,12 +377,12 @@ class Block(nn.Module):
       self.post_ffw_norm = RMSNorm(embed_dim, **kw)
     self.attn = Attention(num_heads, num_kv_heads, embed_dim, head_dim,
                           query_pre_attn_norm, attn_logits_softcap,
-                          cache_dtype, decode_impl, quant, **kw)
+                          cache_dtype, attn_impl, decode_impl, quant, **kw)
     self.mlp = FeedForward(embed_dim, hidden_dim, quant, **kw)
 
-  def forward(self, x, positions, attn_mask, cache=None, layer=0):
+  def forward(self, x, positions, attn_mask, cache=None, layer=0, seg=None):
     y = self.attn(self.pre_attention_norm(x), positions, attn_mask, cache,
-                  layer)
+                  layer, seg)
     if self.post_norms:
       y = self.post_attention_norm(y)
     x = x + y
@@ -385,29 +416,53 @@ class Model(nn.Module):
 
   `forward(tokens, ...)` returns (logits, out) like the JAX model; passing
   a `KVCache` as `cache` runs in decode mode and updates it in place.
+  `scan` shapes only the JAX param layout (utils/convert.py reads both);
+  `remat_policy` and `attn_impl` are described in the module docstring.
   """
 
   def __init__(self, variant, width, depth, mlp_dim, num_heads,
                num_kv_heads, head_dim, norm_eps, vocab_size,
                query_pre_attn_norm="rsqrt_head_dim",
                final_logits_softcap=0.0, attn_logits_softcap=0.0,
-               post_norms=False, cache_dtype=None, embed_dtype="float32",
-               attn_impl="xla", decode_impl="xla", quant=False, *,
-               device="cuda", param_dtype=torch.float32):
+               post_norms=False, dropout=0.0, dropout_bdims=(),
+               cache_dtype=None, embed_dtype="float32", scan=False,
+               remat_policy="none", attn_impl="xla", decode_impl="xla",
+               quant=False, *, device="cuda", param_dtype=torch.float32):
     super().__init__()
-    if attn_impl != "xla":
-      raise NotImplementedError("the LLM's fused training attention "
-                                "(attn_impl='flash') is not ported yet")
-    del variant, norm_eps  # norm eps is fixed at 1e-6, as in JAX
+    if dropout:
+      raise NotImplementedError(
+          f"Gemma dropout={dropout} (dropout_bdims={tuple(dropout_bdims)}) "
+          "is not ported; the port trains the LLM without dropout")
+    del variant, norm_eps, scan  # norm eps is fixed at 1e-6, as in JAX
     kw = dict(device=device, param_dtype=param_dtype)
     self.embed_dtype = common.resolve_dtype(embed_dtype)
     self.final_logits_softcap = final_logits_softcap
+    self.remat_policy = remat_policy
     self.embedder = Embedder(vocab_size, width, quant, **kw)
     self.layers = nn.ModuleList([
         Block(num_heads, num_kv_heads, width, head_dim, mlp_dim,
               query_pre_attn_norm, attn_logits_softcap, post_norms,
-              cache_dtype, decode_impl, quant, **kw) for _ in range(depth)])
+              cache_dtype, attn_impl, decode_impl, quant, **kw)
+        for _ in range(depth)])
     self.final_norm = RMSNorm(width, **kw)
+
+  @torch.no_grad()
+  def initialize(self, generator):
+    """Draws every parameter as the JAX model's `init` does: the embedding
+    N(0, 1/width) (flax's variance_scaling "fan_in" "normal"), every
+    matmul weight flax's truncated normal of variance 1/fan_in (its
+    [out, in] matrix's `in`: the JAX einsum's contracted axes), the
+    RMSNorm scales zero. Returns the module."""
+    if self.embedder.quant:
+      raise ValueError("int8 weights are not drawn: quantize or load them")
+    for name, p in self.named_parameters():
+      if name == "embedder.input_embedding":
+        common.init(p, ("normal", p.shape[1] ** -0.5), generator)
+      elif p.dim() == 2:
+        common.init(p, "lecun_normal", generator, fan_in=p.shape[1])
+      else:
+        common.init(p, "zeros", generator)
+    return self
 
   def embed(self, tokens=None, embedded_prefix=None):
     """Concatenates prefix embeddings and token embeddings, as embed_dtype."""
@@ -419,14 +474,21 @@ class Model(nn.Module):
     return torch.cat([p.to(self.embed_dtype) for p in parts], dim=-2)
 
   def trunk(self, tokens=None, *, embedded_prefix=None, positions=None,
-            mask=None, cache=None):
+            mask=None, cache=None, seg=None):
     """Runs the blocks and the final norm; returns the `out` dict with
-    "encoded" and "pre_logits" (no vocab projection)."""
+    "encoded" and "pre_logits" (no vocab projection). `seg` [B, T] (the
+    prefix-LM segment ids) sends attention to the fused kernels where
+    `attn_impl` is "flash"."""
     x = self.embed(tokens, embedded_prefix)
     positions, mask = prep_positions_mask(x, positions, mask,
                                           cache is not None)
+    remat = (self.remat_policy != "none" and cache is None
+             and torch.is_grad_enabled())
     for i, block in enumerate(self.layers):
-      x = block(x, positions, mask, cache, i)
+      if remat:
+        x = common.checkpointed(block, x, positions, mask, None, i, seg)
+      else:
+        x = block(x, positions, mask, cache, i, seg)
     if cache is not None:
       cache.idx += x.shape[1]
     out = {"encoded": x}
@@ -440,7 +502,8 @@ class Model(nn.Module):
     return x
 
   def forward(self, tokens=None, *, embedded_prefix=None, embed_only=False,
-              pre_logits=None, positions=None, mask=None, cache=None):
+              pre_logits=None, positions=None, mask=None, cache=None,
+              seg=None):
     """Embed-only, logits-from-pre-logits, or the full forward.
 
     As in JAX, logits from `pre_logits` skip the final softcap.
@@ -451,7 +514,7 @@ class Model(nn.Module):
     if embed_only:
       return self.embed(tokens, embedded_prefix)
     out = self.trunk(tokens, embedded_prefix=embedded_prefix,
-                     positions=positions, mask=mask, cache=cache)
+                     positions=positions, mask=mask, cache=cache, seg=seg)
     out["logits"] = self.logits(out["pre_logits"])
     return out["logits"], out
 

@@ -5,7 +5,11 @@ right-aligned so that every example ends at the same cache slot; extending
 the cache then writes one shared slot per step. The decode state is a
 `DecodeCache` that `prefill_cache` returns and `extend_cache` takes and
 returns, in place of Flax's mutable "cache" collection. `quant=True` serves
-int8 weights (models/ppp/gemma.py); `load` is the LLM's loader.
+int8 weights (models/ppp/gemma.py); `load` is the LLM's loader. The JAX
+wrapper's forwarded keys (`_FORWARDED`: scan, remat_policy, dropout,
+dropout_bdims, cache_dtype, attn_impl, decode_impl, quant) go to the LLM
+with the same defaults; `train` has nothing to switch in the port's LLM,
+which has no dropout.
 """
 
 from __future__ import annotations
@@ -50,14 +54,10 @@ class Model(nn.Module):
   def __init__(self, variant="gemma_2b", *, vocab_size=None,
                final_logits_softcap=None, attn_logits_softcap=None,
                cache_dtype: Optional[str] = "bfloat16", attn_impl="xla",
-               decode_impl="xla", quant=False, scan=None, remat_policy=None,
-               dropout=0.0, device="cuda", param_dtype=torch.float32):
-    """`scan` and `remat_policy` only shape the JAX param layout and
-    compile, and are accepted with no effect; dropout waits for training."""
+               decode_impl="xla", quant=False, scan=True,
+               remat_policy="nothing_saveable", dropout=0.0,
+               dropout_bdims=(), device="cuda", param_dtype=torch.float32):
     super().__init__()
-    del scan, remat_policy
-    if dropout:
-      raise NotImplementedError("dropout is not ported yet")
     cfg = gemma.get_config(variant)
     for name, value in (("vocab_size", vocab_size),
                         ("final_logits_softcap", final_logits_softcap),
@@ -67,21 +67,36 @@ class Model(nn.Module):
     self.embdim = cfg["width"]
     self.model = gemma.Model(**cfg, cache_dtype=cache_dtype,
                              attn_impl=attn_impl, decode_impl=decode_impl,
-                             quant=quant, device=device,
+                             quant=quant, scan=scan,
+                             remat_policy=remat_policy, dropout=dropout,
+                             dropout_bdims=dropout_bdims, device=device,
                              param_dtype=param_dtype)
 
-  def embed_tokens(self, tokens):
+  def initialize(self, generator):
+    """Draws the LLM's parameters from scratch (`gemma.Model.initialize`)."""
+    self.model.initialize(generator)
+    return self
+
+  def embed_tokens(self, tokens, train=False):
     """int[B, T] -> float[B, T, D] vocab embeddings."""
+    del train
     return self.model(tokens, embed_only=True)
 
-  def compute_logits(self, pre_logits):
+  def compute_logits(self, pre_logits, train=False):
+    del train
     return self.model(None, pre_logits=pre_logits)[0]
 
-  def forward(self, embs, mask=None):
-    """float[B, T, D] embeddings -> (logits, out); mask defaults causal."""
+  def forward(self, embs, mask=None, train=False, seg=None, logits=True):
+    """float[B, T, D] embeddings -> (logits, out); mask defaults causal;
+    `seg` [B, T] the prefix-LM segment ids of the fused training path.
+    With `logits=False`, (None, out) without the vocab projection of every
+    position (for a caller that reads only out["pre_logits"])."""
+    del train
     if embs.shape[-1] != self.embdim:
       raise ValueError(f"embedding width {embs.shape[-1]} != {self.embdim}")
-    return self.model(None, embedded_prefix=embs, mask=mask)
+    if not logits:
+      return None, self.model.trunk(embedded_prefix=embs, mask=mask, seg=seg)
+    return self.model(None, embedded_prefix=embs, mask=mask, seg=seg)
 
   def prefill_cache(self, x, input_mask, attn_mask, *, cache_size):
     """Fills a new cache with left-aligned prompts x [B, N, D].

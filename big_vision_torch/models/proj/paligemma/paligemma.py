@@ -5,6 +5,12 @@ mask, image/text embedding (a video [B, F, H, W, C] goes through the tower
 as B*F images, its tokens joined along the sequence), the training forward,
 the prefill/extend delegation with the slow full-recompute decode oracle
 where the LLM has no `prefill_cache`, and the two-part `load`.
+
+The training forward `forward(image, text, mask_ar, train=True)` builds
+the prefix-LM segment ids seg = where(input_mask, 1 + cumsum(mask_ar), 0)
+as the JAX model does and hands them to the LLM, whose fused attention
+path (`attn_impl="flash"`) reads the mask from them. `initialize(generator)`
+draws both towers from scratch with the JAX models' initializers.
 """
 
 from __future__ import annotations
@@ -50,25 +56,36 @@ class Model(nn.Module):
     self.llm = _tower(llm_model, llm, **kw)
     self.img = _tower(img_model, img, num_classes=self.llm.embdim, **kw)
 
-  def embed_image(self, image):
+  @torch.no_grad()
+  def initialize(self, generator, head_bias=None):
+    """Draws every parameter of both towers from scratch (`vit` and
+    `gemma` initializers). Returns the module."""
+    if head_bias is not None:
+      raise ValueError("PaliGemma has no classification head to bias")
+    self.img.initialize(generator)
+    self.llm.initialize(generator)
+    return self
+
+  def embed_image(self, image, train=False, rng=None):
+    """`rng` draws the image tower's dropout masks in training."""
     frames = image.shape[1] if image.dim() == 5 else None
     if frames:  # video: each frame goes through the tower on its own...
       image = image.reshape(-1, *image.shape[2:])
-    zimg, aux = self.img(image)
+    zimg, aux = self.img(image, train=train, rng=rng)
     if frames:  # ...and the frames' tokens join along the sequence.
       zimg = zimg.reshape(-1, frames * zimg.shape[1], zimg.shape[2])
     return zimg, {"img/zimg": zimg, **{f"img/{k}": v for k, v in aux.items()}}
 
-  def embed_text(self, tokens):
-    ztxt = self.llm.embed_tokens(tokens)
+  def embed_text(self, tokens, train=False):
+    ztxt = self.llm.embed_tokens(tokens, train=train)
     return ztxt, {"llm/ztxt": ztxt}
 
   def embed_image_and_text(self, image, text, *, input_mask=None,
-                           mask_ar=None):
+                           mask_ar=None, train=False, rng=None):
     """(x [B,N,E], input_mask [B,N], mask_ar [B,N]), aux. Image tokens form
     a full-attention prefix (always live, mask_ar 0)."""
-    zimg, img_aux = self.embed_image(image)
-    ztxt, txt_aux = self.embed_text(text)
+    zimg, img_aux = self.embed_image(image, train=train, rng=rng)
+    ztxt, txt_aux = self.embed_text(text, train=train)
     if input_mask is None:
       input_mask = torch.ones(text.shape, dtype=torch.bool,
                               device=text.device)
@@ -87,15 +104,23 @@ class Model(nn.Module):
     return ((seq, with_prefix(True, input_mask), with_prefix(0, mask_ar)),
             {**img_aux, **txt_aux})
 
-  def forward(self, image, text, mask_ar):
-    """Returns float[B, T, V] logits for the text tokens, and aux."""
+  def forward(self, image, text, mask_ar, train=False, rng=None):
+    """Returns float[B, T, V] logits for the text tokens, and aux. `rng`
+    (a torch.Generator) draws the image tower's dropout in training."""
     (seq, input_mask, mask_ar), out = self.embed_image_and_text(
-        image, text, mask_ar=mask_ar)
+        image, text, mask_ar=mask_ar, train=train, rng=rng)
     attn_mask = out["attn_mask"] = make_attn_mask(input_mask, mask_ar)
-    _, llm_aux = self.llm(seq, mask=attn_mask)
+    # The same prefix-LM mask as segment ids, for the fused flash path.
+    seg = torch.where(input_mask, 1 + torch.cumsum(mask_ar, dim=1), 0)
+    # Only the pre-logits are read: the JAX model's LLM logits of every
+    # position are dropped by XLA, and here not computed ([B, T, V] f32 is
+    # 19 GB for cococap's batch of 64).
+    _, llm_aux = self.llm(seq, mask=attn_mask, train=train, seg=seg,
+                          logits=False)
     out.update({f"llm/{k}": v for k, v in llm_aux.items()})
     n_img = out["img/zimg"].shape[1]
-    text_logits = self.llm.compute_logits(out["llm/pre_logits"][:, n_img:])
+    text_logits = self.llm.compute_logits(out["llm/pre_logits"][:, n_img:],
+                                          train=train)
     out["text_logits"] = text_logits
     out["text_tokens"] = text_logits.argmax(dim=-1)
     return text_logits, out

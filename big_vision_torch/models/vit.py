@@ -9,9 +9,13 @@ through `ops.attention`, whose "auto" takes the JAX package's gate (the
 fused kernel K1 wherever `oneshot_fits`).
 
 Scan-over-layers is a JAX compile-time device, not a model: the port has a
-plain list of blocks, and `utils/convert.py` reads both param layouts. The
-learned posemb needs its length when the module is built, so the port takes
-`image_size`.
+plain list of blocks, and `utils/convert.py` reads both param layouts. What
+`scan=True` also brings in the JAX model is kept: remat, each block run
+under a checkpoint that keeps only its input while autograd records
+(`common.checkpointed`; the JAX model applies it under scan whatever
+`remat_policy` names, and a policy that saves more computes the same
+function). The learned posemb needs its length when the module is built, so
+the port takes `image_size`.
 
 Training: `forward(image, train=True, rng=generator)` applies dropout where
 the JAX model does (after the posemb, inside the MLP, on each residual
@@ -185,13 +189,15 @@ class Encoder1DBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-  """Blocks then `encoder_norm` (flax default dtype: promoted)."""
+  """Blocks then `encoder_norm` (flax default dtype: promoted); with
+  `remat`, each block under `common.checkpointed` while autograd records."""
 
   def __init__(self, width, depth, num_heads, mlp_dim=None, *,
                dtype_mm="float32", attn_impl="auto", dropout=0.0,
-               device="cuda", param_dtype=torch.float32):
+               remat=False, device="cuda", param_dtype=torch.float32):
     super().__init__()
     kw = dict(device=device, param_dtype=param_dtype)
+    self.remat = remat
     self.blocks = nn.ModuleList([
         Encoder1DBlock(width, num_heads, mlp_dim, dtype_mm=dtype_mm,
                        attn_impl=attn_impl, dropout=dropout, **kw)
@@ -199,8 +205,12 @@ class Encoder(nn.Module):
     self.encoder_norm = common.LayerNorm(width, **kw)
 
   def forward(self, x, mask=None, seg=None, rng=None):
+    remat = self.remat and torch.is_grad_enabled()
     for block in self.blocks:
-      x = block(x, mask=mask, seg=seg, rng=rng)
+      if remat:
+        x = common.checkpointed(block, x, mask, seg, rng=rng)
+      else:
+        x = block(x, mask=mask, seg=seg, rng=rng)
     return self.encoder_norm(x)
 
 
@@ -250,8 +260,8 @@ class _Model(nn.Module):
                posemb="learn", pool_type="gap",
                rep_size: Union[int, bool] = False, head_zeroinit: bool = True,
                dropout: float = 0.0, dtype_mm="float32", attn_impl="auto",
-               image_size: int = 224, channels: int = 3, device="cuda",
-               param_dtype=torch.float32):
+               remat: bool = False, image_size: int = 224, channels: int = 3,
+               device="cuda", param_dtype=torch.float32):
     super().__init__()
     kw = dict(device=device, param_dtype=param_dtype)
     self.pool_type = pool_type
@@ -271,7 +281,7 @@ class _Model(nn.Module):
                                           dtype=param_dtype))
     self.encoder = Encoder(width, depth, num_heads, mlp_dim,
                            dtype_mm=dtype_mm, attn_impl=attn_impl,
-                           dropout=dropout, **kw)
+                           dropout=dropout, remat=remat, **kw)
     self.map_head = (MAPHead(width, num_heads, mlp_dim, dtype_mm=dtype_mm,
                              **kw) if pool_type == "map" else None)
     self.rep_size = rep_size
@@ -355,13 +365,14 @@ def Model(num_classes=None, *, variant=None, scan=None, remat_policy=None,
           **kw):  # pylint: disable=invalid-name
   """Factory taking the JAX model's config keys.
 
-  `scan` and `remat_policy` only shape the JAX param layout and compile;
-  they are accepted and have no effect here.
+  `scan` shapes the JAX param layout (which `utils/convert.py` reads either
+  way) and, as in the JAX model, remats every block (`remat`) whatever
+  `remat_policy` names; without `scan` the JAX model has no remat.
   """
-  del scan, remat_policy
+  del remat_policy
   cfg = decode_variant(variant)
   cfg.update(kw)
-  return _Model(num_classes, **cfg)
+  return _Model(num_classes, remat=bool(scan), **cfg)
 
 
 # (width, depth, mlp_dim, num_heads) per size letter, as in the JAX model.

@@ -286,13 +286,26 @@ def _clip_per_example(g, max_norm):
   return [torch.tensordot(mult, x, dims=1) / n for x in g]
 
 
+def _global_norm(g):
+  """optax.global_norm of a list of tensors: sqrt of the sum, in list order,
+  of each tensor's sum of squares (one tensor's square at a time)."""
+  return torch.sqrt(sum(torch.sum(x * x) for x in g))
+
+
 class Chain:
   """The optax chain `make` builds, over {name: tensor} dicts.
 
   `init(params)` returns the state; `update(grads, state, params)` returns
   (updates, new state) without touching params, as optax does;
   `apply_(params, grads, state)` adds the updates to the params in place
-  and returns (updates, new state).
+  and returns (updates, new state). `apply_(..., chunk_numel=n)` runs the
+  same arithmetic over chunks of about n elements of params at a time, so
+  that its temporaries are the size of a chunk and not of the whole tree:
+  the clip's global norm first (the same sums in the same order), then
+  for each chunk the rule, lr, mults, weight decay and schedules, its
+  params updated and its state tensors replaced in `state` itself. Its
+  params and state are bit-equal to the unchunked chain's; it returns
+  (None, state).
   """
 
   def __init__(self, names, rule, *, frozen, clip_norm, clip_per_example,
@@ -308,13 +321,14 @@ class Chain:
   def init(self, params):
     return {"count": 0, **self.rule.init({n: params[n] for n in self.live})}
 
-  def update(self, grads, state, params):
-    live = self.live
+  def _live_updates(self, live, grads, state, params, norm=None):
+    """(updates [tensor] of the params `live`, the rule's state of them),
+    with the clip's global `norm` over every live param when given."""
     g = [grads[n] for n in live]
     if self.clip_norm and self.clip_per_example:
       g = _clip_per_example(g, self.clip_norm)
     elif self.clip_norm:  # optax.clip_by_global_norm, masked to live params
-      norm = torch.sqrt(sum(torch.sum(x) for x in torch._foreach_mul(g, g)))
+      norm = _global_norm(g) if norm is None else norm
       small = norm < self.clip_norm
       norms = {x.dtype: norm.to(x.dtype) for x in g}
       g = [torch.where(small, x, (x / norms[x.dtype]) * self.clip_norm)
@@ -330,17 +344,47 @@ class Chain:
         u[i] = x
     lrs = [float(np.float32(fn(count))) for fn in self.sched_fns]
     u = _scale_groups(u, [lrs[self.sched_of[n]] for n in live])
-    updates = dict(zip(live, torch._foreach_mul(u, -1.0)))
+    return torch._foreach_mul(u, -1.0), rule_state
+
+  def update(self, grads, state, params):
+    u, rule_state = self._live_updates(self.live, grads, state, params)
+    updates = dict(zip(self.live, u))
     updates.update({n: torch.zeros_like(grads[n]) for n in self.frozen})
     return ({n: updates[n] for n in self.names},
-            {"count": count + 1, **rule_state})
+            {"count": state["count"] + 1, **rule_state})
+
+  def chunks(self, params, chunk_numel):
+    """The live params in order, cut into lists of about `chunk_numel`
+    elements (a param larger than that is a chunk of its own)."""
+    out, size = [[]], 0
+    for n in self.live:
+      if out[-1] and size + params[n].numel() > chunk_numel:
+        out.append([])
+        size = 0
+      out[-1].append(n)
+      size += params[n].numel()
+    return [c for c in out if c]
 
   @torch.no_grad()
-  def apply_(self, params, grads, state):
-    updates, state = self.update(grads, state, params)
-    torch._foreach_add_([params[n] for n in self.names],
-                        [updates[n] for n in self.names])
-    return updates, state
+  def apply_(self, params, grads, state, *, chunk_numel=None):
+    if not chunk_numel:
+      updates, state = self.update(grads, state, params)
+      torch._foreach_add_([params[n] for n in self.names],
+                          [updates[n] for n in self.names])
+      return updates, state
+    if self.clip_norm and self.clip_per_example:
+      raise ValueError("a chunked update cannot clip per example")
+    norm = (_global_norm([grads[n] for n in self.live])
+            if self.clip_norm else None)
+    for chunk in self.chunks(params, chunk_numel):
+      u, rule_state = self._live_updates(chunk, grads, state, params, norm)
+      torch._foreach_add_([params[n] for n in chunk], u)
+      del u
+      for key, part in rule_state.items():
+        state[key].update(part)
+      del rule_state
+    state["count"] += 1
+    return None, state
 
 
 def make(config, params, *, sched_kw, jax_shapes=None):

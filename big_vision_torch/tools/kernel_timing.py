@@ -103,11 +103,11 @@ def graph_ms(fn, arg_sets, iters=50):
   return time_ms(graph.replay, [()], iters=5) / iters
 
 
-def device_profile(named_fns, top=10, keep=()):
+def device_profile(named_fns, top=10, keep=(), warm=True):
   """Device time by kernel name of one call of each fn, under torch.profiler.
 
-  `named_fns` is {name: fn}; each fn is called once to warm, then once
-  profiled. Returns {name: (rows [(kernel, total ms, count)] of the `top`
+  `named_fns` is {name: fn}; each fn is called once to warm (unless not
+  `warm`: a fn that has run already), then once profiled. Returns {name: (rows [(kernel, total ms, count)] of the `top`
   kernels and of any other kernel whose name holds a string of `keep`,
   device busy ms, wall ms)}. Only the card's activity is traced: nothing
   here reads the host's operators, and tracing them too made the profiles
@@ -117,7 +117,8 @@ def device_profile(named_fns, top=10, keep=()):
   from torch.profiler import profile as torch_profile
   out = {}
   for name, fn in named_fns.items():
-    fn()
+    if warm:
+      fn()
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
       t0 = time.perf_counter()

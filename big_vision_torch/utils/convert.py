@@ -358,22 +358,16 @@ def two_towers(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
 
 
 def _kind(module):
-  """"mixer", "vit" (also FlexiViT), "text", "bert" or "two_towers"."""
+  """"mixer", "vit" (also FlexiViT), "text", "bert", "two_towers" or
+  "paligemma"."""
   return {"mlp_mixer": "mixer", "text_transformer": "text", "bert": "bert",
-          "two_towers": "two_towers"}.get(
+          "two_towers": "two_towers", "paligemma": "paligemma"}.get(
               type(module).__module__.rsplit(".", 1)[-1], "vit")
-
-
-_NAMES = {"mixer": mixer_names, "vit": vit_names,
-          "text": text_transformer_names, "bert": bert_names,
-          "two_towers": two_towers_names}
-_LAYOUTS = {"mixer": _mixer_layout, "vit": _vit_layout, "text": _vit_layout,
-            "bert": _vit_layout, "two_towers": _two_towers_layout}
 
 
 def names(module: torch.nn.Module) -> dict[str, str]:
   """{port parameter name: JAX param name} of a ViT, FlexiViT, Mixer, text
-  transformer, BERT or two-tower model."""
+  transformer, BERT, two-tower or PaliGemma model."""
   return _NAMES[_kind(module)](module)
 
 
@@ -390,6 +384,8 @@ def state(module: torch.nn.Module, tree) -> dict:
     return (mixer if kind == "mixer" else vit)(tree)
   if kind == "two_towers":
     return two_towers(module, tree)
+  if kind == "paligemma":
+    return paligemma(tree)
   return _from_jax(module, names(module), _LAYOUTS[kind], tree)
 
 
@@ -474,13 +470,12 @@ def gemma(params) -> dict:
   return out
 
 
-def gemma_params(module: torch.nn.Module) -> dict:
-  """The inverse of `gemma`: a `models.ppp.gemma.Model`'s parameters as the
-  JAX model's param tree (pyloop layout), tensors on the module's device
-  in their own dtype (int8 weights with their f32 scales for `quant`)."""
+def gemma_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a `models.ppp.gemma.Model`
+  (pyloop layout: "layers/0/attn/q_einsum/w", "embedder/input_embedding",
+  "final_norm/scale", an int8 weight's "<...>_scale" leaf)."""
   out = {}
-  for name, p in module.named_parameters():
-    x = p.detach()
+  for name, _ in module.named_parameters():
     layer, leaf = name.rsplit(".", 1)
     scale = leaf.endswith("_scale") and leaf != "scale"
     port = f"{layer}.{leaf.removesuffix('_scale')}" if scale else name
@@ -492,21 +487,58 @@ def gemma_params(module: torch.nn.Module) -> dict:
       m = re.fullmatch(r"layers\.(\d+)\.(.*)", port)
       src = {v: k for k, v in _GEMMA_LAYER.items()}[m[2]]
       jax_name = f"layers/{m[1]}/{src}"
-      attn = module.layers[int(m[1])].attn
-      h, hd = attn.num_heads, attn.head_dim
-      kh = attn.num_kv_heads
-      if src == "attn/attn_vec_einsum/w":  # [D, H*hd] -> [H, hd, D]
-        x = x.T.reshape(h, hd, -1) if not scale else x.T.reshape(1, 1, -1)
-      elif src == "mlp/linear":  # [D, F] -> [F, D]
-        x = x.T
-      else:
-        lead = {"attn/qkv_einsum/w": (3, h), "attn/q_einsum/w": (h,),
-                "attn/kv_einsum/w": (2, kh), "mlp/gating_einsum": (2,)}[src]
-        x = _heads_first(x, lead)
-    if scale:
-      jax_name = _scale_name(jax_name)
-    out[jax_name] = x
-  return trees.unflatten(out)
+    out[name] = _scale_name(jax_name) if scale else jax_name
+  return out
+
+
+def _gemma_layout(module, name, jax_name, x):
+  """Parameter `name` of a `models.ppp.gemma.Model` (or a tensor of its
+  shape) in the JAX layout of `jax_name`."""
+  del jax_name
+  m = re.fullmatch(r"layers\.(\d+)\.((?:attn|mlp)\.(?:qkv|q|kv|o|gating|"
+                   r"linear))(_scale)?", name)
+  if not m:  # the embedding, the norms (an int8 embedding's scale [V, 1])
+    return x
+  src, scale = {v: k for k, v in _GEMMA_LAYER.items()}[m[2]], bool(m[3])
+  attn = module.layers[int(m[1])].attn
+  h, hd, kh = attn.num_heads, attn.head_dim, attn.num_kv_heads
+  if src == "attn/attn_vec_einsum/w":  # [D, H*hd] -> [H, hd, D]
+    return x.T.reshape(h, hd, -1) if not scale else x.T.reshape(1, 1, -1)
+  if src == "mlp/linear":  # [D, F] -> [F, D]
+    return x.T
+  lead = {"attn/qkv_einsum/w": (3, h), "attn/q_einsum/w": (h,),
+          "attn/kv_einsum/w": (2, kh), "mlp/gating_einsum": (2,)}[src]
+  return _heads_first(x, lead)
+
+
+def gemma_params(module: torch.nn.Module) -> dict:
+  """The inverse of `gemma`: a `models.ppp.gemma.Model`'s parameters as the
+  JAX model's param tree (pyloop layout), tensors on the module's device
+  in their own dtype (int8 weights with their f32 scales for `quant`)."""
+  return trees.unflatten({
+      jax: _gemma_layout(module, name, jax,
+                         module.get_parameter(name).detach())
+      for name, jax in gemma_names(module).items()})
+
+
+def paligemma_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a
+  `models.proj.paligemma.paligemma.Model`: the image tower's names under
+  "img/", the LLM's (`gemma_names`) under "llm/"."""
+  out = {f"img.{k}": f"img/{v}" for k, v in names(module.img).items()}
+  out.update({f"llm.model.{k}": f"llm/{v}"
+              for k, v in gemma_names(module.llm.model).items()})
+  return out
+
+
+def _paligemma_layout(module, name, jax_name, x):
+  """Parameter `name` of a PaliGemma module in its JAX layout."""
+  tower, rest = name.split(".", 1)
+  jax_rest = jax_name.split("/", 1)[1]
+  if tower == "img":
+    return _LAYOUTS[_kind(module.img)](module.img, rest, jax_rest, x)
+  return _gemma_layout(module.llm.model, rest.removeprefix("model."),
+                       jax_rest, x)
 
 
 def paligemma(params) -> dict:
@@ -551,3 +583,12 @@ def load(module: torch.nn.Module, state: dict, device=None, dtype=None):
     tensors[k] = t.to(device=device, dtype=dtype if cast else t.dtype)
   module.load_state_dict(tensors, strict=True, assign=True)
   return module
+
+
+# Each model kind's names and layout (see `_kind`).
+_NAMES = {"mixer": mixer_names, "vit": vit_names,
+          "text": text_transformer_names, "bert": bert_names,
+          "two_towers": two_towers_names, "paligemma": paligemma_names}
+_LAYOUTS = {"mixer": _mixer_layout, "vit": _vit_layout, "text": _vit_layout,
+            "bert": _vit_layout, "two_towers": _two_towers_layout,
+            "paligemma": _paligemma_layout}

@@ -10,7 +10,9 @@ every kernel and of the JPEG decoder after a change to one;
 `python3 chip_smoke.py --serving` builds and runs phase 3 alone;
 `python3 chip_smoke.py --recipes` builds and runs phase 9 alone;
 `python3 chip_smoke.py --quality` builds and runs phase 10 alone;
-`python3 chip_smoke.py --siglip` builds and runs phase 11 alone.)
+`python3 chip_smoke.py --siglip` builds and runs phase 11 alone;
+`python3 chip_smoke.py --paligemma` builds and runs phase 12 alone, with
+its fixed-batch steps in turns and their profiles.)
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. builds every CUDA kernel from big_vision_torch/csrc (one nvcc each, in
@@ -243,7 +245,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
      eval) and on `load_and_eval:name=vit_i1k` from a random AugReg
      ViT-B/16 `.npz` (EVAL_ONLY_NEVAL images a split, 12 K1f a batch, eval
      img/s);
- 12. times prefill, the AR step, the training step (end to end: median of
+ 12. fine-tunes PaliGemma-3B on configs/proj/paligemma/transfers/cococap.py
+     (So400m/14 at 224px + gemma_2b, T = 256 + 33, f32, remat, from the
+     seed, the stand-in Gemma tokenizer written in place) through the
+     PaliGemma trainer's command line at the config's batch PG_B, PG_STEPS
+     steps as configured (the tower's `auto`: K1f and K2f; the LLM's
+     einsum attention) and PG_STEPS with `attn=flash` (the LLM's 18 layers
+     on K1f and K2f with the prefix-LM `seg`), each after the config's
+     step-0 evals on PG_NEVAL stand-in images a split (three beam-decode
+     `coco_caption` evals, three perplexity evals): launches exact (per
+     step twice per layer K1f, the forward and the remat recompute, and
+     K2f once: 54 and 27 as configured, 90 and 45 under flash; per eval
+     batch the tower's 27 K1f, plus the LLM's 18 in a flash "logits"
+     forward), every metric finite, step ms, img/s and peak memory; an
+     update at twice the batch (out of memory: PG_B is the largest power
+     of two that fits); the LLM's flash path against its einsum path on
+     PG_CHECK_B unseen examples (loss, text logits, every attention-
+     projection gradient within E2E_BAR); each LLM K1f and K2f launch of a
+     forward and backward on PG_INPLACE_B examples in place within
+     F32_BAR; K1f and K2f at the LLM's shape with `seg` timed beside their
+     plain versions and SDPA with the boolean mask (two entries of the
+     kernels line); with `--paligemma` also the update on a fixed batch
+     under both paths in turns and a profile of each;
+ 13. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
      kernel (CUDA events, inputs rotated through more than the 50 MB L2)
@@ -269,7 +293,10 @@ cache (launches per request batch of the bf16 and the int8 pass; its
 same calls in a CUDA graph, "profiled_ms", its two kernels' device time,
 and "host_us", the wrapper's host time a call; no SDPA on an int8
 cache); max_abs_err and max_rel_err are at those shapes, and
-rel_tolerance is the bar the relative error was held to. The last line is {"ok": true,
+rel_tolerance is the bar the relative error was held to; K1's and K2's f32
+kernels also at the PaliGemma LLM's shape (B=PG_B, T=289, H=8, D=256,
+f32, seg; launches of the LLM on phase 12's flash path), and the f32 rows
+carry `paligemma_launches`, phase 12's counts of each path. The last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -290,6 +317,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from big_vision_torch.tools import kernel_timing
 from big_vision_torch.tools.kernel_timing import blocked_inputs
@@ -422,6 +450,17 @@ BLOCKED_BAR = {torch.bfloat16: 1e-2, torch.float32: F32_BAR}
 SMALL_D = [("digits D=16 f32", dict(b=256, tq=64, h=6, d=16)),
            ("twin D=32 f32", dict(b=64, tq=64, h=4, d=32))]
 K2_BARS = {torch.bfloat16: K2_BAR, torch.float32: F32_BAR}
+# K1's and K2's f32 cases on the PaliGemma training path at its batch
+# (cococap's PG_B): the LLM's 8 heads of D=256 at T = 256 + 33 with the
+# prefix-LM segment ids, and the So400m/14 tower's 16 heads of D=72.
+PG_B = 64
+PALIGEMMA_CASES = [
+    ("PaliGemma LLM T=289 D=256 seg f32",
+     dict(b=PG_B, tq=IMG_TOKENS + 33, h=8, d=256, dtype=torch.float32),
+     dict(prefix_lm=True)),
+    ("So400m/14 f32", dict(b=PG_B, tq=IMG_TOKENS, h=16, d=72,
+                           dtype=torch.float32), {}),
+]
 # Phase 11, LiT: siglip_lit_coco (a frozen ViT-B/16 at 224px with `tok`
 # pooling, T = 197, and BERT-base at 16 tokens) through the SigLIP trainer:
 # loop steps (a checkpoint and the retrieval eval at the last), fixed-batch
@@ -438,6 +477,13 @@ EVAL_ONLY_NEVAL = 512
 # the first pass's gradient, so the f32 kernels' differences pass through
 # both (the dynamics twin's bar).
 GSAM_BAR = 1e-3
+# Phase 12, PaliGemma fine-tuning: cococap through the PaliGemma trainer
+# (its batch PG_B), loop steps of each path, stand-in images of each eval
+# split at step 0, unseen examples of the flash-vs-einsum check and of the
+# in-place kernel check.
+PALIGEMMA_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                                "paligemma", "transfers", "cococap.py")
+PG_STEPS, PG_NEVAL, PG_CHECK_B, PG_INPLACE_B = 2, 8, 8, 4
 DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                               "flexivit", "i21k_distill.py")
 # The distill trainer's loop draws the FlexiViT trainer's seqhw (15, 15, 15,
@@ -497,6 +543,17 @@ def seg_ids(q):
   return seg
 
 
+def prefix_lm_seg(q, n_prefix=IMG_TOKENS + 3):
+  """[B, T] segment ids of the PaliGemma trainer's prefix-LM batches (no
+  input mask, so no zeros): 1 over the image tokens and the prompt (its
+  length varying by row, from `n_prefix`), then one segment per suffix
+  token, padding included (`mask_ar` pads with 1)."""
+  b, t = q.shape[:2]
+  pos = torch.arange(t, device=q.device)[None, :]
+  prefix = n_prefix + torch.arange(b, device=q.device)[:, None] % 5
+  return torch.where(pos < prefix, 1, 2 + pos - prefix).int()
+
+
 def check_k1(fa):
   """bf16 cases run the tensor-core kernel (bar K1_BAR), f32 ones the f32
   kernel (bar F32_BAR, for o and for the row LSE that K2's f32 kernel
@@ -527,6 +584,7 @@ def check_k1(fa):
   cases += [(name, dict(shape, dtype=f32), {}) for name, shape in SMALL_D]
   cases += [("LiT B/16 tok T=197 f32", dict(b=64, tq=197, h=TRAIN_H,
                                             d=TRAIN_D, dtype=f32), {})]
+  cases += PALIGEMMA_CASES
   cases += [
       ("causal f32", dict(b=2, tq=200, h=4, d=64, dtype=f32),
        dict(causal=True)),
@@ -542,6 +600,8 @@ def check_k1(fa):
     kw = {"causal": opts.get("causal", False)}
     if opts.get("seg"):
       kw["seg"] = seg_ids(q)  # row 2's output must be exact 0
+    if opts.get("prefix_lm"):
+      kw["seg"] = prefix_lm_seg(q)
     reset_launches(fa)
     got = fa.flash_attention(q, k, v, **kw)
     want = fa.flash_attention_reference(q, k, v, **kw)
@@ -607,6 +667,7 @@ def check_k2(fa):
   cases += [(name, dict(shape, dtype=f32), {}) for name, shape in SMALL_D]
   cases += [("LiT B/16 tok T=197 f32", dict(b=64, tq=197, h=TRAIN_H,
                                             d=TRAIN_D, dtype=f32), {})]
+  cases += PALIGEMMA_CASES
   cases += [
       ("causal f32", dict(b=2, tq=200, h=4, d=64, dtype=f32),
        dict(causal=True)),
@@ -624,6 +685,8 @@ def check_k2(fa):
     kw = {"causal": opts.get("causal", False)}
     if opts.get("seg"):
       kw["seg"] = seg_ids(q)
+    if opts.get("prefix_lm"):
+      kw["seg"] = prefix_lm_seg(q)
     if opts.get("cancel"):  # dp - delta cancels to 1% of dp, as in training
       v = (1 + 0.01 * v.float()).to(v.dtype)
     _, lse = fa.flash_attention_forward(q, k, v, **kw)
@@ -2773,7 +2836,7 @@ def batch_headroom(trainer, gpu, what, make_batch=None):
   (`make_batch(b)`; by default images and one-hot labels of the config's
   classes): whether the card holds it (its peak memory) or runs out of
   memory, which makes the config's batch the largest power of two that
-  fits."""
+  fits. Returns whether it fit."""
   b = 2 * trainer.batch_size
   gc.collect()
   torch.cuda.empty_cache()
@@ -2791,12 +2854,14 @@ def batch_headroom(trainer, gpu, what, make_batch=None):
     torch.cuda.synchronize()
     print(f"[{gpu}] {what}: an update at batch {b} fits, max memory "
           f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: "
-          f"the batch could double")
+          f"the batch could be {b}")
+    return True
   except torch.OutOfMemoryError:
     print(f"[{gpu}] {what}: an update at batch {b} runs out of memory "
           f"(max memory allocated before it failed "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): "
           f"{trainer.batch_size} is the largest power of two that fits")
+    return False
   finally:
     batch = None
     gc.collect()
@@ -3309,7 +3374,8 @@ def k2_f32_entry(fa, counts, gpu, seqhw):
       name="flash_bwd", route="cuda",
       source="big_vision_torch/csrc/flash_bwd.cu",
       replaces="big_vision_tpu/ops/flash_attention.py:329",
-      launches=counts["K2f"], max_abs_err=abs_err, max_rel_err=rel,
+      launches=counts["K2f"], paligemma_launches=counts["PG K2f"],
+      max_abs_err=abs_err, max_rel_err=rel,
       rel_tolerance=F32_BAR, ms=time_ms(fa.flash_attention_bwd, sets),
       plain_ms=time_ms(plain, sets, iters=10), bound_ms=bms, bound_by=by,
       library_ms=sdpa_bwd_ms([(q, k, v, do) for q, k, v, _, do in sets]))
@@ -3335,7 +3401,8 @@ def k1_f32_entry(fa, counts, gpu):
       name="flash_fwd", route="cuda",
       source="big_vision_torch/csrc/flash_fwd.cu",
       replaces="big_vision_tpu/ops/flash_attention.py:306",
-      launches=counts["K1f"], max_abs_err=r["max_abs_err"],
+      launches=counts["K1f"], paligemma_launches=counts["PG K1f"],
+      max_abs_err=r["max_abs_err"],
       max_rel_err=r["max_rel_err"], rel_tolerance=F32_BAR, ms=r["ms"],
       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
       library_ms=r["library_ms"])
@@ -3430,7 +3497,7 @@ def kernel_entries(fa, da, counts, gpu):
         library_ms=r["library_ms"]))
   for cache in ("bf16", "int8"):
     time_k6(da, gpu, 64, 1120, cache)
-  return kernels
+  return kernels + counts["PG kernels"]
 
 
 # ----------------------------------------------------------------------------
@@ -3719,6 +3786,406 @@ def siglip_phase(fa, gpu):
   phase_end("siglip", t0)
 
 
+# ----------------------------------------------------------------------------
+# Phase 12: PaliGemma-3B fine-tuning (cococap) as configured and with the
+# LLM's fused attention.
+# ----------------------------------------------------------------------------
+
+
+def paligemma_args(vocab, extra=""):
+  return (f"vocab={vocab},neval={PG_NEVAL},stop={PG_STEPS},log=1,"
+          f"batch_size={PG_B}{extra}")
+
+
+def paligemma_want(attn, calls, depth_img, depth_llm):
+  """The launches of PG_STEPS training steps and of the eval batches
+  `calls` ({predict fn: [launches per call]}): per step K1f twice per
+  layer (the forward and the remat recompute) and K2f once, for the
+  tower's layers and under "flash" also the LLM's; per eval batch the
+  tower's forward, and under "flash" the "logits" forward's LLM too."""
+  layers = depth_img + (depth_llm if attn == "flash" else 0)
+  want = {**dict.fromkeys(COUNTERS, 0), "K1f": 2 * layers * PG_STEPS,
+          "K2f": layers * PG_STEPS}
+  for name, per_call in calls.items():
+    per = depth_img + (depth_llm if attn == "flash" and name == "logits"
+                       else 0)
+    assert all(c == {**dict.fromkeys(COUNTERS, 0), "K1f": per}
+               for c in per_call), (name, per_call[:2], per)
+    want["K1f"] += per * len(per_call)
+  return want
+
+
+def paligemma_main_path(fa, workdir, vocab, attn, gpu):
+  """PG_STEPS steps of the PaliGemma trainer's command line on cococap at
+  full width from the seed, LLM attn_impl `attn` ("" as configured), its
+  evals at step 0 on PG_NEVAL stand-in images a split (the beam-decode
+  caption evals and the perplexity evals): launches exact, every metric
+  finite. Returns (trainer, {"step_ms", "img/sec": of the last step;
+  "peak"; "evals": {name: seconds}})."""
+  from big_vision_torch.trainers.proj.paligemma import train as pg_train
+  shutil.rmtree(workdir, ignore_errors=True)
+  calls = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches(fa)
+  extra = f",attn={attn}" if attn else ""
+  with counted_predict_fns(fa, calls):
+    trainer = pg_train.main(["--config", f"{PALIGEMMA_CONFIG}:"
+                             f"{paligemma_args(vocab, extra)}",
+                             "--workdir", workdir])
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  counts = launches(fa)
+  depth_img = len(trainer.model.img.encoder.blocks)
+  depth_llm = len(trainer.model.llm.model.layers)
+  want = paligemma_want(attn, calls, depth_img, depth_llm)
+  what = f"cococap ({attn or 'as configured'})"
+  print(f"{what}: {PG_STEPS} steps of batch {trainer.batch_size} and the "
+        f"evals at step 0 ({ {n: len(c) for n, c in calls.items()} } eval "
+        f"batches); launches {({k: n for k, n in counts.items() if n})} "
+        f"(want {({k: n for k, n in want.items() if n})})")
+  assert counts == want, (counts, want)
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    rows = list(map(json.loads, f))
+  steps = [r for r in rows if "training_loss" in r]
+  assert [r["step"] for r in steps] == list(range(1, PG_STEPS + 1)), steps
+  for r in steps:
+    for k in ("training_loss", "avg_sup_seqlen", "max_sup_seqlen",
+              "l2_grads", "l2_params"):
+      assert math.isfinite(r[k]), r
+  step0 = {k: v for r in rows if r["step"] == 0 for k, v in r.items()}
+  evals = {}
+  for name in trainer.config["evals"]:
+    metrics = {k: v for k, v in step0.items()
+               if k.startswith(f"{name}/") and not k[len(name) + 1:]
+               .startswith("pplx")}
+    assert metrics and all(math.isfinite(v) for v in metrics.values()), (
+        name, metrics)
+    evals[name] = step0[f"z/secs/eval/{name}"]
+    print(f"[{gpu}] {what} eval {name} at step 0: {PG_NEVAL} images in "
+          f"{evals[name]:.3f} s; " + ", ".join(
+              f"{k.split('/')[-1]} {v:.6f}" for k, v in sorted(
+                  metrics.items())))
+  print("  losses " + " ".join(f"{r['training_loss']:.6f}" for r in steps)
+        + f"; l2_grads {steps[-1]['l2_grads']:.6f}, sup seqlen "
+        f"{steps[-1]['avg_sup_seqlen']:.3f}")
+  e2e = {"step_ms": steps[-1]["step_ms"], "img/sec": steps[-1]["img/sec"],
+         "peak": peak, "evals": evals}
+  print(f"[{gpu}] {what}: step {PG_STEPS} {e2e['step_ms']:.3f} ms, "
+        f"{e2e['img/sec']:.2f} img/s (step 1, with the first launches, "
+        f"{steps[0]['step_ms']:.3f} ms); max memory allocated "
+        f"{peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+  return trainer, e2e
+
+
+def set_llm_attn(model, impl):
+  for block in model.llm.model.layers:
+    block.attn.attn_impl = impl
+
+
+def paligemma_loss_grads(trainer, batch):
+  """(loss, text logits, {name: gradient} of the LLM's attention
+  projections) of one training forward and backward on `batch`."""
+  from big_vision_torch.trainers.proj.paligemma import train as pg_train
+  for p in trainer.params.values():
+    p.grad = None
+  logits, _ = trainer.model(batch["image"], batch["text"], batch["mask_ar"],
+                            train=True)
+  loss, _ = pg_train.next_token_loss(logits, batch["text"],
+                                     batch["mask_loss"])
+  loss.backward()
+  grads = {n: p.grad.clone() for n, p in trainer.params.items()
+           if n.startswith("llm/layers/") and "/attn/" in n}
+  for p in trainer.params.values():
+    p.grad = None
+  return loss.item(), logits.detach(), grads
+
+
+def paligemma_kernel_vs_plain(fa, trainer, batch):
+  """On PG_CHECK_B examples no update saw, with the trained weights: the
+  LLM's flash path (its trainer's) against its einsum path (attn_impl
+  "xla", the same weights): the loss, the text logits and every
+  attention-projection gradient of the LLM within E2E_BAR of max|plain|,
+  and the launches of each (remat on, as in training)."""
+  batch = {k: v[:PG_CHECK_B] for k, v in batch.items()}
+  depth_img = len(trainer.model.img.encoder.blocks)
+  depth_llm = len(trainer.model.llm.model.layers)
+  runs = {}
+  for impl, layers in (("flash", depth_img + depth_llm),
+                       ("xla", depth_img)):
+    set_llm_attn(trainer.model, impl)
+    reset_launches(fa)
+    runs[impl] = paligemma_loss_grads(trainer, batch)
+    torch.cuda.synchronize()
+    assert launches(fa) == {**dict.fromkeys(COUNTERS, 0), "K1f": 2 * layers,
+                            "K2f": layers}, (impl, launches(fa))
+  set_llm_attn(trainer.model, "flash")
+  (lk, xk, gk), (lp, xp, gp) = runs["flash"], runs["xla"]
+  errs = {"loss": abs(lk - lp) / abs(lp), "text logits": rel_err(xk, xp)}
+  worst = max((rel_err(gk[n], gp[n]), n) for n in gp)
+  assert len(gp) == 3 * depth_llm, sorted(gp)
+  print(f"cococap LLM flash vs einsum path, {PG_CHECK_B} unseen examples: "
+        f"loss {lk:.6f} vs {lp:.6f}; rel err " + ", ".join(
+            f"{k} {e:.3e}" for k, e in errs.items())
+        + f"; {len(gp)} attention-projection gradients, worst rel err "
+        f"{worst[0]:.3e} ({worst[1]}) (bar {E2E_BAR})")
+  assert all(e <= E2E_BAR for e in errs.values()) and worst[0] <= E2E_BAR
+
+
+@contextlib.contextmanager
+def llm_attention_checked_in_place(fa, k1_rows, k2_rows):
+  """While open, each call of `flash_attention` with `seg` (the LLM's) is
+  held against the plain versions on its own inputs: K1's o (a repeat
+  launch, equal to the model's) and LSE, and once the backward has given
+  the layer its do, K2's dq, dk and dv."""
+  orig = fa.flash_attention
+
+  def checked(q, k, v, seg=None, **kw):
+    out = orig(q, k, v, seg=seg, **kw)
+    if seg is None:  # the image tower's
+      return out
+    layer = len(k1_rows) // 2
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o, lse = fa.flash_attention_forward(qd, kd, vd, seg=seg)
+    assert torch.equal(o, out.detach()), layer
+    k1_rows.append((rel_err(o, fa.flash_attention_reference(
+        qd, kd, vd, seg=seg)), f"layer {layer} o"))
+    k1_rows.append((rel_err(lse, fa.flash_attention_lse_reference(
+        qd, kd, vd, seg=seg)), f"layer {layer} lse"))
+    grads = {}
+
+    def keep(name, g):
+      grads[name] = g
+      if len(grads) == 4:  # do, dq, dk, dv
+        want = fa.flash_attention_bwd_reference(qd, kd, vd, grads["do"],
+                                                seg=seg)
+        for n, w in zip(("dq", "dk", "dv"), want):
+          assert w.abs().max().item() > 0, (layer, n)
+          k2_rows.append((rel_err(grads[n], w), f"layer {layer} {n}"))
+        grads.clear()
+
+    out.register_hook(functools.partial(keep, "do"))
+    for name, x in (("dq", q), ("dk", k), ("dv", v)):
+      x.register_hook(functools.partial(keep, name))
+    return out
+
+  fa.flash_attention = checked
+  try:
+    yield
+  finally:
+    fa.flash_attention = orig
+
+
+def paligemma_in_place(fa, trainer, batch):
+  """Every K1f and K2f launch of the LLM in one forward and backward on
+  PG_INPLACE_B examples (remat off, so each layer launches once), on its
+  own inputs against the plain versions within F32_BAR."""
+  batch = {k: v[:PG_INPLACE_B] for k, v in batch.items()}
+  llm = trainer.model.llm.model
+  k1_rows, k2_rows = [], []
+  llm.remat_policy = "none"
+  try:
+    with llm_attention_checked_in_place(fa, k1_rows, k2_rows):
+      paligemma_loss_grads(trainer, batch)
+    torch.cuda.synchronize()
+  finally:
+    llm.remat_policy = "nothing_saveable"
+  depth = len(llm.layers)
+  for what_k, rows, n in (("K1 (f32) forward", k1_rows, 2 * depth),
+                          ("K2 (f32) backward", k2_rows, 3 * depth)):
+    assert len(rows) == n, (what_k, len(rows))
+    rows.sort(reverse=True)
+    print(f"cococap LLM: {what_k} with seg in place, {PG_INPLACE_B} "
+          f"examples x 8 heads, T = {IMG_TOKENS + 33}, D = 256: {len(rows)} "
+          f"outputs of {depth} launches against the plain version, the 3 "
+          f"worst (bar {F32_BAR}): " + ", ".join(f"{nm} {e:.3e}"
+                                                 for e, nm in rows[:3]))
+    assert all(e <= F32_BAR for e, _ in rows), rows[:3]
+
+
+def paligemma_step_turns(trainer, batch, gpu):
+  """The update on one fixed batch (CUDA events, no input pipeline) with
+  the LLM's attention on the fused kernels and on the einsum path, in
+  turns (flash, xla, xla, flash), then one more step of each under the
+  profiler (device busy, the top kernels). Returns {impl: mean ms}."""
+  from big_vision_torch.tools import bench_decode
+  gc.collect()
+  torch.cuda.empty_cache()
+  times = {"flash": [], "xla": []}
+  for impl in ("flash", "xla", "xla", "flash"):
+    set_llm_attn(trainer.model, impl)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    trainer.update(batch)
+    end.record()
+    end.synchronize()
+    times[impl].append(start.elapsed_time(end))
+  print(f"[{gpu}] cococap fixed batch of {batch['image'].shape[0]}, in "
+        f"turns (flash, xla, xla, flash): {times['flash'][0]:.3f}, "
+        f"{times['xla'][0]:.3f}, {times['xla'][1]:.3f}, "
+        f"{times['flash'][1]:.3f} ms/step (CUDA events)")
+  for impl in ("flash", "xla"):
+    set_llm_attn(trainer.model, impl)
+    bench_decode.print_profile(kernel_timing.device_profile(
+        {f"cococap step, LLM attention {impl}":
+         lambda: trainer.update(batch)}, top=8,
+        keep=("flash_fwd", "flash_bwd"), warm=False), prefix=f"[{gpu}] ")
+  set_llm_attn(trainer.model, "flash")
+  return {k: statistics.mean(v) for k, v in times.items()}
+
+
+def paligemma_kernel_times(fa, counts, gpu):
+  """K1f and K2f at the LLM's shape on the training path (B=PG_B, T=289,
+  H=8, D=256, f32, the prefix-LM `seg`; two input sets, past the L2)
+  beside their plain versions, SDPA with the same mask as a boolean
+  `attn_mask` on the same inputs, and their bounds at the 3xTF32 rate for
+  the products of the visible scores; the kernels-line entries, with the
+  LLM's launches on the `flash` main path (its steps and step-0 evals)."""
+  b, t, h, d = PG_B, IMG_TOKENS + 33, 8, 256
+  sets = [k1_inputs(b, t, h, d, seed=170 + i, dtype=torch.float32)
+          for i in range(2)]
+  seg = prefix_lm_seg(sets[0][0])
+  mask = (seg[:, None, None, :] > 0) & (seg[:, None, None, :]
+                                         <= seg[:, None, :, None])
+  visible = mask.float().mean().item()
+  sdpa_sets = [(*x, mask) for x in kernel_timing.sdpa_layout(sets)]
+  fwd = lambda q, k, v: fa.flash_attention_forward(q, k, v, seg=seg)
+  plain = lambda q, k, v: fa.flash_attention_reference(q, k, v, seg=seg)
+  q, k, v = sets[0]
+  o, lse = fwd(q, k, v)
+  want_o = plain(q, k, v)
+  want_lse = fa.flash_attention_lse_reference(q, k, v, seg=seg)
+  err = max(rel_err(o, want_o), rel_err(lse, want_lse))
+  abs_err = max((o - want_o).abs().max().item(),
+                (lse - want_lse).abs().max().item())
+  assert err <= F32_BAR, err
+  nbytes, flops = k1_work(b, t, h, d, itemsize=4)
+  bms, by = bound(nbytes, flops * visible, TF32X3_FLOPS)
+  k1 = dict(
+      name="flash_fwd (PaliGemma LLM T=289 D=256 seg)", route="cuda",
+      source="big_vision_torch/csrc/flash_fwd.cu",
+      replaces="big_vision_tpu/ops/flash_attention.py:306",
+      launches=counts["PG K1f"]["flash"] - counts["PG K1f"]["configured"],
+      max_abs_err=abs_err, max_rel_err=err, rel_tolerance=F32_BAR,
+      ms=time_ms(fwd, sets), plain_ms=time_ms(plain, sets, iters=10),
+      bound_ms=bms, bound_by=by,
+      library_ms=time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
+          q, k, v, attn_mask=m), sdpa_sets))
+  del o, want_o
+  k2_sets = []
+  for i, (q, k, v) in enumerate(sets):
+    _, lse = fwd(q, k, v)
+    g = torch.Generator(device=q.device).manual_seed(180 + i)
+    k2_sets.append((q, k, v, lse, torch.randn(q.shape, generator=g,
+                                               device=q.device)))
+  bwd = lambda q, k, v, lse, do: fa.flash_attention_bwd(q, k, v, lse, do,
+                                                        seg=seg)
+  plain_bwd = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
+      q, k, v, do, seg=seg)
+  got, want = bwd(*k2_sets[0]), plain_bwd(*k2_sets[0])
+  err = max(rel_err(x, y) for x, y in zip(got, want))
+  abs_err = max((x - y).abs().max().item() for x, y in zip(got, want))
+  assert err <= F32_BAR, err
+  del got, want
+  graphs = []
+  for q, k, v, _, do in k2_sets:
+    ins = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*ins, attn_mask=mask)
+    graphs.append((out, ins, do.transpose(1, 2).contiguous()))
+  library_ms = time_ms(lambda out, ins, do: torch.autograd.grad(
+      out, ins, do, retain_graph=True), graphs)
+  del graphs
+  nbytes, flops = k2_work(b, t, h, d, itemsize=4)
+  bms, by = bound(nbytes, flops * visible, TF32X3_FLOPS)
+  k2 = dict(
+      name="flash_bwd (PaliGemma LLM T=289 D=256 seg)", route="cuda",
+      source="big_vision_torch/csrc/flash_bwd.cu",
+      replaces="big_vision_tpu/ops/flash_attention.py:329",
+      launches=counts["PG K2f"]["flash"] - counts["PG K2f"]["configured"],
+      max_abs_err=abs_err, max_rel_err=err, rel_tolerance=F32_BAR,
+      ms=time_ms(bwd, k2_sets), plain_ms=time_ms(plain_bwd, k2_sets,
+                                                 iters=10),
+      bound_ms=bms, bound_by=by, library_ms=library_ms)
+  for e in (k1, k2):
+    print(f"[{gpu}] {e['name']} B={b}: {e['ms']:.4f} ms, plain "
+          f"{e['plain_ms']:.4f} ms, SDPA (boolean mask) "
+          f"{e['library_ms']:.4f} ms; bound {e['bound_ms']:.4f} ms "
+          f"({e['bound_by']}, 3xTF32, {visible:.1%} of the scores "
+          f"visible); rel err {e['max_rel_err']:.3e} (bar {F32_BAR}); "
+          f"{e['launches']} launches on the flash main path")
+  return [k1, k2]
+
+
+def paligemma_batch(b, text):
+  """A training batch of `b` random images and the text rows `text`
+  [n, 33] (repeated to b rows)."""
+  reps = -(-b // text["text"].shape[0])
+  out = {k: v.repeat(reps, 1)[:b] for k, v in text.items()}
+  out["image"] = torch.randn((b, RES, RES, 3), device="cuda")
+  return out
+
+
+def paligemma_phase(fa, gpu, detail=True):
+  """Phase 12: cococap (PaliGemma-3B, So400m/14 + gemma_2b, T = 289, f32,
+  remat) at full width from the seed through the PaliGemma trainer's
+  command line, as configured (the tower's `auto`: K1f, K2f; the LLM's
+  einsum attention) and with `attn=flash` (the LLM's 18 layers on K1f,
+  K2f with `seg` too): launches exact, the step-0 evals finite, step ms,
+  img/s and peak memory; an update at twice the batch; the flash path
+  against the einsum path on an unseen batch; each LLM K1f/K2f launch in
+  place; K1f, K2f timed at the LLM's shape; with `detail`, the fixed-batch
+  steps in turns and their profiles. Returns the launch counts and the
+  kernels-line entries."""
+  t0 = time.perf_counter()
+  from big_vision_torch.configs.proj.paligemma.transfers import common
+  directory = os.path.join(ROOT, "build", "chip_smoke_paligemma")
+  vocab = common.stand_in_tokenizer(os.path.join(directory,
+                                                 "tokenizer.model"))
+  counts, results = {}, {}
+  for attn in ("", "flash"):
+    trainer, e2e = paligemma_main_path(
+        fa, os.path.join(directory, f"wd_{attn or 'configured'}"), vocab,
+        attn, gpu)
+    results[attn or "configured"] = e2e
+    counts[attn or "configured"] = launches(fa)
+    it = trainer.input_iter(PG_STEPS)
+    unseen = next(it)
+    it.close()
+    if not attn:
+      text = {k: unseen[k] for k in ("text", "mask_ar", "mask_loss")}
+      if batch_headroom(trainer, gpu, "cococap",
+                        lambda b: paligemma_batch(b, text)):
+        print(f"  (the config keeps {PG_B}: updates at {2 * PG_B} in a row "
+              "have run out of memory to the allocator's fragments; "
+              "PERF.md section 6)")
+      del trainer
+      gc.collect()
+      torch.cuda.empty_cache()
+  # The full-batch steps first, while the allocator's pool is as the
+  # training loop left it.
+  fixed = paligemma_step_turns(trainer, unseen, gpu) if detail else {}
+  paligemma_kernel_vs_plain(fa, trainer, unseen)
+  paligemma_in_place(fa, trainer, unseen)
+  del trainer, unseen
+  gc.collect()
+  torch.cuda.empty_cache()
+  counts = {"PG K1f": {n: c["K1f"] for n, c in counts.items()},
+            "PG K2f": {n: c["K2f"] for n, c in counts.items()}}
+  counts["PG kernels"] = paligemma_kernel_times(fa, counts, gpu)
+  for name, e2e in results.items():
+    print(f"[{gpu}] cococap ({name}), PaliGemma-3B f32 at batch {PG_B}: "
+          f"{e2e['step_ms']:.3f} ms/step, {e2e['img/sec']:.2f} img/s, max "
+          f"memory allocated {e2e['peak'] / 2**30:.2f} GiB; fixed batch "
+          f"{fixed.get('xla' if name == 'configured' else 'flash', 0):.3f} "
+          "ms/step (0: not timed); evals at step 0 "
+          + ", ".join(f"{n} {t:.3f} s" for n, t in e2e["evals"].items()))
+  shutil.rmtree(directory, ignore_errors=True)
+  phase_end("paligemma", t0)
+  return counts
+
+
 def phase_end(name, t0):
   """Prints the wall time since `t0` of a phase; returns the time now."""
   now = time.perf_counter()
@@ -3728,9 +4195,9 @@ def phase_end(name, t0):
 
 def main(argv):
   if argv not in ([], ["--checks"], ["--serving"], ["--recipes"],
-                  ["--quality"], ["--siglip"]):
+                  ["--quality"], ["--siglip"], ["--paligemma"]):
     print(f"usage: chip_smoke.py [--checks | --serving | --recipes | "
-          f"--quality | --siglip]; got {argv}",
+          f"--quality | --siglip | --paligemma]; got {argv}",
           file=sys.stderr)
     return 2
   if not torch.cuda.is_available():
@@ -3780,6 +4247,10 @@ def main(argv):
     siglip_phase(fa, gpu)
     print(f"{nvidia_smi()}: the SigLIP phase passed")
     return 0
+  if argv == ["--paligemma"]:  # the build and phase 12 alone
+    paligemma_phase(fa, gpu)
+    print(f"{nvidia_smi()}: the PaliGemma fine-tuning phase passed")
+    return 0
 
   # 2. Kernels vs plain versions.
   counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa)}
@@ -3819,9 +4290,12 @@ def main(argv):
   quality_phase(fa, gpu)
   t0 = phase_end("quality", t0)
   siglip_phase(fa, gpu)
+  # Without the fixed-batch steps in turns and their profiles, which
+  # `--paligemma` runs: the script's time limit.
+  counts.update(paligemma_phase(fa, gpu, detail=False))
   t0 = time.perf_counter()
 
-  # 12. Kernel times.
+  # 13. Kernel times.
   kernels = kernel_entries(fa, da, counts, gpu)
   phase_end("kernel times", t0)
   for kern in kernels:

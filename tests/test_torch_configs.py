@@ -40,6 +40,9 @@ CONFIGS = {
     "load_and_eval": ("name=proj.image_text.siglip_smoke",
                       "name=proj.flexi.smoke,init=x.npz,batch_size=8"),
     "proj.flexi.smoke": (None, "mode=distill"),
+    "proj.paligemma.smoke": (None, "attn=flash"),
+    "proj.paligemma.transfers.cococap": (None, "runlocal", "final_split=True",
+                                         "crop=ic,res=448"),
 }
 
 

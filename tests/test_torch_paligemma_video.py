@@ -177,10 +177,16 @@ def test_load_quantizes_the_llm_into_an_int8_target(tmp_path):
 
 
 def test_still_refused():
-  """What the port still refuses: the LLM's fused training attention."""
-  with pytest.raises(NotImplementedError, match="training attention"):
-    t_gemma.Model(**t_gemma.get_config("gemma_test"), attn_impl="flash",
+  """What the port still refuses: the LLM's ring attention over a device
+  mesh, and its dropout (the fused training attention is ported)."""
+  with pytest.raises(NotImplementedError, match="ring"):
+    t_gemma.Model(**t_gemma.get_config("gemma_test"), attn_impl="ring",
                   device="cpu")
+  with pytest.raises(NotImplementedError, match="dropout"):
+    t_gemma.Model(**t_gemma.get_config("gemma_test"), dropout=0.1,
+                  device="cpu")
+  t_gemma.Model(**t_gemma.get_config("gemma_test"), attn_impl="flash",
+                device="cpu")
 
 
 def _assert_equal(got, want):
