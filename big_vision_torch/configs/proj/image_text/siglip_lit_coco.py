@@ -41,8 +41,12 @@ Args (`:name=value,...`), besides the JAX config's: `vocab`, `img_init`,
 `txt_init`, `neval` (images in the val split; its captions are five
 times as many), `stop` (stop after that many steps), `log` (steps
 between metric rows), `attn` (the image tower's attention impl, when not
-"auto"), `ckpt` (steps between checkpoints) and `eval_every` (steps
-between retrieval evals).
+"auto"), `ckpt` (steps between checkpoints), `eval_every` (steps
+between retrieval evals), and `zeroshot` (0: none): the zero-shot
+`proj.image_text.discriminative_classifier` eval `zeroshot_i1k`, the 81
+CLIP-paper prompt templates over the 1000 CLIP ImageNet class names
+tokenized as the captions are, on that many images of the imagenet2012
+validation stand-in in batches of 64; no JAX config sets it.
 """
 
 from big_vision_torch.configs import common as bvcc
@@ -67,7 +71,7 @@ def get_config(arg=None):
                        img_head=False, batch_size=256,
                        vocab="build/siglip/vocab.txt", img_init="",
                        txt_init="", neval=0, stop=0, log=50, attn="auto",
-                       ckpt=1000, eval_every=1000)
+                       ckpt=1000, eval_every=1000, zeroshot=0)
   txt_name, txt_init, img_name, img_init = common.inits(arg.variant)
   del txt_init, img_init  # the published inits: not in reach
   vocab = common.stand_in_vocab(arg.vocab)
@@ -133,6 +137,15 @@ def get_config(arg=None):
       pp_img=f"resize({arg.res})|value_range(-1, 1)",
       pp_txt=f"bert_tokenize('{vocab}', {text_len}, inkey='text')",
       txt_name=("captions", "text"))
+  if arg.zeroshot:
+    config["evals"]["zeroshot_i1k"] = dict(
+        type="proj.image_text.discriminative_classifier",
+        data=bvcc.stand_in("imagenet2012", "validation", n=arg.zeroshot),
+        pp_fn=(f"decode|resize({arg.res})|value_range(-1, 1)"
+               "|keep('image', 'label')"),
+        pp_txt=f"bert_tokenize('{vocab}', {text_len}, inkey='text')",
+        prompt_templates="clip_paper", batch_size=64,
+        log_steps=arg.eval_every)
   if arg.stop:
     config["stop_after_steps"] = arg.stop
   return config

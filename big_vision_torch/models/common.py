@@ -161,18 +161,19 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-  """flax `nn.LayerNorm`: eps 1e-6, statistics in f32 as E[x^2] - E[x]^2.
+  """flax `nn.LayerNorm`: eps 1e-6, statistics in f32 as E[x^2] - E[x]^2;
+  without a bias where `use_bias` is False.
 
   The output is in `dtype`, or in the promoted type of x and the
   parameters when `dtype` is None.
   """
 
   def __init__(self, width, *, dtype=None, device="cuda",
-               param_dtype=torch.float32, eps=1e-6):
+               param_dtype=torch.float32, eps=1e-6, use_bias=True):
     super().__init__()
     kw = dict(device=device, dtype=param_dtype)
     self.weight = nn.Parameter(torch.empty(width, **kw))
-    self.bias = nn.Parameter(torch.empty(width, **kw))
+    self.bias = nn.Parameter(torch.empty(width, **kw)) if use_bias else None
     self.dtype = resolve_dtype(dtype)
     self.eps = eps
 
@@ -182,12 +183,16 @@ class LayerNorm(nn.Module):
     mean = xf.mean(-1, keepdim=True)
     var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
     mul = torch.rsqrt(var + self.eps) * self.weight.float()
-    return ((xf - mean) * mul + self.bias.float()).to(out_dtype)
+    y = (xf - mean) * mul
+    if self.bias is not None:
+      y = y + self.bias.float()
+    return y.to(out_dtype)
 
   def reset_parameters(self, generator):
     del generator
     init(self.weight, "ones", None)
-    init(self.bias, "zeros", None)
+    if self.bias is not None:
+      init(self.bias, "zeros", None)
 
 
 def gelu(x):

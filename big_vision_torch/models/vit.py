@@ -149,10 +149,12 @@ class MlpBlock(nn.Module):
   """Dense -> tanh GELU -> dropout -> Dense."""
 
   def __init__(self, width, mlp_dim=None, *, dtype_mm="float32",
-               dropout=0.0, device="cuda", param_dtype=torch.float32):
+               dropout=0.0, use_bias=True, device="cuda",
+               param_dtype=torch.float32):
     super().__init__()
     kw = dict(dtype=dtype_mm, device=device, param_dtype=param_dtype,
-              kernel_init="xavier_uniform", bias_init=("normal", 1e-6))
+              kernel_init="xavier_uniform", bias_init=("normal", 1e-6),
+              use_bias=use_bias)
     self.fc1 = common.Dense(width, mlp_dim or 4 * width, **kw)
     self.fc2 = common.Dense(mlp_dim or 4 * width, width, **kw)
     self.dropout = dropout

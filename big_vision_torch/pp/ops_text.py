@@ -9,8 +9,8 @@ modes:
 
 Its `model` is a tokenizer of `pp/tokenizer.py` ("test(128)", "sp(...)"),
 else a SentencePiece model name or path. `clip_i1k_label_names` and
-`i21k_label_names` need the ImageNet class-name tables, which the port does
-not have yet: they are refused by name.
+`i21k_label_names` read the ImageNet class-name tables of
+`datasets/imagenet`.
 """
 
 from __future__ import annotations
@@ -111,18 +111,30 @@ def get_strfmt(template, outkey="text"):
   return PPOp(host_fn=_op, phase="host", name="strfmt")
 
 
-def _label_names(op):
-  def refuse(*args, **kw):
-    raise NotImplementedError(
-        f"pp op {op!r} needs the ImageNet class-name tables, which are not "
-        "ported yet (they come with the discriminative classifier)")
-  return refuse
+def _label_names(names, key, outkey, name):
+  """The host op that maps data[key] (a class id) to names[id]."""
+  def _op(data):
+    data = dict(data)
+    data[outkey] = names[int(data[key])]
+    return data
+
+  return PPOp(host_fn=_op, phase="host", name=name)
 
 
-Registry.register("preprocess_ops.clip_i1k_label_names")(
-    _label_names("clip_i1k_label_names"))
-Registry.register("preprocess_ops.i21k_label_names")(
-    _label_names("i21k_label_names"))
+@Registry.register("preprocess_ops.clip_i1k_label_names")
+def get_clip_i1k_label_names(key="label", outkey="labels"):
+  """Maps an ImageNet-1k label id to its CLIP class-name string."""
+  from big_vision_torch.datasets import imagenet  # pylint: disable=import-outside-toplevel
+  return _label_names(imagenet.clip_imagenet_class_names(), key, outkey,
+                      "clip_i1k_label_names")
+
+
+@Registry.register("preprocess_ops.i21k_label_names")
+def get_i21k_label_names(key="label", outkey="labels"):
+  """Maps an ImageNet-21k label id to its class-name string."""
+  from big_vision_torch.datasets import imagenet  # pylint: disable=import-outside-toplevel
+  return _label_names(imagenet.imagenet21k_class_names(), key, outkey,
+                      "i21k_label_names")
 
 
 @Registry.register("preprocess_ops.coco_captions")

@@ -16,10 +16,10 @@ token array (int32; here the text length). A port config without
 gives the shape of its input's images.
 
 The predict fns: "predict" (the model's output, or (it, {})) and
-"represent" (`pre_logits`), as the JAX tool; for a two-tower model the
-SigLIP trainer's fns ("predict", which reads whichever of "image" and
-"labels" a batch holds, "loss", "img", "txt") and "contrastive" (the
-same as "predict"). The JAX tool registers "contrastive" only for models
+"represent" (`pre_logits`), as the JAX tool; for a two-tower model (and
+CLIPPO's one tower) the SigLIP trainer's fns ("predict", which reads
+whichever of "image" and "labels" a batch holds, "loss", "img", "txt")
+and "contrastive" (the same as "predict"). The JAX tool registers "contrastive" only for models
 with an `embed_image` attribute, which its two-tower model lacks, and its
 "predict" reads batch["image"], which the retrieval evaluator's text
 batches lack; so it cannot evaluate a two-tower model, and the port gives
@@ -87,7 +87,7 @@ def build_model(config, device):
 
 def predict_fns(config, model):
   """{name: fn(train_state, batch)} (see the module docstring)."""
-  if config["model_name"] == TWO_TOWERS:
+  if config["model_name"] in siglip.MODELS:  # two towers, or CLIPPO's one
     fns = siglip.predict_fns(
         model, getattr(losses, config.get("loss", "sigmoid_xent")))
     fns["contrastive"] = fns["predict"]

@@ -5,9 +5,11 @@ big_vision_tpu/trainers/proj/image_text/siglip.py on one device.
       --config big_vision_torch/configs/proj/image_text/siglip_smoke.py \
       --workdir <dir> [--device cpu]
 
-The model is the config's two-tower model
-(`models/proj/image_text/two_towers.py`), built for the config's
-`init_shapes` (the image size and the text length). A step is the JAX
+The model is the config's `model_name`, as in JAX: the two-tower model
+(`models/proj/image_text/two_towers.py`, the default), built for the
+config's `init_shapes` (the image size and the text length), or CLIPPO's
+one tower (`models/proj/clippo/one_tower.py`), whose `init_shapes` are two
+image shapes and whose "labels" are rendered-text images. A step is the JAX
 `update_fn`: the towers embed the batch's "image" and "labels" in training
 mode, with the dropout generator of the step from (seed + 1, the
 optimizer's count); the loss is `parallel/contrastive.py`'s SigLIP loss at
@@ -32,15 +34,20 @@ import torch
 from big_vision_torch import input_pipeline
 from big_vision_torch import optim
 from big_vision_torch import train
+from big_vision_torch.models.proj.clippo import one_tower
 from big_vision_torch.models.proj.image_text import two_towers
 from big_vision_torch.parallel import contrastive
 
 PP_MODULES = ("ops_general", "ops_image", "ops_text")
+# config["model_name"] -> the port's model module.
+MODELS = {"proj.image_text.two_towers": two_towers,
+          "proj.clippo.one_tower": one_tower}
 
 
 def _draws_in_training(model):
   """Whether a tower draws dropout masks in training."""
-  return any(getattr(t, "dropout", 0) for t in (model.img, model.txt))
+  return any(getattr(getattr(model, t, None), "dropout", 0)
+             for t in ("img", "txt"))
 
 
 def predict_fns(model, loss_fn):
@@ -68,8 +75,7 @@ def predict_fns(model, loss_fn):
 
 class Trainer(train.Trainer):
   """The SigLIP update on the loop of `train.py`."""
-  MODEL_NAME = ("proj.image_text.two_towers",)
-  MODEL_MODULE = two_towers
+  MODEL_NAME = tuple(MODELS)
 
   def __init__(self, config, **kw):
     train.import_pp_modules(config, PP_MODULES)
@@ -87,14 +93,18 @@ class Trainer(train.Trainer):
         raise ValueError(f"config key {key!r} is not ported by the SigLIP "
                          "trainer (the JAX one does not read it)")
 
+  def model_module(self):
+    return MODELS[self.config.get("model_name", self.MODEL_NAME[0])]
+
   def build_model(self, res, channels):
-    """The two towers for the config's `init_shapes` [(1, res, res, c),
-    (1, text_len)]."""
+    """The model for the config's `init_shapes`: [(1, res, res, c), (1,
+    text_len)] of two towers, two image shapes of one tower."""
     del res, channels
-    (_, res, _, channels), (_, text_len) = self.config["init_shapes"]
-    return two_towers.Model(**self.config.get("model", {}), image_size=res,
-                            channels=channels, text_len=text_len,
-                            device=self.device)
+    (_, res, _, channels), text_shape = self.config["init_shapes"]
+    kw = dict(image_size=res, channels=channels, device=self.device)
+    if self.model_module() is two_towers:
+      kw["text_len"] = text_shape[1]
+    return self.model_module().Model(**self.config.get("model", {}), **kw)
 
   def loss_and_grads(self, batch):
     """(loss, {JAX name: gradient}, {"t", "b"}) of one batch."""

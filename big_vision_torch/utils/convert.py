@@ -55,14 +55,15 @@ def _flat(params):
           for k, v in flat.items()}
 
 
-def _unstack(flat, stacked, per_layer):
-  """Splits leaves under `stacked/` along axis 0 into `per_layer.format(i)/`."""
+def _unstack(flat, stacked, per_layer, axis=0):
+  """Splits leaves under `stacked/` along `axis` into
+  `per_layer.format(i)/`."""
   out = {}
   for name, x in flat.items():
     if name.startswith(stacked + "/"):
       rest = name[len(stacked) + 1:]
-      for i in range(x.shape[0]):
-        out[f"{per_layer.format(i)}/{rest}"] = x[i]
+      for i in range(x.shape[axis]):
+        out[f"{per_layer.format(i)}/{rest}"] = x[(slice(None),) * axis + (i,)]
     else:
       out[name] = x
   return out
@@ -357,17 +358,102 @@ def two_towers(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
   return out
 
 
+def one_tower_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a
+  `models.proj.clippo.one_tower` module: the shared tower's names under
+  "img/", and "t"."""
+  out = {f"img.{k}": f"img/{v}" for k, v in names(module.img).items()}
+  out["t"] = "t"
+  return out
+
+
+def one_tower(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
+  """One-tower param tree {"img", "t"} -> the port module's state dict
+  (numpy)."""
+  out = {f"img.{k}": v for k, v in state(module.img, tree["img"]).items()}
+  out["t"] = np.asarray(tree["t"]).reshape(1)
+  unused = set(tree) - {"img", "t"}
+  if unused:
+    raise ValueError(f"unused params: {sorted(unused)}")
+  return out
+
+
+_CAPPA_BLOCK = {"ln1": "LayerNorm1", "ln2": "LayerNorm2", "ln3": "LayerNorm3",
+                "self_attn": "SelfAttn", "cross_attn": "CrossAttn",
+                "mlp.fc1": "MLP/Dense_0", "mlp.fc2": "MLP/Dense_1"}
+
+
+def cappa_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a `models.proj.cappa.cappa`
+  module: the encoder's ViT names under "encoder/", "pos_embedding_decoder",
+  and the decoder's ("decoder/EmbedTargets/embedding",
+  "decoder/EncDecBlock0/SelfAttn/query/kernel", ".../MLP/Dense_0/bias",
+  "decoder/LayerNorm/scale", "decoder/LogitsDense/kernel"), per layer."""
+  out = {f"encoder.{k}": f"encoder/{v}"
+         for k, v in vit_names(module.encoder).items()}
+  for name, _ in module.named_parameters():
+    if name.startswith("encoder."):
+      continue
+    if name == "pos_embedding_decoder":
+      out[name] = name
+      continue
+    if name == "decoder.embed":
+      out[name] = "decoder/EmbedTargets/embedding"
+      continue
+    layer, leaf = name.rsplit(".", 1)
+    if m := re.fullmatch(r"decoder\.blocks\.(\d+)\.(ln\d|self_attn|cross_attn"
+                         r"|mlp\.fc\d)(?:\.(query|key|value|out))?", layer):
+      jax_layer = f"decoder/EncDecBlock{m[1]}/{_CAPPA_BLOCK[m[2]]}"
+      if m[3]:
+        jax_layer += f"/{m[3]}"
+      norm = m[2].startswith("ln")
+    else:
+      jax_layer = {"decoder.ln": "decoder/LayerNorm",
+                   "decoder.logits": "decoder/LogitsDense"}[layer]
+      norm = layer == "decoder.ln"
+    kind = "bias" if leaf == "bias" else "scale" if norm else "kernel"
+    out[name] = f"{jax_layer}/{kind}"
+  return out
+
+
+def _cappa_layout(module, name, jax_name, x):
+  """Parameter `name` of a CapPa module in its JAX layout."""
+  if name.startswith("encoder."):
+    return _vit_layout(module.encoder, name[len("encoder."):],
+                       jax_name[len("encoder/"):], x)
+  return _vit_layout(module, name, jax_name, x)
+
+
+def cappa_pyloop(tree):
+  """A CapPa param tree in the per-layer layout: a scanned encoder's
+  "Transformer/encoderblock" (layers on axis 0) and a scanned decoder's
+  "EncDecBlock" (layers on axis 1, where flax's `nn.scan` puts them) are
+  split into "encoderblock_{i}" and "EncDecBlock{i}". Nested dicts."""
+  flat = _unstack(trees.flatten(tree), "encoder/Transformer/encoderblock",
+                  "encoder/Transformer/encoderblock_{}")
+  flat = _unstack(flat, "decoder/EncDecBlock", "decoder/EncDecBlock{}", axis=1)
+  return trees.unflatten(flat)
+
+
+def cappa(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
+  """CapPa param tree, scanned or per layer -> the port module's state dict
+  (numpy)."""
+  return _from_jax(module, cappa_names(module), _cappa_layout,
+                   trees.flatten(cappa_pyloop(tree)))
+
+
 def _kind(module):
-  """"mixer", "vit" (also FlexiViT), "text", "bert", "two_towers" or
-  "paligemma"."""
+  """"mixer", "vit" (also FlexiViT), "text", "bert", "two_towers",
+  "one_tower", "cappa" or "paligemma"."""
   return {"mlp_mixer": "mixer", "text_transformer": "text", "bert": "bert",
-          "two_towers": "two_towers", "paligemma": "paligemma"}.get(
+          "two_towers": "two_towers", "one_tower": "one_tower",
+          "cappa": "cappa", "paligemma": "paligemma"}.get(
               type(module).__module__.rsplit(".", 1)[-1], "vit")
 
 
 def names(module: torch.nn.Module) -> dict[str, str]:
   """{port parameter name: JAX param name} of a ViT, FlexiViT, Mixer, text
-  transformer, BERT, two-tower or PaliGemma model."""
+  transformer, BERT, two-tower, one-tower, CapPa or PaliGemma model."""
   return _NAMES[_kind(module)](module)
 
 
@@ -384,6 +470,10 @@ def state(module: torch.nn.Module, tree) -> dict:
     return (mixer if kind == "mixer" else vit)(tree)
   if kind == "two_towers":
     return two_towers(module, tree)
+  if kind == "one_tower":
+    return one_tower(module, tree)
+  if kind == "cappa":
+    return cappa(module, tree)
   if kind == "paligemma":
     return paligemma(tree)
   return _from_jax(module, names(module), _LAYOUTS[kind], tree)
@@ -588,7 +678,9 @@ def load(module: torch.nn.Module, state: dict, device=None, dtype=None):
 # Each model kind's names and layout (see `_kind`).
 _NAMES = {"mixer": mixer_names, "vit": vit_names,
           "text": text_transformer_names, "bert": bert_names,
-          "two_towers": two_towers_names, "paligemma": paligemma_names}
+          "two_towers": two_towers_names, "one_tower": one_tower_names,
+          "cappa": cappa_names, "paligemma": paligemma_names}
 _LAYOUTS = {"mixer": _mixer_layout, "vit": _vit_layout, "text": _vit_layout,
             "bert": _vit_layout, "two_towers": _two_towers_layout,
+            "one_tower": _two_towers_layout, "cappa": _cappa_layout,
             "paligemma": _paligemma_layout}

@@ -1,6 +1,6 @@
-"""Loss functions: port of `onehot`, `sigmoid_xent`, `softmax_xent` and
-`bidirectional_contrastive_loss` in big_vision_tpu/utils/losses.py, with
-the same signatures."""
+"""Loss functions: port of `onehot`, `sigmoid_xent`, `softmax_xent`,
+`weighted_softmax_xent` and `bidirectional_contrastive_loss` in
+big_vision_tpu/utils/losses.py, with the same signatures."""
 
 from __future__ import annotations
 
@@ -29,6 +29,37 @@ def softmax_xent(*, logits, labels, reduction=True, kl=False, axis=-1):
     nll = nll + torch.sum(labels * torch.log(labels.clamp_min(1e-8)),
                           dim=axis)
   return nll.mean() if reduction else nll
+
+
+def weighted_softmax_xent(*, logits, labels, reduction=True, weights=None,
+                          label_smoothing=0.0, normalize=True):
+  """Per-sequence weighted CE of [batch, length, vocab] logits against int
+  ids [batch, length]; the smoothed targets are 1 - s at the label and
+  s / (vocab - 1) elsewhere, `weights` masks tokens and `normalize`
+  divides each sequence's sum by its token count (the weights' sum,
+  clipped at 2e-38). Computed without the [batch, length, vocab]
+  targets: sum_v target_v * logp_v from the label's log-probability and
+  the sum over the vocab."""
+  if logits.dim() != labels.dim() + 1:
+    raise ValueError(f"Bad shapes: logits {tuple(logits.shape)} labels "
+                     f"{tuple(labels.shape)}")
+  vocab = logits.shape[-1]
+  logp = torch.log_softmax(logits.float(), dim=-1)
+  label_logp = logp.gather(-1, labels.long()[..., None])[..., 0]
+  if label_smoothing > 0:
+    off = label_smoothing / (vocab - 1)
+    loss = -(off * logp.sum(-1) + (1.0 - label_smoothing - off) * label_logp)
+  else:
+    loss = -label_logp
+  del logp
+  norm = labels.shape[1]
+  if weights is not None:
+    loss = loss * weights
+    norm = weights.sum(dim=1).clamp_min(2e-38)
+  loss = loss.sum(dim=1)
+  if normalize:
+    loss = loss / norm
+  return loss.mean() if reduction else loss
 
 
 def bidirectional_contrastive_loss(zimg, ztxt, t, mask=None,

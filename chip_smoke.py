@@ -12,7 +12,9 @@ every kernel and of the JPEG decoder after a change to one;
 `python3 chip_smoke.py --quality` builds and runs phase 10 alone;
 `python3 chip_smoke.py --siglip` builds and runs phase 11 alone;
 `python3 chip_smoke.py --paligemma` builds and runs phase 12 alone, with
-its fixed-batch steps in turns and their profiles.)
+its fixed-batch steps in turns and their profiles;
+`python3 chip_smoke.py --imagetext` builds and runs phase 14 alone and
+prints its kernels line and the last line.)
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. builds every CUDA kernel from big_vision_torch/csrc (one nvcc each, in
@@ -267,6 +269,37 @@ Phases, each of which raises (and so exits non-zero) on failure:
      plain versions and SDPA with the boolean mask (two entries of the
      kernels line); with `--paligemma` also the update on a fixed batch
      under both paths in turns and a profile of each;
+ 14. (run before 13) trains CapPa on configs/proj/cappa/pretrain.py (a
+     ViT-B/16 encoder at 224px, T = 196, and a 6-layer decoder of 64
+     tokens over a vocab of 32,000 and [MASK], parallel prediction at
+     0.75, f32, from the seed, the stand-in `c4_en` tokenizer written in
+     place) through the generative trainer's command line at its batch
+     CAPPA_B, CAPPA_STEPS steps after its step-0 evals (`val_pplx` on
+     CAPPA_NEVAL stand-in images; the scoring classifier over the 1000
+     CLIP ImageNet class names on CAPPA_SCORING stand-in images):
+     launches exact (12 K1f and 12 K2f a step, 12 K1f an eval batch), the
+     first loss ln(32000) within 1e-4, every metric finite, step ms, img/s,
+     peak memory, eval seconds; the encoder's kernel path against
+     attn=xla on CAPPA_CHECK_B unseen examples (loss, logits and every
+     attention-projection gradient within E2E_BAR), the launches under
+     the remat of `scan=True` (24 K1f, 12 K2f; the loss unchanged) and
+     each K1f and K2f launch of a forward and backward on the unseen batch
+     in place within F32_BAR; FIXED_UPDATES updates on that batch (CUDA events); an update
+     at twice the batch (out of memory: CAPPA_B is the largest power of
+     two that fits); then CLIPPO on configs/proj/clippo/train_clippo.py
+     (one ViT-B/16 with a MAP head for the images and their PIL-rendered
+     captions, from a random `.npz` with a random head) through the SigLIP
+     trainer's command line at CLIPPO_B, CLIPPO_STEPS steps and the
+     retrieval eval at steps 0 and CLIPPO_STEPS on CLIPPO_NEVAL images
+     (24 K1f and 24 K2f a step, 12 K1f an eval batch of images or
+     rendered captions), its fixed-batch step and an update at twice its
+     batch; then `tools/eval_only` on siglip_lit_coco (random `.npz`
+     inits) with the discriminative classifier (`zeroshot`: 81 CLIP-paper
+     templates x 1000 class names embedded by BERT-base, ZEROSHOT_N
+     stand-in images; 12 K1f an image batch, none a text batch), the
+     host's and the card's seconds; and K1f, K2f at CapPa's shape timed
+     beside their plain versions and SDPA (two entries of the kernels
+     line);
  13. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
@@ -295,8 +328,11 @@ and "host_us", the wrapper's host time a call; no SDPA on an int8
 cache); max_abs_err and max_rel_err are at those shapes, and
 rel_tolerance is the bar the relative error was held to; K1's and K2's f32
 kernels also at the PaliGemma LLM's shape (B=PG_B, T=289, H=8, D=256,
-f32, seg; launches of the LLM on phase 12's flash path), and the f32 rows
-carry `paligemma_launches`, phase 12's counts of each path. The last line is {"ok": true,
+f32, seg; launches of the LLM on phase 12's flash path) and at CapPa's
+encoder shape (B=CAPPA_B, T=196, H=12, D=64, f32; launches on its main
+path), and the f32 rows carry `paligemma_launches`, phase 12's counts of
+each path, and `imagetext_launches`, phase 14's counts of CapPa, CLIPPO
+and the zero-shot eval. The last line is {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -484,6 +520,21 @@ GSAM_BAR = 1e-3
 PALIGEMMA_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                                 "paligemma", "transfers", "cococap.py")
 PG_STEPS, PG_NEVAL, PG_CHECK_B, PG_INPLACE_B = 2, 8, 8, 4
+# Phase 14, image-text: CapPa pre-training through the generative trainer
+# (its batch CAPPA_B; loop steps; stand-in images of the perplexity eval
+# and of the scoring classifier at step 0; fixed-batch steps; unseen
+# examples of the kernel-vs-plain check), CLIPPO through the SigLIP trainer
+# (its batch CLIPPO_B; loop steps; images of its retrieval eval), and the
+# discriminative classifier on LiT through eval_only (stand-in ImageNet
+# images; images of the config's retrieval eval beside it).
+CAPPA_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                            "cappa", "pretrain.py")
+CLIPPO_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                             "clippo", "train_clippo.py")
+CAPPA_B, CAPPA_STEPS, CAPPA_NEVAL, CAPPA_SCORING = 256, 3, 8, 8
+FIXED_UPDATES, CAPPA_CHECK_B = 3, 64
+CLIPPO_B, CLIPPO_STEPS, CLIPPO_NEVAL = 256, 3, 16
+ZEROSHOT_N, ZEROSHOT_RETRIEVAL = 64, 16
 DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                               "flexivit", "i21k_distill.py")
 # The distill trainer's loop draws the FlexiViT trainer's seqhw (15, 15, 15,
@@ -3375,6 +3426,8 @@ def k2_f32_entry(fa, counts, gpu, seqhw):
       source="big_vision_torch/csrc/flash_bwd.cu",
       replaces="big_vision_tpu/ops/flash_attention.py:329",
       launches=counts["K2f"], paligemma_launches=counts["PG K2f"],
+      imagetext_launches={path: counts[f"IT {path}"]["K2f"]
+                          for path in ("cappa", "clippo", "zeroshot")},
       max_abs_err=abs_err, max_rel_err=rel,
       rel_tolerance=F32_BAR, ms=time_ms(fa.flash_attention_bwd, sets),
       plain_ms=time_ms(plain, sets, iters=10), bound_ms=bms, bound_by=by,
@@ -3402,6 +3455,8 @@ def k1_f32_entry(fa, counts, gpu):
       source="big_vision_torch/csrc/flash_fwd.cu",
       replaces="big_vision_tpu/ops/flash_attention.py:306",
       launches=counts["K1f"], paligemma_launches=counts["PG K1f"],
+      imagetext_launches={path: counts[f"IT {path}"]["K1f"]
+                          for path in ("cappa", "clippo", "zeroshot")},
       max_abs_err=r["max_abs_err"],
       max_rel_err=r["max_rel_err"], rel_tolerance=F32_BAR, ms=r["ms"],
       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -3497,7 +3552,7 @@ def kernel_entries(fa, da, counts, gpu):
         library_ms=r["library_ms"]))
   for cache in ("bf16", "int8"):
     time_k6(da, gpu, 64, 1120, cache)
-  return kernels + counts["PG kernels"]
+  return kernels + counts["PG kernels"] + counts["IT kernels"]
 
 
 # ----------------------------------------------------------------------------
@@ -4186,6 +4241,476 @@ def paligemma_phase(fa, gpu, detail=True):
   return counts
 
 
+# ----------------------------------------------------------------------------
+# Phase 14: CapPa pre-training, CLIPPO, and zero-shot classification of LiT.
+# ----------------------------------------------------------------------------
+
+
+def cappa_main_path(fa, workdir, vocab, gpu):
+  """CAPPA_STEPS steps of the CapPa trainer's command line on
+  cappa/pretrain.py at full width from the seed, after its evals at step
+  0: `val_pplx` on CAPPA_NEVAL stand-in images and the scoring classifier
+  over the 1000 CLIP class names on CAPPA_SCORING stand-in images.
+  Asserts the launches (per step 12 K1f and 12 K2f, per eval batch 12
+  K1f), the first step's loss ln(32000) within 1e-4 (LogitsDense starts at
+  zero) and every metric finite. Returns (trainer, {"step_ms", "img/sec":
+  medians of the steps after the first; "peak"; "evals": {name:
+  seconds}; "first_loss"}, the launches)."""
+  from big_vision_torch.trainers.proj.cappa import generative
+  shutil.rmtree(workdir, ignore_errors=True)
+  calls = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches(fa)
+  args = (f"vocab={vocab},neval={CAPPA_NEVAL},scoring={CAPPA_SCORING},"
+          f"stop={CAPPA_STEPS},log=1")
+  with counted_predict_fns(fa, calls):
+    trainer = generative.main(["--config", f"{CAPPA_CONFIG}:{args}",
+                               "--workdir", workdir])
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  counts = launches(fa)
+  depth = len(trainer.model.encoder.encoder.blocks)
+  per_batch = {**dict.fromkeys(COUNTERS, 0), "K1f": depth}
+  n_batches = {name: len(c) for name, c in calls.items()}
+  for name, per_call in calls.items():
+    assert all(c == per_batch for c in per_call), (name, per_call[:2])
+  want = {**dict.fromkeys(COUNTERS, 0),
+          "K1f": depth * (CAPPA_STEPS + sum(n_batches.values())),
+          "K2f": depth * CAPPA_STEPS}
+  print(f"cappa/pretrain: {CAPPA_STEPS} steps of batch {trainer.batch_size} "
+        f"and the evals at step 0 ({n_batches} eval batches); launches "
+        f"{({k: n for k, n in counts.items() if n})} (want "
+        f"{({k: n for k, n in want.items() if n})}: per step {depth} K1f and "
+        f"{depth} K2f, per eval batch {depth} K1f)")
+  assert counts == want, (counts, want)
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    rows = list(map(json.loads, f))
+  steps = [r for r in rows if "training_loss" in r]
+  assert [r["step"] for r in steps] == list(range(1, CAPPA_STEPS + 1)), steps
+  for r in steps:
+    assert all(math.isfinite(r[k]) for k in ("training_loss", "l2_grads")), r
+  first = steps[0]["training_loss"]
+  assert abs(first - math.log(32_000)) <= 1e-4, first
+  step0 = {k: v for r in rows if r["step"] == 0 for k, v in r.items()}
+  pplx, prec = step0["val_pplx/perplexity"], step0["zeroshot_i1k/prec@1"]
+  assert math.isfinite(pplx) and 0 <= prec <= 1, step0
+  evals = {n: step0[f"z/secs/eval/{n}"] for n in ("val_pplx", "zeroshot_i1k")}
+  print(f"  losses " + " ".join(f"{r['training_loss']:.6f}" for r in steps)
+        + f" (the first: ln 32000 = {math.log(32_000):.6f}, off by "
+        f"{abs(first - math.log(32_000)):.3e}); l2_grads "
+        f"{steps[-1]['l2_grads']:.6f}")
+  print(f"[{gpu}] cappa/pretrain evals at step 0: val_pplx/perplexity "
+        f"{pplx:.6f} on {CAPPA_NEVAL} images in {evals['val_pplx']:.3f} s; "
+        f"zeroshot_i1k/prec@1 {prec:.6f}, the scoring classifier over 1000 "
+        f"class captions on {CAPPA_SCORING} images in "
+        f"{evals['zeroshot_i1k']:.3f} s")
+  e2e = {k: statistics.median(r[k] for r in steps[1:])
+         for k in ("step_ms", "img/sec")}
+  e2e.update(peak=peak, evals=evals, first_loss=first)
+  return trainer, e2e, counts
+
+
+def cappa_loss_grads(trainer, batch):
+  """(loss, logits, {name: gradient} of the encoder's attention
+  projections) of one training forward and backward on `batch`, with the
+  parallel-prediction draws of one fixed generator."""
+  from big_vision_torch.trainers.proj.cappa import generative
+  for p in trainer.params.values():
+    p.grad = None
+  rng = torch.Generator(device="cuda").manual_seed(SEED + 41)
+  logits = trainer.model(batch["image"], batch["labels"], train=True,
+                         rng=rng)
+  loss = generative.caption_loss(logits, batch["labels"])
+  loss.backward()
+  grads = {n: p.grad.clone() for n, p in trainer.params.items()
+           if n.startswith("encoder/") and _attn_projection(n)}
+  for p in trainer.params.values():
+    p.grad = None
+  return loss.item(), logits.detach(), grads
+
+
+def cappa_kernel_vs_plain(fa, trainer, batch):
+  """On CAPPA_CHECK_B examples no update saw, with the trained weights: the
+  encoder's kernel path (`auto`: K1f, K2f) against its plain path
+  (attn_impl "xla", the same weights): the loss, the logits and every
+  attention-projection gradient of the encoder within E2E_BAR of
+  max|plain|, and the launches of each."""
+  batch = {k: v[:CAPPA_CHECK_B] for k, v in batch.items()}
+  blocks = trainer.model.encoder.encoder.blocks
+  runs = {}
+  for impl, layers in (("auto", len(blocks)), ("xla", 0)):
+    for block in blocks:
+      block.attn.attn_impl = impl
+    reset_launches(fa)
+    runs[impl] = cappa_loss_grads(trainer, batch)
+    torch.cuda.synchronize()
+    assert launches(fa) == {**dict.fromkeys(COUNTERS, 0), "K1f": layers,
+                            "K2f": layers}, (impl, launches(fa))
+  for block in blocks:
+    block.attn.attn_impl = "auto"
+  (lk, xk, gk), (lp, xp, gp) = runs["auto"], runs["xla"]
+  errs = {"loss": abs(lk - lp) / abs(lp), "logits": rel_err(xk, xp)}
+  worst = max((rel_err(gk[n], gp[n]), n) for n in gp)
+  assert len(gp) == 7 * len(blocks), sorted(gp)
+  print(f"cappa/pretrain encoder kernel vs plain path (attn=xla), "
+        f"{CAPPA_CHECK_B} unseen examples: loss {lk:.6f} vs {lp:.6f}; rel err "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f"; {len(gp)} attention-projection gradients, worst rel err "
+        f"{worst[0]:.3e} ({worst[1]}) (bar {E2E_BAR})")
+  assert all(e <= E2E_BAR for e in errs.values()) and worst[0] <= E2E_BAR
+  return max(max(errs.values()), worst[0])
+
+
+def cappa_remat_launches(fa, trainer, batch):
+  """With the remat of `scan=True` (each encoder and decoder block under a
+  checkpoint), one training forward and backward launches 24 K1f (the
+  forward and the recompute) and 12 K2f; its loss equals the step's
+  without remat."""
+  batch = {k: v[:CAPPA_CHECK_B] for k, v in batch.items()}
+  model = trainer.model
+  runs = {}
+  for remat in (False, True):
+    model.encoder.encoder.remat = model.decoder.remat = remat
+    reset_launches(fa)
+    runs[remat] = cappa_loss_grads(trainer, batch)[0]
+    torch.cuda.synchronize()
+    runs[remat, "launches"] = launches(fa)
+  model.encoder.encoder.remat = model.decoder.remat = False
+  depth = len(model.encoder.encoder.blocks)
+  want = {**dict.fromkeys(COUNTERS, 0), "K1f": 2 * depth, "K2f": depth}
+  print(f"cappa/pretrain under remat (scan=True), {CAPPA_CHECK_B} examples: "
+        f"launches {({k: n for k, n in runs[True, 'launches'].items() if n})}"
+        f" (want {({k: n for k, n in want.items() if n})}); loss "
+        f"{runs[True]:.6f}, without remat {runs[False]:.6f}")
+  assert runs[True, "launches"] == want, runs
+  assert runs[True] == runs[False], runs
+
+
+def cappa_in_place(fa, trainer, batch):
+  """Every K1f and K2f launch of one training forward and backward of
+  CapPa's encoder on `batch` (the main path's shape), in place, against its
+  plain version within F32_BAR. Returns the worst relative error."""
+  k1_rows, k2_rows = [], []
+  with attention_checked_in_place(fa, k1_rows, k2_rows):
+    cappa_loss_grads(trainer, batch)
+  torch.cuda.synchronize()
+  depth = len(trainer.model.encoder.encoder.blocks)
+  b = batch["image"].shape[0]
+  for what_k, rows, n in (("K1 (f32) forward", k1_rows, 2 * depth),
+                          ("K2 (f32) backward", k2_rows, 3 * depth)):
+    assert len(rows) == n, (what_k, len(rows))
+    rows.sort(reverse=True)
+    print(f"cappa/pretrain encoder: {what_k} in place, batch {b} x 12 heads "
+          f"(B*H = {12 * b}, T = 196): {len(rows)} outputs of {depth} "
+          f"launches against the plain version, the 3 worst (bar {F32_BAR}): "
+          + ", ".join(f"{nm} {e:.3e}" for e, nm in rows[:3]))
+    assert all(e <= F32_BAR for e, _ in rows), rows[:3]
+  return max(k1_rows[0][0], k2_rows[0][0])
+
+
+def fixed_steps(trainer, batch, gpu, what):
+  """FIXED_UPDATES updates on `batch` after one to warm, timed with CUDA
+  events (the step without the input pipeline); their losses finite.
+  Returns ms per step."""
+  trainer.update(batch)
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  losses = [trainer.update(batch)["training_loss"]
+            for _ in range(FIXED_UPDATES)]
+  end.record()
+  end.synchronize()
+  losses = [x.item() for x in losses]
+  ms = start.elapsed_time(end) / FIXED_UPDATES
+  print(f"[{gpu}] {what}: fixed batch, {FIXED_UPDATES} steps of {ms:.3f} ms "
+        f"(CUDA events); losses " + " ".join(f"{x:.6f}" for x in losses))
+  assert all(math.isfinite(x) for x in losses), losses
+  return ms
+
+
+def write_clippo_init(path):
+  """A CLIPPO one tower (ViT-B/16, MAP pooling, a 768 head) drawn from
+  SEED as an `.npz` in the JAX layout, its head N(0, 0.02^2): the stand-in
+  for the published `howto-i21k-B/16` (the seed's zero head would embed
+  every image at 0, and nothing would train)."""
+  from big_vision_torch.configs.proj.clippo import train_clippo
+  from big_vision_torch.models.proj.clippo import one_tower
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  model = one_tower.Model(**train_clippo.get_config()["model"],
+                          device="cuda")
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+  model.initialize(gen)
+  with torch.no_grad():
+    model.img.head.weight.normal_(0.0, 0.02, generator=gen)
+  checkpoints.npz_save(convert.params(model), path)
+  return path
+
+
+def clippo_main_path(fa, workdir, init, gpu):
+  """CLIPPO_STEPS steps of the SigLIP trainer's command line on
+  clippo/train_clippo.py at full width from `init`, its retrieval eval at
+  steps 0 and CLIPPO_STEPS on CLIPPO_NEVAL stand-in images (and their
+  rendered captions): launches exact (per step 24 K1f and 24 K2f, the
+  tower's two passes; per eval batch of images or of rendered captions 12
+  K1f), recalls in [0, 1], losses finite. Returns (trainer, {"step_ms",
+  "img/sec": medians of the steps after the first; "peak", "eval_secs"},
+  the launches)."""
+  from big_vision_torch.trainers.proj.image_text import siglip
+  shutil.rmtree(workdir, ignore_errors=True)
+  calls = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches(fa)
+  args = (f"init={init},neval={CLIPPO_NEVAL},stop={CLIPPO_STEPS},log=1,"
+          f"eval_every={CLIPPO_STEPS}")
+  with counted_predict_fns(fa, calls):
+    trainer = siglip.main(["--config", f"{CLIPPO_CONFIG}:{args}",
+                           "--workdir", workdir])
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  counts = launches(fa)
+  depth = len(trainer.model.img.encoder.blocks)
+  [per_call] = calls.values()
+  per_batch = {**dict.fromkeys(COUNTERS, 0), "K1f": depth}
+  assert all(c == per_batch for c in per_call), per_call[:2]
+  want = {**dict.fromkeys(COUNTERS, 0),
+          "K1f": depth * (2 * CLIPPO_STEPS + len(per_call)),
+          "K2f": depth * 2 * CLIPPO_STEPS}
+  print(f"clippo/train_clippo: {CLIPPO_STEPS} steps of batch "
+        f"{trainer.batch_size} (images and rendered captions through one "
+        f"tower), the retrieval eval at steps 0 and {CLIPPO_STEPS} "
+        f"({len(per_call)} eval batches); launches "
+        f"{({k: n for k, n in counts.items() if n})} (want "
+        f"{({k: n for k, n in want.items() if n})}: per step {2 * depth} "
+        f"K1f and {2 * depth} K2f, per eval batch {depth} K1f)")
+  assert counts == want, (counts, want)
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    rows = list(map(json.loads, f))
+  evals = {r["step"]: {k: v for k, v in r.items()
+                       if k.startswith("retrieval_coco/")}
+           for r in rows if "retrieval_coco/txt2img/recall@1" in r}
+  assert sorted(evals) == [0, CLIPPO_STEPS], sorted(evals)
+  for step, ev in evals.items():
+    assert len(ev) == 6 and all(0 <= v <= 1 for v in ev.values()), ev
+    print(f"  retrieval eval at step {step}: " + ", ".join(
+        f"{k.split('/', 1)[1]} {v:.6f}" for k, v in sorted(ev.items())))
+  steps = [r for r in rows if "training_loss" in r]
+  assert [r["step"] for r in steps] == list(range(1, CLIPPO_STEPS + 1))
+  for r in steps:
+    assert all(math.isfinite(r[k]) for k in ("training_loss", "t",
+                                             "l2_grads", "l2_params")), r
+  assert steps[0]["l2_grads"] > 0, steps[0]
+  secs = [r["z/secs/eval/retrieval_coco"] for r in rows
+          if "z/secs/eval/retrieval_coco" in r]
+  print("  losses " + " ".join(f"{r['training_loss']:.6f}" for r in steps)
+        + f"; t {steps[-1]['t']:.6f}, l2_grads {steps[-1]['l2_grads']:.6f}")
+  e2e = {k: statistics.median(r[k] for r in steps[1:])
+         for k in ("step_ms", "img/sec")}
+  e2e.update(peak=peak, eval_secs=secs[-1])
+  return trainer, e2e, counts
+
+
+@contextlib.contextmanager
+def discriminative_classifiers(found):
+  """While open, each discriminative classifier that runs is appended to
+  `found` (for the seconds of its parts)."""
+  from big_vision_torch.evaluators.proj.image_text import (
+      discriminative_classifier as dc)
+  original = dc.Evaluator.run
+
+  def run(self, train_state):
+    found.append(self)
+    return original(self, train_state)
+
+  dc.Evaluator.run = run
+  try:
+    yield found
+  finally:
+    dc.Evaluator.run = original
+
+
+def zeroshot_run(fa, directory, gpu):
+  """`tools.eval_only` on LiT (siglip_lit_coco from random `.npz` inits of
+  its towers) with the discriminative classifier (`zeroshot`: 81 CLIP-paper
+  templates over the 1000 CLIP ImageNet class names, on ZEROSHOT_N stand-in
+  images) beside the config's retrieval eval: per image batch 12 K1f, none
+  per text batch (BERT); prec@1 in [0, 1]; the seconds of the host
+  tokenization, the text embedding on the card and the images. Returns
+  ({"secs", "parts"}, the launches)."""
+  from big_vision_torch.configs.proj.image_text import common
+  inits = write_siglip_inits(directory)
+  vocab = common.stand_in_vocab(os.path.join(directory, "vocab.txt"))
+  found = []
+  with discriminative_classifiers(found):
+    metrics, per_call = eval_only_run(
+        fa, f"name=proj.image_text.siglip_lit_coco,img_init={inits[0]},"
+        f"txt_init={inits[1]},vocab={vocab},neval={ZEROSHOT_RETRIEVAL},"
+        f"zeroshot={ZEROSHOT_N},batch_size={ZEROSHOT_N}", gpu,
+        "siglip_lit_coco zero-shot")
+  counts = launches(fa)
+  with_kernel = {**dict.fromkeys(COUNTERS, 0), "K1f": 12}
+  n_img = sum(c == with_kernel for c in per_call)
+  assert all(c in (with_kernel, dict.fromkeys(COUNTERS, 0))
+             for c in per_call), per_call[:4]
+  # One image batch of each eval (ZEROSHOT_RETRIEVAL images of the
+  # retrieval eval and ZEROSHOT_N of the classifier fit one batch each).
+  assert n_img == 2, n_img
+  assert counts == {**dict.fromkeys(COUNTERS, 0), "K1f": 12 * n_img}, counts
+  prec = metrics["zeroshot_i1k/prec@1"]
+  assert 0 <= prec <= 1, metrics
+  [evaluator] = found
+  parts = evaluator.seconds
+  secs = metrics["z/secs/eval/zeroshot_i1k"]
+  n_prompts = len(evaluator.class_names) * len(evaluator.templates)
+  assert (len(evaluator.class_names), len(evaluator.templates)) == (1000, 81)
+  print(f"[{gpu}] eval_only siglip_lit_coco zero-shot (discriminative "
+        f"classifier, clip_paper): prec@1 {prec:.6f} on {ZEROSHOT_N} images "
+        f"in {secs:.3f} s: {n_prompts} prompts tokenized on the host in "
+        f"{parts['tokenize']:.3f} s, embedded by BERT-base on the card in "
+        f"{parts['embed_texts']:.3f} s; the images in "
+        f"{parts['images']:.3f} s; {len(per_call)} predict fn calls, "
+        f"{n_img} of them image batches of 12 K1f launches")
+  return {"secs": secs, "parts": parts}, counts
+
+
+def imagetext_kernel_times(fa, counts, gpu):
+  """K1f and K2f at CapPa's encoder shape on its main path (B=CAPPA_B,
+  T=196, H=12, D=64, f32; two input sets, past the L2), beside their plain
+  versions, SDPA on the same inputs and their bounds at the 3xTF32 rate;
+  the kernels-line entries, with the CapPa main path's launches."""
+  b, t, h, d = CAPPA_B, 196, 12, 64
+  sets = [k1_inputs(b, t, h, d, seed=190 + i, dtype=torch.float32)
+          for i in range(2)]
+  fwd = lambda q, k, v: fa.flash_attention_forward(q, k, v)
+  q, k, v = sets[0]
+  o, lse = fwd(q, k, v)
+  want_o = fa.flash_attention_reference(q, k, v)
+  want_lse = fa.flash_attention_lse_reference(q, k, v)
+  err = max(rel_err(o, want_o), rel_err(lse, want_lse))
+  abs_err = max((o - want_o).abs().max().item(),
+                (lse - want_lse).abs().max().item())
+  assert err <= F32_BAR, err
+  del o, want_o
+  bms, by = bound(*k1_work(b, t, h, d, itemsize=4), TF32X3_FLOPS)
+  k1 = dict(
+      name="flash_fwd (CapPa ViT-B/16 T=196)", route="cuda",
+      source="big_vision_torch/csrc/flash_fwd.cu",
+      replaces="big_vision_tpu/ops/flash_attention.py:306",
+      launches=counts["IT cappa"]["K1f"], max_abs_err=abs_err,
+      max_rel_err=err, rel_tolerance=F32_BAR, ms=time_ms(fwd, sets),
+      plain_ms=time_ms(fa.flash_attention_reference, sets, iters=10),
+      bound_ms=bms, bound_by=by, library_ms=sdpa_fwd_ms(sets))
+  k2_sets = []
+  for i, (q, k, v) in enumerate(sets):
+    _, lse = fwd(q, k, v)
+    g = torch.Generator(device=q.device).manual_seed(200 + i)
+    k2_sets.append((q, k, v, lse, torch.randn(q.shape, generator=g,
+                                               device=q.device)))
+  plain_bwd = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
+      q, k, v, do)
+  got, want = fa.flash_attention_bwd(*k2_sets[0]), plain_bwd(*k2_sets[0])
+  err = max(rel_err(x, y) for x, y in zip(got, want))
+  abs_err = max((x - y).abs().max().item() for x, y in zip(got, want))
+  assert err <= F32_BAR, err
+  del got, want
+  bms, by = bound(*k2_work(b, t, h, d, itemsize=4), TF32X3_FLOPS)
+  k2 = dict(
+      name="flash_bwd (CapPa ViT-B/16 T=196)", route="cuda",
+      source="big_vision_torch/csrc/flash_bwd.cu",
+      replaces="big_vision_tpu/ops/flash_attention.py:329",
+      launches=counts["IT cappa"]["K2f"], max_abs_err=abs_err,
+      max_rel_err=err, rel_tolerance=F32_BAR,
+      ms=time_ms(fa.flash_attention_bwd, k2_sets),
+      plain_ms=time_ms(plain_bwd, k2_sets, iters=10), bound_ms=bms,
+      bound_by=by, library_ms=sdpa_bwd_ms(
+          [(q, k, v, do) for q, k, v, _, do in k2_sets]))
+  for e in (k1, k2):
+    print(f"[{gpu}] {e['name']} B={b}: {e['ms']:.4f} ms, plain "
+          f"{e['plain_ms']:.4f} ms, SDPA {e['library_ms']:.4f} ms; bound "
+          f"{e['bound_ms']:.4f} ms ({e['bound_by']}, 3xTF32); rel err "
+          f"{e['max_rel_err']:.3e} (bar {F32_BAR}); {e['launches']} launches "
+          "on the CapPa main path")
+  return [k1, k2]
+
+
+def imagetext_phase(fa, gpu):
+  """Phase 14: CapPa pre-training (cappa/pretrain.py: ViT-B/16 encoder,
+  6-layer decoder, vocab 32,000, parallel prediction) through the
+  generative trainer's command line with its perplexity and scoring
+  classifier evals at step 0; its step on a fixed batch; an update at
+  twice the batch; the encoder's kernel path against attn=xla and every
+  K1f/K2f launch in place; CLIPPO (clippo/train_clippo.py, one ViT-B/16
+  tower for images and rendered captions) through the SigLIP trainer with
+  its retrieval eval, and an update at twice its batch; the discriminative
+  classifier on LiT through eval_only; K1f, K2f timed at CapPa's shape.
+  Returns the launch counts and the kernels-line entries."""
+  t0 = time.perf_counter()
+  from big_vision_torch.configs.proj.cappa import pretrain
+  directory = os.path.join(ROOT, "build", "chip_smoke_imagetext")
+  vocab = pretrain.stand_in_tokenizer(os.path.join(directory,
+                                                   "c4_en_standin.model"))
+  trainer, cappa, cappa_counts = cappa_main_path(
+      fa, os.path.join(directory, "wd_cappa"), vocab, gpu)
+  it = trainer.input_iter(CAPPA_STEPS)
+  unseen = next(it)
+  it.close()
+  cappa_kernel_vs_plain(fa, trainer, unseen)
+  cappa_remat_launches(fa, trainer, unseen)
+  cappa_in_place(fa, trainer, unseen)
+  fixed_ms = fixed_steps(trainer, unseen, gpu, "cappa/pretrain")
+  labels = unseen["labels"]
+  batch_headroom(trainer, gpu, "cappa/pretrain", lambda b: {
+      "image": torch.randn((b, 224, 224, 3), device="cuda"),
+      "labels": labels.repeat(-(-b // labels.shape[0]), 1)[:b]})
+  del trainer, unseen, labels
+  gc.collect()
+  torch.cuda.empty_cache()
+  t1 = phase_end("imagetext: CapPa", t0)
+
+  init = write_clippo_init(os.path.join(directory, "clippo.npz"))
+  trainer, clippo, clippo_counts = clippo_main_path(
+      fa, os.path.join(directory, "wd_clippo"), init, gpu)
+  it = trainer.input_iter(CLIPPO_STEPS)
+  clippo["fixed_ms"] = fixed_steps(trainer, next(it), gpu,
+                                   "clippo/train_clippo")
+  it.close()
+  batch_headroom(trainer, gpu, "clippo/train_clippo", lambda b: {
+      "image": torch.randn((b, 224, 224, 3), device="cuda"),
+      "labels": torch.randn((b, 224, 224, 3), device="cuda")})
+  del trainer
+  gc.collect()
+  torch.cuda.empty_cache()
+  t1 = phase_end("imagetext: CLIPPO", t1)
+
+  zeroshot, zeroshot_counts = zeroshot_run(fa, directory, gpu)
+  t1 = phase_end("imagetext: zero-shot", t1)
+  counts = {"IT cappa": cappa_counts, "IT clippo": clippo_counts,
+            "IT zeroshot": zeroshot_counts}
+  counts["IT kernels"] = imagetext_kernel_times(fa, counts, gpu)
+  total = torch.cuda.get_device_properties(0).total_memory / 2**30
+  print(f"[{gpu}] cappa/pretrain (ViT-B/16 + 6-layer decoder, f32), batch "
+        f"{CAPPA_B}: end to end {cappa['step_ms']:.3f} ms/step, "
+        f"{cappa['img/sec']:.1f} img/s (median of steps 2-{CAPPA_STEPS}); "
+        f"fixed batch {fixed_ms:.3f} ms/step; max memory allocated "
+        f"{cappa['peak'] / 2**30:.2f} GiB of {total:.1f}; evals at step 0 "
+        + ", ".join(f"{n} {s:.3f} s" for n, s in cappa["evals"].items()))
+  print(f"[{gpu}] clippo/train_clippo (one ViT-B/16, MAP head, f32), batch "
+        f"{CLIPPO_B}: end to end {clippo['step_ms']:.3f} ms/step, "
+        f"{clippo['img/sec']:.1f} img/s (median of steps 2-{CLIPPO_STEPS}); "
+        f"fixed batch {clippo['fixed_ms']:.3f} ms/step; max memory allocated {clippo['peak'] / 2**30:.2f} GiB; retrieval "
+        f"eval of {CLIPPO_NEVAL} images {clippo['eval_secs']:.3f} s")
+  print(f"[{gpu}] siglip_lit_coco zero-shot eval: {zeroshot['secs']:.3f} s "
+        f"(host tokenization {zeroshot['parts']['tokenize']:.3f} s, text "
+        f"embedding {zeroshot['parts']['embed_texts']:.3f} s, images "
+        f"{zeroshot['parts']['images']:.3f} s)")
+  shutil.rmtree(directory, ignore_errors=True)
+  phase_end("imagetext", t0)
+  return counts
+
+
 def phase_end(name, t0):
   """Prints the wall time since `t0` of a phase; returns the time now."""
   now = time.perf_counter()
@@ -4195,9 +4720,10 @@ def phase_end(name, t0):
 
 def main(argv):
   if argv not in ([], ["--checks"], ["--serving"], ["--recipes"],
-                  ["--quality"], ["--siglip"], ["--paligemma"]):
+                  ["--quality"], ["--siglip"], ["--paligemma"],
+                  ["--imagetext"]):
     print(f"usage: chip_smoke.py [--checks | --serving | --recipes | "
-          f"--quality | --siglip | --paligemma]; got {argv}",
+          f"--quality | --siglip | --paligemma | --imagetext]; got {argv}",
           file=sys.stderr)
     return 2
   if not torch.cuda.is_available():
@@ -4251,6 +4777,14 @@ def main(argv):
     paligemma_phase(fa, gpu)
     print(f"{nvidia_smi()}: the PaliGemma fine-tuning phase passed")
     return 0
+  if argv == ["--imagetext"]:  # the build and phase 14 alone
+    counts = imagetext_phase(fa, gpu)
+    print(nvidia_smi())
+    print(json.dumps({"kernels": counts["IT kernels"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
   # 2. Kernels vs plain versions.
   counts = {"K1 err": check_k1(fa), "K2 err": check_k2(fa)}
@@ -4293,6 +4827,7 @@ def main(argv):
   # Without the fixed-batch steps in turns and their profiles, which
   # `--paligemma` runs: the script's time limit.
   counts.update(paligemma_phase(fa, gpu, detail=False))
+  counts.update(imagetext_phase(fa, gpu))
   t0 = time.perf_counter()
 
   # 13. Kernel times.

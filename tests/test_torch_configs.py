@@ -43,6 +43,9 @@ CONFIGS = {
     "proj.paligemma.smoke": (None, "attn=flash"),
     "proj.paligemma.transfers.cococap": (None, "runlocal", "final_split=True",
                                          "crop=ic,res=448"),
+    "proj.cappa.smoke": (None, "res=32,total_steps=4"),
+    "proj.cappa.pretrain": (None, "runlocal", "batch_size=64"),
+    "proj.clippo.train_clippo": (None, "runlocal", "variant=L/16,res=256"),
 }
 
 

@@ -164,9 +164,14 @@ def test_choice_no_replacement_equals_jax(monkeypatch):
 
 
 def test_label_name_ops_are_refused():
+  """No longer refused: since the class-name tables are ported, both ops
+  map a class id to the JAX op's name."""
   for name in ("clip_i1k_label_names", "i21k_label_names"):
-    with pytest.raises(NotImplementedError, match="class-name tables"):
-      TRegistry.lookup(f"preprocess_ops.{name}")()
+    t_op, j_op = _both(name)
+    for label in (0, 3, 999):
+      ex = dict(EX, label=np.int32(label))
+      _equal(t_op.run_host(dict(ex), None), dict(j_op.run_host(dict(ex),
+                                                               None)))
 
 
 def test_lit_coco_host_phase_equals_jax():
