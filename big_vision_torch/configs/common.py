@@ -113,21 +113,28 @@ SPLITS = {
     ("coco_captions", "train+restval"): (82_783 + 30_504, 80),
     ("coco_captions", "train[:2%]"): (1_656, 80),
     ("coco_captions", "train[-2%:]"): (1_656, 80),
+    # Jet's downsampled ImageNet (TFDS's catalog sizes) and JetFormer's
+    # slices of imagenet2012's train split (1,281,167 examples).
+    ("downsampled_imagenet/64x64", "train"): (1_281_167, 1000),
+    ("downsampled_imagenet/64x64", "validation"): (50_000, 1000),
+    ("imagenet2012", "train[4096:]"): (1_281_167 - 4096, 1000),
+    ("imagenet2012", "train[:4096]"): (4096, 1000),
 }
 
 
 def stand_in(name, split, *, root="", n=0):
   """The port's source for the TFDS split `name`/`split`: with `root`, the
   image folder root/train (a "train" split, whole) or root/val (any
-  other); else synthetic JPEGs (32x32 for CIFAR, 256x320 otherwise, 512
-  unique) with the split's class count and its example count, or `n`;
-  COCO captions' with "image/id" and five captions an image
-  (`datasets/synthetic.captions`)."""
+  other); else synthetic JPEGs (32x32 for CIFAR, 64x64 for downsampled
+  ImageNet, 256x320 otherwise, 512 unique) with the split's class count
+  and its example count, or `n`; COCO captions' with "image/id" and five
+  captions an image (`datasets/synthetic.captions`)."""
   if root:
     sub = "train" if split.startswith("train") else "val"
     return dict(name="imagefolder", root=os.path.join(root, sub))
   examples, classes = SPLITS[name, split]
-  h, w = (32, 32) if name.startswith("cifar") else (256, 320)
+  h, w = ((32, 32) if name.startswith("cifar") else
+          (64, 64) if name.startswith("downsampled_imagenet") else (256, 320))
   out = dict(name="synthetic", n=n or examples, num_classes=classes, h=h,
              w=w, unique_images=512)
   if name == "coco_captions":

@@ -57,14 +57,19 @@ def captions(label, k):
 class DataSource(core.DataSource):
   """With `captions` = k > 0, each example also holds COCO's keys: its
   index as "image/id" and {"text": k captions from its label} as
-  "captions" (the nesting of `datasets/builders/coco_captions.py`)."""
+  "captions" (the nesting of `datasets/builders/coco_captions.py`).
+  With `side_range` = (lo, hi), each unique image has its own height and
+  width in [lo, hi], drawn from `default_rng((its seed, 1))`: images of
+  many aspect ratios (the port's own option, for NaFlex)."""
 
   def __init__(self, *, n=1024, num_classes=1000, h=256, w=256,
-               encoded=True, unique_images=64, captions=0, split=None):
+               encoded=True, unique_images=64, captions=0, side_range=None,
+               split=None):
     del split
     self.total_examples = n
     self.num_classes = num_classes
     self.h, self.w = h, w
+    self.side_range = side_range
     self.encoded = encoded
     self.unique_images = unique_images
     self.captions = captions
@@ -72,7 +77,13 @@ class DataSource(core.DataSource):
   def _example(self, i):
     make = _jpeg_bytes if self.encoded else _image
     label = int(i % self.num_classes)
-    ex = {"image": make(int(i) % self.unique_images, self.h, self.w),
+    seed = int(i) % self.unique_images
+    h, w = self.h, self.w
+    if self.side_range:  # each unique image's own sides, from its seed
+      lo, hi = self.side_range
+      h, w = (int(x) for x in np.random.default_rng((seed, 1)).integers(
+          lo, hi + 1, 2))
+    ex = {"image": make(seed, h, w),
           "label": np.int32(label), "_id": np.int64(i)}
     if self.captions:
       ex["image/id"] = np.int64(i)

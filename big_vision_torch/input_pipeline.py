@@ -113,10 +113,19 @@ def _default_threads():
   return min(16, max(4, (os.cpu_count() or 1) * 4))
 
 
+def _stack(values):
+  """Stacks one key's values; a tuple value (a NaFlex image's `tuplify`)
+  stacks element by element into a tuple."""
+  if isinstance(values[0], tuple):
+    return tuple(_stack([v[i] for v in values])
+                 for i in range(len(values[0])))
+  return np.stack([np.asarray(v) for v in values])
+
+
 def _collate(examples):
-  """Stacks a list of example dicts into numpy arrays."""
-  return {k: np.stack([np.asarray(e[k]) for e in examples])
-          for k in examples[0]}
+  """Stacks a list of example dicts into numpy arrays (tuples of them for
+  tuple values)."""
+  return {k: _stack([e[k] for e in examples]) for k in examples[0]}
 
 
 def _batched(stream, batch_size):
@@ -187,15 +196,22 @@ def _on_host(x):
 
 
 def _to_device(batch, device, stream):
-  """Numeric numpy arrays -> tensors on `device` (pinned, non-blocking);
-  string arrays stay numpy arrays on the host."""
+  """Numeric numpy arrays -> tensors on `device` (pinned, non-blocking),
+  a tuple of them to a tuple of tensors; string arrays stay numpy arrays
+  on the host."""
+  def move(v):
+    if isinstance(v, tuple):
+      return tuple(move(x) for x in v)
+    if _on_host(v):
+      return v
+    if device.type == "cpu":
+      return torch.from_numpy(v)
+    return torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+
   if device.type == "cpu":
-    return {k: v if _on_host(v) else torch.from_numpy(v)
-            for k, v in batch.items()}
+    return {k: move(v) for k, v in batch.items()}
   with torch.cuda.stream(stream):
-    return {k: v if _on_host(v) else
-            torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-            for k, v in batch.items()}
+    return {k: move(v) for k, v in batch.items()}
 
 
 def _device_feed(batches, pfn, device, seed, n_prefetch, step_offset=0,
@@ -230,8 +246,9 @@ def _device_feed(batches, pfn, device, seed, n_prefetch, step_offset=0,
         current = torch.cuda.current_stream(device)
         current.wait_event(ready)
         for v in batch.values():
-          if isinstance(v, torch.Tensor):
-            v.record_stream(current)
+          for x in v if isinstance(v, tuple) else (v,):
+            if isinstance(x, torch.Tensor):
+              x.record_stream(current)
       yield batch
   finally:
     feed.close()
@@ -293,7 +310,8 @@ def training_from_step(input_config, first_step, *, device="cuda", seed=0):
 
 def element_spec(input_config, *, seed=0):
   """{key: (shape without the batch axis, dtype)} after the full pp chain,
-  from one example run through both phases on the CPU."""
+  from one example run through both phases on the CPU; a tuple value
+  gives a tuple of those pairs."""
   cfg = dict(input_config)
   pfn = pp_builder.get_preprocess_fn(cfg.get("pp"))
   source = ds_core.get(**cfg["data"])
@@ -301,7 +319,18 @@ def element_spec(input_config, *, seed=0):
   ex = pfn.host(dict(ex), np.random.default_rng(seed))
   batch = _to_device(_collate([ex]), torch.device("cpu"), None)
   batch = pfn.device(batch, step_generator(seed, 0, "cpu"))
-  return {k: (tuple(v.shape[1:]), v.dtype) for k, v in batch.items()}
+  def spec(v):
+    if isinstance(v, tuple):
+      return tuple(spec(x) for x in v)
+    return tuple(v.shape[1:]), v.dtype
+  return {k: spec(v) for k, v in batch.items()}
+
+
+def _zeros_like(v):
+  """Zeros of an example value's shape and dtype (a tuple: of each)."""
+  if isinstance(v, tuple):
+    return tuple(_zeros_like(x) for x in v)
+  return np.zeros_like(np.asarray(v))
 
 
 def make_for_inference(data_cfg, pp, batch_size, *, device="cuda",
@@ -343,8 +372,7 @@ def make_for_inference(data_cfg, pp, batch_size, *, device="cuda",
         if count >= capacity:
           break
         ex = dict(ex, _mask=np.int32(1))
-        proto = proto or {k: np.zeros_like(np.asarray(v))
-                          for k, v in ex.items()}
+        proto = proto or {k: _zeros_like(v) for k, v in ex.items()}
         count += 1
         yield ex
     finally:

@@ -123,13 +123,56 @@ def checkpointed(fn, *args, rng=None):
   return checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
-def dropout(x, rate, generator):
-  """flax `nn.Dropout`: keeps each entry with probability 1 - rate and
-  scales it by 1 / (1 - rate). A no-op without a generator or at rate 0."""
+def dropout(x, rate, generator, broadcast_dims=()):
+  """flax `nn.Dropout(rate, broadcast_dims)`: keeps each entry with
+  probability 1 - rate and scales it by 1 / (1 - rate); one draw is shared
+  along each axis of `broadcast_dims`. A no-op without a generator or at
+  rate 0."""
   if generator is None or rate == 0:
     return x
-  keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+  shape = list(x.shape)
+  for d in broadcast_dims:
+    shape[d] = 1
+  keep = torch.rand(shape, generator=generator, device=x.device) >= rate
   return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class Scanned(nn.Module):
+  """`depth` layers of one module whose parameters are stacked on a
+  leading axis, as flax's `nn.scan` stacks them: the JAX param names and
+  shapes (with the depth axis first) of a scanned stack, so that config
+  regexes written against them ("^decoder/layers/attn/.*") match as in
+  JAX. `layer` is the template; its parameters are replaced by stacked
+  ones ([depth, *shape]), and `params()` gives each layer's views of them
+  (one `unbind` per call, whose backward stacks the layers' gradients
+  once), which `call` runs the template on (`torch.func.functional_call`).
+  `reset_parameters` runs each submodule's own, whose initializers take
+  their fans from the trailing axes."""
+
+  def __init__(self, layer, depth):
+    super().__init__()
+    self.depth = depth
+    self.layer = layer
+    for mod in layer.modules():
+      for name, p in list(mod._parameters.items()):  # pylint: disable=protected-access
+        if p is not None:
+          mod._parameters[name] = nn.Parameter(  # pylint: disable=protected-access
+              p.detach().new_empty((depth, *p.shape)),
+              requires_grad=p.requires_grad)
+
+  def reset_parameters(self, generator):
+    for mod in self.layer.modules():
+      if hasattr(mod, "reset_parameters"):
+        mod.reset_parameters(generator)
+
+  def params(self):
+    """[{template parameter name: layer i's view}] for i < depth."""
+    views = {n: p.unbind(0) for n, p in self.layer.named_parameters()}
+    return [{n: v[i] for n, v in views.items()} for i in range(self.depth)]
+
+  def call(self, params, *args, **kw):
+    """The template's forward with one layer's `params`."""
+    return torch.func.functional_call(self.layer, params, args, kw)
 
 
 class Dense(nn.Module):
@@ -154,7 +197,7 @@ class Dense(nn.Module):
     return linear(x, self.weight, self.bias, self.dtype)
 
   def reset_parameters(self, generator):
-    out, inp = self.weight.shape
+    out, inp = self.weight.shape[-2:]  # a stacked [depth, out, in] too
     init(self.weight, self.kernel_init, generator, fan_in=inp, fan_out=out)
     if self.bias is not None:
       init(self.bias, self.bias_init, generator)

@@ -41,8 +41,13 @@ kernels' own 1/sqrt(head_dim). A `remat_policy` other than "none" runs each
 block under a non-reentrant `torch.utils.checkpoint` while autograd
 records: the block keeps only its input and is recomputed in the backward
 (the JAX policy "nothing_saveable"; a policy that saves more in JAX
-computes the same function). Dropout and the context-parallel
-`attn_impl="ring"` are refused by name.
+computes the same function). `dropout` is the JAX block's
+`nn.Dropout(rate, dropout_bdims)` on the attention and the MLP branch
+before each residual add (one mask shared along `dropout_bdims`, kept
+entries scaled by 1/(1 - rate)), drawn from the `rng` a training forward
+is given; without one there is no dropout, as with JAX's
+`deterministic=True`. The context-parallel `attn_impl="ring"` is refused
+by name.
 """
 
 from __future__ import annotations
@@ -365,10 +370,12 @@ class Block(nn.Module):
   def __init__(self, num_heads, num_kv_heads, embed_dim, head_dim,
                hidden_dim, query_pre_attn_norm, attn_logits_softcap,
                post_norms, cache_dtype=None, attn_impl="xla",
-               decode_impl="xla", quant=False, *, device="cuda",
+               decode_impl="xla", quant=False, dropout=0.0,
+               dropout_bdims=(), *, device="cuda",
                param_dtype=torch.float32):
     super().__init__()
     kw = dict(device=device, param_dtype=param_dtype)
+    self.dropout, self.dropout_bdims = dropout, tuple(dropout_bdims)
     self.pre_attention_norm = RMSNorm(embed_dim, **kw)
     self.pre_ffw_norm = RMSNorm(embed_dim, **kw)
     self.post_norms = post_norms
@@ -380,13 +387,15 @@ class Block(nn.Module):
                           cache_dtype, attn_impl, decode_impl, quant, **kw)
     self.mlp = FeedForward(embed_dim, hidden_dim, quant, **kw)
 
-  def forward(self, x, positions, attn_mask, cache=None, layer=0, seg=None):
+  def forward(self, x, positions, attn_mask, cache=None, layer=0, seg=None,
+              rng=None):
+    drop = lambda y: common.dropout(y, self.dropout, rng, self.dropout_bdims)
     y = self.attn(self.pre_attention_norm(x), positions, attn_mask, cache,
                   layer, seg)
     if self.post_norms:
       y = self.post_attention_norm(y)
-    x = x + y
-    y = self.mlp(self.pre_ffw_norm(x))
+    x = x + drop(y)
+    y = drop(self.mlp(self.pre_ffw_norm(x)))
     if self.post_norms:
       y = self.post_ffw_norm(y)
     return x + y
@@ -429,10 +438,6 @@ class Model(nn.Module):
                remat_policy="none", attn_impl="xla", decode_impl="xla",
                quant=False, *, device="cuda", param_dtype=torch.float32):
     super().__init__()
-    if dropout:
-      raise NotImplementedError(
-          f"Gemma dropout={dropout} (dropout_bdims={tuple(dropout_bdims)}) "
-          "is not ported; the port trains the LLM without dropout")
     del variant, norm_eps, scan  # norm eps is fixed at 1e-6, as in JAX
     kw = dict(device=device, param_dtype=param_dtype)
     self.embed_dtype = common.resolve_dtype(embed_dtype)
@@ -442,7 +447,8 @@ class Model(nn.Module):
     self.layers = nn.ModuleList([
         Block(num_heads, num_kv_heads, width, head_dim, mlp_dim,
               query_pre_attn_norm, attn_logits_softcap, post_norms,
-              cache_dtype, attn_impl, decode_impl, quant, **kw)
+              cache_dtype, attn_impl, decode_impl, quant, dropout,
+              dropout_bdims, **kw)
         for _ in range(depth)])
     self.final_norm = RMSNorm(width, **kw)
 
@@ -474,11 +480,11 @@ class Model(nn.Module):
     return torch.cat([p.to(self.embed_dtype) for p in parts], dim=-2)
 
   def trunk(self, tokens=None, *, embedded_prefix=None, positions=None,
-            mask=None, cache=None, seg=None):
+            mask=None, cache=None, seg=None, rng=None):
     """Runs the blocks and the final norm; returns the `out` dict with
     "encoded" and "pre_logits" (no vocab projection). `seg` [B, T] (the
     prefix-LM segment ids) sends attention to the fused kernels where
-    `attn_impl` is "flash"."""
+    `attn_impl` is "flash"; `rng` draws the dropout masks in training."""
     x = self.embed(tokens, embedded_prefix)
     positions, mask = prep_positions_mask(x, positions, mask,
                                           cache is not None)
@@ -486,9 +492,10 @@ class Model(nn.Module):
              and torch.is_grad_enabled())
     for i, block in enumerate(self.layers):
       if remat:
-        x = common.checkpointed(block, x, positions, mask, None, i, seg)
+        x = common.checkpointed(block, x, positions, mask, None, i, seg,
+                                rng=rng)
       else:
-        x = block(x, positions, mask, cache, i, seg)
+        x = block(x, positions, mask, cache, i, seg, rng)
     if cache is not None:
       cache.idx += x.shape[1]
     out = {"encoded": x}
@@ -503,7 +510,7 @@ class Model(nn.Module):
 
   def forward(self, tokens=None, *, embedded_prefix=None, embed_only=False,
               pre_logits=None, positions=None, mask=None, cache=None,
-              seg=None):
+              seg=None, rng=None):
     """Embed-only, logits-from-pre-logits, or the full forward.
 
     As in JAX, logits from `pre_logits` skip the final softcap.
@@ -514,7 +521,8 @@ class Model(nn.Module):
     if embed_only:
       return self.embed(tokens, embedded_prefix)
     out = self.trunk(tokens, embedded_prefix=embedded_prefix,
-                     positions=positions, mask=mask, cache=cache, seg=seg)
+                     positions=positions, mask=mask, cache=cache, seg=seg,
+                     rng=rng)
     out["logits"] = self.logits(out["pre_logits"])
     return out["logits"], out
 

@@ -8,8 +8,8 @@ returns, in place of Flax's mutable "cache" collection. `quant=True` serves
 int8 weights (models/ppp/gemma.py); `load` is the LLM's loader. The JAX
 wrapper's forwarded keys (`_FORWARDED`: scan, remat_policy, dropout,
 dropout_bdims, cache_dtype, attn_impl, decode_impl, quant) go to the LLM
-with the same defaults; `train` has nothing to switch in the port's LLM,
-which has no dropout.
+with the same defaults; a training forward given an `rng` draws the LLM's
+dropout from it.
 """
 
 from __future__ import annotations
@@ -86,17 +86,21 @@ class Model(nn.Module):
     del train
     return self.model(None, pre_logits=pre_logits)[0]
 
-  def forward(self, embs, mask=None, train=False, seg=None, logits=True):
+  def forward(self, embs, mask=None, train=False, seg=None, logits=True,
+              rng=None):
     """float[B, T, D] embeddings -> (logits, out); mask defaults causal;
-    `seg` [B, T] the prefix-LM segment ids of the fused training path.
+    `seg` [B, T] the prefix-LM segment ids of the fused training path;
+    `rng` draws the dropout masks where `train`.
     With `logits=False`, (None, out) without the vocab projection of every
     position (for a caller that reads only out["pre_logits"])."""
-    del train
+    rng = rng if train else None
     if embs.shape[-1] != self.embdim:
       raise ValueError(f"embedding width {embs.shape[-1]} != {self.embdim}")
     if not logits:
-      return None, self.model.trunk(embedded_prefix=embs, mask=mask, seg=seg)
-    return self.model(None, embedded_prefix=embs, mask=mask, seg=seg)
+      return None, self.model.trunk(embedded_prefix=embs, mask=mask, seg=seg,
+                                    rng=rng)
+    return self.model(None, embedded_prefix=embs, mask=mask, seg=seg,
+                      rng=rng)
 
   def prefill_cache(self, x, input_mask, attn_mask, *, cache_size):
     """Fills a new cache with left-aligned prompts x [B, N, D].

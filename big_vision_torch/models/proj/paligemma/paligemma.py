@@ -106,7 +106,8 @@ class Model(nn.Module):
 
   def forward(self, image, text, mask_ar, train=False, rng=None):
     """Returns float[B, T, V] logits for the text tokens, and aux. `rng`
-    (a torch.Generator) draws the image tower's dropout in training."""
+    (a torch.Generator) draws the image tower's and the LLM's dropout in
+    training."""
     (seq, input_mask, mask_ar), out = self.embed_image_and_text(
         image, text, mask_ar=mask_ar, train=train, rng=rng)
     attn_mask = out["attn_mask"] = make_attn_mask(input_mask, mask_ar)
@@ -116,7 +117,7 @@ class Model(nn.Module):
     # position are dropped by XLA, and here not computed ([B, T, V] f32 is
     # 19 GB for cococap's batch of 64).
     _, llm_aux = self.llm(seq, mask=attn_mask, train=train, seg=seg,
-                          logits=False)
+                          logits=False, rng=rng)
     out.update({f"llm/{k}": v for k, v in llm_aux.items()})
     n_img = out["img/zimg"].shape[1]
     text_logits = self.llm.compute_logits(out["llm/pre_logits"][:, n_img:],

@@ -137,6 +137,17 @@ def load_into(model, model_mod, init_file, model_cfg, load_kw=None):
   convert.load(model, convert.state(model, loaded))
 
 
+def image_size(input_config):
+  """(res, channels) of the input's [res, res, c] images; (None, None)
+  for an image given as a tuple (a NaFlex patch sequence), whose model
+  takes no image size."""
+  spec = input_pipeline.element_spec(input_config)["image"]
+  if not isinstance(spec[1], torch.dtype):
+    return None, None
+  res, _, channels = spec[0]
+  return res, channels
+
+
 def _draws_in_training(model):
   """Whether the model draws random masks in training (dropout, or the
   Mixer's stochastic depth)."""
@@ -175,9 +186,7 @@ class Trainer:
     ntrain = input_pipeline.total_training_examples(config["input"])
     self.total_steps = schedules.steps("total", config, ntrain,
                                        self.batch_size)
-    res, _, channels = input_pipeline.element_spec(
-        config["input"])["image"][0]
-    self.model = self.build_model(res, channels)
+    self.model = self.build_model(*image_size(config["input"]))
     gen = torch.Generator(device=self.device).manual_seed(self.seed)
     self.model.initialize(gen, head_bias=config.get("init_head_bias"))
     self.ckpt_prefix = os.path.join(workdir, "ckpt.bv") if workdir else None

@@ -98,10 +98,13 @@ class Trainer(train.Trainer):
 
   def build_model(self, res, channels):
     """The model for the config's `init_shapes`: [(1, res, res, c), (1,
-    text_len)] of two towers, two image shapes of one tower."""
+    text_len)] of two towers, two image shapes of one tower. A NaFlex image
+    tower's shape [(1, N, p*p*c)] names no image size."""
     del res, channels
-    (_, res, _, channels), text_shape = self.config["init_shapes"]
-    kw = dict(image_size=res, channels=channels, device=self.device)
+    image_shape, text_shape = self.config["init_shapes"]
+    kw = dict(device=self.device)
+    if len(image_shape) == 4:
+      kw.update(image_size=image_shape[1], channels=image_shape[3])
     if self.model_module() is two_towers:
       kw["text_len"] = text_shape[1]
     return self.model_module().Model(**self.config.get("model", {}), **kw)

@@ -119,8 +119,10 @@ class Trainer(train.Trainer):
     return paligemma.Model(**cfg, device=self.device)
 
   def _rng(self):
-    """The step's generator of the image tower's dropout, or None."""
-    if not getattr(self.model.img, "dropout", 0):
+    """The step's generator of the image tower's and the LLM's dropout,
+    or None."""
+    if not (getattr(self.model.img, "dropout", 0)
+            or self.model.llm.model.layers[0].dropout):
       return None
     return input_pipeline.step_generator(
         self.seed + 1, optim.get_count(self.opt_state), self.device)

@@ -132,6 +132,7 @@ def vit(params) -> dict[str, np.ndarray]:
 # The port's layer names -> the JAX model's module names.
 _VIT_LAYERS = {
     "embedding": "embedding", "pre_logits": "pre_logits", "head": "head",
+    "patchln_pre": "patchln_pre", "patchln_post": "patchln_post",
     "encoder_norm": "encoder_norm", "ln1": "LayerNorm_0",
     "ln2": "LayerNorm_1", "ln": "LayerNorm_0",
     "mlp.fc1": "MlpBlock_0/Dense_0", "mlp.fc2": "MlpBlock_0/Dense_1",
@@ -170,7 +171,8 @@ def vit_names(module: torch.nn.Module) -> dict[str, str]:
     elif layer.startswith("map_head."):
       prefix, layer = "MAPHead_0/", layer[len("map_head."):]
     jax_layer = _VIT_LAYERS[layer]
-    norm = "LayerNorm" in jax_layer or jax_layer == "encoder_norm"
+    norm = ("LayerNorm" in jax_layer or jax_layer == "encoder_norm"
+            or jax_layer.startswith("patchln"))
     kind = "bias" if leaf == "bias" else "scale" if norm else "kernel"
     out[name] = f"{prefix}{jax_layer}/{kind}"
   return out
@@ -322,15 +324,17 @@ def _two_towers_layout(module, name, jax_name, x):
   return _LAYOUTS[_kind(sub)](sub, rest, jax_name.split("/", 1)[1], x)
 
 
-def _from_jax(module, names_, layout, tree):
+def _from_jax(module, names_, layout, tree,
+              permuted=lambda jax_name: jax_name.endswith("/kernel")):
   """A JAX param tree -> `module`'s state dict (numpy), inverting
-  `layout`: each kernel's elements are placed through the layout of an
-  index tensor of the parameter's shape; other leaves are reshaped."""
+  `layout`: each leaf that `permuted` names (by default the kernels) has
+  its elements placed through the layout of an index tensor of the
+  parameter's shape; other leaves are reshaped."""
   leaves, out = _Leaves(_flat(tree)), {}
   for name, jax_name in names_.items():
     x = np.asarray(leaves.take(jax_name))
     shape = tuple(module.get_parameter(name).shape)
-    if jax_name.endswith("/kernel"):
+    if permuted(jax_name):
       idx = torch.arange(int(np.prod(shape))).reshape(shape)
       pos = layout(module, name, jax_name, idx).reshape(-1).numpy()
       y = np.empty(x.size, x.dtype)
@@ -442,18 +446,196 @@ def cappa(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
                    trees.flatten(cappa_pyloop(tree)))
 
 
+def _naflex_layout(module, name, jax_name, x):
+  """Parameter `name` of a NaFlex ViT in its JAX layout: the stem is a
+  Dense ([out, in] -> [in, out]); the rest as the ViT's."""
+  if jax_name == "embedding/kernel":
+    return x.T
+  return _vit_layout(module, name, jax_name, x)
+
+
+def naflex(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
+  """NaFlex ViT param tree (encoder scanned or per layer) -> the port
+  module's state dict (numpy)."""
+  flat = _unstack(_flat(tree), "Transformer/encoderblock",
+                  "Transformer/encoderblock_{}")
+  return _from_jax(module, vit_names(module), _naflex_layout, flat)
+
+
+_JET_MASKS = {"channel_masks": "channel_coupling_masks-FREEZE_ME",
+              "spatial_masks": "spatial_coupling_masks-FREEZE_ME"}
+
+
+def _block_name(name):
+  """A `models.vit` Encoder block's parameter name relative to the
+  Encoder ("blocks.0.attn.query.weight") -> its JAX name relative to the
+  JAX Encoder ("encoderblock_0/MultiHeadDotProductAttention_0/query/
+  kernel"); "encoder_norm.weight" -> "encoder_norm/scale"."""
+  layer, leaf = name.rsplit(".", 1)
+  if m := re.fullmatch(r"blocks\.(\d+)\.(.*)", layer):
+    prefix, layer = f"encoderblock_{m[1]}/", m[2]
+  else:
+    prefix = ""
+  jax_layer = _VIT_LAYERS[layer]
+  norm = "LayerNorm" in jax_layer or jax_layer == "encoder_norm"
+  kind = "bias" if leaf == "bias" else "scale" if norm else "kernel"
+  return f"{prefix}{jax_layer}/{kind}"
+
+
+def jet_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a `models.proj.jet.jet`
+  module: the masks ("channel_coupling_masks-FREEZE_ME", ...) and the
+  scanned couplings' stacked leaves ("couplings/dnn/init_proj/kernel",
+  "couplings/dnn/posemb", "couplings/dnn/vit/encoderblock_0/...",
+  "couplings/dnn/MultiHeadDotProductAttention_0/...",
+  "couplings/dnn/final_proj/...")."""
+  out = {}
+  for name, _ in module.named_parameters():
+    if name in _JET_MASKS:
+      out[name] = _JET_MASKS[name]
+      continue
+    rest = name.removeprefix("couplings.layer.dnn.")
+    if rest == "posemb":
+      jax_rest = rest
+    elif rest.startswith("encoder."):
+      jax_rest = "vit/" + _block_name(rest[len("encoder."):])
+    else:
+      layer, leaf = rest.rsplit(".", 1)
+      layer = layer.replace("xattn.", "MultiHeadDotProductAttention_0/")
+      jax_rest = f"{layer}/{'bias' if leaf == 'bias' else 'kernel'}"
+    out[name] = f"couplings/dnn/{jax_rest}"
+  return out
+
+
+def _stacked_layout(x, jax_name, heads):
+  """A stacked [depth, ...] parameter of a scanned stack (or a tensor of
+  its shape) in the JAX layout of `jax_name`: the ViT's per-layer layouts
+  with the depth axis first."""
+  d = x.shape[0]
+  if re.search(r"/(query|key|value|out)/(kernel|bias)$", jax_name):
+    if jax_name.endswith("out/kernel"):  # [d, D, H*hd] -> [d, H, hd, D]
+      return x.transpose(-1, -2).reshape(d, heads, -1, x.shape[1])
+    if jax_name.endswith("kernel"):  # [d, H*hd, D] -> [d, D, H, hd]
+      return x.transpose(-1, -2).reshape(d, x.shape[2], heads, -1)
+    if not jax_name.endswith("out/bias"):  # [d, H*hd] -> [d, H, hd]
+      return x.reshape(d, heads, -1)
+    return x
+  if jax_name.endswith("/kernel"):  # [d, out, in] -> [d, in, out]
+    return x.transpose(-1, -2)
+  return x
+
+
+def _jet_layout(module, name, jax_name, x):
+  """Parameter `name` of a Jet module in its JAX layout."""
+  if name in _JET_MASKS:
+    return x
+  dnn = module.couplings.layer.dnn
+  heads = (dnn.xattn.num_heads if "MultiHead" in jax_name
+           and "/vit/" not in jax_name
+           else dnn.encoder.blocks[0].attn.num_heads)
+  return _stacked_layout(x, jax_name, heads)
+
+
+_JETFORMER = {"text_emb": "EmbedText/embedding",
+              "text_head.weight": "LogitsText/kernel",
+              "text_head.bias": "LogitsText/bias",
+              "img_emb.weight": "EmbedImage/kernel",
+              "img_emb.bias": "EmbedImage/bias",
+              "img_head.weight": "LogitsImage/kernel",
+              "img_head.bias": "LogitsImage/bias",
+              "text_norm.scale": "TextNorm/scale",
+              "img_norm.scale": "ImageNorm/scale",
+              "final_norm.scale": "decoder/final_norm/scale"}
+
+
+def _jetformer_model_names(model):
+  """{port name: JAX name} of a `models.proj.jetformer.jetformer.Model`:
+  the heads and the scanned "decoder/layers/..." leaves."""
+  out = {}
+  for name, _ in model.named_parameters():
+    if name in _JETFORMER:
+      out[name] = _JETFORMER[name]
+      continue
+    rest = name.removeprefix("layers.layer.")
+    if rest.endswith("norm.scale"):
+      out[name] = "decoder/layers/" + rest.replace(".", "/")
+    else:
+      src = {v: k for k, v in _GEMMA_LAYER.items()}[rest]
+      out[name] = f"decoder/layers/{src}"
+  return out
+
+
+def jetformer_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a JetFormer `Model`, or of a
+  `Joint` of it and its Jet adaptor (the JAX trainer's tree: the model's
+  names, and the adaptor's under "params_adaptor/")."""
+  if not hasattr(module, "adaptor"):
+    return _jetformer_model_names(module)
+  out = {f"model.{k}": v
+         for k, v in _jetformer_model_names(module.model).items()}
+  if module.adaptor is not None:
+    out.update({f"adaptor.{k}": f"params_adaptor/{v}"
+                for k, v in jet_names(module.adaptor).items()})
+  return out
+
+
+def _jetformer_layout(module, name, jax_name, x):
+  """Parameter `name` of a JetFormer `Model` or `Joint` in its JAX
+  layout."""
+  if hasattr(module, "adaptor"):
+    sub, rest = name.split(".", 1)
+    if sub == "adaptor":
+      return _jet_layout(module.adaptor, rest,
+                         jax_name.removeprefix("params_adaptor/"), x)
+    module, name = module.model, rest
+  if not name.startswith("layers."):
+    return x.T if jax_name.endswith("/kernel") else x
+  rest = name.removeprefix("layers.layer.")
+  src = {v: k for k, v in _GEMMA_LAYER.items()}.get(rest)
+  if src is None:  # the norms
+    return x
+  attn = module.layers.layer.attn
+  h, hd, kh, d = attn.num_heads, attn.head_dim, attn.num_kv_heads, x.shape[0]
+  if src == "attn/attn_vec_einsum/w":  # [d, D, H*hd] -> [d, H, hd, D]
+    return x.transpose(-1, -2).reshape(d, h, hd, -1)
+  if src == "mlp/linear":  # [d, D, F] -> [d, F, D]
+    return x.transpose(-1, -2)
+  lead = {"attn/qkv_einsum/w": (3, h), "attn/q_einsum/w": (h,),
+          "attn/kv_einsum/w": (2, kh), "mlp/gating_einsum": (2,)}[src]
+  return _heads_first(x, (d, *lead))
+
+
+def jetformer(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
+  """A JetFormer param tree (with "params_adaptor" for a `Joint`) -> the
+  port module's state dict (numpy). A per-layer decoder ("decoder/layers/
+  0/...") is stacked first."""
+  flat = _flat(tree)
+  per_layer = {}
+  for k in list(flat):
+    if m := re.fullmatch(r"decoder/layers/(\d+)/(.*)", k):
+      per_layer.setdefault(m[2], {})[int(m[1])] = flat.pop(k)
+  for rest, layers in per_layer.items():
+    flat[f"decoder/layers/{rest}"] = np.stack(
+        [np.asarray(layers[i]) for i in range(len(layers))])
+  return _from_jax(module, jetformer_names(module), _jetformer_layout, flat,
+                   permuted=lambda jax_name: True)
+
+
 def _kind(module):
-  """"mixer", "vit" (also FlexiViT), "text", "bert", "two_towers",
-  "one_tower", "cappa" or "paligemma"."""
+  """"mixer", "vit" (also FlexiViT), "naflex", "text", "bert",
+  "two_towers", "one_tower", "cappa", "paligemma", "jet" or "jetformer"."""
   return {"mlp_mixer": "mixer", "text_transformer": "text", "bert": "bert",
           "two_towers": "two_towers", "one_tower": "one_tower",
-          "cappa": "cappa", "paligemma": "paligemma"}.get(
+          "cappa": "cappa", "paligemma": "paligemma",
+          "naflex_vit": "naflex", "jet": "jet",
+          "jetformer": "jetformer"}.get(
               type(module).__module__.rsplit(".", 1)[-1], "vit")
 
 
 def names(module: torch.nn.Module) -> dict[str, str]:
-  """{port parameter name: JAX param name} of a ViT, FlexiViT, Mixer, text
-  transformer, BERT, two-tower, one-tower, CapPa or PaliGemma model."""
+  """{port parameter name: JAX param name} of a ViT, FlexiViT, NaFlex ViT,
+  Mixer, text transformer, BERT, two-tower, one-tower, CapPa, PaliGemma,
+  Jet or JetFormer model."""
   return _NAMES[_kind(module)](module)
 
 
@@ -476,6 +658,10 @@ def state(module: torch.nn.Module, tree) -> dict:
     return cappa(module, tree)
   if kind == "paligemma":
     return paligemma(tree)
+  if kind == "naflex":
+    return naflex(module, tree)
+  if kind == "jetformer":
+    return jetformer(module, tree)
   return _from_jax(module, names(module), _LAYOUTS[kind], tree)
 
 
@@ -679,8 +865,11 @@ def load(module: torch.nn.Module, state: dict, device=None, dtype=None):
 _NAMES = {"mixer": mixer_names, "vit": vit_names,
           "text": text_transformer_names, "bert": bert_names,
           "two_towers": two_towers_names, "one_tower": one_tower_names,
-          "cappa": cappa_names, "paligemma": paligemma_names}
+          "cappa": cappa_names, "paligemma": paligemma_names,
+          "naflex": vit_names, "jet": jet_names,
+          "jetformer": jetformer_names}
 _LAYOUTS = {"mixer": _mixer_layout, "vit": _vit_layout, "text": _vit_layout,
             "bert": _vit_layout, "two_towers": _two_towers_layout,
             "one_tower": _two_towers_layout, "cappa": _cappa_layout,
-            "paligemma": _paligemma_layout}
+            "paligemma": _paligemma_layout, "naflex": _naflex_layout,
+            "jet": _jet_layout, "jetformer": _jetformer_layout}

@@ -7,14 +7,19 @@ Run from the root of a checkout, with no arguments:
 
 (`python3 chip_smoke.py --checks` stops after phase 2: a quick check of
 every kernel and of the JPEG decoder after a change to one;
-`python3 chip_smoke.py --serving` builds and runs phase 3 alone;
+`python3 chip_smoke.py --serving` builds and runs phase 3 alone, with
+the plain paths' decode times and the decode profiles of the bf16 and
+the int8 KV cache that the full script leaves out for its time limit;
 `python3 chip_smoke.py --recipes` builds and runs phase 9 alone;
-`python3 chip_smoke.py --quality` builds and runs phase 10 alone;
+`python3 chip_smoke.py --quality` builds and runs phase 10 alone, with
+the quality_digits run that the full script leaves out for its time
+limit;
 `python3 chip_smoke.py --siglip` builds and runs phase 11 alone;
 `python3 chip_smoke.py --paligemma` builds and runs phase 12 alone, with
 its fixed-batch steps in turns and their profiles;
 `python3 chip_smoke.py --imagetext` builds and runs phase 14 alone and
-prints its kernels line and the last line.)
+prints its kernels line and the last line; `--naflex` and `--jet` do the
+same for phases 15 and 16.)
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. builds every CUDA kernel from big_vision_torch/csrc (one nvcc each, in
@@ -214,15 +219,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ViT-S/16 under `big_vision.scale_by_adafactor` and under
      `big_vision.momentum_hp` (finite states, bf16 where the JAX package
      keeps them in bf16);
- 10. trains configs/quality_digits.py through `train.main` at its own
+ 10. (`--quality` only, left out of the full script for its time limit:
+     2000 steps bound by the host) trains configs/quality_digits.py through
+     `train.main` at its own
      size (ViT width 96, depth 6, 6 heads: T=64, D=16; batch 256, 2000
      steps on the 1437 training digits written from
      big_vision_torch/datasets/digits.npz, its eval of the 360 test digits
      every 200 steps): launches exact (6 of K1's and 6 of K2's f32
      kernels a step, 6 of K1's an eval batch), val/prec@1 at step 2000 at
      least the config's EXPECTED (0.96), the step on a fixed batch, a
-     profile of one step and the input pipeline alone timed; then
-     configs/twin_dynamics.py at its full size (width 128, depth 2, 4
+     profile of one step and the input pipeline alone timed; then (in the
+     full script too) configs/twin_dynamics.py at its full size (width 128, depth 2, 4
      heads: D=32; batch 64, 200 steps on the data of the JAX package's
      tools/dynamics_twin.py, drawn here in numpy) from one random init,
      under attn "auto" (2 K1 and 2 K2 f32 launches a step) and attn=xla
@@ -300,6 +307,37 @@ Phases, each of which raises (and so exits non-zero) on failure:
      host's and the card's seconds; and K1f, K2f at CapPa's shape timed
      beside their plain versions and SDPA (two entries of the kernels
      line);
+ 15. (run before 13) trains SigLIP 2's NaFlex B/16 (`naflex_config`:
+     siglip_lit_coco's BERT-base text tower and loss, the image tower
+     `proj.image_text.naflex_vit` at 256 tokens with a MAP head, trained;
+     JPEGs with sides in NAFLEX_SIDES, so every example carries its own
+     padding) through the SigLIP trainer's loop at NAFLEX_B for
+     NAFLEX_STEPS steps: launches exact (12 K1f with segment ids and 12
+     K2f a step), the first loss; the kernel path (`flash`, seg) against
+     attn=xla (a [B, T, T] boolean mask) on an unseen batch (loss and zimg
+     within NAFLEX_BAR, every gradient within NAFLEX_GRAD_BAR of its max);
+     each K1f and K2f launch in place within F32_BAR, the padded query
+     rows of o and dq exact zeros; the step on a fixed batch, img/s, peak
+     memory; K1f and K2f at its shape with seg timed (two entries);
+ 16. (run before 13) trains Jet on configs/proj/jet/imagenet64.py at full
+     width and depth (32 couplings of 2 ViT blocks, emb 512, 8 heads, ps
+     4: T = 256, D = 64) at JET_B for JET_STEPS steps with the val eval at
+     step 0 and at the end: launches exact (128 K1f and 64 K2f a step
+     under the couplings' remat, 64 K1f an eval batch), the first bits/dim
+     against its closed form (the flow is the identity at init) within
+     JET_BAR; forward then inverse (within JET_ROUNDTRIP); the conditioners'
+     auto path against attn=xla (bits/dim within JET_BAR, gradients
+     within JET_GRAD_BAR); the fixed-batch step; then JetFormer-350M on
+     configs/proj/jetformer/jetformer_imagenet2012.py (256px, the Jet
+     adaptor of 32 couplings x 4 blocks; the decoder's attention is the
+     plain path, as in JAX) at JF_B for JF_STEPS steps with its val eval
+     at step 0: launches exact (256 K1f and 128 K2f a step, 128 K1f an
+     eval batch), the first loss against its closed form from the
+     zero-init image head within JF_BAR, the adaptor's auto path against
+     xla, the fixed-batch step, and JF_SAMPLES class-conditional samples
+     (256 AR steps with the KV cache and CFG, the adaptor's inverse, the
+     patches), timed; K1f and K2f at Jet's conditioner shape and at the
+     adaptor's timed (four entries);
  13. times prefill, the AR step, the training step (end to end: median of
      windows, input stall; on a fixed batch; device busy under the
      profiler; MFU against a bf16 8192^3 matmul measured here) and each
@@ -535,6 +573,26 @@ CAPPA_B, CAPPA_STEPS, CAPPA_NEVAL, CAPPA_SCORING = 256, 3, 8, 8
 FIXED_UPDATES, CAPPA_CHECK_B = 3, 64
 CLIPPO_B, CLIPPO_STEPS, CLIPPO_NEVAL = 256, 3, 16
 ZEROSHOT_N, ZEROSHOT_RETRIEVAL = 64, 16
+# Phase 15 (NaFlex B/16 through the SigLIP trainer): its token budget, the
+# COCO stand-in's JPEG sides (px), the batch (half of siglip_lit_coco's:
+# the host's NaFlex pp sets the step), loop steps, the shuffle buffer; the
+# kernel path against attn=xla: loss and zimg, and gradients.
+NAFLEX_SEQ, NAFLEX_SIDES, NAFLEX_B, NAFLEX_STEPS = 256, (96, 512), 128, 3
+NAFLEX_SHUFFLE = 4096
+NAFLEX_BAR, NAFLEX_GRAD_BAR = 1e-5, 1e-4
+# Phase 16: Jet imagenet64 at full width and depth (its batch cut from the
+# config's 1024 for the script's time: a step is about 4.6e11 FLOP an
+# image, 3.2 s at 256), loop steps, eval images, the images of the
+# auto-vs-xla check;
+# JetFormer-350M (the config's BATCH), its eval images and samples.
+JET_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                          "jet", "imagenet64.py")
+JET_B, JET_STEPS, JET_NEVAL, JET_CHECK_B = 128, 3, 256, 64
+JET_BAR, JET_GRAD_BAR, JET_ROUNDTRIP = 1e-5, 1e-4, 1e-4
+JF_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
+                         "jetformer", "jetformer_imagenet2012.py")
+JF_B, JF_STEPS, JF_NEVAL, JF_CHECK_B, JF_SAMPLES = 32, 3, 32, 16, 4
+JF_BAR = 1e-5
 DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                               "flexivit", "i21k_distill.py")
 # The distill trainer's loop draws the FlexiViT trainer's seqhw (15, 15, 15,
@@ -3236,10 +3294,11 @@ def matmul_peak_tflops(n=8192, iters=20):
   return 2 * n ** 3 / (time_ms(torch.matmul, [(a, b)], iters=iters) * 1e9)
 
 
-def serving_phase(fa, da, gpu):
+def serving_phase(fa, da, gpu, profiles=True):
   """Phase 3 and the serving times: the bf16 KV cache, then the int8 one
-  with the same weights; then int8 weights, beam search and best-of-n,
-  video and the runner. Returns the launch counts."""
+  with the same weights (with `profiles`, also the plain paths' times and
+  a profiled decode of each kernel path); then int8 weights, beam search
+  and best-of-n, video and the runner. Returns the launch counts."""
   from big_vision_torch.tools import bench_decode
   t0 = time.perf_counter()
   build = functools.partial(bench_decode.build_model, "gemma_2b",
@@ -3259,18 +3318,19 @@ def serving_phase(fa, da, gpu):
   paths = (("kernel path", model), ("plain path", plain),
            ("kernel path, int8 KV cache", int8),
            ("plain path, int8 KV cache", int8_plain))
-  for name, m in paths:
+  for name, m in paths if profiles else paths[::2]:
     x = bench_decode.measure(m, batch, DECODE, 3, "cuda")
     print(f"[{gpu}] serving {name} B={BATCH} prompt {PROMPT} decode "
           f"{DECODE}: prefill {x['prefill_s'] * 1e3:.3f} ms, AR step "
           f"{x['step_s'] * 1e3:.3f} ms, {BATCH / x['step_s']:.1f} tok/s, "
           f"e2e {x['t_full'] * 1e3:.3f} ms")
   t1 = phase_end("serving, the times", t1)
-  for name, m in (("kernel path", model),
-                  ("kernel path, int8 KV cache", int8)):
-    bench_decode.print_profile(bench_decode.profile(m, batch, DECODE),
-                               prefix=f"[{gpu}] {name}, ")
-  phase_end("serving, the profiles", t1)
+  if profiles:
+    for name, m in (("kernel path", model),
+                    ("kernel path, int8 KV cache", int8)):
+      bench_decode.print_profile(bench_decode.profile(m, batch, DECODE),
+                                 prefix=f"[{gpu}] {name}, ")
+    phase_end("serving, the profiles", t1)
   del int8, int8_plain
   t0 = phase_end("serving, bf16 weights", t0)
 
@@ -3552,7 +3612,8 @@ def kernel_entries(fa, da, counts, gpu):
         library_ms=r["library_ms"]))
   for cache in ("bf16", "int8"):
     time_k6(da, gpu, 64, 1120, cache)
-  return kernels + counts["PG kernels"] + counts["IT kernels"]
+  return (kernels + counts["PG kernels"] + counts["IT kernels"]
+          + counts["NX kernels"] + counts["JT kernels"])
 
 
 # ----------------------------------------------------------------------------
@@ -4091,85 +4152,90 @@ def paligemma_step_turns(trainer, batch, gpu):
   return {k: statistics.mean(v) for k, v in times.items()}
 
 
-def paligemma_kernel_times(fa, counts, gpu):
-  """K1f and K2f at the LLM's shape on the training path (B=PG_B, T=289,
-  H=8, D=256, f32, the prefix-LM `seg`; two input sets, past the L2)
-  beside their plain versions, SDPA with the same mask as a boolean
-  `attn_mask` on the same inputs, and their bounds at the 3xTF32 rate for
-  the products of the visible scores; the kernels-line entries, with the
-  LLM's launches on the `flash` main path (its steps and step-0 evals)."""
-  b, t, h, d = PG_B, IMG_TOKENS + 33, 8, 256
-  sets = [k1_inputs(b, t, h, d, seed=170 + i, dtype=torch.float32)
+def f32_entries(fa, gpu, label, shape, launches, seg=None, seed=210,
+                where="its main path"):
+  """K1f and K2f at `shape` (B, T, H, D) in f32 with the segment ids
+  `seg(q)` (or none; two input sets, past the L2) beside their plain
+  versions, SDPA on the same inputs (with the segment ids' boolean mask
+  where there are some), and their bounds at the 3xTF32 rate for the
+  products of the visible scores only; the kernels-line entries, with the
+  (K1f, K2f) `launches` of `where`. Where the ids hold padding (0), the
+  padded rows of o and dq must be exact zeros."""
+  b, t, h, d = shape
+  sets = [k1_inputs(b, t, h, d, seed=seed + i, dtype=torch.float32)
           for i in range(2)]
-  seg = prefix_lm_seg(sets[0][0])
-  mask = (seg[:, None, None, :] > 0) & (seg[:, None, None, :]
-                                         <= seg[:, None, :, None])
-  visible = mask.float().mean().item()
-  sdpa_sets = [(*x, mask) for x in kernel_timing.sdpa_layout(sets)]
-  fwd = lambda q, k, v: fa.flash_attention_forward(q, k, v, seg=seg)
-  plain = lambda q, k, v: fa.flash_attention_reference(q, k, v, seg=seg)
+  s = None if seg is None else seg(sets[0][0])
+  kw = {} if s is None else {"seg": s}
+  mask = None if s is None else (
+      (s[:, None, None, :] > 0) & (s[:, None, None, :] <= s[:, None, :, None]))
+  visible = 1.0 if mask is None else mask.float().mean().item()
+  fwd = lambda q, k, v: fa.flash_attention_forward(q, k, v, **kw)
+  plain_fwd = lambda q, k, v: fa.flash_attention_reference(q, k, v, **kw)
   q, k, v = sets[0]
   o, lse = fwd(q, k, v)
-  want_o = plain(q, k, v)
-  want_lse = fa.flash_attention_lse_reference(q, k, v, seg=seg)
+  want_o = plain_fwd(q, k, v)
+  want_lse = fa.flash_attention_lse_reference(q, k, v, **kw)
   err = max(rel_err(o, want_o), rel_err(lse, want_lse))
   abs_err = max((o - want_o).abs().max().item(),
                 (lse - want_lse).abs().max().item())
   assert err <= F32_BAR, err
+  if s is not None:
+    assert torch.all(o[s == 0] == 0), "padded rows of o"
+  del o, want_o
+  sdpa_sets = [(*x, mask) for x in kernel_timing.sdpa_layout(sets)]
   nbytes, flops = k1_work(b, t, h, d, itemsize=4)
   bms, by = bound(nbytes, flops * visible, TF32X3_FLOPS)
-  k1 = dict(
-      name="flash_fwd (PaliGemma LLM T=289 D=256 seg)", route="cuda",
-      source="big_vision_torch/csrc/flash_fwd.cu",
-      replaces="big_vision_tpu/ops/flash_attention.py:306",
-      launches=counts["PG K1f"]["flash"] - counts["PG K1f"]["configured"],
-      max_abs_err=abs_err, max_rel_err=err, rel_tolerance=F32_BAR,
-      ms=time_ms(fwd, sets), plain_ms=time_ms(plain, sets, iters=10),
-      bound_ms=bms, bound_by=by,
-      library_ms=time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
-          q, k, v, attn_mask=m), sdpa_sets))
-  del o, want_o
+  k1 = dict(name=f"flash_fwd ({label})", route="cuda",
+            source="big_vision_torch/csrc/flash_fwd.cu",
+            replaces="big_vision_tpu/ops/flash_attention.py:306",
+            launches=launches[0], max_abs_err=abs_err, max_rel_err=err,
+            rel_tolerance=F32_BAR, ms=time_ms(fwd, sets),
+            plain_ms=time_ms(plain_fwd, sets, iters=10), bound_ms=bms,
+            bound_by=by, library_ms=time_ms(
+                lambda q, k, v, m: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=m), sdpa_sets))
   k2_sets = []
   for i, (q, k, v) in enumerate(sets):
     _, lse = fwd(q, k, v)
-    g = torch.Generator(device=q.device).manual_seed(180 + i)
+    g = torch.Generator(device=q.device).manual_seed(seed + 10 + i)
     k2_sets.append((q, k, v, lse, torch.randn(q.shape, generator=g,
                                                device=q.device)))
   bwd = lambda q, k, v, lse, do: fa.flash_attention_bwd(q, k, v, lse, do,
-                                                        seg=seg)
+                                                        **kw)
   plain_bwd = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
-      q, k, v, do, seg=seg)
+      q, k, v, do, **kw)
   got, want = bwd(*k2_sets[0]), plain_bwd(*k2_sets[0])
   err = max(rel_err(x, y) for x, y in zip(got, want))
   abs_err = max((x - y).abs().max().item() for x, y in zip(got, want))
   assert err <= F32_BAR, err
+  if s is not None:
+    assert torch.all(got[0][s == 0] == 0), "padded rows of dq"
   del got, want
   graphs = []
-  for q, k, v, _, do in k2_sets:
-    ins = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*ins, attn_mask=mask)
-    graphs.append((out, ins, do.transpose(1, 2).contiguous()))
+  for (q, k, v, m), (*_, do) in zip(sdpa_sets, k2_sets):
+    ins = [x.requires_grad_() for x in (q, k, v)]
+    graphs.append((F.scaled_dot_product_attention(*ins, attn_mask=m), ins,
+                   do.transpose(1, 2).contiguous()))
   library_ms = time_ms(lambda out, ins, do: torch.autograd.grad(
       out, ins, do, retain_graph=True), graphs)
-  del graphs
+  del graphs, sdpa_sets
   nbytes, flops = k2_work(b, t, h, d, itemsize=4)
   bms, by = bound(nbytes, flops * visible, TF32X3_FLOPS)
-  k2 = dict(
-      name="flash_bwd (PaliGemma LLM T=289 D=256 seg)", route="cuda",
-      source="big_vision_torch/csrc/flash_bwd.cu",
-      replaces="big_vision_tpu/ops/flash_attention.py:329",
-      launches=counts["PG K2f"]["flash"] - counts["PG K2f"]["configured"],
-      max_abs_err=abs_err, max_rel_err=err, rel_tolerance=F32_BAR,
-      ms=time_ms(bwd, k2_sets), plain_ms=time_ms(plain_bwd, k2_sets,
-                                                 iters=10),
-      bound_ms=bms, bound_by=by, library_ms=library_ms)
+  k2 = dict(name=f"flash_bwd ({label})", route="cuda",
+            source="big_vision_torch/csrc/flash_bwd.cu",
+            replaces="big_vision_tpu/ops/flash_attention.py:329",
+            launches=launches[1], max_abs_err=abs_err, max_rel_err=err,
+            rel_tolerance=F32_BAR, ms=time_ms(bwd, k2_sets),
+            plain_ms=time_ms(plain_bwd, k2_sets, iters=10), bound_ms=bms,
+            bound_by=by, library_ms=library_ms)
   for e in (k1, k2):
-    print(f"[{gpu}] {e['name']} B={b}: {e['ms']:.4f} ms, plain "
-          f"{e['plain_ms']:.4f} ms, SDPA (boolean mask) "
+    print(f"[{gpu}] {e['name']} B={b} H={h}: {e['ms']:.4f} ms, plain "
+          f"{e['plain_ms']:.4f} ms, SDPA"
+          f"{'' if s is None else ' (boolean mask)'} "
           f"{e['library_ms']:.4f} ms; bound {e['bound_ms']:.4f} ms "
           f"({e['bound_by']}, 3xTF32, {visible:.1%} of the scores "
           f"visible); rel err {e['max_rel_err']:.3e} (bar {F32_BAR}); "
-          f"{e['launches']} launches on the flash main path")
+          f"{e['launches']} launches on {where}")
   return [k1, k2]
 
 
@@ -4228,7 +4294,12 @@ def paligemma_phase(fa, gpu, detail=True):
   torch.cuda.empty_cache()
   counts = {"PG K1f": {n: c["K1f"] for n, c in counts.items()},
             "PG K2f": {n: c["K2f"] for n, c in counts.items()}}
-  counts["PG kernels"] = paligemma_kernel_times(fa, counts, gpu)
+  counts["PG kernels"] = f32_entries(
+      fa, gpu, "PaliGemma LLM T=289 D=256 seg",
+      (PG_B, IMG_TOKENS + 33, 8, 256),
+      [counts[n]["flash"] - counts[n]["configured"]
+       for n in ("PG K1f", "PG K2f")], seg=prefix_lm_seg, seed=170,
+      where="the flash main path")
   for name, e2e in results.items():
     print(f"[{gpu}] cococap ({name}), PaliGemma-3B f32 at batch {PG_B}: "
           f"{e2e['step_ms']:.3f} ms/step, {e2e['img/sec']:.2f} img/s, max "
@@ -4576,66 +4647,6 @@ def zeroshot_run(fa, directory, gpu):
   return {"secs": secs, "parts": parts}, counts
 
 
-def imagetext_kernel_times(fa, counts, gpu):
-  """K1f and K2f at CapPa's encoder shape on its main path (B=CAPPA_B,
-  T=196, H=12, D=64, f32; two input sets, past the L2), beside their plain
-  versions, SDPA on the same inputs and their bounds at the 3xTF32 rate;
-  the kernels-line entries, with the CapPa main path's launches."""
-  b, t, h, d = CAPPA_B, 196, 12, 64
-  sets = [k1_inputs(b, t, h, d, seed=190 + i, dtype=torch.float32)
-          for i in range(2)]
-  fwd = lambda q, k, v: fa.flash_attention_forward(q, k, v)
-  q, k, v = sets[0]
-  o, lse = fwd(q, k, v)
-  want_o = fa.flash_attention_reference(q, k, v)
-  want_lse = fa.flash_attention_lse_reference(q, k, v)
-  err = max(rel_err(o, want_o), rel_err(lse, want_lse))
-  abs_err = max((o - want_o).abs().max().item(),
-                (lse - want_lse).abs().max().item())
-  assert err <= F32_BAR, err
-  del o, want_o
-  bms, by = bound(*k1_work(b, t, h, d, itemsize=4), TF32X3_FLOPS)
-  k1 = dict(
-      name="flash_fwd (CapPa ViT-B/16 T=196)", route="cuda",
-      source="big_vision_torch/csrc/flash_fwd.cu",
-      replaces="big_vision_tpu/ops/flash_attention.py:306",
-      launches=counts["IT cappa"]["K1f"], max_abs_err=abs_err,
-      max_rel_err=err, rel_tolerance=F32_BAR, ms=time_ms(fwd, sets),
-      plain_ms=time_ms(fa.flash_attention_reference, sets, iters=10),
-      bound_ms=bms, bound_by=by, library_ms=sdpa_fwd_ms(sets))
-  k2_sets = []
-  for i, (q, k, v) in enumerate(sets):
-    _, lse = fwd(q, k, v)
-    g = torch.Generator(device=q.device).manual_seed(200 + i)
-    k2_sets.append((q, k, v, lse, torch.randn(q.shape, generator=g,
-                                               device=q.device)))
-  plain_bwd = lambda q, k, v, lse, do: fa.flash_attention_bwd_reference(
-      q, k, v, do)
-  got, want = fa.flash_attention_bwd(*k2_sets[0]), plain_bwd(*k2_sets[0])
-  err = max(rel_err(x, y) for x, y in zip(got, want))
-  abs_err = max((x - y).abs().max().item() for x, y in zip(got, want))
-  assert err <= F32_BAR, err
-  del got, want
-  bms, by = bound(*k2_work(b, t, h, d, itemsize=4), TF32X3_FLOPS)
-  k2 = dict(
-      name="flash_bwd (CapPa ViT-B/16 T=196)", route="cuda",
-      source="big_vision_torch/csrc/flash_bwd.cu",
-      replaces="big_vision_tpu/ops/flash_attention.py:329",
-      launches=counts["IT cappa"]["K2f"], max_abs_err=abs_err,
-      max_rel_err=err, rel_tolerance=F32_BAR,
-      ms=time_ms(fa.flash_attention_bwd, k2_sets),
-      plain_ms=time_ms(plain_bwd, k2_sets, iters=10), bound_ms=bms,
-      bound_by=by, library_ms=sdpa_bwd_ms(
-          [(q, k, v, do) for q, k, v, _, do in k2_sets]))
-  for e in (k1, k2):
-    print(f"[{gpu}] {e['name']} B={b}: {e['ms']:.4f} ms, plain "
-          f"{e['plain_ms']:.4f} ms, SDPA {e['library_ms']:.4f} ms; bound "
-          f"{e['bound_ms']:.4f} ms ({e['bound_by']}, 3xTF32); rel err "
-          f"{e['max_rel_err']:.3e} (bar {F32_BAR}); {e['launches']} launches "
-          "on the CapPa main path")
-  return [k1, k2]
-
-
 def imagetext_phase(fa, gpu):
   """Phase 14: CapPa pre-training (cappa/pretrain.py: ViT-B/16 encoder,
   6-layer decoder, vocab 32,000, parallel prediction) through the
@@ -4689,7 +4700,10 @@ def imagetext_phase(fa, gpu):
   t1 = phase_end("imagetext: zero-shot", t1)
   counts = {"IT cappa": cappa_counts, "IT clippo": clippo_counts,
             "IT zeroshot": zeroshot_counts}
-  counts["IT kernels"] = imagetext_kernel_times(fa, counts, gpu)
+  counts["IT kernels"] = f32_entries(
+      fa, gpu, "CapPa ViT-B/16 T=196", (CAPPA_B, 196, 12, 64),
+      [cappa_counts["K1f"], cappa_counts["K2f"]], seed=190,
+      where="the CapPa main path")
   total = torch.cuda.get_device_properties(0).total_memory / 2**30
   print(f"[{gpu}] cappa/pretrain (ViT-B/16 + 6-layer decoder, f32), batch "
         f"{CAPPA_B}: end to end {cappa['step_ms']:.3f} ms/step, "
@@ -4711,6 +4725,582 @@ def imagetext_phase(fa, gpu):
   return counts
 
 
+# ----------------------------------------------------------------------------
+# Phase 15: NaFlex B/16 through the SigLIP trainer.
+# ----------------------------------------------------------------------------
+
+
+def naflex_config(directory, *, batch=NAFLEX_B, attn="flash", steps=0):
+  """SigLIP 2's NaFlex B/16 at 256 tokens through the SigLIP trainer:
+  `siglip_lit_coco.py` (BERT-base text tower, its tokenizer and loss) with
+  the image tower `proj.image_text.naflex_vit` (variant B, a 16x16
+  posemb table resized per example, bound `learn_2d(256)`; MAP head;
+  trained, not frozen) on the COCO stand-in's JPEGs with sides in
+  NAFLEX_SIDES px, through the NaFlex pp chain padded to 256 tokens. No
+  JAX config exists for this path; the JAX trainer cannot take the tuple
+  image."""
+  from big_vision_torch import train
+  seq, p = NAFLEX_SEQ, 16
+  config = train.load_config(
+      f"{SIGLIP_CONFIG}:vocab={os.path.join(directory, 'vocab.txt')},"
+      f"batch_size={batch},log=1,ckpt=0" + (f",stop={steps}" if steps
+                                             else ""))
+  config["input"]["data"]["side_range"] = NAFLEX_SIDES
+  text_pp = config["input"]["pp"].split("|flatten|", 1)[1]
+  config["input"]["pp"] = (
+      f"decode|resize_to_sequence({p}, {seq})|value_range(-1, 1)"
+      f"|patchify({p})|flatten"
+      f"|pad_to_shape(({seq}, {p * p * 3}), key='image/patches')"
+      + "".join(f"|pad_to_shape(({seq},), key='image/{k}')"
+                for k in ("type", "yidx", "xidx"))
+      + "|tuplify(['image/patches', 'image/type', 'image/yidx', "
+      "'image/xidx'], 'image')|" + text_pp)
+  config["pp_modules"] = config["pp_modules"] + [
+      "proj.image_text.ops_naflex"]
+  config["init_shapes"] = [(1, seq, p * p * 3), (1, 16)]
+  config["model"]["image_model"] = "proj.image_text.naflex_vit"
+  config["model"]["image"] = dict(
+      variant="B", posemb=f"learn_2d({seq})", nposemb=16, pool_type="map",
+      attn_impl=attn, head_zeroinit=False)
+  config["model_load"] = {}
+  config["schedule"] = [(".*", dict(config["schedule"][1][1]))]
+  config["evals"] = {}
+  config.pop("ckpt_steps")
+  # The first batch waits for the shuffle buffer to fill: siglip_lit_coco's
+  # 250,000 raw examples take half a minute of the script's time.
+  config["input"]["shuffle_buffer_size"] = NAFLEX_SHUFFLE
+  return config
+
+
+def naflex_loss_grads(trainer, batch):
+  """(loss, zimg, {name: gradient}) of the SigLIP loss on `batch`."""
+  for p in trainer.params.values():
+    p.grad = None
+  loss, zimg, _ = siglip_loss(trainer, batch)
+  loss.backward()
+  grads = {n: p.grad.detach().clone() for n, p in trainer.params.items()
+           if p.grad is not None}
+  for p in trainer.params.values():
+    p.grad = None
+  return loss.detach(), zimg.detach(), grads
+
+
+@contextlib.contextmanager
+def seg_attention_checked_in_place(fa, rows, pad_rows):
+  """While open, each attention call with segment ids is held against the
+  plain versions on its own inputs: K1's o and LSE, then K2's dq, dk and
+  dv; the padded query rows (seg 0) of the model's o and of dq must be
+  exact zeros."""
+  from big_vision_torch.ops import attention
+  orig = attention.dot_product_attention
+
+  def checked(q, k, v, seg=None, **kw):
+    out = orig(q, k, v, seg=seg, **kw)
+    if seg is None:
+      return out
+    layer = len(rows) // 5
+    pad = seg == 0
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o, lse = fa.flash_attention_forward(qd, kd, vd, seg=seg)
+    assert torch.equal(o, out.detach()), layer
+    pad_rows.append(int(pad.sum()))
+    assert torch.all(out.detach()[pad] == 0), f"layer {layer}: padded o"
+    rows.append((rel_err(o, fa.flash_attention_reference(qd, kd, vd,
+                                                         seg=seg)),
+                 f"layer {layer} o"))
+    rows.append((rel_err(lse, fa.flash_attention_lse_reference(
+        qd, kd, vd, seg=seg)), f"layer {layer} lse"))
+    del o, lse
+    grads = {}
+
+    def keep(name, g):
+      grads[name] = g
+      if len(grads) == 4:
+        assert torch.all(grads["dq"][pad] == 0), f"layer {layer}: padded dq"
+        want = fa.flash_attention_bwd_reference(qd, kd, vd, grads["do"],
+                                                seg=seg)
+        for n, w in zip(("dq", "dk", "dv"), want):
+          rows.append((rel_err(grads[n], w), f"layer {layer} {n}"))
+        grads.clear()
+
+    out.register_hook(functools.partial(keep, "do"))
+    for name, x in (("dq", q), ("dk", k), ("dv", v)):
+      x.register_hook(functools.partial(keep, name))
+    return out
+
+  attention.dot_product_attention = checked
+  try:
+    yield
+  finally:
+    attention.dot_product_attention = orig
+
+
+def grads_close(got, want, bar):
+  """max over params of max|got - want| / max|want| (params whose
+  gradient is zero in exact arithmetic, the attention key biases, against
+  the largest gradient); asserts it is within `bar`."""
+  top = max(w.abs().max().item() for w in want.values())
+  worst, name = 0.0, None
+  for n, w in want.items():
+    scale = top if n.endswith(("key/bias", "key.bias")) else max(
+        w.abs().max().item(), 1e-30)
+    e = (got[n] - w).abs().max().item() / scale
+    if e > worst:
+      worst, name = e, n
+  assert worst <= bar, (name, worst)
+  return worst, name
+
+
+def naflex_phase(fa, gpu):
+  """Phase 15: NaFlex B/16 at 256 tokens through the SigLIP trainer's loop
+  (NAFLEX_STEPS steps of batch NAFLEX_B): launches per step exact (12 K1f
+  with segment ids, 12 K2f), the first loss; the kernel path (`flash`,
+  seg) against `attn_impl="xla"` (a [B, T, T] mask) on one batch: loss
+  and zimg within NAFLEX_BAR, every gradient within NAFLEX_GRAD_BAR; every
+  K1f/K2f launch in place within F32_BAR, the padded rows of o and dq
+  exact zeros; the step on a fixed batch, img/s and peak memory. Returns
+  the launch counts and the kernels-line entries."""
+  t0 = time.perf_counter()
+  from big_vision_torch import train
+  from big_vision_torch.configs.proj.image_text import common as it_common
+  from big_vision_torch.trainers.proj.image_text import siglip
+  directory = os.path.join(ROOT, "build", "chip_smoke_naflex")
+  os.makedirs(directory, exist_ok=True)
+  it_common.stand_in_vocab(os.path.join(directory, "vocab.txt"))
+  workdir = os.path.join(directory, "wd")
+  shutil.rmtree(workdir, ignore_errors=True)
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches(fa)
+  trainer = train.train(naflex_config(directory, steps=NAFLEX_STEPS),
+                        workdir, trainer_cls=siglip.Trainer)
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  counts = launches(fa)
+  depth = len(trainer.model.img.encoder.blocks)
+  want = {**dict.fromkeys(COUNTERS, 0), "K1f": depth * NAFLEX_STEPS,
+          "K2f": depth * NAFLEX_STEPS}
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    rows = [r for r in map(json.loads, f) if "training_loss" in r]
+  assert [r["step"] for r in rows] == list(range(1, NAFLEX_STEPS + 1))
+  assert all(math.isfinite(r["training_loss"]) for r in rows), rows
+  print(f"naflex (SigLIP 2 NaFlex B/16, {NAFLEX_SEQ} tokens, f32): "
+        f"{NAFLEX_STEPS} steps of batch {trainer.batch_size} through the "
+        f"SigLIP trainer; launches "
+        f"{({k: n for k, n in counts.items() if n})} (want "
+        f"{({k: n for k, n in want.items() if n})}); first loss "
+        f"{rows[0]['training_loss']:.6f}; losses " + " ".join(
+            f"{r['training_loss']:.6f}" for r in rows))
+  assert counts == want, (counts, want)
+  e2e = {k: statistics.median(r[k] for r in rows[1:])
+         for k in ("step_ms", "img/sec", "input_stall_pct")}
+
+  it = trainer.input_iter(NAFLEX_STEPS)
+  batch = next(it)
+  it.close()
+  ptype = batch["image"][1]
+  tokens = ptype.sum(1).float()
+  print(f"  a batch's valid tokens per example: min {tokens.min().item():.0f}"
+        f", mean {tokens.mean().item():.1f}, max {tokens.max().item():.0f} "
+        f"of {NAFLEX_SEQ}")
+  assert (ptype == 0).any(), "no padding in the batch"
+
+  reset_launches(fa)
+  lk, zk, gk = naflex_loss_grads(trainer, batch)
+  torch.cuda.synchronize()
+  assert launches(fa) == {**dict.fromkeys(COUNTERS, 0), "K1f": depth,
+                          "K2f": depth}, launches(fa)
+  plain = siglip.Trainer(naflex_config(directory, attn="xla"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  reset_launches(fa)
+  lp, zp, gp = naflex_loss_grads(plain, batch)
+  assert launches(fa) == dict.fromkeys(COUNTERS, 0), launches(fa)
+  del plain
+  loss_err = abs(lk.item() - lp.item()) / abs(lp.item())
+  z_err = rel_err(zk, zp)
+  g_err, g_name = grads_close(gk, gp, NAFLEX_GRAD_BAR)
+  print(f"naflex kernel path (flash, seg) vs attn=xla (bool mask), batch "
+        f"{ptype.shape[0]}: loss {lk.item():.6f} vs {lp.item():.6f} (rel "
+        f"{loss_err:.3e}), zimg rel {z_err:.3e} (bar {NAFLEX_BAR}); "
+        f"gradients: worst {g_err:.3e} at {g_name} (bar {NAFLEX_GRAD_BAR})")
+  assert loss_err <= NAFLEX_BAR and z_err <= NAFLEX_BAR, (loss_err, z_err)
+  del gk, gp
+
+  rows_k, pad_rows = [], []
+  with seg_attention_checked_in_place(fa, rows_k, pad_rows):
+    loss, _, _ = siglip_loss(trainer, batch)
+    loss.backward()
+  torch.cuda.synchronize()
+  for p in trainer.params.values():
+    p.grad = None
+  assert len(rows_k) == 5 * depth, len(rows_k)
+  rows_k.sort(reverse=True)
+  print(f"naflex image tower: K1f and K2f in place, batch {ptype.shape[0]} "
+        f"x 12 heads (T = {NAFLEX_SEQ}, seg): {len(rows_k)} outputs of "
+        f"{depth} launches each against the plain version, the 3 worst (bar "
+        f"{F32_BAR}): " + ", ".join(f"{nm} {e:.3e}" for e, nm in rows_k[:3])
+        + f"; the {pad_rows[0]} padded query rows of every layer's o and dq "
+        "exact zeros")
+  assert all(e <= F32_BAR for e, _ in rows_k), rows_k[:3]
+
+  fixed_ms = fixed_steps(trainer, batch, gpu, "naflex B/16")
+  total = torch.cuda.get_device_properties(0).total_memory / 2**30
+  print(f"[{gpu}] naflex B/16 + BERT-base (SigLIP trainer, f32), batch "
+        f"{trainer.batch_size}: end to end {e2e['step_ms']:.3f} ms/step, "
+        f"{e2e['img/sec']:.1f} img/s, input stall "
+        f"{e2e['input_stall_pct']:.3f}% (median of steps 2-{NAFLEX_STEPS});"
+        f" fixed batch {fixed_ms:.3f} ms/step, "
+        f"{trainer.batch_size / fixed_ms * 1e3:.1f} img/s; max memory "
+        f"allocated {peak / 2**30:.2f} GiB of {total:.1f}")
+  del trainer, batch
+  gc.collect()
+  torch.cuda.empty_cache()
+  out = {"NX": counts}
+  out["NX kernels"] = f32_entries(
+      fa, gpu, "NaFlex B/16 T=256, seg", (NAFLEX_B, NAFLEX_SEQ, 12, 64),
+      [counts["K1f"], counts["K2f"]], seg=naflex_seg)
+  shutil.rmtree(directory, ignore_errors=True)
+  phase_end("naflex", t0)
+  return out
+
+
+def naflex_seg(q):
+  """[B, T] segment ids of NaFlex padding: example i keeps its first
+  T - 16 * (i % 9) tokens (1), the rest padding (0)."""
+  b, t = q.shape[:2]
+  keep = t - 16 * (torch.arange(b, device=q.device) % 9)
+  return (torch.arange(t, device=q.device)[None] < keep[:, None]).int()
+
+
+# ----------------------------------------------------------------------------
+# Phase 16: Jet on ImageNet 64x64 and JetFormer-350M.
+# ----------------------------------------------------------------------------
+
+
+def jet_trainer_rows(workdir):
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    return list(map(json.loads, f))
+
+
+def jet_first_bits(trainer, batch):
+  """The first step's bits/dim in closed form: at init every coupling is
+  the identity (zero-init `final_proj`), so z = x + noise (the step's
+  dequantization noise, replayed) and log|det| = 0."""
+  from big_vision_torch.trainers.proj.jet import train as jet_train
+  x = batch["image"]
+  gen = jet_train.input_pipeline.step_generator(trainer.seed + 1, 0,
+                                                trainer.device)
+  z = (x + trainer.dequant_noise(x, gen)).double()
+  ndims = z[0].numel()
+  nll = 0.5 * (z ** 2 + math.log(2 * math.pi)).sum((1, 2, 3)) - (
+      ndims * math.log(trainer.bin_width))
+  return (nll / (ndims * math.log(2))).mean().item()
+
+
+def jet_loss_grads(trainer, batch):
+  """(bits/dim, {name: gradient}) of the half-bin-dequantized batch."""
+  from big_vision_torch.trainers.proj.jet import train as jet_train
+  for p in trainer.params.values():
+    p.grad = None
+  x = batch["image"] + 0.5 * trainer.bin_width
+  z, logdet = trainer.model(x)
+  bits = jet_train.nll_bits_per_dim(z, logdet, trainer.bin_width)[0].mean()
+  bits.backward()
+  grads = {n: p.grad.detach().clone() for n, p in trainer.params.items()
+           if p.grad is not None}
+  for p in trainer.params.values():
+    p.grad = None
+  return bits.detach(), grads
+
+
+def jet_run(fa, gpu, directory):
+  """Jet imagenet64 at full width and depth, batch JET_B: JET_STEPS loop
+  steps with the val eval at step 0 and at the end; launches exact; the
+  first bits/dim against its closed form; round trip; auto vs xla; the
+  step on a fixed batch. Returns (counts, the trainer)."""
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.jet import train as jet_train
+  workdir = os.path.join(directory, "wd_jet")
+  shutil.rmtree(workdir, ignore_errors=True)
+  arg = f"batch_size={JET_B},neval={JET_NEVAL},stop={JET_STEPS},log=1"
+  config = train.load_config(f"{JET_CONFIG}:{arg}")
+  config["evals"]["val"]["log_steps"] = JET_STEPS
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches(fa)
+  calls = {}
+  with counted_predict_fns(fa, calls):
+    trainer = train.train(config, workdir, trainer_cls=jet_train.Trainer)
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  counts = launches(fa)
+  couplings = trainer.model.couplings.depth
+  blocks = couplings * len(trainer.model.couplings.layer.dnn.encoder.blocks)
+  [per_call] = calls.values()
+  per_eval = {**dict.fromkeys(COUNTERS, 0), "K1f": blocks}
+  assert all(c == per_eval for c in per_call), per_call[:2]
+  want = {**dict.fromkeys(COUNTERS, 0),
+          "K1f": 2 * blocks * JET_STEPS + blocks * len(per_call),
+          "K2f": blocks * JET_STEPS}
+  rows = jet_trainer_rows(workdir)
+  train_rows = [r for r in rows if "training_loss" in r]
+  evals = {r["step"]: r["val/bits_per_dim"] for r in rows
+           if "val/bits_per_dim" in r}
+  print(f"jet imagenet64 (depth {couplings}, block_depth "
+        f"{blocks // couplings}, emb 512, 8 heads, ps 4: T = 256, D = 64; "
+        f"f32), batch {JET_B}: {JET_STEPS} steps and the val eval at steps "
+        f"{sorted(evals)} ({len(per_call)} batches); launches "
+        f"{({k: n for k, n in counts.items() if n})} (want "
+        f"{({k: n for k, n in want.items() if n})}: per step {2 * blocks} "
+        f"K1f (the remat'ed forward and its recompute) and {blocks} K2f, "
+        f"per eval batch {blocks} K1f)")
+  assert counts == want, (counts, want)
+  assert [r["step"] for r in train_rows] == list(range(1, JET_STEPS + 1))
+  it = trainer.input_iter(0)
+  first = next(it)
+  it.close()
+  closed = jet_first_bits(trainer, first)
+  got = train_rows[0]["training_loss"]
+  print(f"  first bits/dim {got:.6f}, closed form of the batch (identity "
+        f"flow, log|det| 0) {closed:.6f}, rel {abs(got - closed) / closed:.3e}"
+        f" (bar {JET_BAR}); bits/dim " + " ".join(
+            f"{r['training_loss']:.6f}" for r in train_rows)
+        + "; val bits/dim " + ", ".join(f"step {s}: {v:.6f}"
+                                        for s, v in sorted(evals.items())))
+  assert abs(got - closed) <= JET_BAR * closed, (got, closed)
+  assert all(math.isfinite(v) for v in evals.values()), evals
+  e2e = {k: statistics.median(r[k] for r in train_rows[1:])
+         for k in ("step_ms", "img/sec")}
+
+  it = trainer.input_iter(JET_STEPS)
+  batch = next(it)
+  it.close()
+  with torch.no_grad():
+    reset_launches(fa)
+    z, ld = trainer.model(batch["image"])
+    back, ld_inv = trainer.model.inverse(z)
+    torch.cuda.synchronize()
+    assert launches(fa) == {**dict.fromkeys(COUNTERS, 0), "K1f": 2 * blocks}
+  rt = (back - batch["image"]).abs().max().item()
+  ld_err = ((ld + ld_inv).abs().max() / ld.abs().max()).item()
+  print(f"  forward then inverse on the card (trained weights): max|x' - x| "
+        f"{rt:.3e} (bar {JET_ROUNDTRIP}), log|det| forward "
+        f"{ld.mean().item():.4f}, inverse's negation rel {ld_err:.3e}")
+  assert rt <= JET_ROUNDTRIP and ld_err <= 1e-4, (rt, ld_err)
+  del z, back
+
+  sub = {"image": batch["image"][:JET_CHECK_B]}
+  lk, gk = jet_loss_grads(trainer, sub)
+  plain = jet_train.Trainer(train.load_config(
+      f"{JET_CONFIG}:batch_size={JET_B},attn=xla"))
+  plain.model.load_state_dict(trainer.model.state_dict())
+  reset_launches(fa)
+  lp, gp = jet_loss_grads(plain, sub)
+  assert launches(fa) == dict.fromkeys(COUNTERS, 0), launches(fa)
+  del plain
+  l_err = abs(lk.item() - lp.item()) / abs(lp.item())
+  g_err, g_name = grads_close(gk, gp, JET_GRAD_BAR)
+  print(f"jet auto (K1f/K2f) vs attn=xla, {JET_CHECK_B} images: bits/dim "
+        f"{lk.item():.6f} vs {lp.item():.6f} (rel {l_err:.3e}, bar {JET_BAR})"
+        f"; gradients: worst {g_err:.3e} at {g_name} (bar {JET_GRAD_BAR})")
+  assert l_err <= JET_BAR, l_err
+  del gk, gp
+  fixed_ms = fixed_steps(trainer, batch, gpu, "jet imagenet64")
+  total = torch.cuda.get_device_properties(0).total_memory / 2**30
+  print(f"[{gpu}] jet imagenet64 (f32), batch {JET_B}: end to end "
+        f"{e2e['step_ms']:.3f} ms/step, {e2e['img/sec']:.1f} img/s (median "
+        f"of steps 2-{JET_STEPS}); fixed batch {fixed_ms:.3f} ms/step, "
+        f"{JET_B / fixed_ms * 1e3:.1f} img/s; max memory allocated "
+        f"{peak / 2**30:.2f} GiB of {total:.1f}; val bits/dim at step "
+        f"{JET_STEPS}: {evals[JET_STEPS]:.6f} on {JET_NEVAL} images")
+  del trainer
+  gc.collect()
+  torch.cuda.empty_cache()
+  return counts
+
+
+def jetformer_zero_head_loss(trainer, batch):
+  """The first step's loss in closed form: with the zero-init image head
+  every mixture component is N(0, I), and at init the adaptor is the
+  identity with log|det| 0, so (text first, the loss on the image suffix)
+  the loss is the batch mean of 0.5 * sum(z^2 + log 2 pi) over all 768
+  channels of every token, per subpixel in bits, plus log2(127.5); z is
+  the patches of the noised image with the step's draws replayed (the RGB
+  curriculum at step 0, dequantization, the input noise on the first
+  out_dim channels)."""
+  from big_vision_torch.trainers.proj.jetformer import train as jf
+  gen = jf.input_pipeline.step_generator(trainer.seed + 1, 0, trainer.device)
+  draws = trainer.draws(batch, gen)
+  scale = jf.cosine_noise_scale(trainer.config, 0, trainer.total_steps)
+  images = jf.quantized_noise(batch["image"], scale, draws["rgb"])
+  z = trainer.patch_pca.encode(images, noise=draws["dequant"])[0].double()
+  out_dim = trainer.model.model.out_dim
+  tf = draws["order"][:, None, None]
+  z[..., :out_dim] += torch.where(tf, draws["in_std"], 0.0) * (
+      draws["in_noise"])
+  subpix = batch["image"][0].numel()
+  nll = 0.5 * (z ** 2 + math.log(2 * math.pi)).sum((1, 2)) / subpix
+  return (nll / math.log(2)).mean().item() + math.log2(127.5)
+
+
+def jetformer_run(fa, gpu, directory):
+  """JetFormer-350M (imagenet2012 config, 256px, adaptor Jet depth 32 x 4
+  blocks), batch JF_B: JF_STEPS loop steps with the val eval at step 0;
+  launches exact (the adaptor's K1f/K2f; the decoder's attention is the
+  plain path, as in JAX); the first loss against its closed form; the
+  adaptor's auto path against xla; the step; a class-conditional sample
+  of JF_SAMPLES images with CFG. Returns the launch counts."""
+  from big_vision_torch import train
+  from big_vision_torch.trainers.proj.jetformer import train as jf
+  from big_vision_torch.trainers.proj.jetformer import predict_fns as pf
+  workdir = os.path.join(directory, "wd_jetformer")
+  shutil.rmtree(workdir, ignore_errors=True)
+  config = train.load_config(
+      f"{JF_CONFIG}:batch_size={JF_B},neval={JF_NEVAL},stop={JF_STEPS},"
+      "log=1")
+  config["evals"]["val"]["log_steps"] = 10 * JF_STEPS  # step 0 only
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches(fa)
+  calls = {}
+  with counted_predict_fns(fa, calls):
+    trainer = train.train(config, workdir, trainer_cls=jf.Trainer)
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  counts = launches(fa)
+  adaptor = trainer.model.adaptor
+  blocks = adaptor.couplings.depth * len(
+      adaptor.couplings.layer.dnn.encoder.blocks)
+  per_call = calls.get("validation", [])
+  per_eval = {**dict.fromkeys(COUNTERS, 0), "K1f": blocks}
+  assert per_call and all(c == per_eval for c in per_call), per_call[:2]
+  want = {**dict.fromkeys(COUNTERS, 0),
+          "K1f": 2 * blocks * JF_STEPS + blocks * len(per_call),
+          "K2f": blocks * JF_STEPS}
+  rows = jet_trainer_rows(workdir)
+  train_rows = [r for r in rows if "training_loss" in r]
+  print(f"jetformer_imagenet2012 350M (width 1024, depth 24, MQA, head "
+        f"bf16; adaptor Jet depth {adaptor.couplings.depth} x "
+        f"{blocks // adaptor.couplings.depth} blocks, T = 256, D = 64), batch "
+        f"{JF_B}: {JF_STEPS} steps and the val eval at step 0 "
+        f"({len(per_call)} batches); launches "
+        f"{({k: n for k, n in counts.items() if n})} (want "
+        f"{({k: n for k, n in want.items() if n})}: per step {2 * blocks} "
+        f"K1f and {blocks} K2f in the adaptor, per eval batch {blocks} K1f)")
+  assert counts == want, (counts, want)
+  it = trainer.input_iter(0)
+  first = next(it)
+  it.close()
+  closed = jetformer_zero_head_loss(trainer, first)
+  got = train_rows[0]["training_loss"]
+  print(f"  first loss {got:.6f}, closed form of the zero-init heads "
+        f"{closed:.6f} (rel {abs(got - closed) / closed:.3e}, bar "
+        f"{JF_BAR}); losses " + " ".join(f"{r['training_loss']:.6f}"
+                                        for r in train_rows)
+        + "; train/nll_text " + " ".join(
+            f"{r['train/nll_text']:.4f}" for r in train_rows)
+        + "; val/nll_image_suffix " + ", ".join(
+            f"{r['val/nll_image_suffix']:.6f}" for r in rows
+            if "val/nll_image_suffix" in r))
+  assert abs(got - closed) <= JF_BAR * closed, (got, closed)
+  e2e = statistics.median(r["step_ms"] for r in train_rows[1:])
+
+  it = trainer.input_iter(JF_STEPS)
+  batch = next(it)
+  it.close()
+  tokens = trainer.patch_pca.encode(batch["image"][:JF_CHECK_B],
+                                    noise=torch.zeros_like(
+                                        batch["image"][:JF_CHECK_B]))[0]
+  x = pf.unflatten_latents(tokens)
+
+  def adaptor_loss_grads(model):
+    for p in model.parameters():
+      p.grad = None
+    z, ld = model(x)
+    loss = (0.5 * (z ** 2).mean() - ld.mean() / z[0].numel())
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    for p in model.parameters():
+      p.grad = None
+    return loss.detach(), z.detach(), grads
+
+  lk, zk, gk = adaptor_loss_grads(adaptor)
+  from big_vision_torch.models.proj.jet import jet
+  plain = jet.Model(**dict(config["adaptor"]["model"]),
+                    image_shape=tuple(x.shape[1:]), attn_impl="xla")
+  plain.load_state_dict(adaptor.state_dict())
+  reset_launches(fa)
+  lp, zp, gp = adaptor_loss_grads(plain)
+  assert launches(fa) == dict.fromkeys(COUNTERS, 0), launches(fa)
+  del plain
+  z_err = rel_err(zk, zp)
+  l_err = abs(lk.item() - lp.item()) / abs(lp.item())
+  g_err, g_name = grads_close(gk, gp, JET_GRAD_BAR)
+  print(f"jetformer adaptor auto (K1f/K2f) vs attn=xla, {JF_CHECK_B} images:"
+        f" loss rel {l_err:.3e}, latents rel {z_err:.3e} (bar {JET_BAR}); "
+        f"gradients: worst {g_err:.3e} at {g_name} (bar {JET_GRAD_BAR})")
+  assert z_err <= JET_BAR and l_err <= JET_BAR, (z_err, l_err)
+  del gk, gp, zk, zp
+
+  fixed_ms = fixed_steps(trainer, batch, gpu, "jetformer 350M")
+  total = torch.cuda.get_device_properties(0).total_memory / 2**30
+  print(f"[{gpu}] jetformer_imagenet2012 350M (f32, head bf16), batch "
+        f"{JF_B}: end to end {e2e:.3f} ms/step; fixed batch {fixed_ms:.3f} "
+        f"ms/step, {JF_B / fixed_ms * 1e3:.1f} img/s; max memory allocated "
+        f"{peak / 2**30:.2f} GiB of {total:.1f}")
+
+  reset_launches(fa)
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  sample = trainer.predict_fns()["sample_images"](
+      None, {"text": torch.arange(JF_SAMPLES, device="cuda") * 7})
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t1
+  images = sample["images"]
+  sc = launches(fa)
+  assert sc == {**dict.fromkeys(COUNTERS, 0), "K1f": blocks}, sc
+  assert tuple(images.shape) == (JF_SAMPLES, 256, 256, 3), images.shape
+  assert torch.isfinite(images).all() and images.abs().max() <= 1.0
+  assert torch.isfinite(sample["logp"]).all()
+  print(f"[{gpu}] jetformer sample: {JF_SAMPLES} class-conditional images "
+        f"(CFG weight {trainer.config['sample_images']['cfg_inference_weight']}"
+        f", temperature {trainer.config['sample_images']['temperature']}), "
+        f"256 AR steps on the KV cache, the adaptor's inverse ({blocks} K1f) "
+        f"and the patches: {secs:.3f} s; images in [-1, 1], mean "
+        f"{images.mean().item():.4f}")
+  del trainer
+  gc.collect()
+  torch.cuda.empty_cache()
+  return counts
+
+
+def jet_phase(fa, gpu):
+  """Phase 16: Jet imagenet64 and JetFormer-350M (`jet_run`,
+  `jetformer_run`); the K1f/K2f entries at Jet's conditioner shape and at
+  the JetFormer adaptor's.
+  Returns the launch counts and the kernels-line entries."""
+  t0 = time.perf_counter()
+  directory = os.path.join(ROOT, "build", "chip_smoke_jet")
+  os.makedirs(directory, exist_ok=True)
+  jet_counts = jet_run(fa, gpu, directory)
+  t1 = phase_end("jet: imagenet64", t0)
+  jf_counts = jetformer_run(fa, gpu, directory)
+  phase_end("jet: jetformer", t1)
+  out = {"JT": jet_counts, "JF": jf_counts}
+  out["JT kernels"] = (
+      f32_entries(fa, gpu, "Jet conditioner T=256", (JET_B, 256, 8, 64),
+                  [jet_counts["K1f"], jet_counts["K2f"]])
+      + f32_entries(fa, gpu, "JetFormer adaptor T=256", (JF_B, 256, 8, 64),
+                    [jf_counts["K1f"], jf_counts["K2f"]]))
+  shutil.rmtree(directory, ignore_errors=True)
+  phase_end("jet", t0)
+  return out
+
+
 def phase_end(name, t0):
   """Prints the wall time since `t0` of a phase; returns the time now."""
   now = time.perf_counter()
@@ -4721,10 +5311,10 @@ def phase_end(name, t0):
 def main(argv):
   if argv not in ([], ["--checks"], ["--serving"], ["--recipes"],
                   ["--quality"], ["--siglip"], ["--paligemma"],
-                  ["--imagetext"]):
+                  ["--imagetext"], ["--naflex"], ["--jet"]):
     print(f"usage: chip_smoke.py [--checks | --serving | --recipes | "
-          f"--quality | --siglip | --paligemma | --imagetext]; got {argv}",
-          file=sys.stderr)
+          f"--quality | --siglip | --paligemma | --imagetext | --naflex | "
+          f"--jet]; got {argv}", file=sys.stderr)
     return 2
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4777,10 +5367,14 @@ def main(argv):
     paligemma_phase(fa, gpu)
     print(f"{nvidia_smi()}: the PaliGemma fine-tuning phase passed")
     return 0
-  if argv == ["--imagetext"]:  # the build and phase 14 alone
-    counts = imagetext_phase(fa, gpu)
+  alone = {"--imagetext": (imagetext_phase, "IT kernels"),  # phase 14
+           "--naflex": (naflex_phase, "NX kernels"),  # phase 15
+           "--jet": (jet_phase, "JT kernels")}  # phase 16
+  if argv and argv[0] in alone:  # the build and that phase alone
+    phase, key = alone[argv[0]]
+    counts = phase(fa, gpu)
     print(nvidia_smi())
-    print(json.dumps({"kernels": counts["IT kernels"]}))
+    print(json.dumps({"kernels": counts[key]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4800,13 +5394,14 @@ def main(argv):
           f"within their bars")
     return 0
 
-  # 3. Serving PaliGemma-3B; 4. training ViT-B/16; 5. training FlexiViT-B;
-  # 6. distilling FlexiViT-B (launches per step); 7. distilling DeiT-III
-  # into FlexiViT-B; 8. the generic distill trainer; 9. the ImageNet
-  # recipes.
-  counts.update(serving_phase(fa, da, gpu))
+  # 3. Serving PaliGemma-3B, without the decode profiles and the plain
+  # paths' times, which `--serving` runs: the script's time limit.
+  counts.update(serving_phase(fa, da, gpu, profiles=False))
   torch.cuda.empty_cache()
   t0 = phase_end("serving", t0)
+  # 4. Training ViT-B/16; 5. training FlexiViT-B; 6. distilling
+  # FlexiViT-B (launches per step); 7. distilling DeiT-III into
+  # FlexiViT-B; 8. the generic distill trainer; 9. the ImageNet recipes.
   host_decode_rate(gpu)
   t0 = phase_end("host decode rate", t0)
   counts.update(training_phase(fa, gpu))
@@ -4821,13 +5416,19 @@ def main(argv):
   t0 = phase_end("generic distillation smoke", t0)
   recipes_phase(fa, gpu)
   t0 = phase_end("ImageNet recipes", t0)
-  quality_phase(fa, gpu)
-  t0 = phase_end("quality", t0)
+  # 10. The dynamics twin; quality_digits' 2000 host-bound steps, which
+  # `--quality` runs, are left out: the script's time limit.
+  gc.collect()
+  torch.cuda.empty_cache()
+  twin_run(fa, gpu)
+  t0 = phase_end("the dynamics twin", t0)
   siglip_phase(fa, gpu)
   # Without the fixed-batch steps in turns and their profiles, which
   # `--paligemma` runs: the script's time limit.
   counts.update(paligemma_phase(fa, gpu, detail=False))
   counts.update(imagetext_phase(fa, gpu))
+  counts.update(naflex_phase(fa, gpu))
+  counts.update(jet_phase(fa, gpu))
   t0 = time.perf_counter()
 
   # 13. Kernel times.

@@ -46,6 +46,11 @@ CONFIGS = {
     "proj.cappa.smoke": (None, "res=32,total_steps=4"),
     "proj.cappa.pretrain": (None, "runlocal", "batch_size=64"),
     "proj.clippo.train_clippo": (None, "runlocal", "variant=L/16,res=256"),
+    "proj.jet.smoke": (None, "res=32,total_steps=4"),
+    "proj.jet.imagenet64": (None, "runlocal"),
+    "proj.jetformer.smoke": (None, "use_adaptor=False"),
+    "proj.jetformer.jetformer_imagenet2012": (None, "runlocal",
+                                              "model_size=1p3B"),
 }
 
 

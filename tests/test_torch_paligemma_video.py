@@ -178,13 +178,19 @@ def test_load_quantizes_the_llm_into_an_int8_target(tmp_path):
 
 def test_still_refused():
   """What the port still refuses: the LLM's ring attention over a device
-  mesh, and its dropout (the fused training attention is ported)."""
+  mesh (the fused training attention and the LLM's dropout are ported: a
+  model with dropout builds, and draws it only from a given generator)."""
   with pytest.raises(NotImplementedError, match="ring"):
     t_gemma.Model(**t_gemma.get_config("gemma_test"), attn_impl="ring",
                   device="cpu")
-  with pytest.raises(NotImplementedError, match="dropout"):
-    t_gemma.Model(**t_gemma.get_config("gemma_test"), dropout=0.1,
-                  device="cpu")
+  model = t_gemma.Model(**t_gemma.get_config("gemma_test"), dropout=0.1,
+                        device="cpu").initialize(torch.Generator())
+  tokens = torch.arange(6)[None] % 256
+  with torch.no_grad():
+    plain = model(tokens)[0]
+    dropped = model(tokens, rng=torch.Generator().manual_seed(1))[0]
+  torch.testing.assert_close(model(tokens)[0].detach(), plain)
+  assert not torch.equal(dropped, plain)
   t_gemma.Model(**t_gemma.get_config("gemma_test"), attn_impl="flash",
                 device="cpu")
 
