@@ -119,6 +119,19 @@ SPLITS = {
     ("downsampled_imagenet/64x64", "validation"): (50_000, 1000),
     ("imagenet2012", "train[4096:]"): (1_281_167 - 4096, 1000),
     ("imagenet2012", "train[:4096]"): (4096, 1000),
+    # The distillation configs' splits (TFDS's catalog sizes, percent
+    # slices rounded to the closest example as TFDS does; no copy of TFDS
+    # here can confirm them). food101 has no "test" split in TFDS (train
+    # 75,750 and validation 25,250): bigsweep_food_sun.py's eval names one,
+    # and its stand-in takes the validation split's size.
+    ("imagenet2012", "train[:98%]"): (1_255_544, 1000),
+    ("imagenet2012", "train[:16]"): (16, 1000),
+    ("imagenet2012", "validation[:16]"): (16, 1000),
+    ("oxford_flowers102", "train"): (1_020, 102),
+    ("food101", "train"): (75_750, 101),
+    ("food101", "test"): (25_250, 101),
+    ("sun397", "train"): (76_128, 397),
+    ("sun397", "test"): (21_750, 397),
 }
 
 

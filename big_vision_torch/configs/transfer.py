@@ -7,7 +7,7 @@ big_vision_tpu/configs/transfer.py.
       big_vision_torch/configs/transfer.py:runlocal,model=vit-s16,init=<npz>
 
 Kept as there: the grid of models (vit-i21k-augreg-b/32, vit-i21k-augreg-
-l/16, vit-s16) x datasets (cifar10, cifar100, imagenet2012,
+l/16, vit-s16, bit-m-r50x1) x datasets (cifar10, cifar100, imagenet2012,
 oxford_iiit_pet, oxford_flowers102) x crops (inception_crop, resmall_crop,
 resize_crop) at `h_res` 448 and `l_res` 384, each dataset's steps and
 warmup, the head not loaded (`model_load`), `softmax_xent`,
@@ -21,18 +21,21 @@ Cut (`CUTS`; `RUNLOCAL_CUTS` with `runlocal` only):
     synthetic JPEGs (32x32 for CIFAR, 256x320 otherwise) of the split's
     size, or the image folder `root`/train or `root`/val with `root`;
   * model_init: the published checkpoints (the JAX names, kept when
-    `init` is not given) are not fetched: the `init` arg names a local
-    `.npz` in the JAX layout in their place (`models/vit.py` `load`);
+    `init` is not given, and refused by the models' `load`) are not
+    fetched: the `init` arg names a local `.npz` in their place, in the
+    JAX layout (`models/vit.py` `load`) or, for bit-m-r50x1, in the BiT
+    release's TF layout or the JAX one (`models/bit_paper.py` `load`);
   * input.batch_size: one card's share of the JAX run's 512 where that
     does not fit in the H100's 80 GB in f32, the largest power of two
     that does: 256 for vit-s16 (chip_smoke.py prints the peak, over half
     of 80 GB); 32 for vit-i21k-augreg-l/16, and 512 kept for
     vit-i21k-augreg-b/32, both estimated from vit-s16's peak per image
-    scaled by depth x tokens x width, not measured;
-  * model "bit-m-r50x1" is refused: `bit_paper` is not ported;
+    scaled by depth x tokens x width, not measured; for bit-m-r50x1
+    `BATCH`'s, measured (chip_smoke.py --bit tries an update at twice it);
   * fsdp is refused: the port runs one card;
   * model.variant (runlocal): mu at the model's patch size, so that a CPU
-    step is short.
+    step is short; model.depth, model.width (runlocal): R26x0.5 for
+    bit-m-r50x1.
 
 Args (`:name=value,...`), besides the JAX config's: `init` (the model's
 `.npz`), `root` (a folder with train/ and val/), `neval` (examples in
@@ -54,11 +57,14 @@ CUTS = {
                         "not fit in 80 GB in f32",
 }
 RUNLOCAL_CUTS = {"model.variant": "mu at the model's patch size, so that "
-                                  "a CPU step is short"}
+                                  "a CPU step is short",
+                 "model.depth": "R26x0.5 (bit-m-r50x1), so that a CPU step "
+                                "is short",
+                 "model.width": "(as model.depth)"}
 
 # The per-card batch of a model at 384px in f32 where the JAX run's 512
 # does not fit (see the docstring).
-BATCH = {"vit-i21k-augreg-l/16": 32, "vit-s16": 256}
+BATCH = {"vit-i21k-augreg-l/16": 32, "vit-s16": 256, "bit-m-r50x1": 128}
 
 
 def _set_model(config, model, init, runlocal):
@@ -77,13 +83,16 @@ def _set_model(config, model, init, runlocal):
     config["model"] = dict(variant="S/16", pool_type="gap",
                            posemb="sincos2d", rep_size=True)
   elif model == "bit-m-r50x1":
-    raise ValueError("model bit-m-r50x1 (model_name bit_paper) is not "
-                     "ported")
+    config["model_name"] = "bit_paper"
+    config["model_init"] = "M"
+    config["model"] = dict(depth=50, width=1)
   else:
     raise ValueError(f"Unknown model {model!r}")
   if init:
     config["model_init"] = init
-  if runlocal:
+  if runlocal and config["model_name"] == "bit_paper":
+    config["model"].update(depth=26, width=0.5)
+  elif runlocal:
     config["model"]["variant"] = "mu/" + config["model"]["variant"].split(
         "/")[1]
 
@@ -166,7 +175,7 @@ def get_config(arg=None):
 
   _set_dataset(config, arg)
   _set_model(config, arg.model, arg.init, arg.runlocal)
-  if arg.attn != "auto":
+  if arg.attn != "auto" and config["model_name"] == "vit":
     config["model"]["attn_impl"] = arg.attn
   if arg.stop:
     config["stop_after_steps"] = arg.stop

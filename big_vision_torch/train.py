@@ -42,9 +42,10 @@ window measures `img/sec`, `step_ms` and `input_stall_pct` cover the steps
 since the last log row, without those pauses. Each log row also gets the
 host's and the card's memory (`utils/chrono.log_memory`), as in JAX.
 
-The model is the config's `model_name`, as in the JAX trainer: "vit" or
-"mlp_mixer" (`MODELS`); its params go by their JAX names
-(`utils/convert.names`), and `model_init` is read by that model's `load`.
+The model is the config's `model_name`, as in the JAX trainer: "vit",
+"mlp_mixer", "bit" or "bit_paper" (`MODELS`); its params go by their JAX
+names (`utils/convert.names`), and `model_init` is read by that model's
+`load`.
 Keys whose feature is not ported yet are refused, not ignored: evals of
 a type the port lacks, and other models. The FlexiViT trainers
 (`trainers/proj/flexi/train.py`, `distill.py`) and the generic distill
@@ -69,6 +70,8 @@ import torch
 from big_vision_torch import input_pipeline
 from big_vision_torch import optim
 from big_vision_torch.evaluators import common as eval_common
+from big_vision_torch.models import bit
+from big_vision_torch.models import bit_paper
 from big_vision_torch.models import mlp_mixer
 from big_vision_torch.models import vit
 from big_vision_torch.utils import checkpoints
@@ -80,7 +83,11 @@ from big_vision_torch.utils import writers
 
 # config["model_name"] -> the port's model module, as the JAX trainer
 # imports big_vision_tpu.models.<model_name>.
-MODELS = {"vit": vit, "mlp_mixer": mlp_mixer}
+MODELS = {"vit": vit, "mlp_mixer": mlp_mixer, "bit": bit,
+          "bit_paper": bit_paper}
+# The models built on convolutions, which take any image size (and no
+# `image_size` argument).
+CONVNETS = (bit, bit_paper)
 
 
 def check_ported(config, *, model_name=tuple(MODELS),
@@ -242,10 +249,11 @@ class Trainer:
 
   def build_model(self, res, channels):
     """The config's model, for images of res x res x channels."""
-    return self.model_module().Model(
-        num_classes=self.config["num_classes"], image_size=res,
-        channels=channels, device=self.device,
-        **self.config.get("model", {}))
+    module = self.model_module()
+    kw = {} if module in CONVNETS else dict(image_size=res)
+    return module.Model(num_classes=self.config["num_classes"],
+                        channels=channels, device=self.device, **kw,
+                        **self.config.get("model", {}))
 
   def step_kwargs(self, step):
     """Keyword arguments of `update` at `step` (none for this trainer)."""

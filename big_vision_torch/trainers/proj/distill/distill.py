@@ -37,6 +37,8 @@ from big_vision_torch import input_pipeline
 from big_vision_torch import optim
 from big_vision_torch import train
 from big_vision_torch.evaluators.proj.distill import distance
+from big_vision_torch.models import bit
+from big_vision_torch.models import bit_paper
 from big_vision_torch.models import vit
 from big_vision_torch.models.proj.flexi import vit as flexi_vit
 from big_vision_torch.utils import losses
@@ -44,7 +46,8 @@ from big_vision_torch.utils import schedules
 from big_vision_torch.utils import writers
 
 # The models the distill trainers build, by the config's `<name>_name`.
-MODELS = {"vit": vit, "proj.flexi.vit": flexi_vit}
+MODELS = {"vit": vit, "proj.flexi.vit": flexi_vit, "bit": bit,
+          "bit_paper": bit_paper}
 
 
 def getfirst(d, *keys):
@@ -62,7 +65,7 @@ def check_models(config):
     if config[f"{name}_name"] not in MODELS:
       raise ValueError(f"config key '{name}_name'="
                        f"{config[f'{name}_name']!r} is not ported yet; "
-                       f"only {sorted(MODELS)} are")
+                       f"the distill trainers build {sorted(MODELS)}")
 
 
 def make_model(config, name, res, channels, device):

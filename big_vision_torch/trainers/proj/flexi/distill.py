@@ -50,6 +50,10 @@ class Trainer(flexi_train.Trainer):
   def check_config(self, config):
     train.check_ported(config, predict_fns=self.predict_fns())
     distill.check_models(config)
+    if config["student_name"] != "proj.flexi.vit":
+      raise ValueError(f"config key 'student_name'="
+                       f"{config['student_name']!r}: this trainer draws the "
+                       f"student's seqhw, which only proj.flexi.vit takes")
 
   def build_model(self, res, channels):
     """The student; the teachers go to `self.teachers`."""

@@ -25,6 +25,7 @@ import re
 import numpy as np
 import torch
 
+from big_vision_torch.models import convnets
 from big_vision_torch.utils import trees
 
 
@@ -621,10 +622,43 @@ def jetformer(module: torch.nn.Module, tree) -> dict[str, np.ndarray]:
                    permuted=lambda jax_name: True)
 
 
+def bit_names(module: torch.nn.Module) -> dict[str, str]:
+  """{port parameter name: JAX param name} of a `models.bit` or
+  `models.bit_paper` module: the module path with "/" for ".", a conv's
+  and the head's "weight" as "kernel", a GroupNorm's as "scale", and
+  bit_paper's `norm_pre_head` as "norm-pre-head" (e.g.
+  "block1/unit1/conv1/kernel", "block1/unit01/gn1/scale")."""
+  out = {}
+  for name, _ in module.named_parameters():
+    layer, leaf = name.rsplit(".", 1)
+    sub = module.get_submodule(layer)
+    if leaf == "weight":
+      leaf = "scale" if isinstance(sub, convnets.GroupNorm) else "kernel"
+    jax_layer = layer.replace(".", "/")
+    out[name] = ("norm-pre-head" if jax_layer == "norm_pre_head"
+                 else jax_layer) + f"/{leaf}"
+  return out
+
+
+def _bit_layout(module, name, jax_name, x):
+  """Parameter `name` of a BiT module in its JAX layout: conv kernels
+  OIHW -> HWIO, the head [out, in] -> [in, out], and bit_paper's
+  GroupNorm params (C,) -> (1, 1, 1, C)."""
+  if x.dim() == 4:
+    return x.permute(2, 3, 1, 0)
+  if jax_name.startswith("head/"):
+    return x.T if jax_name.endswith("/kernel") else x
+  if _kind(module) == "bit_paper":
+    return x.reshape(1, 1, 1, -1)
+  return x
+
+
 def _kind(module):
   """"mixer", "vit" (also FlexiViT), "naflex", "text", "bert",
-  "two_towers", "one_tower", "cappa", "paligemma", "jet" or "jetformer"."""
-  return {"mlp_mixer": "mixer", "text_transformer": "text", "bert": "bert",
+  "two_towers", "one_tower", "cappa", "paligemma", "jet", "jetformer",
+  "bit" or "bit_paper"."""
+  return {"bit": "bit", "bit_paper": "bit_paper", "mlp_mixer": "mixer",
+          "text_transformer": "text", "bert": "bert",
           "two_towers": "two_towers", "one_tower": "one_tower",
           "cappa": "cappa", "paligemma": "paligemma",
           "naflex_vit": "naflex", "jet": "jet",
@@ -635,7 +669,7 @@ def _kind(module):
 def names(module: torch.nn.Module) -> dict[str, str]:
   """{port parameter name: JAX param name} of a ViT, FlexiViT, NaFlex ViT,
   Mixer, text transformer, BERT, two-tower, one-tower, CapPa, PaliGemma,
-  Jet or JetFormer model."""
+  Jet, JetFormer or BiT (either flavour) model."""
   return _NAMES[_kind(module)](module)
 
 
@@ -867,9 +901,11 @@ _NAMES = {"mixer": mixer_names, "vit": vit_names,
           "two_towers": two_towers_names, "one_tower": one_tower_names,
           "cappa": cappa_names, "paligemma": paligemma_names,
           "naflex": vit_names, "jet": jet_names,
-          "jetformer": jetformer_names}
+          "jetformer": jetformer_names, "bit": bit_names,
+          "bit_paper": bit_names}
 _LAYOUTS = {"mixer": _mixer_layout, "vit": _vit_layout, "text": _vit_layout,
             "bert": _vit_layout, "two_towers": _two_towers_layout,
             "one_tower": _two_towers_layout, "cappa": _cappa_layout,
             "paligemma": _paligemma_layout, "naflex": _naflex_layout,
-            "jet": _jet_layout, "jetformer": _jetformer_layout}
+            "jet": _jet_layout, "jetformer": _jetformer_layout,
+            "bit": _bit_layout, "bit_paper": _bit_layout}

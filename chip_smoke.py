@@ -593,6 +593,34 @@ JF_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                          "jetformer", "jetformer_imagenet2012.py")
 JF_B, JF_STEPS, JF_NEVAL, JF_CHECK_B, JF_SAMPLES = 32, 3, 32, 16, 4
 JF_BAR = 1e-5
+# Phase 17, BiT (no kernel of the port on its path: convolutions on cuDNN
+# in IEEE f32): R50x1 of both flavours on the card against the CPU at
+# BIT_PARITY_B images of 224px within BIT_BAR; the configs through their
+# trainers at full width and their per-card batch (`batch`, the configs'
+# BATCH), BIT_STEPS loop steps alone (--bit) and BIT_FULL_STEPS in the full
+# script; BIT_NEVAL examples an eval split; the distillation's CKA eval
+# on BIT_CKA_N images in batches of BIT_CKA_B (no padded batch).
+BIT_PARITY_B, BIT_BAR = 8, 1e-4
+BIT_RECIPES = [
+    dict(name="bit_i1k", what="BiT-R50x1 (bit), 224px",
+         config=os.path.join(RECIPE_DIR, "bit_i1k.py"), args="neval={n},",
+         model="bit", batch=256, randaug=False, res=224),
+    dict(name="bit_i21k", what="BiT-R50x1 (bit_paper), 21843 classes",
+         config=os.path.join(RECIPE_DIR, "bit_i21k.py"),
+         args="neval={n},fewshot=none,", model="bit_paper", batch=512,
+         randaug=False, res=224),
+    dict(name="transfer_bit_m", what="BiT-M-R50x1 at 384px, cifar10",
+         config=os.path.join(RECIPE_DIR, "transfer.py"),
+         args="model=bit-m-r50x1,init={init},neval={n},",
+         model="bit_paper", batch=128, randaug=False, res=384),
+]
+BIT_DISTILL_CONFIG = os.path.join(RECIPE_DIR, "proj", "distill",
+                                  "bit_i1k.py")
+BIT_DISTILL_B = 512
+BIT_STEPS, BIT_FULL_STEPS, BIT_NEVAL, BIT_CKA_N, BIT_CKA_B = 4, 2, 64, 64, 32
+# Substrings of the device kernels that compute convolutions (cuDNN's).
+CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn",
+                "xmma")
 DISTILL_CONFIG = os.path.join(ROOT, "big_vision_torch", "configs", "proj",
                               "flexivit", "i21k_distill.py")
 # The distill trainer's loop draws the FlexiViT trainer's seqhw (15, 15, 15,
@@ -2698,8 +2726,8 @@ def recipe_module(recipe):
                                             "big_vision_torch.train"))
 
 
-def recipe_main_path(fa, recipe, workdir, gpu):
-  """RECIPE_STEPS steps of `train.main` on the recipe's config after its
+def recipe_main_path(fa, recipe, workdir, gpu, steps=RECIPE_STEPS):
+  """`steps` steps of `train.main` on the recipe's config after its
   evals at step 0; asserts the launches of every step and eval batch.
   Returns (trainer, {"step_ms", "img/sec", "input_stall_pct": medians of
   the rows after the first; "peak": max memory allocated})."""
@@ -2710,7 +2738,7 @@ def recipe_main_path(fa, recipe, workdir, gpu):
   torch.cuda.reset_peak_memory_stats()
   with counted_predict_fns(fa, calls):
     trainer = main(["--config", f"{recipe['config']}:"
-                    f"{recipe['args']}stop={RECIPE_STEPS},log=1",
+                    f"{recipe['args']}stop={steps},log=1",
                     "--workdir", workdir])
   torch.cuda.synchronize()
   peak = torch.cuda.max_memory_allocated()
@@ -2720,11 +2748,11 @@ def recipe_main_path(fa, recipe, workdir, gpu):
   n_eval = sum(len(c) for c in calls.values())
   per_step = depth * recipe.get("passes", 1)
   want = {**dict.fromkeys(COUNTERS, 0),
-          "K1f": per_step * RECIPE_STEPS + depth * n_eval,
-          "K2f": per_step * RECIPE_STEPS}
+          "K1f": per_step * steps + depth * n_eval,
+          "K2f": per_step * steps}
   per_batch = {**dict.fromkeys(COUNTERS, 0), "K1f": depth}
   assert all(c == per_batch for cs in calls.values() for c in cs), calls
-  print(f"{recipe['name']}: {RECIPE_STEPS} steps of batch "
+  print(f"{recipe['name']}: {steps} steps of batch "
         f"{trainer.batch_size}, {trainer.config['input']['pp']!r}, after "
         f"{n_eval} eval batches at step 0 ({sorted(trainer.config['evals'])}"
         f"); launches {({k: n for k, n in counts.items() if n})} (want "
@@ -2741,7 +2769,7 @@ def recipe_main_path(fa, recipe, workdir, gpu):
     assert 0 <= ev[f"{name}/prec@1"] <= 1, ev
     assert math.isfinite(ev[f"{name}/loss"]), ev
   rows = [r for r in all_rows if "training_loss" in r]
-  assert [r["step"] for r in rows] == list(range(1, RECIPE_STEPS + 1)), rows
+  assert [r["step"] for r in rows] == list(range(1, steps + 1)), rows
   for r in rows:
     assert math.isfinite(r["training_loss"]), r
   e2e = {k: statistics.median(r[k] for r in rows[1:])
@@ -2753,8 +2781,8 @@ def recipe_main_path(fa, recipe, workdir, gpu):
   return trainer, e2e
 
 
-def recipe_fixed_steps(trainer, gpu, what):
-  """RECIPE_FIXED_STEPS updates on one batch, timed with CUDA events (the
+def recipe_fixed_steps(trainer, gpu, what, steps=RECIPE_FIXED_STEPS):
+  """`steps` updates on one batch, timed with CUDA events (the
   step without the input pipeline); the loss on that batch (no mixup, no
   stochastic depth) must fall. Returns (the batch, the next batch, which
   no update saw, ms per step)."""
@@ -2770,13 +2798,13 @@ def recipe_fixed_steps(trainer, gpu, what):
   before = loss()
   start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
   start.record()
-  for _ in range(RECIPE_FIXED_STEPS):
+  for _ in range(steps):
     trainer.update(batch)
   end.record()
   end.synchronize()
   after = loss()
-  ms = start.elapsed_time(end) / RECIPE_FIXED_STEPS
-  print(f"[{gpu}] {what}: fixed batch, {RECIPE_FIXED_STEPS} steps of "
+  ms = start.elapsed_time(end) / steps
+  print(f"[{gpu}] {what}: fixed batch, {steps} steps of "
         f"{ms:.3f} ms (CUDA events); its loss {before:.6f} -> {after:.6f}")
   assert math.isfinite(after) and after < before, (before, after)
   return batch, unseen, ms
@@ -5301,6 +5329,398 @@ def jet_phase(fa, gpu):
   return out
 
 
+def bit_model(module, seed, device, **kw):
+  """A BiT model from `seed`, with its GN params and head drawn around
+  their inits, so that no branch and no logit is zero."""
+  model = module.Model(device=device, **kw)
+  model.initialize(torch.Generator(device=device).manual_seed(seed))
+  gen = torch.Generator(device=device).manual_seed(seed + 1)
+  from big_vision_torch.models import convnets
+  with torch.no_grad():
+    for name, p in model.named_parameters():
+      if isinstance(model.get_submodule(name.rsplit(".", 1)[0]),
+                    convnets.GroupNorm):
+        p.add_(0.3 * torch.randn(p.shape, generator=gen, device=device))
+    model.head.weight.normal_(0.0, 0.02, generator=gen)
+  return model
+
+
+@contextlib.contextmanager
+def bit_branches(record=None, replay=None):
+  """While open, the BiT models' relus and max-pools either record their
+  branch (each relu's mask, each pool's argmax) in the list `record`, or
+  take the recorded ones from `replay` in the same order. Two runs then
+  compute one piecewise-linear function and differ only by rounding: in
+  f32 a relu input within rounding of 0 (there are about 1e8 of them at
+  R50x1, batch 8) would otherwise flip its mask on one side and move a
+  gradient by a whole position's term."""
+  from big_vision_torch.models import convnets
+  relu, max_pool = torch.relu, convnets.max_pool
+  replayed = iter(replay or [])
+
+  def branch_relu(x):
+    if record is not None:
+      record.append(x > 0)
+      return relu(x)
+    return x * next(replayed).to(x.device, x.dtype)
+
+  def branch_pool(x, window, strides, padding):
+    (top, bottom), (left, right) = convnets.paddings(padding, x.shape[1:3],
+                                                     window, strides)
+    xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom),
+               value=float("-inf"))
+    if record is not None:
+      y, idx = F.max_pool2d(xc, window, strides, return_indices=True)
+      record.append(idx)
+    else:
+      idx = next(replayed).to(x.device)
+      n, c = xc.shape[:2]
+      y = xc.reshape(n, c, -1).gather(2, idx.reshape(n, c, -1)).reshape(
+          idx.shape)
+    return y.permute(0, 2, 3, 1)
+
+  torch.relu, convnets.max_pool = branch_relu, branch_pool
+  try:
+    yield
+  finally:
+    torch.relu, convnets.max_pool = relu, max_pool
+
+
+def bit_run(model, images, weights, branches):
+  """(logits, pre_logits, {param: gradient}) of sum(logits * weights) on
+  the model's device, on the CPU; the relu and pool branches recorded
+  into `branches` where it is empty, replayed from it where it is not
+  (`bit_branches`), the model's own where it is None."""
+  model.zero_grad(set_to_none=True)
+  if branches is None:
+    ctx = contextlib.nullcontext()
+  elif branches:
+    ctx = bit_branches(replay=branches)
+  else:
+    ctx = bit_branches(record=branches)
+  with ctx:
+    logits, out = model(images)
+    (logits * weights).sum().backward()
+  return (logits.detach().cpu(), out["pre_logits"].detach().cpu(),
+          {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+
+def bit_errors(got, want):
+  """{"logits", "pre_logits", "grads": worst relative error over the
+  params, "worst": that param's name}: max|got - want| / max|want|."""
+  errs = {k: rel_err(g, w) for k, g, w in zip(("logits", "pre_logits"),
+                                               got[:2], want[:2])}
+  grads = {n: rel_err(got[2][n], w) for n, w in want[2].items()}
+  errs["worst"] = max(grads, key=grads.get)
+  errs["grads"] = grads[errs["worst"]]
+  return errs
+
+
+def bit_conv_kernels(prof):
+  """[(kernel name, ms)] of the profile's convolution kernels."""
+  (rows, _, _), = prof.values()
+  return [(k, ms) for k, ms, _ in rows
+          if any(c in k.lower() for c in CONV_KERNELS)]
+
+
+def bit_parity(gpu, detail):
+  """Phase 17a: R50x1 of `bit` and of `bit_paper` (1000 classes, random
+  GN params and head) forward and backward on the card against the CPU at
+  BIT_PARITY_B images of 224px, with cuDNN's TF32 flag left at PyTorch's
+  default (on): logits, pre_logits and every param's gradient within
+  BIT_BAR, on the same relu and pool branches (`bit_branches`). With
+  `detail`, the run with free branches is printed beside it, the same
+  with the model's TF32 guard taken away must miss the bar (the margin
+  printed), and the conv kernels of a profiled step are named: none is a
+  TF32 kernel."""
+  import copy
+  from big_vision_torch.models import bit, bit_paper, convnets
+  assert torch.backends.cudnn.allow_tf32  # PyTorch's default
+  gen = torch.Generator().manual_seed(SEED + 41)
+  images = torch.rand((BIT_PARITY_B, 224, 224, 3), generator=gen) * 2 - 1
+  weights = torch.randn((BIT_PARITY_B, 1000), generator=gen)
+  for module in (bit, bit_paper):
+    name = module.__name__.rsplit(".", 1)[1]
+    cpu = bit_model(module, SEED + 42, "cpu", num_classes=1000)
+    card = copy.deepcopy(cpu).cuda()
+    x, w = images.cuda(), weights.cuda()
+    branches = []
+    t0 = time.perf_counter()
+    got = bit_run(card, x, w, branches)
+    want = bit_run(cpu, images, weights, branches)
+    errs = bit_errors(got, want)
+    print(f"[{gpu}] {name} R50x1, {BIT_PARITY_B} images of 224px, card vs "
+          f"CPU in f32 (cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}"
+          f", as PyTorch leaves it): logits {errs['logits']:.3e}, "
+          f"pre_logits {errs['pre_logits']:.3e}, gradients "
+          f"{errs['grads']:.3e} at worst ({errs['worst']}) on the same "
+          f"branches (bar {BIT_BAR}); {time.perf_counter() - t0:.1f} s")
+    assert max(errs[k] for k in ("logits", "pre_logits", "grads")) <= (
+        BIT_BAR), errs
+    if not detail:
+      continue
+    free = bit_errors(got, bit_run(cpu, images, weights, None))
+    print(f"  on free branches the gradients differ by {free['grads']:.3e} "
+          f"at worst ({free['worst']}), where an f32 relu mask flips")
+    prof = kernel_timing.device_profile(
+        {f"{name} step": lambda: bit_run(card, x, w, branches)},
+        top=10_000, warm=False)
+    convs = bit_conv_kernels(prof)
+    assert convs and not any("tf32" in k.lower() for k, _ in convs), convs
+    print(f"  its conv kernels in one profiled step, none TF32 ({len(convs)}"
+          f" names): " + "; ".join(f"{k[:70]} {ms:.3f} ms"
+                                   for k, ms in convs[:6]))
+    ieee = convnets._ieee_f32
+    convnets._ieee_f32 = contextlib.nullcontext
+    try:
+      tf32 = bit_errors(bit_run(card, x, w, branches), want)
+      prof = kernel_timing.device_profile(
+          {f"{name} TF32 step": lambda: bit_run(card, x, w, branches)},
+          top=10_000, warm=False)
+    finally:
+      convnets._ieee_f32 = ieee
+    worst = max(tf32[k] for k in ("logits", "pre_logits", "grads"))
+    tf32_names = [k for k, _ in bit_conv_kernels(prof) if "tf32" in k.lower()]
+    print(f"  without the model's TF32 guard: logits {tf32['logits']:.3e}, "
+          f"pre_logits {tf32['pre_logits']:.3e}, gradients "
+          f"{tf32['grads']:.3e} ({tf32['worst']}): {worst / BIT_BAR:.1f}x "
+          f"the bar; {len(tf32_names)} TF32 conv kernels, e.g. "
+          f"{tf32_names[0][:70] if tf32_names else 'none'}")
+    assert worst > BIT_BAR, tf32
+    del card, got, want, branches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def write_bit_m(path):
+  """A random BiT-M-R50x1 (21843-class head) from a seed, written as an
+  `.npz` in the BiT release's TF layout: the stand-in for the published
+  BiT-M file."""
+  from big_vision_torch.models import bit_paper
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  model = bit_model(bit_paper, SEED + 43, "cuda", num_classes=21843)
+  checkpoints.npz_save(bit_paper.to_big_transfer_format(
+      convert.params(model)), path)
+  return path
+
+
+def conv_share(trainer, batch, gpu, what):
+  """One profiled update: the top-8 device kernels, and the convolutions'
+  share of the device's busy time."""
+  from big_vision_torch.tools import bench_decode
+  prof = kernel_timing.device_profile(
+      {f"{what} step": lambda: trainer.update(batch)}, top=10_000)
+  (rows, busy, wall), = prof.values()
+  conv_ms = sum(ms for _, ms in bit_conv_kernels(prof))
+  bench_decode.print_profile({f"{what} step": (rows[:8], busy, wall)},
+                             prefix=f"[{gpu}] ")
+  print(f"[{gpu}] {what}: convolutions {conv_ms:.3f} of {busy:.3f} ms "
+        f"busy ({100 * conv_ms / busy:.1f}%)")
+  return conv_ms / busy
+
+
+def conv_layouts(trainer, batch, gpu, what, steps=2):
+  """The update on a fixed batch with the convs in `channels_last` (the
+  port's: NHWC memory end to end) and with each conv fed NCHW memory (its
+  input made contiguous NCHW, so cuDNN runs its NCHW kernels and the layers
+  after it see NCHW memory), in turns (port, NCHW, NCHW, port); CUDA
+  events, `steps` updates each."""
+  from big_vision_torch.models import convnets
+  port = convnets.conv2d
+
+  def nchw(x, w, strides, pads):
+    return port(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), w,
+                strides, pads)
+
+  times = {"channels_last": [], "NCHW": []}
+  for name in ("channels_last", "NCHW", "NCHW", "channels_last"):
+    convnets.conv2d = port if name == "channels_last" else nchw
+    try:
+      trainer.update(batch)
+      start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+      start.record()
+      for _ in range(steps):
+        trainer.update(batch)
+      end.record()
+      end.synchronize()
+    finally:
+      convnets.conv2d = port
+    times[name].append(start.elapsed_time(end) / steps)
+  print(f"[{gpu}] {what}: the update on a fixed batch with the convs in "
+        + "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v) + " ms"
+                    for k, v in times.items()) + " (in turns)")
+
+
+def bit_recipe(fa, recipe, gpu, steps, detail):
+  """Phase 17b/c: the recipe through `train.main` at full width and its
+  per-card batch (no kernel launched), the loss falling on a fixed batch;
+  with `detail` the profiled step and an update at twice the batch."""
+  workdir = os.path.join(ROOT, "build", f"chip_smoke_{recipe['name']}")
+  trainer, e2e = recipe_main_path(fa, recipe, workdir, gpu, steps=steps)
+  what = f"{recipe['name']} ({recipe['what']})"
+  batch, _, fixed_ms = recipe_fixed_steps(trainer, gpu, what)
+  share = conv_share(trainer, batch, gpu, what) if detail else None
+  print(f"[{gpu}] {what}, batch {trainer.batch_size}: end to end "
+        f"{e2e['step_ms']:.3f} ms/step, {e2e['img/sec']:.1f} img/s, input "
+        f"stall {e2e['input_stall_pct']:.3f}% (median of steps 2-{steps}); "
+        f"fixed batch {fixed_ms:.3f} ms/step, "
+        f"{trainer.batch_size * 1e3 / fixed_ms:.1f} img/s; max memory "
+        f"allocated {e2e['peak'] / 2**30:.2f} GiB"
+        + (f"; convolutions {100 * share:.1f}% of busy" if detail else ""))
+  if detail and recipe["name"] == "bit_i1k":
+    conv_layouts(trainer, batch, gpu, what)
+  if detail:
+    res, n = recipe["res"], trainer.config["num_classes"]
+    batch_headroom(trainer, gpu, what, make_batch=lambda b: {
+        "image": torch.randn((b, res, res, 3), device="cuda"),
+        "labels": F.one_hot(torch.arange(b, device="cuda") % n, n).float()})
+  shutil.rmtree(workdir, ignore_errors=True)
+  del trainer, batch
+  gc.collect()
+  torch.cuda.empty_cache()
+
+
+def write_r152x2(path):
+  """A random BiT-M R152x2 teacher (1000 classes) from a seed as an `.npz`
+  in the JAX layout: the stand-in for the published teacher."""
+  from big_vision_torch.models import bit_paper
+  from big_vision_torch.utils import checkpoints
+  from big_vision_torch.utils import convert
+  model = bit_model(bit_paper, SEED + 44, "cuda", num_classes=1000,
+                    depth=152, width=2)
+  checkpoints.npz_save(convert.params(model), path)
+  return path
+
+
+def bit_distill(gpu, directory, steps, detail):
+  """Phase 17d: configs/proj/distill/bit_i1k.py (R152x2 teacher from an
+  `.npz`, R50x1 student, both bit_paper) through the generic distill
+  trainer at its per-card batch: its step-0 evals (the student's
+  classification, the teacher's, the distances), `steps` steps, then on a
+  fixed batch the student's step and the teacher's forward timed (its
+  share of the step), the distillation loss on the unmixed batch falling,
+  and a CKA eval of the student's and teacher's logits on BIT_CKA_N
+  images; with `detail` an update at twice the batch."""
+  from big_vision_torch.configs import common
+  from big_vision_torch.evaluators import common as eval_common
+  from big_vision_torch.trainers.proj.distill import distill
+  teacher = write_r152x2(os.path.join(directory, "r152x2.npz"))
+  workdir = os.path.join(directory, "distill")
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  trainer = distill.main([
+      "--config", f"{BIT_DISTILL_CONFIG}:teacher_init={teacher},"
+      f"neval={BIT_NEVAL},fewshot=none,stop={steps},log=1",
+      "--workdir", workdir])
+  wall = time.perf_counter() - t0
+  assert trainer.batch_size == BIT_DISTILL_B, trainer.batch_size
+  with open(os.path.join(workdir, "big_vision_metrics.txt")) as f:
+    rows = list(map(json.loads, f))
+  ev = rows[0]
+  for name in ("student_minival", "student_val", "student_v2",
+               "teacher_val"):
+    assert 0 <= ev[f"{name}/prec@1"] <= 1, ev
+  dist = {k: v for k, v in ev.items() if k.startswith("distance_val/")}
+  assert len(dist) == 9 and all(map(math.isfinite, dist.values())), ev
+  steps_rows = [r for r in rows if "training_loss" in r]
+  assert [r["step"] for r in steps_rows] == list(range(1, steps + 1))
+  assert all(math.isfinite(r["training_loss"]) for r in steps_rows)
+  print(f"bit distill (R152x2 -> R50x1): {steps} steps of batch "
+        f"{trainer.batch_size} after the step-0 evals ({wall:.1f} s); "
+        f"distance_val " + ", ".join(f"{k[13:]} {v:.6f}"
+                                     for k, v in dist.items() if "avg" in k)
+        + "; losses " + " ".join(f"{r['training_loss']:.6f}"
+                                 for r in steps_rows))
+
+  it = trainer.input_iter()
+  batch = next(it)
+  it.close()
+  teacher_model = trainer.teachers["prof_m"]
+
+  def unmixed_loss():
+    with torch.no_grad():
+      logits = {"student": trainer.model(batch["image"])[0],
+                "prof_m": teacher_model(batch["image"])[0]}
+      return distill.distill_loss(trainer.config, logits)[0].item()
+
+  before = unmixed_loss()
+  fixed = RECIPE_FIXED_STEPS if detail else 2
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  for _ in range(fixed):
+    trainer.update(batch)
+  end.record()
+  end.synchronize()
+  step_ms = start.elapsed_time(end) / fixed
+  after = unmixed_loss()
+  with torch.no_grad():
+    start.record()
+    for _ in range(fixed):
+      teacher_model(batch["image"])
+    end.record()
+    end.synchronize()
+  teacher_ms = start.elapsed_time(end) / fixed
+  peak = torch.cuda.max_memory_allocated()
+  print(f"[{gpu}] bit distill, batch {trainer.batch_size}: end to end "
+        f"{statistics.median(r['step_ms'] for r in steps_rows[1:]):.3f} "
+        f"ms/step (steps 2-{steps}); fixed batch {step_ms:.3f} ms/step, the "
+        f"teacher's forward {teacher_ms:.3f} ms ({100 * teacher_ms / step_ms:.1f}"
+        f"% of the step); max memory allocated {peak / 2**30:.2f} GiB; the "
+        f"unmixed distillation loss {before:.6f} -> {after:.6f}")
+  assert math.isfinite(after) and after < before, (before, after)
+
+  val = trainer.config["evals"]["distance_val"]
+  [(_, cka, _, _)] = eval_common.from_config(
+      {"evals": {"cka": dict(
+          type="proj.distill.cka", pred="student_prof_m_fwd",
+          data=common.stand_in("imagenet2012", "validation", n=BIT_CKA_N),
+          pp_fn=val["pp_fn"], batch_size=BIT_CKA_B, log_steps=1)}},
+      trainer.predict_fns(), get_steps=lambda key, cfg: 1)
+  value = dict(cka.run(None))["cka"]
+  print(f"[{gpu}] CKA of the student's and the teacher's logits on "
+        f"{BIT_CKA_N} images in batches of {BIT_CKA_B}: {value:.6f} (the "
+        f"unbiased estimator may fall below 0 for unrelated features)")
+  assert math.isfinite(value) and abs(value) <= 1 + 1e-6, value
+  if detail:
+    batch_headroom(trainer, gpu, "bit distill (R152x2 -> R50x1)")
+  os.remove(teacher)
+  shutil.rmtree(workdir, ignore_errors=True)
+
+
+def bit_phase(fa, gpu, detail=True):
+  """Phase 17: BiT (`bit_parity`, `bit_recipe` on BIT_RECIPES,
+  `bit_distill`), with cuDNN's TF32 flag at PyTorch's default (on) for its
+  duration: the models turn TF32 off themselves. With `detail` (--bit)
+  BIT_STEPS loop steps, the profiled steps and the batch headroom; in the
+  full script BIT_FULL_STEPS and neither. Returns no kernel entries: no
+  kernel of the port is on BiT's path."""
+  t0 = time.perf_counter()
+  gc.collect()
+  torch.cuda.empty_cache()
+  directory = os.path.join(ROOT, "build", "chip_smoke_bit")
+  os.makedirs(directory, exist_ok=True)
+  torch.backends.cudnn.allow_tf32 = True
+  try:
+    bit_parity(gpu, detail)
+    t1 = phase_end("bit: parity", t0)
+    steps = BIT_STEPS if detail else BIT_FULL_STEPS
+    init = write_bit_m(os.path.join(directory, "bit_m_r50x1.npz"))
+    for recipe in BIT_RECIPES:
+      recipe = dict(recipe, args=recipe["args"].format(init=init,
+                                                       n=BIT_NEVAL))
+      bit_recipe(fa, recipe, gpu, steps, detail)
+      t1 = phase_end(f"bit: {recipe['name']}", t1)
+    os.remove(init)
+    bit_distill(gpu, directory, steps, detail)
+    phase_end("bit: distillation", t1)
+  finally:
+    torch.backends.cudnn.allow_tf32 = False
+    shutil.rmtree(directory, ignore_errors=True)
+  phase_end("bit", t0)
+  return {"BT kernels": []}
+
+
 def phase_end(name, t0):
   """Prints the wall time since `t0` of a phase; returns the time now."""
   now = time.perf_counter()
@@ -5311,10 +5731,10 @@ def phase_end(name, t0):
 def main(argv):
   if argv not in ([], ["--checks"], ["--serving"], ["--recipes"],
                   ["--quality"], ["--siglip"], ["--paligemma"],
-                  ["--imagetext"], ["--naflex"], ["--jet"]):
+                  ["--imagetext"], ["--naflex"], ["--jet"], ["--bit"]):
     print(f"usage: chip_smoke.py [--checks | --serving | --recipes | "
           f"--quality | --siglip | --paligemma | --imagetext | --naflex | "
-          f"--jet]; got {argv}", file=sys.stderr)
+          f"--jet | --bit]; got {argv}", file=sys.stderr)
     return 2
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5369,7 +5789,8 @@ def main(argv):
     return 0
   alone = {"--imagetext": (imagetext_phase, "IT kernels"),  # phase 14
            "--naflex": (naflex_phase, "NX kernels"),  # phase 15
-           "--jet": (jet_phase, "JT kernels")}  # phase 16
+           "--jet": (jet_phase, "JT kernels"),  # phase 16
+           "--bit": (bit_phase, "BT kernels")}  # phase 17: none
   if argv and argv[0] in alone:  # the build and that phase alone
     phase, key = alone[argv[0]]
     counts = phase(fa, gpu)
@@ -5429,6 +5850,7 @@ def main(argv):
   counts.update(imagetext_phase(fa, gpu))
   counts.update(naflex_phase(fa, gpu))
   counts.update(jet_phase(fa, gpu))
+  bit_phase(fa, gpu, detail=False)
   t0 = time.perf_counter()
 
   # 13. Kernel times.

@@ -24,7 +24,8 @@ CONFIGS = {
     "vit_s16_i1k": (None, "runlocal"),
     "vit_i1k": (None, "runlocal"),
     "mlp_mixer_i1k": (None, "runlocal"),
-    "transfer": (None, "runlocal", "model=vit-s16", "model=vit-s16,runlocal"),
+    "transfer": (None, "runlocal", "model=vit-s16", "model=vit-s16,runlocal",
+                 "model=bit-m-r50x1", "model=bit-m-r50x1,runlocal"),
     "smoke": (None,),
     "proj.flexivit.i21k_sup": (None, "runlocal"),
     "proj.flexivit.i21k_distill": (None, "runlocal"),
@@ -51,6 +52,12 @@ CONFIGS = {
     "proj.jetformer.smoke": (None, "use_adaptor=False"),
     "proj.jetformer.jetformer_imagenet2012": (None, "runlocal",
                                               "model_size=1p3B"),
+    "bit_i1k": (None, "runlocal"),
+    "proj.distill.bit_i1k": (None, "runlocal"),
+    "proj.distill.bigsweep_flowers_pet": (None, "runlocal", "data=pet",
+                                          "variant=long,crop=x"),
+    "proj.distill.bigsweep_food_sun": (None, "runlocal", "data=sun",
+                                       "variant=fast"),
 }
 
 
@@ -106,6 +113,15 @@ def test_port_config_differs_only_by_its_cuts(name, arg):
   jax_mod = importlib.import_module(f"big_vision_tpu.configs.{name}")
   _check(port_mod, jax_mod.get_config(arg), port_mod.get_config(arg),
          runlocal="runlocal" in (arg or ""))
+
+
+@pytest.mark.parametrize("arg", [None, "runlocal"])
+def test_bit_i21k_differs_only_by_its_cuts(arg):
+  # The JAX config takes no arg; `runlocal` is the port's.
+  port_mod = importlib.import_module("big_vision_torch.configs.bit_i21k")
+  jax_mod = importlib.import_module("big_vision_tpu.configs.bit_i21k")
+  _check(port_mod, jax_mod.get_config(), port_mod.get_config(arg),
+         runlocal=arg == "runlocal")
 
 
 @pytest.mark.parametrize("runlocal", [False, True])

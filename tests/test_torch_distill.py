@@ -228,7 +228,8 @@ def test_refuses_to_start_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("evals", dict(test={})), ("student_name", "bit"), ("prof_name", "bit"),
+    ("evals", dict(test={})), ("student_name", "bit"),
+    ("prof_name", "proj.uvim.vit"),
 ])
 def test_unported_keys_are_refused(key, value):
   with pytest.raises(ValueError, match=key):

@@ -182,8 +182,9 @@ def test_refuses_to_start_without_a_card(tmp_path, teacher):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("prof_init", ""), ("student_name", "bit"), ("prof_name", "bit"),
-    ("evals", dict(cka=dict(type="proj.distill.cka"))),
+    ("prof_init", ""), ("student_name", "proj.uvim.vit"),
+    ("prof_name", "proj.uvim.vit"),
+    ("evals", dict(timing=dict(type="timing"))),
     ("evals", dict(val=dict(type="classification", pred="student_seqhw=5"))),
 ])
 def test_unported_or_missing_keys_are_refused(teacher, key, value):

@@ -155,7 +155,7 @@ def test_from_config_builds_and_refuses():
   assert isinstance(ev, t_cls.Evaluator)
   with pytest.raises(ValueError, match="Unknown predict_fn"):
     t_common.from_config(config, {"represent": fns["predict"]}, device="cpu")
-  for missing in ("proj.distill.cka", "proj.givt.nyu_depth",
+  for missing in ("timing", "proj.givt.nyu_depth",
                   "val"):
     with pytest.raises(ValueError, match="not ported"):
       t_common.evaluator_module(missing)

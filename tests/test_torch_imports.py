@@ -63,7 +63,13 @@ def test_port_imports_without_jax():
                "evaluators.save", "evaluators.classification_with_labelmap",
                "configs.proj.image_text.siglip_lit_coco",
                "configs.load_and_eval", "configs.proj.flexi.smoke",
-               "tools.eval_only"):
+               "tools.eval_only", "models.convnets", "models.bit",
+               "models.bit_paper", "configs.bit_i1k", "configs.bit_i21k",
+               "configs.proj.distill.common", "configs.proj.distill.bit_i1k",
+               "configs.proj.distill.bigsweep_flowers_pet",
+               "configs.proj.distill.bigsweep_food_sun",
+               "evaluators.proj.distill.cka", "pp.archive.autoaugment",
+               "pp.archive.randaug"):
     assert f"big_vision_torch.{name}" in names, name
 
 

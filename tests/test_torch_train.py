@@ -187,7 +187,7 @@ def test_mixup_mixes_the_batch():
 @pytest.mark.parametrize("key,value", [
     ("evals", dict(val={})),
     ("evals", dict(val=dict(type="classification", pred="predict_seqhw=15"))),
-    ("model_name", "bit"),
+    ("model_name", "proj.uvim.vit"),
 ])
 def test_unported_keys_are_refused(key, value):
   with pytest.raises(ValueError, match=key):
